@@ -1,0 +1,130 @@
+"""Reformer stacks: attention and FFN sublayers wired as (f, g) residual pairs.
+
+Port of ``rtts/models/stack.py`` for attention kind ``full`` (what ``auto``
+resolves to through 32768 positions).  Encoder layer = one pair (f =
+self-attention, g = FFN); decoder layer = two pairs, (self-attention, FFN)
+then (cross-attention, FFN).  Parameter paths repeat the JAX pytree's, e.g.
+``layers.0.f.attn.w_qk.w``.  All sublayers are pre-LN; residual streams
+ride in float32 while sublayers run in the compute dtype.
+"""
+
+from __future__ import annotations
+
+from typing import Any, List, Optional, Tuple
+
+import torch
+from torch import nn
+
+from rtts_torch.attention.full import (Attention, cross_attention,
+                                       shared_qk_self_attention)
+from rtts_torch.config import ReformerStackConfig, resolve_attention_kind
+from rtts_torch.nn.layers import LayerNorm
+from rtts_torch.ops.flash_attention import resolve_flash_impl
+from rtts_torch.reversible.ffn import FFN, _ffn_body
+from rtts_torch.reversible.rev import reversible_sequence
+
+
+class AttnSublayer(nn.Module):
+    def __init__(self, d_model: int, a, shared_qk: bool, *, generator=None,
+                 device=None):
+        super().__init__()
+        self.ln = LayerNorm(d_model, device=device)
+        self.attn = Attention(d_model, a.num_heads, a.head_dim, shared_qk,
+                              generator=generator, device=device)
+
+
+class Pair(nn.Module):
+    """One residual pair: ``f`` (attention sublayer) and ``g`` (FFN)."""
+
+    def __init__(self, cfg: ReformerStackConfig, shared_qk: bool, *,
+                 generator=None, device=None):
+        super().__init__()
+        self.f = AttnSublayer(cfg.d_model, cfg.attention, shared_qk,
+                              generator=generator, device=device)
+        self.g = FFN(cfg.d_model, cfg.d_ff, generator=generator, device=device)
+
+
+class Stack(nn.Module):
+    """Parameters of one stack (the ``stack_init`` layout): per layer a
+    self-attention pair, and for a decoder a cross-attention pair after it."""
+
+    def __init__(self, cfg: ReformerStackConfig, cross_attend: bool, *,
+                 generator=None, device=None):
+        super().__init__()
+        kinds = [True, False] if cross_attend else [True]
+        self.layers = nn.ModuleList(
+            Pair(cfg, shared_qk, generator=generator, device=device)
+            for _ in range(cfg.num_layers) for shared_qk in kinds)
+        self.final_ln = LayerNorm(cfg.d_model, device=device)
+
+
+def _layer_kinds(cfg: ReformerStackConfig) -> List[str]:
+    """Per-layer self-attention kinds (interleaved attn_layers support)."""
+    if cfg.attn_layers is None:
+        return [cfg.attention.kind] * cfg.num_layers
+    if len(cfg.attn_layers) != cfg.num_layers:
+        raise ValueError(
+            f"attn_layers has {len(cfg.attn_layers)} entries for "
+            f"{cfg.num_layers} layers")
+    for k in cfg.attn_layers:
+        if k not in ("full", "lsh", "local", "auto"):
+            raise ValueError(f"unknown attention kind {k!r} in attn_layers")
+    return list(cfg.attn_layers)
+
+
+def _check_supported(cfg: ReformerStackConfig, seq_len: int) -> None:
+    if cfg.seq_parallel_axis or cfg.pipeline_axis:
+        raise NotImplementedError(
+            "rtts_torch: sequence and pipeline parallelism are not ported yet")
+    for kind in _layer_kinds(cfg):
+        if kind == "auto":
+            kind = resolve_attention_kind(cfg.attention, seq_len)
+        if kind != "full":
+            raise NotImplementedError(
+                f"rtts_torch: attention kind {kind!r} is not ported yet "
+                "(only 'full')")
+
+
+def make_stack_layer_fns(cfg: ReformerStackConfig, cross_attend: bool,
+                         compute_dtype) -> List[Tuple[Any, Any]]:
+    """The (f, g) callables of one stack; aux per pair is
+    dict(mask, memory_mask)."""
+    a = cfg.attention
+
+    def f_self(p, x, memory, aux):
+        h = p.ln(x)
+        return shared_qk_self_attention(
+            p.attn, h, mask=aux["mask"], causal=cfg.causal,
+            num_heads=a.num_heads, compute_dtype=compute_dtype,
+            impl=resolve_flash_impl(a.flash))
+
+    def f_cross(p, x, memory, aux):
+        h = p.ln(x)
+        return cross_attention(
+            p.attn, h, memory, memory_mask=aux["memory_mask"],
+            num_heads=a.num_heads, compute_dtype=compute_dtype,
+            impl=resolve_flash_impl(a.flash))
+
+    def g_ffn(p, y, memory, aux):
+        return _ffn_body(p, y, cfg.ffn_activation, compute_dtype)
+
+    pairs: List[Tuple[Any, Any]] = []
+    for _ in range(cfg.num_layers):
+        pairs.append((f_self, g_ffn))
+        if cross_attend:
+            pairs.append((f_cross, g_ffn))
+    return pairs
+
+
+def stack_apply(stack: Stack, cfg: ReformerStackConfig, x: torch.Tensor,
+                mask: Optional[torch.Tensor],
+                memory: Optional[torch.Tensor] = None,
+                memory_mask: Optional[torch.Tensor] = None,
+                compute_dtype=None) -> torch.Tensor:
+    """Run the stack on x: (B, L, D) -> (B, L, D), inference (no dropout)."""
+    _check_supported(cfg, x.shape[1])
+    layer_fns = make_stack_layer_fns(cfg, memory is not None, compute_dtype)
+    aux = {"mask": mask, "memory_mask": memory_mask}
+    y = reversible_sequence(layer_fns, stack.layers, x.float(), memory,
+                            [aux] * len(layer_fns))
+    return stack.final_ln(y)

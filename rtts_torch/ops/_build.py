@@ -1,0 +1,104 @@
+"""Build the package's CUDA kernels with nvcc and load them with ctypes.
+
+Every ``rtts_torch/csrc/*.cu`` file is compiled for ``sm_90a`` into one shared
+library with a plain C interface, under ``build/rtts_torch/`` at the root of
+the checkout.  The library's name carries a hash of the sources, so an edited
+kernel is rebuilt at its first use and an unchanged one is loaded as it is.
+Nothing here runs at import: the first kernel launch calls ``library()``.
+A failed build raises; there is no fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import tempfile
+
+CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "rtts_torch"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C signatures of the entry points (each returns a cudaError_t as int)
+SIGNATURES = {
+    "rtts_flash_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I,
+                       _I, _I, _P],
+    "rtts_depthwise_conv1d": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+}
+
+_lib = None
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and (pathlib.Path(root) / "bin" / "nvcc").exists():
+            return str(pathlib.Path(root) / "bin" / "nvcc")
+    raise RuntimeError("nvcc not found (PATH, CUDA_HOME, /usr/local/cuda): the "
+                       "rtts_torch CUDA kernels cannot be built")
+
+
+def library_path() -> pathlib.Path:
+    digest = hashlib.sha256()
+    for src in _sources():
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"librtts_kernels_{digest.hexdigest()[:16]}.so"
+
+
+def build() -> pathlib.Path:
+    """Compile the sources unless a library built from them exists.  nvcc's
+    output (registers and shared memory per kernel) is kept beside it, in
+    ``build_log_path()``."""
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    # build to a temporary name and rename: a concurrent loader never sees
+    # a half-written library
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+    build_log_path().write_text(log)
+    os.replace(tmp, out)
+    return out
+
+
+def build_log_path() -> pathlib.Path:
+    return library_path().with_suffix(".log")
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built first if needed."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def check(err: int, name: str) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")

@@ -1,0 +1,108 @@
+"""The CUDA kernels of rtts_torch against their plain versions, on the card.
+
+Marked ``cuda``: each test skips when no GPU is present.  They import no JAX,
+so on a machine without JAX they run with
+``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``.
+"""
+
+import pytest
+import torch
+
+from rtts_torch.ops.depthwise_conv import (depthwise_conv1d,
+                                           depthwise_conv1d_reference)
+from rtts_torch.ops.flash_attention import (flash_attend,
+                                            flash_attend_reference)
+
+pytestmark = pytest.mark.cuda
+
+# Errors are |kernel - reference| / max(1, |reference|).  f32: the kernel
+# sums in another order than the reference (and expf vs torch.exp differ in
+# the last ulps); bf16: both round nearly the same f32 value, so they differ
+# by at most one bf16 ulp (2^-7 relative).
+TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+
+
+def _err(got, want):
+    got, want = got.float(), want.float()
+    return ((got - want).abs() / want.abs().clamp_min(1.0)).max().item()
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _qkv(b, h, lq, lk, dh, dtype, dev, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn(b, h, n, dh, generator=g).to(dev, dtype)
+            for n in (lq, lk, lk)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", [
+    # (b, h, lq, lk, dh, causal, self_mask, kv_lengths, sm_scale, lse,
+    #  q_offset)
+    (8, 8, 256, 256, 64, False, True, (256, 200, 131, 77, 256, 1, 64, 250),
+     1.0, True, 0),
+    (2, 2, 200, 200, 64, True, True, (200, 150), 1.0, False, 0),
+    (2, 4, 512, 256, 64, False, False, (256, 99), 0.125, False, 0),
+    (2, 2, 77, 77, 128, False, True, None, 1.0, True, 0),
+    (1, 2, 128, 128, 64, False, False, (0,), 0.125, True, 0),  # all keys masked
+    # a sequence-parallel query shard: rows 128..227 of 256 keys
+    (2, 4, 100, 256, 64, True, True, (256, 180), 1.0, True, 128),
+])
+def test_flash_kernel_matches_reference(dev, dtype, case):
+    b, h, lq, lk, dh, causal, self_mask, lens, scale, want_lse, q_offset = case
+    q, k, v = _qkv(b, h, lq, lk, dh, dtype, dev)
+    mask = None
+    if lens is not None:
+        mask = (torch.arange(lk)[None, :] < torch.tensor(lens)[:, None]).to(dev)
+    kw = dict(causal=causal, self_mask=self_mask, sm_scale=scale,
+              q_offset=q_offset, return_lse=want_lse)
+    before = flash_attend.launches
+    got = flash_attend(q, k, v, mask, **kw)
+    torch.cuda.synchronize()
+    assert flash_attend.launches == before + 1
+    want = flash_attend_reference(q, k, v, mask, **kw)
+    if want_lse:
+        (got, got_lse), (want, want_lse_t) = got, want
+        # fully masked rows sit at -1e9, where one f32 ulp is 64
+        torch.testing.assert_close(got_lse, want_lse_t, rtol=1e-6, atol=1e-3)
+    assert got.dtype == dtype and got.shape == want.shape
+    err = _err(got, want)
+    assert err < TOL[dtype], err
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape,taps", [((8, 1024, 128), 3), ((2, 37, 128), 4),
+                                        ((2, 50, 6), 3)])
+def test_depthwise_kernel_matches_reference(dev, dtype, shape, taps):
+    g = torch.Generator().manual_seed(1)
+    c = shape[-1]
+    x = torch.randn(*shape, generator=g).to(dev, dtype)
+    w = torch.randn(taps, 1, c, generator=g).to(dev, dtype)
+    b = torch.randn(c, generator=g).to(dev, dtype)
+    before = depthwise_conv1d.launches
+    got = depthwise_conv1d(x, w, b)
+    torch.cuda.synchronize()
+    assert depthwise_conv1d.launches == before + 1
+    want = depthwise_conv1d_reference(x, w, b)
+    err = _err(got, want)
+    assert err < (1e-5 if dtype == torch.float32 else TOL[dtype]), err
+
+
+def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
+    q, k, v = _qkv(1, 1, 16, 16, 32, torch.float32, dev)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attend(q, k, v)
+    q, k, v = _qkv(1, 1, 16, 16, 64, torch.float16, dev)
+    with pytest.raises(TypeError):
+        flash_attend(q, k, v)
+    x = torch.zeros(1, 8, 16, device=dev)
+    with pytest.raises(ValueError):
+        depthwise_conv1d(x, torch.zeros(3, 1, 8, device=dev),
+                         torch.zeros(16, device=dev))

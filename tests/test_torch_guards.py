@@ -1,0 +1,127 @@
+"""Guards around the rtts_torch port.
+
+(a) The port never imports JAX: a subprocess that makes ``import jax`` fail
+    imports ``rtts_torch`` and synthesizes speech with a tiny model; and by
+    their import statements, ``chip_smoke.py`` imports nothing of JAX or of
+    the JAX package ``rtts``, and the port reaches ``rtts`` only through
+    ``rtts_torch.config`` and ``rtts_torch.text``.
+(b) ``chip_smoke.py``'s base config (a dict, so the card's machine needs no
+    PyYAML) equals ``configs/base.yaml``.
+(c) The decoder prenet's always-on dropout zeroes about ``rate`` of the
+    units, scales the rest by 1/keep, and follows its generator.
+"""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from rtts.config import load_yaml
+from rtts_torch.nn.layers import PrenetMLP, dropout
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+
+NO_JAX_SLICE = r"""
+import sys
+sys.modules["jax"] = None          # any `import jax` now raises ImportError
+import numpy as np
+import torch
+from rtts_torch.config import Config, from_dict
+from rtts_torch.infer.synthesize import Synthesizer
+from rtts_torch.models import reformer_tts as M, squeezewave as SW
+from rtts_torch.text import frontend_vocab_size
+
+att = {"kind": "auto", "num_heads": 2, "head_dim": 16}
+stack = {"num_layers": 1, "d_model": 32, "d_ff": 64, "attention": att}
+cfg = from_dict(Config, {
+    "model": {"vocab_size": frontend_vocab_size(), "d_model": 32,
+              "n_mels": 20, "encoder": dict(stack, causal=False),
+              "decoder": dict(stack, causal=True), "dec_prenet_hidden": 16,
+              "postnet_channels": 16, "max_pos": 64},
+    "vocoder": {"n_mels": 20, "n_flows": 2, "n_group": 32,
+                "n_early_every": 4, "n_early_size": 8, "wn_layers": 2,
+                "wn_channels": 16, "hop_length": 64}})
+g = torch.Generator().manual_seed(0)
+syn = Synthesizer(cfg, M.init(cfg.model, g), SW.init(cfg.vocoder, g),
+                  max_frames=16)
+wavs = syn(["hello world", "the port imports no jax"])
+assert [w.ndim for w in wavs] == [1, 1]
+assert all(len(w) > 0 and np.isfinite(w).all() for w in wavs)
+assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules
+               if sys.modules[m] is not None)
+print("OK", [len(w) for w in wavs])
+"""
+
+
+def test_port_runs_without_jax():
+    proc = subprocess.run([sys.executable, "-c", NO_JAX_SLICE], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.startswith("OK")
+
+
+def _imported_modules(path: pathlib.Path) -> set:
+    """Absolute module names that a file's import statements name."""
+    names = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.add(node.module)
+    return names
+
+
+def _roots(names) -> set:
+    return {n.split(".")[0] for n in names}
+
+
+def test_chip_smoke_imports_only_the_port():
+    names = _imported_modules(ROOT / "chip_smoke.py")
+    assert "rtts_torch.infer.synthesize" in names
+    assert not _roots(names) & {"jax", "jaxlib", "rtts"}, sorted(names)
+
+
+def test_port_reaches_the_jax_package_only_through_config_and_text():
+    shared = {"config.py": {"rtts.config"}, "text.py": {"rtts.text"}}
+    files = sorted((ROOT / "rtts_torch").rglob("*.py"))
+    assert len(files) > 20
+    for path in files:
+        names = _imported_modules(path)
+        assert not _roots(names) & {"jax", "jaxlib"}, (path, sorted(names))
+        from_rtts = {n for n in names if n.split(".")[0] == "rtts"}
+        rel = path.relative_to(ROOT / "rtts_torch").as_posix()
+        assert from_rtts == shared.get(rel, set()), (path, sorted(from_rtts))
+
+
+def test_chip_smoke_base_config_equals_base_yaml():
+    import chip_smoke
+
+    assert chip_smoke.BASE_CONFIG == load_yaml(ROOT / "configs" / "base.yaml")
+
+
+@pytest.mark.parametrize("rate", [0.1, 0.5])
+def test_inference_dropout_statistics(rate):
+    x = torch.ones(200_000)
+    y = dropout(x, rate, torch.Generator().manual_seed(1))
+    zero = (y == 0).float().mean().item()
+    assert abs(zero - rate) < 0.01
+    np.testing.assert_allclose(y[y != 0].numpy(), 1.0 / (1.0 - rate),
+                               rtol=1e-6)
+    assert torch.equal(dropout(x, 0.0, None), x)
+
+
+def test_prenet_dropout_follows_its_generator():
+    net = PrenetMLP(8, 16, 12, generator=torch.Generator().manual_seed(0))
+    x = torch.randn(64, 8, generator=torch.Generator().manual_seed(1))
+
+    def run(seed, rate=0.5):
+        with torch.no_grad():
+            return net(x, rate, torch.Generator().manual_seed(seed))
+
+    assert torch.equal(run(3), run(3))
+    assert not torch.equal(run(3), run(4))
+    assert torch.equal(run(3, rate=0.0), run(4, rate=0.0))
