@@ -3,10 +3,13 @@
 
     python3 chip_smoke.py
 
-Drives the port's serving path (``rtts_torch.infer.synthesize.Synthesizer``:
-text -> encoder -> kv_full greedy decode -> postnet -> SqueezeWave inverse)
-at the full width of ``configs/base.yaml`` with random weights made from
-fixed seeds, phase by phase; every phase raises on failure:
+Drives the port's two paths at the full width of ``configs/base.yaml``
+with random weights made from fixed seeds: serving
+(``rtts_torch.infer.synthesize.Synthesizer``: text -> encoder -> kv_full
+greedy decode -> postnet -> SqueezeWave inverse) and TTS training
+(``rtts_torch.train.train_tts.make_train_step``: teacher-forced forward with
+dropout, loss with guided attention, backward, clip, Adam, Noam), phase by
+phase; every phase raises on failure:
 
 1. device: the card's name and power limit;
 2. build: nvcc builds the CUDA kernels from ``rtts_torch/csrc``;
@@ -20,7 +23,21 @@ fixed seeds, phase by phase; every phase raises on failure:
    against its plain version;
 6. profile: ``torch.profiler`` over a 64-frame decode at that shape, for
    the device's busy and idle share, the kernels per decode step and the
-   ops that take the device time.
+   ops that take the device time;
+7. kernels-train: K1 with dropout and its lse, and K3 (the dK/dV and dQ
+   kernels), against their plain versions at the training shapes, in bf16
+   and f32, at dropout 0 and 0.1; the kernels' keep masks against
+   ``dropout_keep_mask`` bit for bit;
+8. train slice: three train steps at base.yaml (batch 8, ragged lengths up
+   to 256 tokens and 1024 frames, bf16) with finite loss, grad norm and
+   gradients, 12 launches of K1 and of each K3 kernel per step; then one
+   step with attention dropout 0.1;
+9. train card-vs-CPU: one float32 train step at 2 + 2 layers on the card
+   (kernels) and on the CPU (plain versions) from the same weights and
+   batch: loss, every gradient and the parameters after the update;
+10. train timing: the step at batch 8 x 1024 frames (best of 3), a
+   ``torch.profiler`` view of one step, and K1 (with lse) and K3 against
+   their plain versions at the decoder and encoder shapes.
 
 Prints a JSON line of per-kernel results and, last, the JSON result line.
 Exits non-zero, printing no result, without a CUDA GPU.  Imports only the
@@ -47,9 +64,14 @@ from rtts_torch.models import squeezewave as SW
 from rtts_torch.ops import _build
 from rtts_torch.ops.depthwise_conv import (depthwise_conv1d,
                                            depthwise_conv1d_reference)
-from rtts_torch.ops.flash_attention import (flash_attend,
-                                            flash_attend_reference)
+from rtts_torch.ops.flash_attention import (dropout_keep_mask, flash_attend,
+                                            flash_attend_bwd_reference,
+                                            flash_attend_reference,
+                                            flash_bwd_dkv, flash_bwd_dq,
+                                            flash_fwd)
 from rtts_torch.text import encode_batch, frontend_vocab_size
+from rtts_torch.train.optim import make_optimizer
+from rtts_torch.train.train_tts import make_train_step, step_generator
 
 # configs/base.yaml as a dict (tests/test_torch_guards.py holds the two equal)
 _STACK_ATTENTION = {"kind": "auto", "num_heads": 8, "head_dim": 64,
@@ -99,7 +121,16 @@ KERNEL_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 # K1's online softmax) compounded through the autoregressive loop
 SLICE_TOL = 1e-3
 
-SEED_TTS, SEED_VOC, SEED_END, SEED_DATA = 0, 1, 2, 3
+# one f32 train step, card vs CPU, 2 + 2 layers: loss and each gradient
+# leaf relative to its largest entry (cuBLAS vs the CPU BLAS and the
+# kernels' summation order, through forward and backward); the parameters
+# after one Adam update within 3 lr: Adam moves every entry by about
+# +-lr, so a gradient of rounding-noise size may flip its step
+TRAIN_SLICE_TOL = 1e-3
+TRAIN_PARAM_TOL_LR = 3.0
+
+SEED_TTS, SEED_VOC, SEED_END, SEED_DATA, SEED_TRAIN = 0, 1, 2, 3, 4
+DROP_SEED = 0x9E3779B9
 
 
 def _scaled_err(got, want) -> float:
@@ -266,6 +297,7 @@ def phase_slice(cfg: Config):
     return syn, launches
 
 
+@torch.no_grad()
 def _run_f32(device, tokens, mask, z):
     cfg = base_config("float32", dec_prenet_dropout=0.0)
     tts, voc = build_models(cfg, device)
@@ -346,7 +378,8 @@ def phase_timing(syn: Synthesizer):
         gen = torch.Generator(device="cuda").manual_seed(0)
         t0 = time.perf_counter()
         ev[0].record()
-        memory = M.encode(syn.tts, cfg.model, tokens, mask)
+        with torch.no_grad():   # serving's encode, as in Synthesizer
+            memory = M.encode(syn.tts, cfg.model, tokens, mask)
         ev[1].record()
         res = decode_greedy(syn.tts, cfg.model, memory, mask,
                             max_frames=frames, generator=gen,
@@ -387,15 +420,11 @@ def phase_timing(syn: Synthesizer):
 
 def phase_profile(syn: Synthesizer, frames: int = 64, top: int = 6):
     """One decode of ``frames`` frames at the timing shape under
-    torch.profiler (after an unprofiled warm-up).  The wall includes the
-    profiler's own host overhead; device busy is the sum of the device
-    activities the profiler recorded."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    torch.profiler (after an unprofiled warm-up)."""
     cfg = syn.cfg
     tokens, mask = _bench_inputs(cfg)
-    memory = M.encode(syn.tts, cfg.model, tokens, mask)
+    with torch.no_grad():
+        memory = M.encode(syn.tts, cfg.model, tokens, mask)
 
     def decode():
         gen = torch.Generator(device="cuda").manual_seed(0)
@@ -404,26 +433,375 @@ def phase_profile(syn: Synthesizer, frames: int = 64, top: int = 6):
         torch.cuda.synchronize()
 
     decode()
+    wall, busy, n_kernels, ops = _profile(decode, top)
+    steps = frames // cfg.model.reduction_factor
+    print(f"[profile] decode b{tokens.shape[0]} x {frames} frames (bf16, "
+          f"kv_full): wall {wall:.4f} s, device busy {busy:.4f} s, idle "
+          f"{1 - busy / wall:.1%}; {n_kernels} device activities, "
+          f"{n_kernels / steps:.1f} per step")
+    print(f"[profile] device time by op: {ops}")
+
+
+def _profile(fn, top: int = 6):
+    """Run ``fn`` (which ends in a synchronize) once under torch.profiler
+    -> (wall s, device busy s, device activities, the top ops by device
+    time as text).  The wall includes the profiler's own host overhead;
+    device busy is the sum of the device activities it recorded."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        decode()
+        fn()
         wall = time.perf_counter() - t0
     events = prof.key_averages()
     device = [e for e in events if e.device_type == DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in device) / 1e6
     n_kernels = sum(e.count for e in device)
     _require(busy > 0 and n_kernels > 0, "the profiler saw no device work")
-    steps = frames // cfg.model.reduction_factor
-    print(f"[profile] decode b{tokens.shape[0]} x {frames} frames (bf16, "
-          f"kv_full): wall {wall:.4f} s, device busy {busy:.4f} s, idle "
-          f"{1 - busy / wall:.1%}; {n_kernels} device activities, "
-          f"{n_kernels / steps:.1f} per step")
     ops = sorted((e for e in events if e.device_type == DeviceType.CPU
                   and e.self_device_time_total > 0),
                  key=lambda e: e.self_device_time_total, reverse=True)[:top]
-    print("[profile] device time by op: " + ", ".join(
-        f"{e.key} {e.self_device_time_total / 1e6 / busy:.1%}" for e in ops))
+    return wall, busy, n_kernels, ", ".join(
+        f"{e.key} {e.self_device_time_total / 1e6 / busy:.1%}" for e in ops)
+
+
+# -- training phases ------------------------------------------------------------
+
+# ragged lengths of the train batch: the longest fill the padded shapes
+TRAIN_TOKEN_LENS = (256, 200, 131, 77, 256, 9, 64, 250)
+TRAIN_FRAME_LENS = (1024, 800, 524, 308, 1000, 40, 256, 1024)
+
+TRAIN_FLASH_CASES = {
+    # name: (b, h, lq, lk, kv lengths, causal, self_mask, sm_scale, q_offset)
+    "encoder b8 h8 L256 self+pad": (8, 8, 256, 256, ENCODER_LENS, False,
+                                    True, 1.0, 0),
+    "decoder b8 h8 L1024 causal+self": (8, 8, 1024, 1024, None, True, True,
+                                        1.0, 0),
+    "cross b8 h8 Lq1024 Lk256 pad": (8, 8, 1024, 256, ENCODER_LENS, False,
+                                     False, 0.125, 0),
+    "q_offset 128 b2 h4 Lq100 Lk256 causal+self+pad": (
+        2, 4, 100, 256, (256, 180), True, True, 1.0, 128),
+}
+
+
+def train_config(compute_dtype: str = "bfloat16", num_layers=None,
+                 dropout_off: bool = False, attention_dropout: float = 0.0,
+                 **optim) -> Config:
+    """base.yaml for training: ``num_layers`` cuts both stacks, and
+    ``dropout_off`` sets every dropout rate to 0 (the decoder prenet's
+    included), so two devices can take the same step."""
+    data = copy.deepcopy(BASE_CONFIG)
+    model = data["model"]
+    model.update(vocab_size=frontend_vocab_size("char"),
+                 compute_dtype=compute_dtype)
+    for stack in (model["encoder"], model["decoder"]):
+        stack["attention"]["attention_dropout"] = attention_dropout
+        if num_layers is not None:
+            stack["num_layers"] = num_layers
+        if dropout_off:
+            stack["dropout"] = 0.0
+    if dropout_off:
+        model.update(enc_prenet_dropout=0.0, dec_prenet_dropout=0.0,
+                     postnet_dropout=0.0)
+    data["experiment"]["optim"].update(optim)
+    return from_dict(Config, data)
+
+
+def train_batch(cfg: Config, token_lens, frame_lens, device):
+    """Seeded random batch: token ids and mels, zero past each length."""
+    g = torch.Generator().manual_seed(SEED_DATA)
+    b, l, t = len(token_lens), max(token_lens), max(frame_lens)
+    token_mask = torch.arange(l)[None, :] < torch.tensor(token_lens)[:, None]
+    mel_mask = torch.arange(t)[None, :] < torch.tensor(frame_lens)[:, None]
+    tokens = torch.randint(3, cfg.model.vocab_size, (b, l), generator=g)
+    mel = 0.5 * torch.randn(b, t, cfg.model.n_mels, generator=g)
+    batch = {"tokens": tokens * token_mask, "token_mask": token_mask,
+             "mel": mel * mel_mask[..., None], "mel_mask": mel_mask}
+    return {k: v.to(device) for k, v in batch.items()}
+
+
+def _trainer(cfg: Config, device):
+    """Seeded model, optimizer state and train step."""
+    model = M.init(cfg.model, torch.Generator().manual_seed(SEED_TTS), device)
+    optimizer = make_optimizer(cfg.experiment.optim)
+    state = optimizer.init(list(model.parameters()))
+    return model, state, make_train_step(cfg.model, optimizer)
+
+
+_TRAIN_KERNELS = (flash_attend, flash_bwd_dkv, flash_bwd_dq)
+
+
+def _reset_train_counts():
+    for fn in _TRAIN_KERNELS:
+        fn.launches = 0
+
+
+def _train_counts():
+    return {"flash_train": flash_attend.launches,
+            "flash_bwd_dkv": flash_bwd_dkv.launches,
+            "flash_bwd_dq": flash_bwd_dq.launches}
+
+
+def _train_flash_case(b, h, lq, lk, lens, causal, self_mask, sm_scale,
+                      q_offset, dtype):
+    """(q, k, v, dout), kv_mask and (causal, self_mask, sm_scale,
+    q_offset); self-attention cases get the shared-QK keys."""
+    g = torch.Generator().manual_seed(SEED_DATA)
+    q, k, v, dout = (torch.randn(b, h, n, 64, generator=g)
+                     for n in (lq, lk, lk, lq))
+    if self_mask and lq == lk:   # keys = length-normalized queries / sqrt(d)
+        k = q * torch.rsqrt((q * q).mean(-1, keepdim=True) + 1e-6) * 64 ** -0.5
+    mask = None
+    if lens is not None:
+        mask = (torch.arange(lk)[None, :] < torch.tensor(lens)[:, None]).cuda()
+    tensors = [t.to("cuda", dtype) for t in (q, k, v, dout)]
+    return tensors, mask, (causal, self_mask, sm_scale, q_offset)
+
+
+def _check_keep_masks():
+    """With q = k = 0 every probability is 1/L, so K1 with v = I returns
+    keep / (L keep_prob) and K3's dV with dO = I its transpose: both give
+    the kernels' keep bits, held against the dense mask."""
+    b, h, l, rate = 2, 3, 128, 0.1
+    zeros = torch.zeros(b, h, l, l, device="cuda")
+    eye = torch.eye(l, device="cuda").expand(b, h, l, l).contiguous()
+    for q_offset in (0, 37):
+        args = (False, False, 1.0, q_offset, rate, DROP_SEED)
+        out, lse = flash_fwd(zeros, zeros, eye, None, *args)
+        _, dv = flash_bwd_dkv(zeros, zeros, eye, out, eye, lse, None, *args)
+        want = dropout_keep_mask(DROP_SEED, b * h, l, l, rate, q_offset,
+                                 "cuda").reshape(b, h, l, l)
+        same = (torch.equal((out > 0).float(), want)
+                and torch.equal((dv.transpose(-1, -2) > 0).float(), want))
+        print(f"[kernels-train] keep mask b{b} h{h} L{l} rate {rate} "
+              f"q_offset {q_offset}: K1 and K3 equal dropout_keep_mask "
+              f"bit for bit: {same} (kept {want.mean().item():.4f})")
+        _require(same, "a kernel's keep mask differs from dropout_keep_mask")
+
+
+def phase_kernels_train():
+    """K1 (with dropout, returning lse) and K3 against the plain forward
+    and backward run in f32 on the same inputs.  Returns the max abs error
+    of each kernel at the first case (the encoder's, bf16, dropout 0)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    main = {}
+    for name, case in TRAIN_FLASH_CASES.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            for rate in (0.0, 0.1):
+                (q, k, v, dout), mask, opts = _train_flash_case(*case, dtype)
+                args = (*opts, rate, DROP_SEED)
+                out, lse = flash_fwd(q, k, v, mask, *args)
+                dk, dv = flash_bwd_dkv(q, k, v, out, dout, lse, mask, *args)
+                dq = flash_bwd_dq(q, k, v, out, dout, lse, mask, *args)
+                torch.cuda.synchronize()
+                f = [t.float() for t in (q, k, v)]
+                kw = dict(zip(("causal", "self_mask", "sm_scale", "q_offset"),
+                              opts), dropout_rate=rate, dropout_seed=DROP_SEED)
+                want, want_lse = flash_attend_reference(
+                    *f, mask, return_lse=True, **kw)
+                wants = flash_attend_bwd_reference(
+                    *f, out.float(), dout.float(), lse, mask, **kw)
+                got = {"out": out, "dq": dq, "dk": dk, "dv": dv}
+                ref = {"out": want, "dq": wants[0], "dk": wants[1],
+                       "dv": wants[2]}
+                errs = {key: _scaled_err(got[key], ref[key]) for key in got}
+                lse_err = _scaled_err(lse, want_lse)
+                tol = KERNEL_TOL[dtype]
+                print(f"[kernels-train] {name} {str(dtype)[6:]} dropout "
+                      f"{rate}: " + ", ".join(f"{key} {e:.3e}"
+                                              for key, e in errs.items())
+                      + f", lse {lse_err:.3e}; tol {tol:g}")
+                _require(all(e <= tol for e in errs.values())
+                         and lse_err <= 1e-5, f"K1/K3 {name} disagree")
+                for kernel, keys in (("flash_train", ("out",)),
+                                     ("flash_bwd_dkv", ("dk", "dv")),
+                                     ("flash_bwd_dq", ("dq",))):
+                    main.setdefault(kernel, max(_abs_err(got[key], ref[key])
+                                                for key in keys))
+    _check_keep_masks()
+    return main
+
+
+def _check_step(cfg: Config, metrics, grads, names, what):
+    """Finite loss and grad norm; a finite gradient on every parameter,
+    nonzero except on the last postnet layer's LN, which the forward never
+    reads (the reference's gradient there is zero too)."""
+    _require(all(bool(torch.isfinite(v)) for v in metrics.values()),
+             f"{what}: non-finite metrics {metrics}")
+    unread = f"postnet.{cfg.model.postnet_layers - 1}.ln."
+    for name, g in zip(names, grads):
+        _require(bool(torch.isfinite(g).all()),
+                 f"{what}: non-finite gradient of {name}")
+        _require(name.startswith(unread) or bool((g != 0).any()),
+                 f"{what}: zero gradient of {name}")
+
+
+def phase_train():
+    """Three base.yaml train steps, then one with attention dropout 0.1.
+    Returns the model (for the timing phase) and the launch counts of the
+    three steps."""
+    cfg = train_config()
+    model, state, step_fn = _trainer(cfg, "cuda")
+    names = [n for n, _ in model.named_parameters()]
+    batch = train_batch(cfg, TRAIN_TOKEN_LENS, TRAIN_FRAME_LENS, "cuda")
+    per_step = cfg.model.encoder.num_layers + cfg.model.decoder.num_layers
+    _reset_train_counts()
+    t0 = time.perf_counter()
+    steps = [step_fn(model, state, batch,
+                     step_generator(SEED_TRAIN, step, "cuda"), step,
+                     return_grads=True) for step in range(3)]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = _train_counts()
+    for step, (metrics, grads) in enumerate(steps):
+        _check_step(cfg, metrics, grads, names, f"train step {step}")
+        print(f"[train] step {step}: loss {float(metrics['loss']):.6f} "
+              f"(guided {float(metrics['loss_guided_attn']):.6f}), grad_norm "
+              f"{float(metrics['grad_norm']):.6f}")
+    print(f"[train] base.yaml b{len(TRAIN_TOKEN_LENS)} tokens "
+          f"{list(TRAIN_TOKEN_LENS)} frames {list(TRAIN_FRAME_LENS)} bf16: 3 "
+          f"steps in {dt:.2f} s (the first one cold); launches {launches}")
+    _require(all(n == 3 * per_step for n in launches.values()),
+             f"expected {per_step} launches of each kernel per step, got "
+             f"{launches} over 3 steps")
+
+    drop_cfg = train_config(attention_dropout=0.1)
+    optimizer = make_optimizer(drop_cfg.experiment.optim)
+    drop_step = make_train_step(drop_cfg.model, optimizer)
+    _reset_train_counts()
+    metrics, grads = drop_step(model, state, batch,
+                               step_generator(SEED_TRAIN, 3, "cuda"), 3,
+                               return_grads=True)
+    torch.cuda.synchronize()
+    drop_launches = _train_counts()
+    _check_step(drop_cfg, metrics, grads, names, "dropout step")
+    print(f"[train] step 3 with attention_dropout 0.1: loss "
+          f"{float(metrics['loss']):.6f}, grad_norm "
+          f"{float(metrics['grad_norm']):.6f}; launches {drop_launches}")
+    _require(all(n == per_step for n in drop_launches.values()),
+             f"dropout step: launches {drop_launches}")
+    return model, launches
+
+
+def _f32_step(cfg: Config, batch, device):
+    """-> (metrics as floats, gradients, parameters after the update), on
+    the CPU."""
+    model, state, step_fn = _trainer(cfg, device)
+    batch = {k: v.to(device) for k, v in batch.items()}
+    metrics, grads = step_fn(model, state, batch,
+                             step_generator(SEED_TRAIN, 0, device), 0,
+                             return_grads=True)
+    return ({k: float(v) for k, v in metrics.items()},
+            [g.cpu() for g in grads],
+            [p.detach().cpu() for p in model.parameters()])
+
+
+def phase_train_card_vs_cpu():
+    """One f32 step at 2 + 2 layers, every dropout 0, constant lr: the
+    card (K1/K3) against the CPU (the plain versions in the same
+    autograd.Function), from the same weights and batch."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = train_config("float32", num_layers=2, dropout_off=True,
+                       schedule="constant")
+    lr = cfg.experiment.optim.learning_rate
+    lens = ((256, 131, 77, 200), (512, 300, 160, 400))
+    batch = train_batch(cfg, *lens, "cpu")
+    t0 = time.perf_counter()
+    cpu = _f32_step(cfg, batch, "cpu")
+    t1 = time.perf_counter()
+    _reset_train_counts()
+    card = _f32_step(cfg, batch, "cuda")
+    launches = _train_counts()
+    init = M.init(cfg.model, torch.Generator().manual_seed(SEED_TTS))
+    names = [n for n, _ in init.named_parameters()]
+    loss_err = abs(card[0]["loss"] - cpu[0]["loss"]) / max(
+        1.0, abs(cpu[0]["loss"]))
+    norm_err = abs(card[0]["grad_norm"] - cpu[0]["grad_norm"]) / max(
+        1.0, abs(cpu[0]["grad_norm"]))
+    grad_errs = {n: ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)
+                     ).item() for n, a, b in zip(names, card[1], cpu[1])}
+    worst = max(grad_errs, key=grad_errs.get)
+    param_err = max((a - b).abs().max().item()
+                    for a, b in zip(card[2], cpu[2]))
+    moved = max((a - b.detach()).abs().max().item()
+                for a, b in zip(cpu[2], init.parameters()))
+    print(f"[train-card-vs-cpu] f32 2+2 layers b4 tokens {list(lens[0])} "
+          f"frames {list(lens[1])}: loss {card[0]['loss']:.6f} vs "
+          f"{cpu[0]['loss']:.6f} (err {loss_err:.3e}), grad_norm err "
+          f"{norm_err:.3e}, worst gradient leaf {worst} {grad_errs[worst]:.3e}"
+          f" (relative to its largest entry), params after the update "
+          f"{param_err:.3e} (lr {lr:g}, largest move {moved:.3e}); tol "
+          f"{TRAIN_SLICE_TOL:g}, params {TRAIN_PARAM_TOL_LR:g} lr; card "
+          f"launches {launches} (cpu {t1 - t0:.1f} s)")
+    _require(all(n > 0 for n in launches.values()),
+             "the card's step ran no kernel")
+    _require(loss_err <= TRAIN_SLICE_TOL and norm_err <= TRAIN_SLICE_TOL
+             and grad_errs[worst] <= TRAIN_SLICE_TOL
+             and param_err <= TRAIN_PARAM_TOL_LR * lr,
+             "card and CPU train steps disagree")
+
+
+def phase_train_timing(model):
+    """The bf16 train step at b8 x 256 tokens x 1024 frames, every
+    position valid: best of 3 after a warm-up; one step under
+    torch.profiler; K1 and K3 against their plain versions."""
+    cfg = train_config()
+    optimizer = make_optimizer(cfg.experiment.optim)
+    state = optimizer.init(list(model.parameters()))
+    step_fn = make_train_step(cfg.model, optimizer)
+    b, n_tok, frames = 8, 256, 1024
+    batch = train_batch(cfg, (n_tok,) * b, (frames,) * b, "cuda")
+    gen = torch.Generator(device="cuda")
+
+    def step():
+        metrics = step_fn(model, state, batch, gen.manual_seed(SEED_TRAIN),
+                          state["count"])
+        torch.cuda.synchronize()
+        return metrics
+
+    step()   # warm-up
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        metrics = step()
+        walls.append(time.perf_counter() - t0)
+        _require(bool(torch.isfinite(metrics["loss"])), "timed step loss")
+    best = min(walls)
+    print(f"[train-timing] train step b{b} x {n_tok} tokens x {frames} frames "
+          f"(base.yaml, bf16): walls {[round(w, 4) for w in walls]} s; best "
+          f"{best:.4f} s = {b * frames / best:.0f} frames/s")
+    wall, busy, n_kernels, ops = _profile(step)
+    print(f"[train-timing] profile of one step: wall {wall:.4f} s, device "
+          f"busy {busy:.4f} s, idle {1 - busy / wall:.1%}; {n_kernels} device "
+          f"activities; device time by op: {ops}")
+
+    times = {}
+    for name, case, n in (("decoder", "decoder b8 h8 L1024 causal+self", 20),
+                          ("encoder", "encoder b8 h8 L256 self+pad", 100)):
+        (q, k, v, dout), mask, opts = _train_flash_case(
+            *TRAIN_FLASH_CASES[case], torch.bfloat16)
+        args = (*opts, 0.0, 0)
+        kw = dict(zip(("causal", "self_mask", "sm_scale", "q_offset"), opts))
+        out, lse = flash_fwd(q, k, v, mask, *args)
+        fwd = _kernel_ms(lambda: flash_fwd(q, k, v, mask, *args),
+                         lambda: flash_attend_reference(
+                             q, k, v, mask, return_lse=True, **kw), n)
+        plain_bwd = lambda: flash_attend_bwd_reference(  # noqa: E731
+            q, k, v, out, dout, lse, mask, **kw)
+        dkv = _kernel_ms(lambda: flash_bwd_dkv(q, k, v, out, dout, lse, mask,
+                                               *args), plain_bwd, n)
+        dq = _kernel_ms(lambda: flash_bwd_dq(q, k, v, out, dout, lse, mask,
+                                             *args), plain_bwd, n)
+        print(f"[train-timing] {case} bf16: K1 fwd+lse {fwd[0]:.4f} ms (plain "
+              f"{fwd[1]:.4f}); K3 dK/dV {dkv[0]:.4f} ms + dQ {dq[0]:.4f} ms = "
+              f"{dkv[0] + dq[0]:.4f} ms (plain backward, all three "
+              f"gradients: {dkv[1]:.4f} ms)")
+        times[name] = {"flash_train": fwd, "flash_bwd_dkv": dkv,
+                       "flash_bwd_dq": dq}
+    return times
 
 
 def main() -> int:
@@ -439,12 +817,30 @@ def main() -> int:
     phase_card_vs_cpu(cfg)
     times = phase_timing(syn)
     phase_profile(syn)
+    train_errs = phase_kernels_train()
+    model, train_launches = phase_train()
+    phase_train_card_vs_cpu()
+    train_times = phase_train_timing(model)
     _require("jax" not in sys.modules, "jax was imported")
+    # serving kernels: launches of one Synthesizer call, times at the
+    # encoder and vocoder shapes; training kernels ("flash_train" is K1 in
+    # the train step): launches of the three base.yaml train steps, times
+    # at the decoder's self-attention shape (plain_ms of each K3 kernel:
+    # the plain backward, all three gradients)
+    errs.update(train_errs)
+    launches.update(train_launches)
+    times.update(train_times["decoder"])
     meta = {
         "flash": ("rtts_torch/csrc/flash_fwd.cu",
                   "rtts/ops/flash_attention.py:322"),
         "depthwise": ("rtts_torch/csrc/depthwise_conv.cu",
                       "rtts/ops/depthwise_conv.py:29"),
+        "flash_train": ("rtts_torch/csrc/flash_fwd.cu",
+                        "rtts/ops/flash_attention.py:322"),
+        "flash_bwd_dkv": ("rtts_torch/csrc/flash_bwd.cu",
+                          "rtts/ops/flash_attention.py:509"),
+        "flash_bwd_dq": ("rtts_torch/csrc/flash_bwd.cu",
+                         "rtts/ops/flash_attention.py:553"),
     }
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": rep, "launches": launches[name],

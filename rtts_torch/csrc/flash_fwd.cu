@@ -7,7 +7,7 @@
 //   s := -1e9  (kMaskValue)      where the key is padding (kv_mask == 0)
 //   s := -1e9  (kMaskValue)      where causal and q_offset + row < col
 //   s := -1e5  (kSelfMaskValue)  where self_mask and q_offset + row == col
-//   o = softmax(s) @ v,   lse = m + log(l)        (optional, f32)
+//   o = dropout(softmax(s)) @ v,   lse = m + log(l)   (optional, f32)
 //
 // Masks REPLACE scores (they are not added), in that order, so a query whose
 // keys are all masked still attends itself through the milder self value.
@@ -16,6 +16,12 @@
 // are left out of the softmax altogether, which is what the plain version
 // (rtts_torch/ops/flash_attention.py::flash_attend_reference) computes; the
 // TPU wrapper's pad-to-128 copy is not needed.
+//
+// Attention-probs dropout (drop_thr > 0) is the TPU kernel's counter hash,
+// bit for bit (flash_common.cuh::keep): the keep bit of (bh, global row,
+// global col) is regenerated here and in both backward kernels
+// (flash_bwd.cu), so no mask is stored.  It applies to P.V only: m, l and
+// lse are those of the undropped softmax.
 //
 // What bounds it on this card: at the serving shapes (B*H = 64, L = 256,
 // dh = 64) the whole call is ~1 GFLOP over ~8 MB, far too small to be
@@ -27,10 +33,7 @@
 // sum are reduced across those four lanes with warp shuffles.  No L x L
 // tensor is written.  Tensor-core tiles (mma / wgmma) are later work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
 
@@ -39,17 +42,6 @@ constexpr int kBK = 64;        // key rows per tile
 constexpr int kTPR = 4;        // threads per query row
 constexpr int kThreads = kBQ * kTPR;
 constexpr float kNegInit = -1e30f;
-constexpr float kMaskValue = -1e9f;       // MASK_VALUE of the Python side
-constexpr float kSelfMaskValue = -1e5f;   // SELF_MASK_VALUE
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 template <int DH>
 constexpr size_t smem_bytes() {
@@ -62,7 +54,8 @@ __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  const uint8_t* __restrict__ kv_mask, T* __restrict__ out,
                  float* __restrict__ lse, int heads, int lq, int lk, float sm_scale,
-                 int causal, int self_mask, int q_offset) {
+                 int causal, int self_mask, int q_offset, uint32_t seed, int drop_thr,
+                 float drop_scale) {
   constexpr int KPT = kBK / kTPR;   // scores per thread per tile
   constexpr int CPT = DH / kTPR;    // output columns per thread
   extern __shared__ float smem[];
@@ -94,6 +87,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   for (int c = 0; c < CPT; ++c) acc[c] = 0.f;
 
   for (int k0 = 0; k0 < lk; k0 += kBK) {
+    // causal: key tiles wholly after the block's last row are skipped, as
+    // the TPU kernel's pl.when does (the test is uniform over the block)
+    if (causal && q_offset + q0 + kBQ - 1 < k0) break;
     __syncthreads();  // the previous tile's K/V/P are no longer read
     for (int i = tid; i < kBK * DH; i += kThreads) {
       const int j = i / DH, c = i % DH, gk = k0 + j;
@@ -119,14 +115,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     float tmax = -INFINITY;
 #pragma unroll
     for (int i = 0; i < KPT; ++i) {
-      const int j = sub + kTPR * i, gk = k0 + j, mv = ms[j];
-      float x = s[i] * sm_scale;
-      if (mv == 0) x = kMaskValue;
-      if (causal && qpos < gk) x = kMaskValue;
-      if (self_mask && qpos == gk) x = kSelfMaskValue;
-      if (mv < 0) x = -INFINITY;  // past the end: exp() gives exactly 0
-      s[i] = x;
-      tmax = fmaxf(tmax, x);
+      const int j = sub + kTPR * i;
+      // past the end: -inf, so exp() gives exactly 0
+      s[i] = mask_score(s[i] * sm_scale, ms[j], qpos, k0 + j, causal, self_mask);
+      tmax = fmaxf(tmax, s[i]);
     }
     tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
     tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 2));
@@ -135,9 +127,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     float psum = 0.f;
 #pragma unroll
     for (int i = 0; i < KPT; ++i) {
+      const int j = sub + kTPR * i;
       const float p = expf(s[i] - m_new);
-      ps[r * (kBK + 1) + sub + kTPR * i] = p;
-      psum += p;
+      psum += p;  // l sums the undropped probabilities
+      ps[r * (kBK + 1) + j] =
+          drop_thr > 0 ? p * drop_rscale(seed, bh, qpos, k0 + j, drop_thr, drop_scale) : p;
     }
     psum += __shfl_xor_sync(0xffffffffu, psum, 1);
     psum += __shfl_xor_sync(0xffffffffu, psum, 2);
@@ -167,7 +161,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 template <typename T, int DH>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* kv_mask, void* out,
                    void* lse, int bh, int heads, int lq, int lk, float sm_scale, int causal,
-                   int self_mask, int q_offset, cudaStream_t stream) {
+                   int self_mask, int q_offset, uint32_t seed, int drop_thr, float drop_scale,
+                   cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<DH>();
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, DH>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -176,7 +171,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* kv_m
   flash_fwd_kernel<T, DH><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const uint8_t*>(kv_mask), static_cast<T*>(out), static_cast<float*>(lse),
-      heads, lq, lk, sm_scale, causal, self_mask, q_offset);
+      heads, lq, lk, sm_scale, causal, self_mask, q_offset, seed, drop_thr, drop_scale);
   return cudaGetLastError();
 }
 
@@ -184,24 +179,21 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* kv_m
 
 // dtype: 0 = float32, 1 = bfloat16.  q: (bh, lq, dh); k, v: (bh, lk, dh);
 // kv_mask: (bh / heads, lk) bytes or null; out like q; lse: (bh, lq) f32 or
-// null.  Returns the launch's cudaError_t (0 on success).
+// null.  drop_thr: 24-bit keep threshold, 0 = no dropout; drop_scale =
+// 1 / keep_prob.  Returns the launch's cudaError_t (0 on success).
 extern "C" int rtts_flash_fwd(const void* q, const void* k, const void* v, const void* kv_mask,
                               void* out, void* lse, int dtype, int bh, int heads, int lq, int lk,
-                              int dh, float sm_scale, int causal, int self_mask,
-                              int q_offset, void* stream) {
+                              int dh, float sm_scale, int causal, int self_mask, int q_offset,
+                              unsigned int seed, int drop_thr, float drop_scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bh == 0 || lq == 0) return (int)cudaSuccess;
-  if (dtype == 0 && dh == 64)
-    return (int)launch<float, 64>(q, k, v, kv_mask, out, lse, bh, heads, lq, lk, sm_scale,
-                                  causal, self_mask, q_offset, s);
-  if (dtype == 0 && dh == 128)
-    return (int)launch<float, 128>(q, k, v, kv_mask, out, lse, bh, heads, lq, lk, sm_scale,
-                                   causal, self_mask, q_offset, s);
-  if (dtype == 1 && dh == 64)
-    return (int)launch<__nv_bfloat16, 64>(q, k, v, kv_mask, out, lse, bh, heads, lq, lk,
-                                          sm_scale, causal, self_mask, q_offset, s);
-  if (dtype == 1 && dh == 128)
-    return (int)launch<__nv_bfloat16, 128>(q, k, v, kv_mask, out, lse, bh, heads, lq, lk,
-                                           sm_scale, causal, self_mask, q_offset, s);
+#define RTTS_FWD(T, DH)                                                                    \
+  return (int)launch<T, DH>(q, k, v, kv_mask, out, lse, bh, heads, lq, lk, sm_scale, causal, \
+                            self_mask, q_offset, seed, drop_thr, drop_scale, s)
+  if (dtype == 0 && dh == 64) RTTS_FWD(float, 64);
+  if (dtype == 0 && dh == 128) RTTS_FWD(float, 128);
+  if (dtype == 1 && dh == 64) RTTS_FWD(__nv_bfloat16, 64);
+  if (dtype == 1 && dh == 128) RTTS_FWD(__nv_bfloat16, 128);
+#undef RTTS_FWD
   return (int)cudaErrorInvalidValue;
 }

@@ -43,6 +43,7 @@ class Synthesizer:
         self.max_frames = max_frames
         self.mode = mode
 
+    @torch.no_grad()
     def text_to_mel(self, texts: Sequence[str], seed: int = 0
                     ) -> Tuple[np.ndarray, np.ndarray]:
         """-> (mel (B, T_max, n_mels) float32, lengths (B,) int32).

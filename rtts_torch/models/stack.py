@@ -6,6 +6,13 @@ self-attention, g = FFN); decoder layer = two pairs, (self-attention, FFN)
 then (cross-attention, FFN).  Parameter paths repeat the JAX pytree's, e.g.
 ``layers.0.f.attn.w_qk.w``.  All sublayers are pre-LN; residual streams
 ride in float32 while sublayers run in the compute dtype.
+
+Training: given a ``generator`` (on the stream's device) the stack applies
+``cfg.dropout`` after every f and g and the attention dropout, with one
+kernel seed per pair drawn from the generator; without one it is the
+deterministic inference stack.  Gradients flow through plain residuals
+(autograd keeps the activations); the reversible backward and the chunked
+FFN, which only save memory, are not ported yet.
 """
 
 from __future__ import annotations
@@ -17,8 +24,9 @@ from torch import nn
 
 from rtts_torch.attention.full import (Attention, cross_attention,
                                        shared_qk_self_attention)
-from rtts_torch.config import ReformerStackConfig, resolve_attention_kind
-from rtts_torch.nn.layers import LayerNorm
+from rtts_torch.config import (ReformerStackConfig, resolve_attention_kind,
+                               resolve_ffn_chunk, resolve_reversible)
+from rtts_torch.nn.layers import LayerNorm, dropout
 from rtts_torch.ops.flash_attention import resolve_flash_impl
 from rtts_torch.reversible.ffn import FFN, _ffn_body
 from rtts_torch.reversible.rev import reversible_sequence
@@ -87,26 +95,35 @@ def _check_supported(cfg: ReformerStackConfig, seq_len: int) -> None:
 
 def make_stack_layer_fns(cfg: ReformerStackConfig, cross_attend: bool,
                          compute_dtype) -> List[Tuple[Any, Any]]:
-    """The (f, g) callables of one stack; aux per pair is
-    dict(mask, memory_mask)."""
+    """The (f, g) callables of one stack; aux per pair is dict(mask,
+    memory_mask, generator, seed[, attn_sink]).  ``generator`` None means
+    no dropout."""
     a = cfg.attention
+    impl = resolve_flash_impl(a.flash)
+
+    def attn_kw(aux):
+        return dict(num_heads=a.num_heads, compute_dtype=compute_dtype,
+                    dropout_rate=a.attention_dropout,
+                    dropout_seed=aux["seed"], generator=aux["generator"],
+                    impl=impl)
+
+    def drop(x, aux):
+        gen = aux["generator"]
+        return x if gen is None else dropout(x, cfg.dropout, gen)
 
     def f_self(p, x, memory, aux):
-        h = p.ln(x)
-        return shared_qk_self_attention(
-            p.attn, h, mask=aux["mask"], causal=cfg.causal,
-            num_heads=a.num_heads, compute_dtype=compute_dtype,
-            impl=resolve_flash_impl(a.flash))
+        out = shared_qk_self_attention(p.attn, p.ln(x), mask=aux["mask"],
+                                       causal=cfg.causal, **attn_kw(aux))
+        return drop(out, aux)
 
     def f_cross(p, x, memory, aux):
-        h = p.ln(x)
-        return cross_attention(
-            p.attn, h, memory, memory_mask=aux["memory_mask"],
-            num_heads=a.num_heads, compute_dtype=compute_dtype,
-            impl=resolve_flash_impl(a.flash))
+        out = cross_attention(p.attn, p.ln(x), memory,
+                              memory_mask=aux["memory_mask"],
+                              probs_sink=aux.get("attn_sink"), **attn_kw(aux))
+        return drop(out, aux)
 
     def g_ffn(p, y, memory, aux):
-        return _ffn_body(p, y, cfg.ffn_activation, compute_dtype)
+        return drop(_ffn_body(p, y, cfg.ffn_activation, compute_dtype), aux)
 
     pairs: List[Tuple[Any, Any]] = []
     for _ in range(cfg.num_layers):
@@ -116,15 +133,55 @@ def make_stack_layer_fns(cfg: ReformerStackConfig, cross_attend: bool,
     return pairs
 
 
+def _check_residuals(cfg: ReformerStackConfig, x: torch.Tensor,
+                     memory: Optional[torch.Tensor],
+                     attn_sink: Optional[list]) -> None:
+    """Refuse what training would need and is not ported: reversible
+    residuals and the chunked FFN.  Inference runs the same forward with
+    either, so only a pass that records gradients is refused."""
+    mem_len = memory.shape[1] if memory is not None else None
+    rev = resolve_reversible(cfg, x.shape[0], x.shape[1], mem_len)
+    if attn_sink is not None and rev:
+        raise ValueError(
+            "guided attention (attn_sink) requires plain residuals — the "
+            "captured probabilities cannot cross the reversible backward; "
+            "set reversible: false on this stack (resolved reversible=True "
+            f"at shape {tuple(x.shape)})")
+    if not torch.is_grad_enabled():
+        return
+    chunk = resolve_ffn_chunk(cfg, x.shape[0], x.shape[1], mem_len)
+    if rev or chunk > 0:
+        raise NotImplementedError(
+            f"rtts_torch: training with reversible={rev}, ffn_chunk_size="
+            f"{chunk} at shape {tuple(x.shape)} is not ported yet (plain "
+            "residuals and an unchunked FFN only)")
+
+
 def stack_apply(stack: Stack, cfg: ReformerStackConfig, x: torch.Tensor,
                 mask: Optional[torch.Tensor],
                 memory: Optional[torch.Tensor] = None,
                 memory_mask: Optional[torch.Tensor] = None,
-                compute_dtype=None) -> torch.Tensor:
-    """Run the stack on x: (B, L, D) -> (B, L, D), inference (no dropout)."""
+                compute_dtype=None,
+                generator: Optional[torch.Generator] = None,
+                attn_sink: Optional[list] = None) -> torch.Tensor:
+    """Run the stack on x: (B, L, D) -> (B, L, D).
+
+    ``generator`` (on x's device) turns dropout on and draws it.
+    ``attn_sink``: a list that collects each cross-attention layer's f32
+    probabilities (B, H, L, Lm), for the guided-attention loss."""
     _check_supported(cfg, x.shape[1])
+    _check_residuals(cfg, x, memory, attn_sink)
     layer_fns = make_stack_layer_fns(cfg, memory is not None, compute_dtype)
-    aux = {"mask": mask, "memory_mask": memory_mask}
+    n = len(layer_fns)
+    seeds = [None] * n
+    if generator is not None and cfg.attention.attention_dropout > 0.0:
+        seeds = torch.randint(0, 1 << 32, (n,), generator=generator,
+                              device=generator.device).tolist()
+    aux_list = [{"mask": mask, "memory_mask": memory_mask,
+                 "generator": generator, "seed": seed,
+                 **({"attn_sink": attn_sink} if attn_sink is not None
+                    else {})}
+                for seed in seeds]
     y = reversible_sequence(layer_fns, stack.layers, x.float(), memory,
-                            [aux] * len(layer_fns))
+                            aux_list)
     return stack.final_ln(y)

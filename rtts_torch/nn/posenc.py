@@ -23,14 +23,16 @@ def sinusoidal_table(max_len: int, d_model: int) -> np.ndarray:
 
 
 class ScaledPosEnc(nn.Module):
-    """x + alpha * PE: a learnable scalar ``alpha`` and a constant ``table``
-    (a buffer, but a leaf of the checkpoint like the JAX pytree's)."""
+    """x + alpha * PE: a learnable scalar ``alpha`` and the sinusoid
+    ``table``.  The table is a parameter as in the JAX pytree, where it is a
+    leaf of the params that the optimizer updates too; train steps match
+    the reference only if it is one here."""
 
     def __init__(self, max_len: int, d_model: int, *, device=None):
         super().__init__()
         self.alpha = nn.Parameter(torch.ones((), device=device))
-        self.register_buffer(
-            "table", torch.from_numpy(sinusoidal_table(max_len, d_model)).to(device))
+        self.table = nn.Parameter(
+            torch.from_numpy(sinusoidal_table(max_len, d_model)).to(device))
 
     def forward(self, x: torch.Tensor, offset: int = 0) -> torch.Tensor:
         """x: (..., L, d) -> x + alpha * PE[offset:offset+L]."""

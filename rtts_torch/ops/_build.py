@@ -1,9 +1,11 @@
 """Build the package's CUDA kernels with nvcc and load them with ctypes.
 
-Every ``rtts_torch/csrc/*.cu`` file is compiled for ``sm_90a`` into one shared
-library with a plain C interface, under ``build/rtts_torch/`` at the root of
-the checkout.  The library's name carries a hash of the sources, so an edited
-kernel is rebuilt at its first use and an unchanged one is loaded as it is.
+Every ``rtts_torch/csrc/*.cu`` file is compiled for ``sm_90a`` (one nvcc
+process per source, all started together) and the objects are linked into
+one shared library with a plain C interface, under ``build/rtts_torch/`` at
+the root of the checkout.  The library's name carries a hash of the sources
+and headers, so an edited kernel is rebuilt at its first use and an
+unchanged one is loaded as it is.
 Nothing here runs at import: the first kernel launch calls ``library()``.
 A failed build raises; there is no fallback.
 """
@@ -21,13 +23,17 @@ import tempfile
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "rtts_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
+# the flash kernels' trailing arguments: dtype, bh, heads, lq, lk, dh,
+# sm_scale, causal, self_mask, q_offset, seed, drop_thr, drop_scale, stream
+_FLASH_SCALARS = [_I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _U, _I, _F, _P]
 # C signatures of the entry points (each returns a cudaError_t as int)
 SIGNATURES = {
-    "rtts_flash_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I,
-                       _I, _I, _P],
+    "rtts_flash_fwd": [_P] * 6 + _FLASH_SCALARS,
+    "rtts_flash_bwd_dkv": [_P] * 9 + _FLASH_SCALARS,
+    "rtts_flash_bwd_dq": [_P] * 8 + _FLASH_SCALARS,
     "rtts_depthwise_conv1d": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
@@ -51,7 +57,7 @@ def _nvcc() -> str:
 
 def library_path() -> pathlib.Path:
     digest = hashlib.sha256()
-    for src in _sources():
+    for src in sorted(CSRC.glob("*.cu*")):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
@@ -66,18 +72,34 @@ def build() -> pathlib.Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # build to a temporary name and rename: a concurrent loader never sees
-    # a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-    build_log_path().write_text(log)
-    os.replace(tmp, out)
+    nvcc = _nvcc()
+    # objects and the library go to a private directory and the library is
+    # renamed into place: a concurrent loader never sees a half-written one
+    work = pathlib.Path(tempfile.mkdtemp(dir=BUILD_DIR))
+    try:
+        jobs = [(src, work / f"{src.stem}.o") for src in _sources()]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                                   str(src)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for src, obj in jobs]
+        log, failed = "", []
+        for (src, _), proc in zip(jobs, procs):
+            log += f"== {src.name}\n{proc.communicate()[0]}"
+            if proc.returncode != 0:
+                failed.append(src.name)
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
+        lib = work / out.name
+        link = subprocess.run([nvcc, "-shared", "-o", str(lib),
+                               *(str(obj) for _, obj in jobs)],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                               f"{link.stdout}{link.stderr}")
+        build_log_path().write_text(log)
+        os.replace(lib, out)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     return out
 
 

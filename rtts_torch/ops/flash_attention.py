@@ -1,17 +1,24 @@
-"""Flash (online-softmax) attention: kernel K1 and its plain version.
+"""Flash (online-softmax) attention: kernels K1 and K3 and their plain versions.
 
-Port of ``rtts/ops/flash_attention.py``.  ``flash_attend`` launches the CUDA
-kernel ``rtts_torch/csrc/flash_fwd.cu`` for tensors on the card and runs
-``flash_attend_reference`` for tensors on the CPU.  Both compute the same
-masked softmax attention, with the reference's replace-style masks applied to
-f32 scores before the softmax:
+Port of ``rtts/ops/flash_attention.py``.  ``flash_attend`` is differentiable:
+its forward launches the CUDA kernel ``rtts_torch/csrc/flash_fwd.cu`` (K1)
+and its backward the two kernels of ``rtts_torch/csrc/flash_bwd.cu`` (K3,
+FA2: dK/dV, then dQ) for tensors on the card; for tensors on the CPU the
+same ``torch.autograd.Function`` runs ``flash_attend_reference`` and
+``flash_attend_bwd_reference``.  All of them compute the same masked
+softmax attention, with the reference's replace-style masks applied to f32
+scores before the softmax:
 
 - pad keys (``kv_mask`` False):     score := MASK_VALUE      (-1e9)
 - causal, q_offset + row < col:     score := MASK_VALUE      (-1e9)
 - self_mask, q_offset + row == col: score := SELF_MASK_VALUE (-1e5)
 
-so a query whose keys are all masked still attends itself.  Forward only:
-the backward (K3) and in-kernel attention dropout come with training.
+so a query whose keys are all masked still attends itself.  Attention-probs
+dropout is the JAX kernel's counter hash, bit for bit
+(``dropout_keep_mask``): the keep bit of (batch*head, global row, global
+col) is a function of a uint32 seed, so the forward and the backward
+regenerate the same mask and none is stored.  Dropout scales P.V only; the
+saved lse is that of the undropped softmax.
 """
 
 from __future__ import annotations
@@ -22,12 +29,14 @@ import torch
 
 from rtts_torch.ops import _build
 
-# the kernel's constants kMaskValue and kSelfMaskValue hold the same values
+# the kernels' constants kMaskValue and kSelfMaskValue hold the same values
 MASK_VALUE = -1e9
 SELF_MASK_VALUE = -1e5
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
+_DROP_BITS = 24
+_M32 = 0xFFFFFFFF
 
 
 def resolve_flash_impl(knob) -> str:
@@ -46,13 +55,69 @@ def resolve_flash_impl(knob) -> str:
     raise ValueError(f"flash knob must be true, false or 'auto', got {knob!r}")
 
 
-def flash_attend_reference(q, k, v, kv_mask=None, *, causal=False,
-                           self_mask=False, sm_scale=1.0, q_offset=0,
-                           return_lse=False):
-    """Plain PyTorch version of K1: explicit (B, H, Lq, Lk) f32 scores, then
-    softmax and P.V in f32; the output is cast to q's dtype."""
-    b, h, l_q, dh = q.shape
-    l_k = k.shape[2]
+# -- attention-probs dropout ---------------------------------------------------
+# The JAX kernel's keep mask: lowbias32 of
+# row*0x85EBCA6B + col*0xC2B2AE35 + bh*0x27D4EB2F + seed (mod 2^32), top 24
+# bits against round(keep_prob * 2^24).  torch has no uint32 multiply that
+# wraps, so the plain version runs in int64 and splits every product into
+# 16-bit halves (no intermediate reaches 2^63), masking to 32 bits.
+
+
+def _drop_threshold(rate: float) -> int:
+    """24-bit keep threshold for a dropout rate (0 => no dropout)."""
+    if rate <= 0.0:
+        return 0
+    if rate >= 1.0:
+        raise ValueError(f"dropout_rate must be < 1, got {rate}")
+    return int(round((1.0 - rate) * (1 << _DROP_BITS)))
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """(x * c) mod 2^32 for int64 x in [0, 2^32) and a uint32 constant c."""
+    lo = x * (c & 0xFFFF)
+    hi = ((x * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _M32
+
+
+def _mix32(x: torch.Tensor) -> torch.Tensor:
+    """lowbias32 avalanche finalizer on int64 holding uint32 values."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def dropout_keep_mask(seed: int, n_bh: int, l_q: int, l_k: int, rate: float,
+                      q_offset: int = 0, device=None) -> torch.Tensor:
+    """Dense (n_bh, l_q, l_k) f32 keep mask in {0, 1}: the exact mask the
+    kernels regenerate tile by tile, equal bit for bit to JAX
+    ``dropout_keep_mask`` for the same uint32 seed."""
+    thr = _drop_threshold(rate)
+    kw = dict(dtype=torch.int64, device=device)
+    rows = _mul32(torch.arange(l_q, **kw) + q_offset, 0x85EBCA6B)[None, :, None]
+    cols = _mul32(torch.arange(l_k, **kw), 0xC2B2AE35)[None, None, :]
+    bh = _mul32(torch.arange(n_bh, **kw), 0x27D4EB2F)[:, None, None]
+    u = (rows + cols + bh + (int(seed) & _M32)) & _M32
+    return ((_mix32(u) >> (32 - _DROP_BITS)) < thr).float()
+
+
+def _drop_rscale(seed, b, h, l_q, l_k, rate, q_offset, device):
+    """keep / keep_prob as (B, H, Lq, Lk) f32, or None without dropout."""
+    if not _drop_threshold(rate):
+        return None
+    keep = dropout_keep_mask(seed, b * h, l_q, l_k, rate, q_offset, device)
+    return keep.reshape(b, h, l_q, l_k) * (1.0 / (1.0 - rate))
+
+
+# -- plain versions ------------------------------------------------------------
+
+
+def masked_scores(q, k, kv_mask=None, *, causal=False, self_mask=False,
+                  sm_scale=1.0, q_offset=0) -> torch.Tensor:
+    """(B, H, Lq, Lk) f32 scores q.k * sm_scale with the replace-style masks
+    (pad, then causal, then self), positions compared as q_offset + row."""
+    l_q, l_k = q.shape[2], k.shape[2]
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * sm_scale
     if kv_mask is not None:
         s = s.masked_fill(~kv_mask.bool()[:, None, None, :], MASK_VALUE)
@@ -62,13 +127,197 @@ def flash_attend_reference(q, k, v, kv_mask=None, *, causal=False,
         s = s.masked_fill(rows < cols, MASK_VALUE)
     if self_mask:
         s = s.masked_fill(rows == cols, SELF_MASK_VALUE)
+    return s
+
+
+def flash_attend_reference(q, k, v, kv_mask=None, *, causal=False,
+                           self_mask=False, sm_scale=1.0, q_offset=0,
+                           dropout_rate=0.0, dropout_seed=None,
+                           return_lse=False):
+    """Plain PyTorch version of K1: explicit (B, H, Lq, Lk) f32 scores, then
+    softmax, the keep mask and P.V in f32; the output is cast to q's dtype,
+    lse is (B*H, Lq) f32 of the undropped softmax."""
+    b, h, l_q, _ = q.shape
+    s = masked_scores(q, k, kv_mask, causal=causal, self_mask=self_mask,
+                      sm_scale=sm_scale, q_offset=q_offset)
     # softmax subtracts the row max: exp(s - lse) would lose the fully
     # masked rows, whose lse = -1e9 + log(Lk) rounds back to -1e9 in f32
-    out = torch.einsum("bhqk,bhkd->bhqd", torch.softmax(s, dim=-1),
-                       v.float()).to(q.dtype)
+    p = torch.softmax(s, dim=-1)
+    rscale = _drop_rscale(dropout_seed, b, h, l_q, k.shape[2], dropout_rate,
+                          q_offset, q.device)
+    if rscale is not None:
+        p = p * rscale
+    out = torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
     if return_lse:
         return out, torch.logsumexp(s, dim=-1).reshape(b * h, l_q)
     return out
+
+
+def flash_attend_bwd_reference(q, k, v, out, dout, lse, kv_mask=None, *,
+                               causal=False, self_mask=False, sm_scale=1.0,
+                               q_offset=0, dropout_rate=0.0,
+                               dropout_seed=None):
+    """Plain PyTorch version of K3: the kernels' equations written out
+    densely in f32 -> (dq, dk, dv) in the dtypes of (q, k, v).
+
+    P is recomputed as exp(s - lse) from the saved lse, as the kernels do
+    (not autograd of the plain forward): the two agree on every row that
+    has an unmasked key or the self position."""
+    b, h, l_q, _ = q.shape
+    qf, kf, vf, of, dof = (t.float() for t in (q, k, v, out, dout))
+    s = masked_scores(q, k, kv_mask, causal=causal, self_mask=self_mask,
+                      sm_scale=sm_scale, q_offset=q_offset)
+    p = torch.exp(s - lse.reshape(b, h, l_q, 1))
+    rscale = _drop_rscale(dropout_seed, b, h, l_q, k.shape[2], dropout_rate,
+                          q_offset, q.device)
+    pr = p if rscale is None else p * rscale
+    dv = torch.einsum("bhqk,bhqd->bhkd", pr, dof)
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, vf)
+    if rscale is not None:
+        dp = dp * rscale
+    di = (of * dof).sum(-1, keepdim=True)
+    ds = p * (dp - di)
+    if self_mask:
+        rows = torch.arange(l_q, device=q.device)[:, None] + q_offset
+        ds = ds.masked_fill(rows == torch.arange(k.shape[2], device=q.device),
+                            0.0)
+    ds = ds * sm_scale
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf)
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+# -- kernel wrappers -----------------------------------------------------------
+
+
+def _check_inputs(name, q, k, v, kv_mask):
+    """Raise on what the kernels do not take; returns the contiguous
+    tensors and the mask as bytes."""
+    b, h, l_q, dh = q.shape
+    l_k = k.shape[2]
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {q.device}")
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"{name}: dtype {q.dtype} not in float32/bfloat16")
+    if dh not in _HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {dh} not in {_HEAD_DIMS}")
+    for tname, t in (("k", k), ("v", v)):
+        if t.shape != (b, h, l_k, dh) or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"{name}: {tname} is {tuple(t.shape)} {t.dtype} on "
+                             f"{t.device}, want {(b, h, l_k, dh)} {q.dtype} on "
+                             f"{q.device}")
+    if kv_mask is not None:
+        if kv_mask.shape != (b, l_k) or kv_mask.device != q.device:
+            raise ValueError(f"{name}: kv_mask is {tuple(kv_mask.shape)} on "
+                             f"{kv_mask.device}, want {(b, l_k)} on {q.device}")
+        kv_mask = kv_mask.to(torch.bool).contiguous()
+    return q.contiguous(), k.contiguous(), v.contiguous(), kv_mask
+
+
+def _scalars(q, k, causal, self_mask, sm_scale, q_offset, rate, seed):
+    """The C entry points' trailing arguments, dtype through stream."""
+    b, h, l_q, dh = q.shape
+    thr = _drop_threshold(rate)
+    return (_DTYPES[q.dtype], b * h, h, l_q, k.shape[2], dh, float(sm_scale),
+            int(bool(causal)), int(bool(self_mask)), int(q_offset),
+            int(seed) & _M32 if thr else 0, thr,
+            1.0 / (1.0 - rate) if thr else 1.0,
+            torch.cuda.current_stream(q.device).cuda_stream)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def flash_fwd(q, k, v, kv_mask, causal, self_mask, sm_scale, q_offset,
+              dropout_rate, dropout_seed):
+    """Launch K1 -> (out, lse (B*H, Lq) f32); counts in ``flash_attend.launches``."""
+    q, k, v, kv_mask = _check_inputs("flash_attend", q, k, v, kv_mask)
+    b, h, l_q, _ = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty((b * h, l_q), device=q.device, dtype=torch.float32)
+    err = _build.library().rtts_flash_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(kv_mask),
+        out.data_ptr(), lse.data_ptr(),
+        *_scalars(q, k, causal, self_mask, sm_scale, q_offset, dropout_rate,
+                  dropout_seed))
+    _build.check(err, "rtts_flash_fwd")
+    flash_attend.launches += 1
+    return out, lse
+
+
+def flash_bwd_dkv(q, k, v, out, dout, lse, kv_mask, causal, self_mask,
+                  sm_scale, q_offset, dropout_rate, dropout_seed):
+    """Launch K3's dK/dV kernel -> (dk, dv); counts in ``flash_bwd_dkv.launches``."""
+    q, k, v, kv_mask = _check_inputs("flash_bwd_dkv", q, k, v, kv_mask)
+    out, dout = out.contiguous(), dout.to(q.dtype).contiguous()
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    err = _build.library().rtts_flash_bwd_dkv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        dout.data_ptr(), lse.contiguous().data_ptr(), _ptr(kv_mask),
+        dk.data_ptr(), dv.data_ptr(),
+        *_scalars(q, k, causal, self_mask, sm_scale, q_offset, dropout_rate,
+                  dropout_seed))
+    _build.check(err, "rtts_flash_bwd_dkv")
+    flash_bwd_dkv.launches += 1
+    return dk, dv
+
+
+def flash_bwd_dq(q, k, v, out, dout, lse, kv_mask, causal, self_mask,
+                 sm_scale, q_offset, dropout_rate, dropout_seed):
+    """Launch K3's dQ kernel -> dq; counts in ``flash_bwd_dq.launches``."""
+    q, k, v, kv_mask = _check_inputs("flash_bwd_dq", q, k, v, kv_mask)
+    out, dout = out.contiguous(), dout.to(q.dtype).contiguous()
+    dq = torch.empty_like(q)
+    err = _build.library().rtts_flash_bwd_dq(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        dout.data_ptr(), lse.contiguous().data_ptr(), _ptr(kv_mask),
+        dq.data_ptr(),
+        *_scalars(q, k, causal, self_mask, sm_scale, q_offset, dropout_rate,
+                  dropout_seed))
+    _build.check(err, "rtts_flash_bwd_dq")
+    flash_bwd_dq.launches += 1
+    return dq
+
+
+flash_bwd_dkv.launches = 0
+flash_bwd_dq.launches = 0
+
+
+class _FlashAttention(torch.autograd.Function):
+    """K1 forward and K3 backward (the JAX ``_flash`` custom_vjp).  The
+    backward recomputes the probabilities from (q, k, lse) and the seed."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_mask, causal, self_mask, sm_scale, q_offset,
+                rate, seed):
+        opts = (causal, self_mask, sm_scale, q_offset, rate, seed)
+        if q.device.type == "cpu":
+            out, lse = flash_attend_reference(
+                q, k, v, kv_mask, causal=causal, self_mask=self_mask,
+                sm_scale=sm_scale, q_offset=q_offset, dropout_rate=rate,
+                dropout_seed=seed, return_lse=True)
+        else:
+            out, lse = flash_fwd(q, k, v, kv_mask, *opts)
+        ctx.save_for_backward(q, k, v, out, lse, kv_mask)
+        ctx.opts = opts
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
+        q, k, v, out, lse, kv_mask = ctx.saved_tensors
+        causal, self_mask, sm_scale, q_offset, rate, seed = ctx.opts
+        if q.device.type == "cpu":
+            dq, dk, dv = flash_attend_bwd_reference(
+                q, k, v, out, dout, lse, kv_mask, causal=causal,
+                self_mask=self_mask, sm_scale=sm_scale, q_offset=q_offset,
+                dropout_rate=rate, dropout_seed=seed)
+        else:
+            args = (q, k, v, out, dout, lse, kv_mask, *ctx.opts)
+            dk, dv = flash_bwd_dkv(*args)
+            dq = flash_bwd_dq(*args)
+        return dq, dk, dv, None, None, None, None, None, None, None
 
 
 def flash_attend(
@@ -82,55 +331,25 @@ def flash_attend(
     sm_scale: float = 1.0,
     q_offset: int = 0,
     dropout_rate: float = 0.0,
+    dropout_seed: Optional[int] = None,
     return_lse: bool = False,
 ):
-    """Masked softmax attention without an L x L tensor in device memory.
+    """Masked softmax attention without an L x L tensor in device memory,
+    differentiable in q, k and v.
 
-    On a CUDA tensor this launches K1 (and counts the launch in
-    ``flash_attend.launches``) or raises; on a CPU tensor it runs
-    ``flash_attend_reference``.  ``return_lse`` also returns the per-row
-    logsumexp as (B*H, Lq) f32, the statistic the backward will need.
+    On CUDA tensors the forward launches K1 (counted in
+    ``flash_attend.launches``) and the backward K3 (``flash_bwd_dkv`` and
+    ``flash_bwd_dq``), or they raise; on CPU tensors both run the plain
+    versions.  ``dropout_rate`` > 0 needs a ``dropout_seed`` (uint32).
+    ``return_lse`` also returns the per-row logsumexp as (B*H, Lq) f32.
     """
-    if dropout_rate > 0.0:
-        raise NotImplementedError(
-            "flash_attend: attention dropout arrives with the backward kernel")
-    if q.device.type == "cpu":
-        return flash_attend_reference(
-            q, k, v, kv_mask, causal=causal, self_mask=self_mask,
-            sm_scale=sm_scale, q_offset=q_offset, return_lse=return_lse)
-    b, h, l_q, dh = q.shape
-    l_k = k.shape[2]
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attend: unsupported device {q.device}")
-    if q.dtype not in _DTYPES:
-        raise TypeError(f"flash_attend: dtype {q.dtype} not in float32/bfloat16")
-    if dh not in _HEAD_DIMS:
-        raise ValueError(f"flash_attend: head dim {dh} not in {_HEAD_DIMS}")
-    for name, t in (("k", k), ("v", v)):
-        if t.shape != (b, h, l_k, dh) or t.dtype != q.dtype or t.device != q.device:
-            raise ValueError(f"flash_attend: {name} is {tuple(t.shape)} "
-                             f"{t.dtype} on {t.device}, want "
-                             f"{(b, h, l_k, dh)} {q.dtype} on {q.device}")
-    q3, k3, v3 = (t.contiguous() for t in (q, k, v))
-    if kv_mask is not None:
-        if kv_mask.shape != (b, l_k) or kv_mask.device != q.device:
-            raise ValueError(f"flash_attend: kv_mask is {tuple(kv_mask.shape)} "
-                             f"on {kv_mask.device}, want {(b, l_k)} on "
-                             f"{q.device}")
-        kv_mask = kv_mask.to(torch.bool).contiguous()
-    out = torch.empty_like(q3)
-    lse = (torch.empty((b * h, l_q), device=q.device, dtype=torch.float32)
-           if return_lse else None)
-    lib = _build.library()
-    err = lib.rtts_flash_fwd(
-        q3.data_ptr(), k3.data_ptr(), v3.data_ptr(),
-        kv_mask.data_ptr() if kv_mask is not None else None,
-        out.data_ptr(), lse.data_ptr() if lse is not None else None,
-        _DTYPES[q.dtype], b * h, h, l_q, l_k, dh, float(sm_scale),
-        int(bool(causal)), int(bool(self_mask)), int(q_offset),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(err, "rtts_flash_fwd")
-    flash_attend.launches += 1
+    thr = _drop_threshold(dropout_rate)
+    if thr and dropout_seed is None:
+        raise ValueError("flash_attend: dropout_rate > 0 needs dropout_seed")
+    seed = int(dropout_seed) & _M32 if thr else 0
+    out, lse = _FlashAttention.apply(q, k, v, kv_mask, bool(causal),
+                                     bool(self_mask), float(sm_scale),
+                                     int(q_offset), float(dropout_rate), seed)
     return (out, lse) if return_lse else out
 
 

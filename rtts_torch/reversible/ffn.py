@@ -1,9 +1,11 @@
 """Pre-LN feed-forward sublayer.
 
 Port of ``rtts/reversible/ffn.py``: LN -> dense(d -> d_ff) -> activation ->
-dense(d_ff -> d), unchunked.  Sequence chunking only trades speed for
-training memory, so inference runs the plain body (the chunked remat comes
-with the reversible training path).
+dense(d_ff -> d), unchunked, for serving and for training with plain
+residuals (autograd keeps the hidden activations).  Sequence chunking only
+trades speed for training memory; the chunked remat and its fused kernel
+(K6) come with the reversible training path, and until then
+``rtts_torch.models.stack`` refuses a train step that resolves to either.
 """
 
 from __future__ import annotations

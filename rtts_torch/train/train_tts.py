@@ -1,0 +1,249 @@
+"""TTS training: port of ``rtts/train/train_tts.py`` on one device.
+
+The step is the reference's: teacher-forced forward with dropout on,
+masked mel and stop losses plus the guided-attention term (linearly
+annealed), gradients by autograd (through K1 and K3 on the card), the
+unclipped gradients' global norm as ``grad_norm``, then global-norm clip,
+Adam and the learning-rate schedule with optax's semantics
+(``rtts_torch/train/optim.py``).  Parameters and optimizer state are updated
+in place.
+
+``train_tts`` runs the reference's loop: ``EpochBatcher``'s step -> batch
+map and a dropout generator seeded from (seed, step), so a resumed run
+replays the batches and dropout of an uninterrupted one; logging, eval
+(losses, MCD, stop-length error), periodic and final checkpoints, resume,
+and a graceful stop on SIGTERM/SIGINT.  Not ported, each refused or
+skipped with a message: a mesh of more than one device, the eval artifacts
+(Griffin-Lim audio, alignment and spectrogram images, alignment scalars),
+TensorBoard and hosted trackers, ``debug_nans``, gradient accumulation.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import pathlib
+import time
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from rtts_torch.config import Config, save_config
+from rtts_torch.data import (EpochBatcher, Manifest, TextMelDataset,
+                             split_manifest, to_device)
+from rtts_torch.models import reformer_tts as M
+from rtts_torch.text import frontend_vocab_size
+from rtts_torch.train.checkpoint import (AsyncCheckpointer, latest_checkpoint,
+                                         restore_checkpoint, save_checkpoint)
+from rtts_torch.train.interrupt import GracefulStop
+from rtts_torch.train.losses import (guided_attention_loss, make_stop_target,
+                                     tts_loss)
+from rtts_torch.train.optim import global_norm, lr_at_step, make_optimizer
+from rtts_torch.train.quality import mel_cepstral_distortion, stop_length_mae
+from rtts_torch.utils.metrics import make_logger
+
+
+def step_generator(seed: int, step: int, device) -> torch.Generator:
+    """The dropout generator of train step ``step``: a function of (seed,
+    step) only, so a resumed run draws what an uninterrupted one did."""
+    state = np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)
+    return torch.Generator(device=device).manual_seed(int(state[0]))
+
+
+def _guided_weight(weight: float, decay_steps: int, step: int) -> np.float32:
+    """The guided-attention weight at ``step``, in f32 as the reference."""
+    w = np.float32(weight)
+    if decay_steps > 0:
+        w = w * np.clip(np.float32(1.0) - np.float32(step) / np.float32(
+            decay_steps), np.float32(0.0), np.float32(1.0))
+    return np.float32(w)
+
+
+def make_train_step(model_cfg, optimizer):
+    """-> train_step(model, opt_state, batch, generator, step=0,
+    return_grads=False) -> metrics (0-dim tensors) [, grads].
+
+    ``batch`` holds tensors on the model's device (``rtts_torch.data.
+    to_device``); ``generator`` (on that device) draws the dropout."""
+    gal_w = model_cfg.guided_attention_weight
+    gal_decay = model_cfg.guided_attention_decay_steps
+
+    def train_step(model, opt_state, batch, generator, step=0,
+                   return_grads=False):
+        params = list(model.parameters())
+        sink = [] if gal_w > 0.0 else None
+        pre, post, stop = M.forward(
+            model, model_cfg, batch["tokens"], batch["token_mask"],
+            batch["mel"], batch["mel_mask"], generator=generator,
+            attn_sink=sink)
+        total, metrics = tts_loss(pre, post, stop, batch["mel"],
+                                  make_stop_target(batch["mel_mask"]),
+                                  batch["mel_mask"], model_cfg.stop_pos_weight)
+        if sink is not None:
+            gal = guided_attention_loss(
+                sink, batch["token_mask"], batch["mel_mask"],
+                model_cfg.reduction_factor, model_cfg.guided_attention_sigma)
+            total = total + float(_guided_weight(gal_w, gal_decay, step)) * gal
+            metrics = dict(metrics, loss=total, loss_guided_attn=gal)
+        # the last postnet layer's LN is never read (as in the reference,
+        # whose gradient there is zero): materialize zeros for it
+        grads = torch.autograd.grad(total, params, materialize_grads=True)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics["grad_norm"] = global_norm(grads)
+        optimizer.step(params, grads, opt_state)
+        return (metrics, grads) if return_grads else metrics
+
+    return train_step
+
+
+def make_eval_step(model_cfg):
+    """-> eval_step(model, batch) -> (metrics, mel_post): deterministic
+    forward, the loss terms, MCD and the stop-length error."""
+
+    @torch.no_grad()
+    def eval_step(model, batch):
+        pre, post, stop = M.forward(
+            model, model_cfg, batch["tokens"], batch["token_mask"],
+            batch["mel"], batch["mel_mask"])
+        _, metrics = tts_loss(pre, post, stop, batch["mel"],
+                              make_stop_target(batch["mel_mask"]),
+                              batch["mel_mask"], model_cfg.stop_pos_weight)
+        metrics["mcd"] = mel_cepstral_distortion(post, batch["mel"],
+                                                 batch["mel_mask"])
+        metrics["stop_len_mae"] = stop_length_mae(
+            stop, batch["mel_mask"], model_cfg.stop_threshold)
+        return metrics, post
+
+    return eval_step
+
+
+def _check_supported(cfg: Config) -> None:
+    exp = cfg.experiment
+    mesh = exp.mesh
+    if (mesh.data_parallel not in (-1, 1) or mesh.model_parallel != 1
+            or mesh.dcn_parallel != 1 or mesh.num_processes != 1):
+        raise NotImplementedError(
+            "rtts_torch: training on a mesh of more than one device is not "
+            "ported yet (data_parallel, model_parallel, dcn_parallel and "
+            "num_processes must be 1)")
+    if exp.debug_nans:
+        raise NotImplementedError("rtts_torch: debug_nans is not ported")
+
+
+def train_tts(cfg: Config, workdir: str, max_steps: Optional[int] = None,
+              manifest_path: Optional[str] = None, stop: Optional[Any] = None,
+              device="cuda") -> Dict[str, Any]:
+    """Run TTS training on ``device``; returns the last logged train
+    metrics.  Resumable from ``workdir``'s checkpoints.
+
+    ``stop``: an object with a ``stop_requested`` property, polled at every
+    step boundary; when None a :class:`GracefulStop` turns SIGTERM/SIGINT
+    into a checkpoint-and-return."""
+    _check_supported(cfg)
+    exp = cfg.experiment
+    work = pathlib.Path(workdir)
+    work.mkdir(parents=True, exist_ok=True)
+    logger = make_logger(str(work / exp.logging.jsonl_path),
+                         exp.logging.tensorboard_dir, exp.logging.tracker)
+    stop_ctx = GracefulStop() if stop is None else contextlib.nullcontext(stop)
+    with stop_ctx as stopper:
+        max_steps = max_steps if max_steps is not None else exp.max_steps
+        save_config(cfg, work / "config.yaml")
+        print("rtts_torch: eval artifacts (spectrogram and alignment images, "
+              "Griffin-Lim audio, alignment scalars) are not ported; skipped")
+
+        man = Manifest.load(manifest_path or pathlib.Path(cfg.dataset.data_dir)
+                            / cfg.dataset.manifest)
+        train_man, val_man = split_manifest(man, cfg.dataset.val_fraction,
+                                            cfg.dataset.split_seed)
+        train_ds = TextMelDataset(train_man, cfg.dataset)
+        val_ds = TextMelDataset(val_man, cfg.dataset)
+        batcher = EpochBatcher(train_ds, cfg.dataset.batch_size,
+                               seed=cfg.dataset.shuffle_seed,
+                               drop_last=len(train_ds) > cfg.dataset.batch_size)
+
+        model_cfg = cfg.model
+        if model_cfg.vocab_size <= 0:
+            model_cfg = dataclasses.replace(
+                model_cfg,
+                vocab_size=frontend_vocab_size(cfg.dataset.text.level))
+        model = M.init(model_cfg, torch.Generator().manual_seed(exp.seed),
+                       device)
+        optimizer = make_optimizer(exp.optim)
+        opt_state = optimizer.init(list(model.parameters()))
+        step0 = 0
+        ckpt_dir = work / exp.checkpoint.directory
+        if exp.checkpoint.resume:
+            latest = latest_checkpoint(ckpt_dir)
+            if latest:
+                step0 = restore_checkpoint(latest, model, opt_state)
+                print(f"resumed from {latest} at step {step0}")
+
+        train_step = make_train_step(model_cfg, optimizer)
+        eval_step = make_eval_step(model_cfg)
+        saver = AsyncCheckpointer() if exp.checkpoint.async_save else None
+
+        def _save(step, metric):
+            if saver is not None:
+                saver.save(ckpt_dir, model, opt_state, step, metric=metric,
+                           keep=exp.checkpoint.keep)
+            else:
+                save_checkpoint(ckpt_dir, model, opt_state, step,
+                                metric=metric, keep=exp.checkpoint.keep)
+
+        last_metrics: Dict[str, Any] = {}
+        t_last = time.time()
+        for step in range(step0, max_steps):
+            batch = to_device(batcher.batch_at(step), device)
+            metrics = train_step(model, opt_state, batch,
+                                 step_generator(exp.seed, step, device), step)
+
+            if (step + 1) % exp.logging.log_every_steps == 0 or step == step0:
+                metrics = {k: float(v) for k, v in metrics.items()}
+                now = time.time()
+                metrics["steps_per_sec"] = (
+                    exp.logging.log_every_steps / max(now - t_last, 1e-6))
+                metrics["lr"] = lr_at_step(exp.optim, step)
+                t_last = now
+                logger.log(step + 1, metrics, prefix="train/")
+                last_metrics = metrics
+
+            saved = False
+            if ((step + 1) % exp.logging.eval_every_steps == 0
+                    or step + 1 == max_steps):
+                val_metrics = _run_eval(cfg, eval_step, model, val_ds, device)
+                logger.log(step + 1, val_metrics, prefix="val/")
+                _save(step + 1, metric=float(val_metrics.get("loss", 0.0)))
+                saved = True
+            elif (step + 1) % exp.checkpoint.save_every_steps == 0:
+                _save(step + 1, metric=None)
+                saved = True
+
+            if getattr(stopper, "stop_requested", False):
+                if not saved:
+                    _save(step + 1, metric=None)
+                last_metrics["interrupted_at_step"] = step + 1
+                print(f"stop requested: checkpointed step {step + 1}, "
+                      "exiting cleanly (resume to continue)")
+                break
+        if saver is not None:
+            saver.wait()   # flush before anyone reads the directory back
+        logger.close()
+    return last_metrics
+
+
+def _run_eval(cfg: Config, eval_step, model, val_ds, device
+              ) -> Dict[str, float]:
+    """Mean eval metrics over the first ``eval_batches`` val batches."""
+    agg: Dict[str, float] = {}
+    n = 0
+    for i, batch in enumerate(val_ds.batches(cfg.dataset.batch_size,
+                                             shuffle=False)):
+        if i >= cfg.experiment.eval_batches:
+            break
+        metrics, _ = eval_step(model, to_device(batch, device))
+        for k, v in metrics.items():
+            agg[k] = agg.get(k, 0.0) + float(v)
+        n += 1
+    return {k: v / max(n, 1) for k, v in agg.items()}

@@ -10,15 +10,21 @@ import torch
 
 from rtts_torch.ops.depthwise_conv import (depthwise_conv1d,
                                            depthwise_conv1d_reference)
-from rtts_torch.ops.flash_attention import (flash_attend,
-                                            flash_attend_reference)
+from rtts_torch.ops.flash_attention import (dropout_keep_mask, flash_attend,
+                                            flash_attend_bwd_reference,
+                                            flash_attend_reference,
+                                            flash_bwd_dkv, flash_bwd_dq,
+                                            flash_fwd)
 
 pytestmark = pytest.mark.cuda
 
 # Errors are |kernel - reference| / max(1, |reference|).  f32: the kernel
 # sums in another order than the reference (and expf vs torch.exp differ in
 # the last ulps); bf16: both round nearly the same f32 value, so they differ
-# by at most one bf16 ulp (2^-7 relative).
+# by at most one bf16 ulp (2^-7 relative).  The training cases hold the bf16
+# kernels against the plain versions run in f32 on the same bf16 inputs:
+# the kernels accumulate in f32 too, so the error is the final bf16 rounding
+# (at most half an ulp, 2^-8 relative) plus f32 summation order.
 TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 
 
@@ -75,6 +81,95 @@ def test_flash_kernel_matches_reference(dev, dtype, case):
     assert got.dtype == dtype and got.shape == want.shape
     err = _err(got, want)
     assert err < TOL[dtype], err
+
+
+ENCODER_LENS = (256, 200, 131, 77, 256, 1, 64, 250)
+TRAIN_CASES = {
+    # name: (b, h, lq, lk, dh, causal, self_mask, kv_lengths, sm_scale,
+    #        q_offset); self-attention cases use the shared-QK keys
+    "encoder": (8, 8, 256, 256, 64, False, True, ENCODER_LENS, 1.0, 0),
+    "decoder": (8, 8, 1024, 1024, 64, True, True, None, 1.0, 0),
+    "cross": (8, 8, 1024, 256, 64, False, False, ENCODER_LENS, 0.125, 0),
+    "q_offset": (2, 4, 100, 256, 64, True, True, (256, 180), 1.0, 128),
+    "dh128_ragged": (2, 2, 77, 77, 128, False, True, (77, 50), 1.0, 0),
+}
+
+
+def train_case(name, dtype, dev, seed=0):
+    """(q, k, v, dout, kv_mask) and the flash options of a training case."""
+    b, h, lq, lk, dh, causal, self_mask, lens, scale, q_offset = \
+        TRAIN_CASES[name]
+    g = torch.Generator().manual_seed(seed)
+    q, k, v, dout = (torch.randn(b, h, n, dh, generator=g)
+                     for n in (lq, lk, lk, lq))
+    if self_mask and lq == lk:
+        k = q * torch.rsqrt((q * q).mean(-1, keepdim=True) + 1e-6) * dh ** -0.5
+    mask = None
+    if lens is not None:
+        mask = (torch.arange(lk)[None, :] < torch.tensor(lens)[:, None]).to(dev)
+    opts = dict(causal=causal, self_mask=self_mask, sm_scale=scale,
+                q_offset=q_offset)
+    return [t.to(dev, dtype) for t in (q, k, v, dout)] + [mask], opts
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("name", sorted(TRAIN_CASES))
+def test_flash_train_kernels_match_reference(dev, name, dtype, rate):
+    """K1 with dropout and lse, then K3 (dK/dV and dQ), against the plain
+    forward and backward run in f32 on the same inputs."""
+    (q, k, v, dout, mask), opts = train_case(name, dtype, dev)
+    drop = dict(dropout_rate=rate, dropout_seed=0x9E3779B9)
+    args = (opts["causal"], opts["self_mask"], opts["sm_scale"],
+            opts["q_offset"], rate, drop["dropout_seed"])
+    out, lse = flash_fwd(q, k, v, mask, *args)
+    dk, dv = flash_bwd_dkv(q, k, v, out, dout, lse, mask, *args)
+    dq = flash_bwd_dq(q, k, v, out, dout, lse, mask, *args)
+    torch.cuda.synchronize()
+    f = [t.float() for t in (q, k, v)]
+    want, want_lse = flash_attend_reference(*f, mask, return_lse=True,
+                                            **opts, **drop)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-6, atol=1e-4)
+    assert _err(out, want) < TOL[dtype], _err(out, want)
+    wants = flash_attend_bwd_reference(*f, out.float(), dout.float(), lse,
+                                       mask, **opts, **drop)
+    for got_t, want_t, what in zip((dq, dk, dv), wants, ("dq", "dk", "dv")):
+        assert got_t.dtype == dtype and got_t.shape == want_t.shape
+        err = _err(got_t, want_t)
+        assert err < TOL[dtype], (what, err)
+
+
+def test_flash_autograd_launches_k1_and_k3(dev):
+    (q, k, v, dout, mask), opts = train_case("encoder", torch.bfloat16, dev)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    before = (flash_attend.launches, flash_bwd_dkv.launches,
+              flash_bwd_dq.launches)
+    out = flash_attend(q, k, v, mask, dropout_rate=0.1, dropout_seed=5,
+                       **opts)
+    out.backward(dout)
+    torch.cuda.synchronize()
+    after = (flash_attend.launches, flash_bwd_dkv.launches,
+             flash_bwd_dq.launches)
+    assert [a - b for a, b in zip(after, before)] == [1, 1, 1]
+    assert all(torch.isfinite(t.grad).all() for t in (q, k, v))
+
+
+@pytest.mark.parametrize("q_offset", [0, 37])
+def test_kernel_keep_masks_equal_dropout_keep_mask(dev, q_offset):
+    """With q = k = 0 every probability is 1/L, so K1 with v = I returns
+    keep / (L keep_prob) and K3's dV with dO = I returns its transpose:
+    both give the kernels' keep bits, held against the dense mask."""
+    b, h, l, rate, seed = 2, 3, 128, 0.1, 0xDEADBEEF
+    zeros = torch.zeros(b, h, l, l, device=dev)
+    eye = torch.eye(l, device=dev).expand(b, h, l, l).contiguous()
+    args = (False, False, 1.0, q_offset, rate, seed)
+    out, lse = flash_fwd(zeros, zeros, eye, None, *args)
+    _, dv = flash_bwd_dkv(zeros, zeros, eye, out, eye, lse, None, *args)
+    torch.cuda.synchronize()
+    want = dropout_keep_mask(seed, b * h, l, l, rate, q_offset,
+                             dev).reshape(b, h, l, l)
+    assert torch.equal((out > 0).float(), want)
+    assert torch.equal((dv.transpose(-1, -2) > 0).float(), want)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

@@ -1,10 +1,12 @@
 """Guards around the rtts_torch port.
 
-(a) The port never imports JAX: a subprocess that makes ``import jax`` fail
-    imports ``rtts_torch`` and synthesizes speech with a tiny model; and by
-    their import statements, ``chip_smoke.py`` imports nothing of JAX or of
-    the JAX package ``rtts``, and the port reaches ``rtts`` only through
-    ``rtts_torch.config`` and ``rtts_torch.text``.
+(a) The port never imports JAX: subprocesses that make ``import jax`` fail
+    import ``rtts_torch`` and synthesize speech, and take train steps, with
+    a tiny model; and by their import statements, ``chip_smoke.py`` imports
+    nothing of JAX or of the JAX package ``rtts``, and the port reaches
+    ``rtts`` only through one port module per shared module:
+    ``rtts_torch.config``, ``rtts_torch.text``, ``rtts_torch.data``
+    (``rtts.data.dataset``) and ``rtts_torch.utils.metrics``.
 (b) ``chip_smoke.py``'s base config (a dict, so the card's machine needs no
     PyYAML) equals ``configs/base.yaml``.
 (c) The decoder prenet's always-on dropout zeroes about ``rate`` of the
@@ -57,11 +59,61 @@ print("OK", [len(w) for w in wavs])
 """
 
 
-def test_port_runs_without_jax():
-    proc = subprocess.run([sys.executable, "-c", NO_JAX_SLICE], cwd=ROOT,
+NO_JAX_TRAIN = r"""
+import sys
+sys.modules["jax"] = None          # any `import jax` now raises ImportError
+import torch
+from rtts_torch.config import Config, from_dict
+from rtts_torch.models import reformer_tts as M
+from rtts_torch.text import frontend_vocab_size
+from rtts_torch.train.optim import make_optimizer
+from rtts_torch.train.train_tts import make_train_step, step_generator
+
+att = {"kind": "auto", "num_heads": 2, "head_dim": 16,
+       "attention_dropout": 0.1}
+stack = {"num_layers": 1, "d_model": 32, "d_ff": 64, "attention": att,
+         "dropout": 0.1, "reversible": "auto", "ffn_chunk_size": "auto"}
+cfg = from_dict(Config, {
+    "model": {"vocab_size": frontend_vocab_size(), "d_model": 32,
+              "n_mels": 20, "encoder": dict(stack, causal=False),
+              "decoder": dict(stack, causal=True), "dec_prenet_hidden": 16,
+              "postnet_channels": 16, "max_pos": 512,
+              "reduction_factor": 2, "compute_dtype": "bfloat16"},
+    "experiment": {"optim": {"warmup_steps": 1}}})
+model = M.init(cfg.model, torch.Generator().manual_seed(0))
+opt = make_optimizer(cfg.experiment.optim)
+state = opt.init(list(model.parameters()))
+step = make_train_step(cfg.model, opt)
+g = torch.Generator().manual_seed(1)
+batch = {"tokens": torch.randint(3, 40, (2, 11), generator=g),
+         "token_mask": torch.arange(11)[None] < torch.tensor([[11], [7]]),
+         "mel": torch.randn(2, 19, 20, generator=g),
+         "mel_mask": torch.arange(19)[None] < torch.tensor([[19], [12]])}
+before = [p.detach().clone() for p in model.parameters()]
+losses = [float(step(model, state, batch, step_generator(0, s, "cpu"), s)
+                ["loss"]) for s in range(2)]
+assert all(l == l and abs(l) < 1e6 for l in losses), losses
+assert state["count"] == 2
+assert any(not torch.equal(a, b) for a, b in zip(before, model.parameters()))
+assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules
+               if sys.modules[m] is not None)
+print("OK", losses)
+"""
+
+
+def _run_without_jax(script):
+    proc = subprocess.run([sys.executable, "-c", script], cwd=ROOT,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.startswith("OK")
+
+
+def test_port_runs_without_jax():
+    _run_without_jax(NO_JAX_SLICE)
+
+
+def test_port_trains_without_jax():
+    _run_without_jax(NO_JAX_TRAIN)
 
 
 def _imported_modules(path: pathlib.Path) -> set:
@@ -81,12 +133,15 @@ def _roots(names) -> set:
 
 def test_chip_smoke_imports_only_the_port():
     names = _imported_modules(ROOT / "chip_smoke.py")
-    assert "rtts_torch.infer.synthesize" in names
+    assert {"rtts_torch.infer.synthesize",
+            "rtts_torch.train.train_tts"} <= names
     assert not _roots(names) & {"jax", "jaxlib", "rtts"}, sorted(names)
 
 
 def test_port_reaches_the_jax_package_only_through_config_and_text():
-    shared = {"config.py": {"rtts.config"}, "text.py": {"rtts.text"}}
+    shared = {"config.py": {"rtts.config"}, "text.py": {"rtts.text"},
+              "data.py": {"rtts.data.dataset"},
+              "utils/metrics.py": {"rtts.utils.metrics"}}
     files = sorted((ROOT / "rtts_torch").rglob("*.py"))
     assert len(files) > 20
     for path in files:

@@ -99,7 +99,7 @@ def test_wrappers_run_the_plain_version_on_cpu_without_counting():
     assert torch.equal(depthwise_conv1d(x, w, b),
                        depthwise_conv1d_reference(x, w, b))
     assert depthwise_conv1d.launches == before
-    with pytest.raises(NotImplementedError, match="dropout"):
+    with pytest.raises(ValueError, match="dropout_seed"):
         flash_attend(q, k, v, dropout_rate=0.1)
 
 

@@ -176,7 +176,8 @@ def test_encode(model, data):
     cfg, jp, tm = model
     want = JM.encode(jp, cfg, jnp.asarray(data["tokens"]),
                      jnp.asarray(data["mask"]))
-    got = TM.encode(tm, cfg, tt(data["tokens"]).long(), tt(data["mask"]))
+    with torch.no_grad():   # encode is differentiable; serving runs it so
+        got = TM.encode(tm, cfg, tt(data["tokens"]).long(), tt(data["mask"]))
     assert got.shape == want.shape
     close(got, want, STACK_TOL)
 

@@ -51,8 +51,9 @@ def setup():
     tokens = rng.integers(3, cfg.vocab_size, (b, l)).astype(np.int32)
     mask = np.arange(l)[None, :] < np.asarray([l, 17, 9])[:, None]
     memory = JM.encode(jp, cfg, jnp.asarray(tokens), jnp.asarray(mask))
-    tmem = TM.encode(tm, cfg, torch.from_numpy(tokens).long(),
-                     torch.from_numpy(mask))
+    with torch.no_grad():   # encode is differentiable; serving runs it so
+        tmem = TM.encode(tm, cfg, torch.from_numpy(tokens).long(),
+                         torch.from_numpy(mask))
     return cfg, jp, tm, tokens, mask, memory, tmem
 
 
@@ -126,8 +127,9 @@ def test_checkpoint_bridge_matches_live_tree(setup, tmp_path):
                                       loaded.state_dict().items()):
         assert name == name_b and torch.equal(a, b), name
     tok, msk = torch.from_numpy(tokens).long(), torch.from_numpy(mask)
-    mem_a = TM.encode(tm, cfg, tok, msk)
-    mem_b = TM.encode(loaded, cfg, tok, msk)
+    with torch.no_grad():
+        mem_a = TM.encode(tm, cfg, tok, msk)
+        mem_b = TM.encode(loaded, cfg, tok, msk)
     assert torch.equal(mem_a, mem_b)
     res_a = decode_greedy(tm, cfg, mem_a, msk, max_frames=8,
                           stop_threshold=2.0)
