@@ -3,13 +3,14 @@
 
     python3 chip_smoke.py
 
-Drives the port's two paths at the full width of ``configs/base.yaml``
-with random weights made from fixed seeds: serving
+Drives the port's paths at full width with random weights made from fixed
+seeds: serving at ``configs/base.yaml``
 (``rtts_torch.infer.synthesize.Synthesizer``: text -> encoder -> kv_full
-greedy decode -> postnet -> SqueezeWave inverse) and TTS training
-(``rtts_torch.train.train_tts.make_train_step``: teacher-forced forward with
-dropout, loss with guided attention, backward, clip, Adam, Noam), phase by
-phase; every phase raises on failure:
+greedy decode -> postnet -> SqueezeWave inverse), TTS training at
+``configs/base.yaml`` (``rtts_torch.train.train_tts.make_train_step``:
+teacher-forced forward with dropout, loss with guided attention, backward,
+clip, Adam, Noam) and TTS training with LSH attention at
+``configs/longform_8k.yaml``, phase by phase; every phase raises on failure:
 
 1. device: the card's name and power limit;
 2. build: nvcc builds the CUDA kernels from ``rtts_torch/csrc``;
@@ -25,7 +26,8 @@ phase; every phase raises on failure:
    the device's busy and idle share, the kernels per decode step and the
    ops that take the device time;
 7. kernels-train: K1 with dropout and its lse, and K3 (the dK/dV and dQ
-   kernels), against their plain versions at the training shapes, in bf16
+   kernels), against their plain versions at the training shapes (base.yaml's
+   and the longform decoder's cross-attention, 8192 x 1024), in bf16
    and f32, at dropout 0 and 0.1; the kernels' keep masks against
    ``dropout_keep_mask`` bit for bit;
 8. train slice: three train steps at base.yaml (batch 8, ragged lengths up
@@ -37,12 +39,29 @@ phase; every phase raises on failure:
    batch: loss, every gradient and the parameters after the update;
 10. train timing: the step at batch 8 x 1024 frames (best of 3), a
    ``torch.profiler`` view of one step, and K1 (with lse) and K3 against
-   their plain versions at the decoder and encoder shapes.
+   their plain versions at the decoder and encoder shapes;
+11. kernels-lsh: K4 (LSH chunk-attend) and K5 (its backward) against their
+   plain versions at four longform shapes (the decoder's b2 h8 4 hashes
+   L8192, the encoder's L1024, a ragged one, one whose chunk count is not a
+   multiple of 8), bf16 and f32; K5 twice, bit-equal;
+12. LSH train slice: three longform_8k.yaml steps at full width (batch 2,
+   ragged up to 1024 tokens and 8192 frames, bf16): finite loss, grad norm
+   and gradients; per step 12 launches of K4 and K5 and 6 of K1 and each
+   K3 kernel;
+13. LSH train card-vs-CPU: one float32 step at 2 + 2 layers from the same
+   weights, batch and rotations: the share of equal buckets, then loss,
+   every gradient and the parameters after the update;
+14. LSH train timing: the step at batch 2 x 8192 frames (best of 3), a
+   ``torch.profiler`` view of one step, K4 and K5 against their plain
+   versions and bounds, the plain attend against K4 + K5, and K1 and K3
+   at the cross-attention's shape against their plain versions and bounds.
 
-Prints a JSON line of per-kernel results and, last, the JSON result line.
+Prints a JSON line of per-kernel results (time, plain time, bound, library
+time where one PyTorch call computes the same function) and, last, the JSON
+result line.
 Exits non-zero, printing no result, without a CUDA GPU.  Imports only the
 port: no JAX and nothing of the JAX package (PyYAML is not needed either:
-the base config is the dict below).
+the configs are the dicts below).
 """
 
 from __future__ import annotations
@@ -55,7 +74,9 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
+from rtts_torch.attention import lsh as TL
 from rtts_torch.config import Config, from_dict
 from rtts_torch.infer.decode import decode_greedy
 from rtts_torch.infer.synthesize import Synthesizer
@@ -69,6 +90,11 @@ from rtts_torch.ops.flash_attention import (dropout_keep_mask, flash_attend,
                                             flash_attend_reference,
                                             flash_bwd_dkv, flash_bwd_dq,
                                             flash_fwd)
+from rtts_torch.ops.lsh_attention import (lsh_attend_bwd,
+                                          lsh_attend_bwd_reference,
+                                          lsh_attend_chunks_kernel,
+                                          lsh_attend_chunks_reference,
+                                          lsh_attend_fwd)
 from rtts_torch.text import encode_batch, frontend_vocab_size
 from rtts_torch.train.optim import make_optimizer
 from rtts_torch.train.train_tts import make_train_step, step_generator
@@ -358,6 +384,42 @@ def _kernel_ms(kernel, plain, n=200):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
+# the least time of a kernel's function on this card: the larger of its
+# bytes (each input read once, each output written once) over the HBM rate
+# and its operations over the peak rate of their type (H100 SXM at 700 W:
+# dense bf16 tensor cores; f32 outside the tensor cores)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
+
+
+def _bound(n_bytes: float, n_ops: float, dtype) -> dict:
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / PEAK_OPS_PER_S[dtype] * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def _flash_bounds(b, h, lq, lk, dh, dtype, causal, masked):
+    """Bounds of K1 (with lse) and of K3's two kernels at one shape.  The
+    score pairs are the causal triangle's where the kernels skip the rest."""
+    es = torch.tensor([], dtype=dtype).element_size()
+    rows_q, rows_k = b * h * lq * dh * es, b * h * lk * dh * es
+    lse, mask = b * h * lq * 4, b * lk if masked else 0
+    pairs = b * h * (lq * (lq + 1) // 2 if causal else lq * lk)
+    product = 2 * pairs * dh
+    return {
+        # q, k, v in; out (and lse) out; S = QK^T and P.V
+        "fwd": _bound(2 * rows_q + 2 * rows_k + mask + lse, 2 * product,
+                      dtype),
+        # q, k, v, out, dO, lse in; dK, dV out; S, dP, dV, dK
+        "dkv": _bound(3 * rows_q + 4 * rows_k + mask + lse, 4 * product,
+                      dtype),
+        # q, k, v, out, dO, lse in; dQ out; S, dP, dQ
+        "dq": _bound(4 * rows_q + 2 * rows_k + mask + lse, 3 * product,
+                     dtype),
+    }
+
+
 def _bench_inputs(cfg: Config, batch: int = 8, n_tok: int = 256):
     """Random token ids, all valid, as ``rtts/bench.py::bench_e2e`` draws."""
     g = torch.Generator().manual_seed(SEED_DATA)
@@ -405,17 +467,35 @@ def phase_timing(syn: Synthesizer):
           f"decode {batch * frames / dec:.0f} frames/s; vocoder RTF "
           f"{voc / audio_s:.5f}")
 
-    qkv, kw = _flash_case(8, 8, 256, 256, torch.bfloat16, ENCODER_LENS)
+    bf = torch.bfloat16
+    qkv, kw = _flash_case(8, 8, 256, 256, bf, ENCODER_LENS)
     flash_ms = _kernel_ms(lambda: flash_attend(*qkv, **kw),
                           lambda: flash_attend_reference(*qkv, **kw))
-    dw = _dw_case((8, 1024, 128), 3, torch.bfloat16)
+    flash_bound = _flash_bounds(8, 8, 256, 256, 64, bf, False, True)["fwd"]
+    dw = _dw_case((8, 1024, 128), 3, bf)
     dw_ms = _kernel_ms(lambda: depthwise_conv1d(*dw),
                        lambda: depthwise_conv1d_reference(*dw))
+    # the library call: one grouped cuDNN convolution on the same values,
+    # in its channels-first layout (the layout change is not timed)
+    x_t = dw[0].transpose(1, 2).contiguous()
+    w_t = dw[1].reshape(3, 128).t().unsqueeze(1).contiguous()
+    conv = lambda: F.conv1d(x_t, w_t, dw[2], padding=1, groups=128)  # noqa: E731
+    _require(_scaled_err(conv().transpose(1, 2), depthwise_conv1d_reference(
+        *dw)) <= KERNEL_TOL[bf], "F.conv1d computes another function than K2")
+    conv_ms = _kernel_ms(conv, conv)[0]
+    dw_bytes = 2 * 8 * 1024 * 128 * 2 + 4 * 128 * 2
+    dw_bound = _bound(dw_bytes, 2 * 3 * 8 * 1024 * 128, torch.float32)
     print(f"[timing] K1 encoder shape b8 h8 L256 dh64 bf16: kernel "
-          f"{flash_ms[0]:.4f} ms, plain {flash_ms[1]:.4f} ms")
+          f"{flash_ms[0]:.4f} ms, plain {flash_ms[1]:.4f} ms, bound "
+          f"{flash_bound['bound_ms']:.4f} ms ({flash_bound['bound_by']})")
     print(f"[timing] K2 vocoder shape (8,1024,128) K3 bf16: kernel "
-          f"{dw_ms[0]:.4f} ms, plain {dw_ms[1]:.4f} ms")
-    return {"flash": flash_ms, "depthwise": dw_ms}
+          f"{dw_ms[0]:.4f} ms, plain {dw_ms[1]:.4f} ms, F.conv1d(groups=128) "
+          f"{conv_ms:.4f} ms, bound {dw_bound['bound_ms']:.4f} ms "
+          f"({dw_bound['bound_by']})")
+    return {"flash": dict(ms=flash_ms[0], plain_ms=flash_ms[1],
+                          library_ms=None, **flash_bound),
+            "depthwise": dict(ms=dw_ms[0], plain_ms=dw_ms[1],
+                              library_ms=conv_ms, **dw_bound)}
 
 
 def phase_profile(syn: Synthesizer, frames: int = 64, top: int = 6):
@@ -483,16 +563,19 @@ TRAIN_FLASH_CASES = {
                                      False, 0.125, 0),
     "q_offset 128 b2 h4 Lq100 Lk256 causal+self+pad": (
         2, 4, 100, 256, (256, 180), True, True, 1.0, 128),
+    # the longform_8k.yaml decoder's cross-attention (phases 12 and 14)
+    "cross b2 h8 Lq8192 Lk1024 pad": (2, 8, 8192, 1024, (1024, 700), False,
+                                      False, 0.125, 0),
 }
 
 
 def train_config(compute_dtype: str = "bfloat16", num_layers=None,
                  dropout_off: bool = False, attention_dropout: float = 0.0,
-                 **optim) -> Config:
-    """base.yaml for training: ``num_layers`` cuts both stacks, and
-    ``dropout_off`` sets every dropout rate to 0 (the decoder prenet's
-    included), so two devices can take the same step."""
-    data = copy.deepcopy(BASE_CONFIG)
+                 base=BASE_CONFIG, **optim) -> Config:
+    """``base`` (base.yaml by default) for training: ``num_layers`` cuts
+    both stacks, and ``dropout_off`` sets every dropout rate to 0 (the
+    decoder prenet's included), so two devices can take the same step."""
+    data = copy.deepcopy(base)
     model = data["model"]
     model.update(vocab_size=frontend_vocab_size("char"),
                  compute_dtype=compute_dtype)
@@ -505,7 +588,7 @@ def train_config(compute_dtype: str = "bfloat16", num_layers=None,
     if dropout_off:
         model.update(enc_prenet_dropout=0.0, dec_prenet_dropout=0.0,
                      postnet_dropout=0.0)
-    data["experiment"]["optim"].update(optim)
+    data.setdefault("experiment", {}).setdefault("optim", {}).update(optim)
     return from_dict(Config, data)
 
 
@@ -715,7 +798,7 @@ def phase_train_card_vs_cpu():
     _reset_train_counts()
     card = _f32_step(cfg, batch, "cuda")
     launches = _train_counts()
-    init = M.init(cfg.model, torch.Generator().manual_seed(SEED_TTS))
+    init = M.init(cfg.model, torch.Generator().manual_seed(SEED_TTS), "cpu")
     names = [n for n, _ in init.named_parameters()]
     loss_err = abs(card[0]["loss"] - cpu[0]["loss"]) / max(
         1.0, abs(cpu[0]["loss"]))
@@ -778,29 +861,370 @@ def phase_train_timing(model):
           f"busy {busy:.4f} s, idle {1 - busy / wall:.1%}; {n_kernels} device "
           f"activities; device time by op: {ops}")
 
+    return {name: _flash_times(case, n, "train-timing")
+            for name, case, n in (
+                ("decoder", "decoder b8 h8 L1024 causal+self", 20),
+                ("encoder", "encoder b8 h8 L256 self+pad", 100))}
+
+
+def _flash_times(case: str, n: int, tag: str) -> dict:
+    """K1 (with lse) and K3's two kernels at a TRAIN_FLASH_CASES shape in
+    bf16, against their plain versions (n calls each, in turns) and their
+    bounds -> {kernel: times and bound}."""
+    (q, k, v, dout), mask, opts = _train_flash_case(*TRAIN_FLASH_CASES[case],
+                                                    torch.bfloat16)
+    args = (*opts, 0.0, 0)
+    kw = dict(zip(("causal", "self_mask", "sm_scale", "q_offset"), opts))
+    out, lse = flash_fwd(q, k, v, mask, *args)
+    fwd = _kernel_ms(lambda: flash_fwd(q, k, v, mask, *args),
+                     lambda: flash_attend_reference(
+                         q, k, v, mask, return_lse=True, **kw), n)
+    plain_bwd = lambda: flash_attend_bwd_reference(  # noqa: E731
+        q, k, v, out, dout, lse, mask, **kw)
+    dkv = _kernel_ms(lambda: flash_bwd_dkv(q, k, v, out, dout, lse, mask,
+                                           *args), plain_bwd, n)
+    dq = _kernel_ms(lambda: flash_bwd_dq(q, k, v, out, dout, lse, mask,
+                                         *args), plain_bwd, n)
+    b, h, l, lk = TRAIN_FLASH_CASES[case][:4]
+    bounds = _flash_bounds(b, h, l, lk, 64, torch.bfloat16, opts[0],
+                           mask is not None)
+    print(f"[{tag}] {case} bf16: K1 fwd+lse {fwd[0]:.4f} ms (plain "
+          f"{fwd[1]:.4f}, bound {bounds['fwd']['bound_ms']:.4f} "
+          f"{bounds['fwd']['bound_by']}); K3 dK/dV {dkv[0]:.4f} ms (bound "
+          f"{bounds['dkv']['bound_ms']:.4f} {bounds['dkv']['bound_by']}) "
+          f"+ dQ {dq[0]:.4f} ms (bound {bounds['dq']['bound_ms']:.4f} "
+          f"{bounds['dq']['bound_by']}) = {dkv[0] + dq[0]:.4f} ms (plain "
+          f"backward, all three gradients: {dkv[1]:.4f} ms)")
+    return {kernel: dict(ms=t[0], plain_ms=t[1], library_ms=None,
+                         **bounds[part])
+            for kernel, t, part in (("flash_train", fwd, "fwd"),
+                                    ("flash_bwd_dkv", dkv, "dkv"),
+                                    ("flash_bwd_dq", dq, "dq"))}
+
+
+# -- LSH training phases (configs/longform_8k.yaml) -----------------------------
+
+# configs/longform_8k.yaml as a dict (tests/test_torch_guards.py holds the
+# two equal)
+_LONGFORM_ATTENTION = {"kind": "lsh", "num_heads": 8, "head_dim": 64,
+                       "num_hashes": 4, "chunk_length": 64,
+                       "num_chunks_before": 1}
+_LONGFORM_STACK = {"num_layers": 6, "d_model": 512, "d_ff": 2048,
+                   "ffn_chunk_size": "auto", "reversible": "auto",
+                   "auto_plain_budget_mb": 12288}
+LONGFORM_CONFIG = {
+    "dataset": {"batch_size": 2, "max_mel_len": 8192,
+                "mel_pad_to_multiple": 64},
+    "model": {
+        "d_model": 512,
+        "n_mels": 80,
+        "max_pos": 8192,
+        "encoder": dict(_LONGFORM_STACK, causal=False,
+                        attention=dict(_LONGFORM_ATTENTION)),
+        "decoder": dict(_LONGFORM_STACK, causal=True,
+                        attention=dict(_LONGFORM_ATTENTION)),
+        "compute_dtype": "bfloat16",
+    },
+}
+
+# the ragged LSH train batch: the longest rows fill the padded shapes
+LSH_TOKEN_LENS = (1024, 700)
+LSH_FRAME_LENS = (8192, 6000)
+
+LSH_CASES = {
+    # name: (b, h, n_hashes, L, c, causal, before, after, valid lengths)
+    "decoder b2 h8 nh4 L8192 c64 causal": (2, 8, 4, 8192, 64, True, 1, 0,
+                                           None),
+    "encoder b2 h8 nh4 L1024 c64": (2, 8, 4, 1024, 64, False, 1, 0, None),
+    "ragged b2 h8 nh4 L1024 c64 causal, invalid keys": (
+        2, 8, 4, 1024, 64, True, 1, 0, (1024, 700)),
+    "nc 60 (not a multiple of 8) b2 h8 nh4 L960 c64 causal, invalid keys": (
+        2, 8, 4, 960, 64, True, 1, 0, (960, 500)),
+}
+_LSH_DECODER, _LSH_ENCODER = list(LSH_CASES)[:2]
+
+# share of the f32 hash buckets that must agree card vs CPU: the hash is an
+# argmax over rotated vectors, so a last-bit difference of the rotation
+# GEMM (cuBLAS vs the CPU BLAS) flips a near-tie
+BUCKET_SHARE_MIN = 0.999
+
+
+def _lsh_case(b, h, nh, l, c, causal, before, after, lens, dtype):
+    """Chunk-attend inputs as the LSH pipeline makes them: per (batch, head,
+    round) a permutation of the positions, keys the length-normalised
+    queries, validity from the lengths; cotangents of out and lse."""
+    g = torch.Generator().manual_seed(SEED_DATA)
+    nc = nh * l // c
+    q, v, dout = (torch.randn(b, h, nc, c, 64, generator=g) for _ in range(3))
+    k = q * torch.rsqrt((q * q).mean(-1, keepdim=True) + 1e-6) * 64 ** -0.5
+    pos = torch.stack([torch.randperm(l, generator=g)
+                       for _ in range(b * h * nh)]).reshape(b, h, nc, c)
+    lens = torch.tensor(lens if lens is not None else (l,) * b)
+    valid = pos < lens[:, None, None, None]
+    dlse = torch.randn(b, h, nc, c, generator=g)
+    return ([t.to("cuda", dtype) for t in (q, k, v, dout)], pos.cuda(),
+            valid.cuda(), dlse.cuda(), (causal, before, after))
+
+
+def _lsh_bounds(b, h, nh, l, c, causal, before, after, lens, dtype):
+    """Bounds of K4 and K5 at one shape: the window's scores are computed
+    whole, masked or not, so every (query, window key) pair counts."""
+    es = torch.tensor([], dtype=dtype).element_size()
+    rows = b * h * nh * l
+    size = rows * 64 * es
+    per_row = 4 + 1 + 4          # position, validity, lse (or dlse)
+    product = 2 * rows * (before + 1 + after) * c * 64
+    return {"fwd": _bound(4 * size + rows * per_row, 2 * product, dtype),
+            "bwd": _bound(7 * size + rows * per_row, 5 * product, dtype)}
+
+
+def phase_kernels_lsh():
+    """K4 and K5 against their plain versions run in f32 on the same inputs,
+    in bf16 and f32, at the longform shapes; K5 twice, bit-equal.  Returns
+    the max abs error of each at the decoder shape in bf16."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    main = {}
+    for name, case in LSH_CASES.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            (q, k, v, dout), pos, valid, dlse, opts = _lsh_case(*case, dtype)
+            out, lse = lsh_attend_fwd(q, k, v, pos, valid, *opts)
+            grads = lsh_attend_bwd(q, k, v, pos, valid, dout, dlse, *opts)
+            again = lsh_attend_bwd(q, k, v, pos, valid, dout, dlse, *opts)
+            torch.cuda.synchronize()
+            f = [t.float() for t in (q, k, v)]
+            want, want_lse = lsh_attend_chunks_reference(*f, pos, valid, *opts)
+            wants = lsh_attend_bwd_reference(*f, pos, valid, dout.float(),
+                                             dlse, *opts)
+            got = dict(zip(("out", "dq", "dk", "dv"), (out, *grads)))
+            ref = dict(zip(("out", "dq", "dk", "dv"), (want, *wants)))
+            errs = {key: _scaled_err(got[key], ref[key]) for key in got}
+            lse_err = _scaled_err(lse, want_lse)
+            same = all(torch.equal(a, b) for a, b in zip(grads, again))
+            tol = KERNEL_TOL[dtype]
+            print(f"[kernels-lsh] {name} {str(dtype)[6:]}: "
+                  + ", ".join(f"{key} {e:.3e}" for key, e in errs.items())
+                  + f", lse {lse_err:.3e}; tol {tol:g}; K5 twice bit-equal "
+                  f"{same}")
+            _require(all(e <= tol for e in errs.values()) and lse_err <= 1e-5,
+                     f"K4/K5 {name} disagree with their plain versions")
+            _require(same, f"K5 {name} is not deterministic")
+            main.setdefault("lsh_attend", _abs_err(out, want))
+            main.setdefault("lsh_attend_bwd", max(
+                _abs_err(got[key], ref[key]) for key in ("dq", "dk", "dv")))
+            del out, lse, grads, again, want, wants, got, ref
+    torch.cuda.empty_cache()
+    return main
+
+
+_LSH_KERNELS = (lsh_attend_fwd, lsh_attend_bwd)
+
+
+def _lsh_counts():
+    return {"lsh_attend": lsh_attend_fwd.launches,
+            "lsh_attend_bwd": lsh_attend_bwd.launches}
+
+
+def phase_train_lsh():
+    """Three longform_8k.yaml train steps at full width (b2, ragged up to
+    1024 tokens and 8192 frames, bf16): finite loss, grad norm and
+    gradients; per step 12 launches of K4 and K5 (6 encoder + 6 decoder
+    LSH self-attention layers) and 6 of K1 and of each K3 kernel (the
+    decoder's cross-attention).  Returns the model and the launch counts."""
+    cfg = train_config(base=LONGFORM_CONFIG)
+    torch.cuda.reset_peak_memory_stats()
+    model, state, step_fn = _trainer(cfg, "cuda")
+    names = [n for n, _ in model.named_parameters()]
+    batch = train_batch(cfg, LSH_TOKEN_LENS, LSH_FRAME_LENS, "cuda")
+    n_lsh = cfg.model.encoder.num_layers + cfg.model.decoder.num_layers
+    n_cross = cfg.model.decoder.num_layers
+    _reset_train_counts()
+    for fn in _LSH_KERNELS:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    steps = [step_fn(model, state, batch,
+                     step_generator(SEED_TRAIN, step, "cuda"), step,
+                     return_grads=True) for step in range(3)]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {**_train_counts(), **_lsh_counts()}
+    for step, (metrics, grads) in enumerate(steps):
+        _check_step(cfg, metrics, grads, names, f"LSH train step {step}")
+        print(f"[train-lsh] step {step}: loss {float(metrics['loss']):.6f}, "
+              f"grad_norm {float(metrics['grad_norm']):.6f}")
+    print(f"[train-lsh] longform_8k.yaml b{len(LSH_TOKEN_LENS)} tokens "
+          f"{list(LSH_TOKEN_LENS)} frames {list(LSH_FRAME_LENS)} bf16: 3 steps "
+          f"in {dt:.2f} s (the first one cold); peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+          f"{launches}")
+    want = {"lsh_attend": 3 * n_lsh, "lsh_attend_bwd": 3 * n_lsh,
+            "flash_train": 3 * n_cross, "flash_bwd_dkv": 3 * n_cross,
+            "flash_bwd_dq": 3 * n_cross}
+    _require(launches == want, f"expected launches {want} over 3 steps, got "
+             f"{launches}")
+    del steps
+    return model, _lsh_counts()
+
+
+def _rotation_draws():
+    """A stand-in for ``draw_rotations`` that draws the n-th call's
+    rotations from a CPU generator seeded n, on whatever device: the card
+    and the CPU then hash with the same rotations."""
+    calls = [0]
+
+    def draw(h, d, n_hashes, half, generator, device):
+        g = torch.Generator().manual_seed(SEED_DATA + calls[0])
+        calls[0] += 1
+        return torch.randn((h, d, n_hashes, half), generator=g).to(device)
+
+    return draw
+
+
+def phase_train_lsh_card_vs_cpu():
+    """One f32 longform step at 2 + 2 layers, every dropout 0, constant lr,
+    on the card (K4/K5, K1/K3) and on the CPU (their plain versions) from
+    the same weights, batch and rotations.  The CPU hashes for itself, to
+    count the buckets that agree, and then attends with the card's buckets,
+    so that a flipped near-tie does not move the comparison."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = train_config("float32", num_layers=2, dropout_off=True,
+                       base=LONGFORM_CONFIG, schedule="constant")
+    lr = cfg.experiment.optim.learning_rate
+    lens = ((256, 180), (1024, 700))
+    batch = train_batch(cfg, *lens, "cpu")
+    hash_vectors, draw_rotations = TL.hash_vectors, TL.draw_rotations
+    card_buckets, agree = [], []
+
+    def card_hash(*args, **kw):
+        buckets = hash_vectors(*args, **kw)
+        card_buckets.append(buckets.cpu())
+        return buckets
+
+    def cpu_hash(*args, **kw):
+        own, card = hash_vectors(*args, **kw), card_buckets[len(agree)]
+        agree.append(((own == card).sum().item(), own.numel()))
+        return card
+
+    try:
+        TL.hash_vectors, TL.draw_rotations = card_hash, _rotation_draws()
+        _reset_train_counts()
+        for fn in _LSH_KERNELS:
+            fn.launches = 0
+        card = _f32_step(cfg, batch, "cuda")
+        launches = {**_train_counts(), **_lsh_counts()}
+        TL.hash_vectors, TL.draw_rotations = cpu_hash, _rotation_draws()
+        t0 = time.perf_counter()
+        cpu = _f32_step(cfg, batch, "cpu")
+        t1 = time.perf_counter()
+    finally:
+        TL.hash_vectors, TL.draw_rotations = hash_vectors, draw_rotations
+    equal, total = (sum(x) for x in zip(*agree))
+    share = equal / total
+    init = M.init(cfg.model, torch.Generator().manual_seed(SEED_TTS), "cpu")
+    names = [n for n, _ in init.named_parameters()]
+    loss_err = abs(card[0]["loss"] - cpu[0]["loss"]) / max(
+        1.0, abs(cpu[0]["loss"]))
+    norm_err = abs(card[0]["grad_norm"] - cpu[0]["grad_norm"]) / max(
+        1.0, abs(cpu[0]["grad_norm"]))
+    grad_errs = {n: ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)
+                     ).item() for n, a, b in zip(names, card[1], cpu[1])}
+    worst = max(grad_errs, key=grad_errs.get)
+    param_err = max((a - b).abs().max().item()
+                    for a, b in zip(card[2], cpu[2]))
+    print(f"[train-lsh-card-vs-cpu] f32 2+2 layers b2 tokens {list(lens[0])} "
+          f"frames {list(lens[1])}: buckets equal {equal}/{total} "
+          f"({share:.6f}, min {BUCKET_SHARE_MIN}) over {len(agree)} LSH "
+          f"layers; loss {card[0]['loss']:.6f} vs {cpu[0]['loss']:.6f} (err "
+          f"{loss_err:.3e}), grad_norm err {norm_err:.3e}, worst gradient leaf "
+          f"{worst} {grad_errs[worst]:.3e} (relative to its largest entry), "
+          f"params after the update {param_err:.3e} (lr {lr:g}); tol "
+          f"{TRAIN_SLICE_TOL:g}, params {TRAIN_PARAM_TOL_LR:g} lr; card "
+          f"launches {launches} (cpu {t1 - t0:.1f} s)")
+    _require(len(agree) == 4 and all(n > 0 for n in launches.values()),
+             f"the card's step ran {launches}, hashed {len(agree)} layers")
+    _require(share >= BUCKET_SHARE_MIN, "card and CPU buckets disagree")
+    _require(loss_err <= TRAIN_SLICE_TOL and norm_err <= TRAIN_SLICE_TOL
+             and grad_errs[worst] <= TRAIN_SLICE_TOL
+             and param_err <= TRAIN_PARAM_TOL_LR * lr,
+             "card and CPU LSH train steps disagree")
+
+
+def phase_train_lsh_timing(model):
+    """The longform bf16 train step at b2 x 1024 tokens x 8192 frames, every
+    position valid: best of 3 after a warm-up, one step under
+    torch.profiler; K4 and K5 against their plain versions and bounds at
+    the decoder and encoder shapes; the plain attend (use_pallas false)
+    against K4 + K5, forward and backward, at both; K1 and K3 at the
+    cross-attention's shape."""
+    cfg = train_config(base=LONGFORM_CONFIG)
+    optimizer = make_optimizer(cfg.experiment.optim)
+    state = optimizer.init(list(model.parameters()))
+    step_fn = make_train_step(cfg.model, optimizer)
+    b, n_tok, frames = 2, 1024, 8192
+    batch = train_batch(cfg, (n_tok,) * b, (frames,) * b, "cuda")
+    gen = torch.Generator(device="cuda")
+
+    def step():
+        metrics = step_fn(model, state, batch, gen.manual_seed(SEED_TRAIN),
+                          state["count"])
+        torch.cuda.synchronize()
+        return metrics
+
+    step()   # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        metrics = step()
+        walls.append(time.perf_counter() - t0)
+        _require(bool(torch.isfinite(metrics["loss"])), "timed LSH step loss")
+    best = min(walls)
+    print(f"[train-lsh-timing] train step b{b} x {n_tok} tokens x {frames} "
+          f"frames (longform_8k.yaml, bf16): walls "
+          f"{[round(w, 4) for w in walls]} s; best {best:.4f} s = "
+          f"{b * frames / best:.0f} frames/s; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    wall, busy, n_kernels, ops = _profile(step, top=8)
+    print(f"[train-lsh-timing] profile of one step: wall {wall:.4f} s, device "
+          f"busy {busy:.4f} s, idle {1 - busy / wall:.1%}; {n_kernels} device "
+          f"activities; device time by op: {ops}")
+
     times = {}
-    for name, case, n in (("decoder", "decoder b8 h8 L1024 causal+self", 20),
-                          ("encoder", "encoder b8 h8 L256 self+pad", 100)):
-        (q, k, v, dout), mask, opts = _train_flash_case(
-            *TRAIN_FLASH_CASES[case], torch.bfloat16)
-        args = (*opts, 0.0, 0)
-        kw = dict(zip(("causal", "self_mask", "sm_scale", "q_offset"), opts))
-        out, lse = flash_fwd(q, k, v, mask, *args)
-        fwd = _kernel_ms(lambda: flash_fwd(q, k, v, mask, *args),
-                         lambda: flash_attend_reference(
-                             q, k, v, mask, return_lse=True, **kw), n)
-        plain_bwd = lambda: flash_attend_bwd_reference(  # noqa: E731
-            q, k, v, out, dout, lse, mask, **kw)
-        dkv = _kernel_ms(lambda: flash_bwd_dkv(q, k, v, out, dout, lse, mask,
-                                               *args), plain_bwd, n)
-        dq = _kernel_ms(lambda: flash_bwd_dq(q, k, v, out, dout, lse, mask,
-                                             *args), plain_bwd, n)
-        print(f"[train-timing] {case} bf16: K1 fwd+lse {fwd[0]:.4f} ms (plain "
-              f"{fwd[1]:.4f}); K3 dK/dV {dkv[0]:.4f} ms + dQ {dq[0]:.4f} ms = "
-              f"{dkv[0] + dq[0]:.4f} ms (plain backward, all three "
-              f"gradients: {dkv[1]:.4f} ms)")
-        times[name] = {"flash_train": fwd, "flash_bwd_dkv": dkv,
-                       "flash_bwd_dq": dq}
+    for name, n in ((_LSH_DECODER, 10), (_LSH_ENCODER, 50)):
+        case = LSH_CASES[name]
+        (q, k, v, dout), pos, valid, dlse, opts = _lsh_case(*case,
+                                                            torch.bfloat16)
+        fwd = _kernel_ms(lambda: lsh_attend_fwd(q, k, v, pos, valid, *opts),
+                         lambda: lsh_attend_chunks_reference(
+                             q, k, v, pos, valid, *opts), n)
+        bwd = _kernel_ms(
+            lambda: lsh_attend_bwd(q, k, v, pos, valid, dout, dlse, *opts),
+            lambda: lsh_attend_bwd_reference(q, k, v, pos, valid, dout, dlse,
+                                             *opts), n)
+
+        def fwd_bwd(attend):
+            qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
+            out, lse = attend(qq, kk, vv, pos, valid, *opts)
+            torch.autograd.backward((out, lse), (dout, dlse))
+
+        both = _kernel_ms(lambda: fwd_bwd(lsh_attend_chunks_kernel),
+                          lambda: fwd_bwd(TL.plain_attend), n)
+        bounds = _lsh_bounds(*case, torch.bfloat16)
+        print(f"[train-lsh-timing] {name} bf16: K4 {fwd[0]:.4f} ms (plain "
+              f"{fwd[1]:.4f}, bound {bounds['fwd']['bound_ms']:.4f} "
+              f"{bounds['fwd']['bound_by']}); K5 {bwd[0]:.4f} ms (plain "
+              f"{bwd[1]:.4f}, bound {bounds['bwd']['bound_ms']:.4f} "
+              f"{bounds['bwd']['bound_by']}); forward + backward: K4 + K5 "
+              f"{both[0]:.4f} ms, the plain attend (use_pallas false) "
+              f"{both[1]:.4f} ms")
+        times.setdefault("lsh_attend", dict(ms=fwd[0], plain_ms=fwd[1],
+                                            library_ms=None, **bounds["fwd"]))
+        times.setdefault("lsh_attend_bwd", dict(
+            ms=bwd[0], plain_ms=bwd[1], library_ms=None, **bounds["bwd"]))
+        del q, k, v, dout, pos, valid, dlse
+        torch.cuda.empty_cache()
+    _flash_times("cross b2 h8 Lq8192 Lk1024 pad", 10, "train-lsh-timing")
+    torch.cuda.empty_cache()
     return times
 
 
@@ -809,6 +1233,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
               "run needs an NVIDIA GPU", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     kind = phase_device()
     phase_build()
     errs = phase_kernels()
@@ -817,19 +1242,31 @@ def main() -> int:
     phase_card_vs_cpu(cfg)
     times = phase_timing(syn)
     phase_profile(syn)
-    train_errs = phase_kernels_train()
+    del syn
+    errs.update(phase_kernels_train())
     model, train_launches = phase_train()
     phase_train_card_vs_cpu()
     train_times = phase_train_timing(model)
-    _require("jax" not in sys.modules, "jax was imported")
+    del model
+    torch.cuda.empty_cache()
+    errs.update(phase_kernels_lsh())
+    model, lsh_launches = phase_train_lsh()
+    phase_train_lsh_card_vs_cpu()
+    lsh_times = phase_train_lsh_timing(model)
+    del model
+    _require(not any(m.split(".")[0] in ("jax", "rtts") for m in sys.modules
+                     if sys.modules[m] is not None),
+             "jax or the JAX package was imported")
     # serving kernels: launches of one Synthesizer call, times at the
-    # encoder and vocoder shapes; training kernels ("flash_train" is K1 in
-    # the train step): launches of the three base.yaml train steps, times
-    # at the decoder's self-attention shape (plain_ms of each K3 kernel:
-    # the plain backward, all three gradients)
-    errs.update(train_errs)
+    # encoder and vocoder shapes; base.yaml training kernels ("flash_train"
+    # is K1 in the train step): launches of its three train steps, times at
+    # the decoder's self-attention shape (plain_ms of each K3 kernel: the
+    # plain backward, all three gradients); LSH kernels: launches of the
+    # three longform train steps, times at the longform decoder shape
     launches.update(train_launches)
+    launches.update(lsh_launches)
     times.update(train_times["decoder"])
+    times.update(lsh_times)
     meta = {
         "flash": ("rtts_torch/csrc/flash_fwd.cu",
                   "rtts/ops/flash_attention.py:322"),
@@ -841,12 +1278,18 @@ def main() -> int:
                           "rtts/ops/flash_attention.py:509"),
         "flash_bwd_dq": ("rtts_torch/csrc/flash_bwd.cu",
                          "rtts/ops/flash_attention.py:553"),
+        "lsh_attend": ("rtts_torch/csrc/lsh_attend_fwd.cu",
+                       "rtts/ops/lsh_attention.py:60"),
+        "lsh_attend_bwd": ("rtts_torch/csrc/lsh_attend_bwd.cu",
+                           "rtts/ops/lsh_attention.py:158"),
     }
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": rep, "launches": launches[name],
-                "max_abs_err": errs[name], "ms": times[name][0],
-                "plain_ms": times[name][1]}
+                "max_abs_err": errs[name],
+                **{key: times[name][key] for key in (
+                    "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
                for name, (src, rep) in meta.items()]
+    print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

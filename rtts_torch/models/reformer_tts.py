@@ -78,9 +78,11 @@ class ReformerTTS(nn.Module):
 
 
 def init(cfg: ReformerTTSConfig, generator: Optional[torch.Generator] = None,
-         device=None) -> ReformerTTS:
+         device="cuda") -> ReformerTTS:
     """Random parameters with the reference's shapes and scales, drawn from
-    ``generator`` (a CPU generator; seed it for reproducible weights)."""
+    ``generator`` (a CPU generator; seed it for reproducible weights), on
+    ``device``: the card unless the caller asks for another (without a card
+    the default raises)."""
     return ReformerTTS(cfg, generator=generator, device=device)
 
 

@@ -123,8 +123,10 @@ class SqueezeWave(nn.Module):
 
 
 def init(cfg: SqueezeWaveConfig, generator: Optional[torch.Generator] = None,
-         device=None) -> SqueezeWave:
-    """Random vocoder parameters (weight-norm form) drawn from ``generator``."""
+         device="cuda") -> SqueezeWave:
+    """Random vocoder parameters (weight-norm form) drawn from ``generator``,
+    on ``device``: the card unless the caller asks for another (without a
+    card the default raises)."""
     return SqueezeWave(cfg, generator=generator, device=device)
 
 

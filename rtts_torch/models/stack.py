@@ -1,18 +1,22 @@
 """Reformer stacks: attention and FFN sublayers wired as (f, g) residual pairs.
 
-Port of ``rtts/models/stack.py`` for attention kind ``full`` (what ``auto``
-resolves to through 32768 positions).  Encoder layer = one pair (f =
-self-attention, g = FFN); decoder layer = two pairs, (self-attention, FFN)
-then (cross-attention, FFN).  Parameter paths repeat the JAX pytree's, e.g.
-``layers.0.f.attn.w_qk.w``.  All sublayers are pre-LN; residual streams
-ride in float32 while sublayers run in the compute dtype.
+Port of ``rtts/models/stack.py`` for self-attention kinds ``full`` and
+``lsh`` (per layer through ``attn_layers``; ``auto`` resolves by length).
+Encoder layer = one pair (f = self-attention, g = FFN); decoder layer = two
+pairs, (self-attention, FFN) then (cross-attention, FFN).  Parameter paths
+repeat the JAX pytree's, e.g. ``layers.0.f.attn.w_qk.w``.  All sublayers
+are pre-LN; residual streams ride in float32 while sublayers run in the
+compute dtype.
 
 Training: given a ``generator`` (on the stream's device) the stack applies
 ``cfg.dropout`` after every f and g and the attention dropout, with one
 kernel seed per pair drawn from the generator; without one it is the
-deterministic inference stack.  Gradients flow through plain residuals
-(autograd keeps the activations); the reversible backward and the chunked
-FFN, which only save memory, are not ported yet.
+deterministic inference stack.  LSH layers draw their random rotations
+from the same generator, or, without one, from a device generator seeded 0
+that the stack's layers consume in turn (``cfg.attention.hash_seed`` fixes
+them per layer instead).  Gradients flow through plain residuals (autograd
+keeps the activations); the reversible backward and the chunked FFN, which
+only save memory, are not ported yet.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ from torch import nn
 
 from rtts_torch.attention.full import (Attention, cross_attention,
                                        shared_qk_self_attention)
+from rtts_torch.attention.lsh import lsh_self_attention
 from rtts_torch.config import (ReformerStackConfig, resolve_attention_kind,
                                resolve_ffn_chunk, resolve_reversible)
 from rtts_torch.nn.layers import LayerNorm, dropout
@@ -80,26 +85,31 @@ def _layer_kinds(cfg: ReformerStackConfig) -> List[str]:
     return list(cfg.attn_layers)
 
 
-def _check_supported(cfg: ReformerStackConfig, seq_len: int) -> None:
+def _check_supported(cfg: ReformerStackConfig, seq_len: int) -> List[str]:
+    """-> the layers' kinds with ``auto`` resolved at ``seq_len``; raises on
+    what is not ported."""
     if cfg.seq_parallel_axis or cfg.pipeline_axis:
         raise NotImplementedError(
             "rtts_torch: sequence and pipeline parallelism are not ported yet")
-    for kind in _layer_kinds(cfg):
-        if kind == "auto":
-            kind = resolve_attention_kind(cfg.attention, seq_len)
-        if kind != "full":
+    kinds = [resolve_attention_kind(cfg.attention, seq_len) if k == "auto"
+             else k for k in _layer_kinds(cfg)]
+    for kind in kinds:
+        if kind not in ("full", "lsh"):
             raise NotImplementedError(
                 f"rtts_torch: attention kind {kind!r} is not ported yet "
-                "(only 'full')")
+                "(only 'full' and 'lsh')")
+    return kinds
 
 
 def make_stack_layer_fns(cfg: ReformerStackConfig, cross_attend: bool,
                          compute_dtype) -> List[Tuple[Any, Any]]:
     """The (f, g) callables of one stack; aux per pair is dict(mask,
-    memory_mask, generator, seed[, attn_sink]).  ``generator`` None means
-    no dropout."""
+    memory_mask, generator, hash_generator, seed[, attn_sink]).
+    ``generator`` None means no dropout; ``hash_generator`` draws the LSH
+    rotations."""
     a = cfg.attention
     impl = resolve_flash_impl(a.flash)
+    kinds = _layer_kinds(cfg)
 
     def attn_kw(aux):
         return dict(num_heads=a.num_heads, compute_dtype=compute_dtype,
@@ -111,10 +121,22 @@ def make_stack_layer_fns(cfg: ReformerStackConfig, cross_attend: bool,
         gen = aux["generator"]
         return x if gen is None else dropout(x, cfg.dropout, gen)
 
-    def f_self(p, x, memory, aux):
-        out = shared_qk_self_attention(p.attn, p.ln(x), mask=aux["mask"],
-                                       causal=cfg.causal, **attn_kw(aux))
-        return drop(out, aux)
+    def make_f_self(kind):
+        def f_self(p, x, memory, aux):
+            h = p.ln(x)
+            k = resolve_attention_kind(a, x.shape[1]) if kind == "auto" else kind
+            if k == "lsh":
+                out, _ = lsh_self_attention(
+                    p.attn, h, aux["mask"], cfg.causal, a,
+                    aux["hash_generator"], compute_dtype,
+                    dropout_seed=aux["seed"])
+            else:
+                out = shared_qk_self_attention(p.attn, h, mask=aux["mask"],
+                                               causal=cfg.causal,
+                                               **attn_kw(aux))
+            return drop(out, aux)
+
+        return f_self
 
     def f_cross(p, x, memory, aux):
         out = cross_attention(p.attn, p.ln(x), memory,
@@ -126,8 +148,8 @@ def make_stack_layer_fns(cfg: ReformerStackConfig, cross_attend: bool,
         return drop(_ffn_body(p, y, cfg.ffn_activation, compute_dtype), aux)
 
     pairs: List[Tuple[Any, Any]] = []
-    for _ in range(cfg.num_layers):
-        pairs.append((f_self, g_ffn))
+    for kind in kinds:
+        pairs.append((make_f_self(kind), g_ffn))
         if cross_attend:
             pairs.append((f_cross, g_ffn))
     return pairs
@@ -166,10 +188,11 @@ def stack_apply(stack: Stack, cfg: ReformerStackConfig, x: torch.Tensor,
                 attn_sink: Optional[list] = None) -> torch.Tensor:
     """Run the stack on x: (B, L, D) -> (B, L, D).
 
-    ``generator`` (on x's device) turns dropout on and draws it.
+    ``generator`` (on x's device) turns dropout on and draws it, and the
+    LSH rotations.
     ``attn_sink``: a list that collects each cross-attention layer's f32
     probabilities (B, H, L, Lm), for the guided-attention loss."""
-    _check_supported(cfg, x.shape[1])
+    kinds = _check_supported(cfg, x.shape[1])
     _check_residuals(cfg, x, memory, attn_sink)
     layer_fns = make_stack_layer_fns(cfg, memory is not None, compute_dtype)
     n = len(layer_fns)
@@ -177,8 +200,12 @@ def stack_apply(stack: Stack, cfg: ReformerStackConfig, x: torch.Tensor,
     if generator is not None and cfg.attention.attention_dropout > 0.0:
         seeds = torch.randint(0, 1 << 32, (n,), generator=generator,
                               device=generator.device).tolist()
+    hash_generator = generator
+    if hash_generator is None and "lsh" in kinds:
+        hash_generator = torch.Generator(device=x.device).manual_seed(0)
     aux_list = [{"mask": mask, "memory_mask": memory_mask,
-                 "generator": generator, "seed": seed,
+                 "generator": generator, "hash_generator": hash_generator,
+                 "seed": seed,
                  **({"attn_sink": attn_sink} if attn_sink is not None
                     else {})}
                 for seed in seeds]

@@ -29,12 +29,17 @@ _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 # the flash kernels' trailing arguments: dtype, bh, heads, lq, lk, dh,
 # sm_scale, causal, self_mask, q_offset, seed, drop_thr, drop_scale, stream
 _FLASH_SCALARS = [_I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _U, _I, _F, _P]
+# the LSH attend kernels' trailing arguments: dtype, n, nc, c, dh, causal,
+# before, after, mask_value, self_mask_value, stream
+_LSH_SCALARS = [_I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P]
 # C signatures of the entry points (each returns a cudaError_t as int)
 SIGNATURES = {
     "rtts_flash_fwd": [_P] * 6 + _FLASH_SCALARS,
     "rtts_flash_bwd_dkv": [_P] * 9 + _FLASH_SCALARS,
     "rtts_flash_bwd_dq": [_P] * 8 + _FLASH_SCALARS,
     "rtts_depthwise_conv1d": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "rtts_lsh_attend_fwd": [_P] * 7 + _LSH_SCALARS,
+    "rtts_lsh_attend_bwd": [_P] * 10 + _LSH_SCALARS,
 }
 
 _lib = None

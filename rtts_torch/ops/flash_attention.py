@@ -88,18 +88,26 @@ def _mix32(x: torch.Tensor) -> torch.Tensor:
     return x ^ (x >> 16)
 
 
+def keep_bits(seed: int, bh: torch.Tensor, rows: torch.Tensor,
+              cols: torch.Tensor, rate: float) -> torch.Tensor:
+    """f32 keep indicators in {0, 1} of broadcastable non-negative int
+    grids (the JAX ``_keep_tile``): the hash of (rows, cols, bh, seed)."""
+    thr = _drop_threshold(rate)
+    rows, cols, bh = (t.to(torch.int64) & _M32 for t in (rows, cols, bh))
+    u = (_mul32(rows, 0x85EBCA6B) + _mul32(cols, 0xC2B2AE35)
+         + _mul32(bh, 0x27D4EB2F) + (int(seed) & _M32)) & _M32
+    return ((_mix32(u) >> (32 - _DROP_BITS)) < thr).float()
+
+
 def dropout_keep_mask(seed: int, n_bh: int, l_q: int, l_k: int, rate: float,
                       q_offset: int = 0, device=None) -> torch.Tensor:
     """Dense (n_bh, l_q, l_k) f32 keep mask in {0, 1}: the exact mask the
     kernels regenerate tile by tile, equal bit for bit to JAX
     ``dropout_keep_mask`` for the same uint32 seed."""
-    thr = _drop_threshold(rate)
     kw = dict(dtype=torch.int64, device=device)
-    rows = _mul32(torch.arange(l_q, **kw) + q_offset, 0x85EBCA6B)[None, :, None]
-    cols = _mul32(torch.arange(l_k, **kw), 0xC2B2AE35)[None, None, :]
-    bh = _mul32(torch.arange(n_bh, **kw), 0x27D4EB2F)[:, None, None]
-    u = (rows + cols + bh + (int(seed) & _M32)) & _M32
-    return ((_mix32(u) >> (32 - _DROP_BITS)) < thr).float()
+    return keep_bits(seed, torch.arange(n_bh, **kw)[:, None, None],
+                     (torch.arange(l_q, **kw) + q_offset)[None, :, None],
+                     torch.arange(l_k, **kw)[None, None, :], rate)
 
 
 def _drop_rscale(seed, b, h, l_q, l_k, rate, q_offset, device):

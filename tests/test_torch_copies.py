@@ -1,0 +1,148 @@
+"""The port's own copies of the JAX package's framework-free modules, held
+equal to the originals on the CPU.
+
+``rtts_torch`` imports nothing of ``rtts``, so it keeps copies of what it
+uses: the configuration tree (``rtts_torch/config.py``), the text frontend
+(``rtts_torch/text/``), the TTS data pipeline (``rtts_torch/data.py``) and
+the metric logger (``rtts_torch/utils/metrics.py``).  Each must behave as
+its original: the same config from the same YAML, the same token ids, the
+same batches, the same JSONL lines.
+"""
+
+import dataclasses
+import json
+import pathlib
+import typing
+
+import numpy as np
+import pytest
+
+import rtts.config as JC
+import rtts.text as JT
+import rtts_torch.config as TC
+import rtts_torch.text as TT
+from rtts.data import dataset as JD
+from rtts.utils.metrics import MetricLogger as JaxLogger
+from rtts_torch import data as TD
+from rtts_torch.utils.metrics import MetricLogger as PortLogger
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+CONFIGS = sorted((ROOT / "configs").glob("*.yaml"))
+
+
+@pytest.mark.parametrize("path", CONFIGS, ids=lambda p: p.name)
+def test_every_config_resolves_alike(path):
+    data = JC.load_yaml(path)
+    assert TC.load_yaml(path) == data
+    assert TC.to_dict(TC.from_dict(TC.Config, data)) == \
+        JC.to_dict(JC.from_dict(JC.Config, data))
+    for over in (["model.encoder.attention.num_hashes=2"],
+                 ["model.decoder.attention.num_buckets=[4, 8]"]):
+        assert TC.apply_overrides(data, over) == JC.apply_overrides(data, over)
+
+
+def _dataclasses(module):
+    return {name: obj for name, obj in vars(module).items()
+            if dataclasses.is_dataclass(obj) and obj.__module__ == module.__name__}
+
+
+def test_dataclass_fields_and_defaults_equal():
+    jax_classes, port_classes = _dataclasses(JC), _dataclasses(TC)
+    assert sorted(port_classes) == sorted(jax_classes)
+    for name, jcls in jax_classes.items():
+        tcls = port_classes[name]
+        jf, tf = dataclasses.fields(jcls), dataclasses.fields(tcls)
+        assert [f.name for f in tf] == [f.name for f in jf], name
+        hints = [str(typing.get_type_hints(tcls)[f.name]).replace(
+            "rtts_torch.config", "rtts.config") for f in tf]
+        assert hints == [str(typing.get_type_hints(jcls)[f.name])
+                         for f in jf], name
+    assert TC.to_dict(TC.Config()) == JC.to_dict(JC.Config())
+    assert TC.AUTO_FFN_CHUNK == JC.AUTO_FFN_CHUNK
+    with pytest.raises(KeyError, match="unknown config keys"):
+        TC.from_dict(TC.Config, {"model": {"d_modle": 3}})
+
+
+def test_attention_kind_resolution_equal():
+    for kw in ({}, {"kind": "auto"}, {"kind": "auto", "flash": False},
+               {"kind": "auto", "auto_full_max_len": 100}):
+        for seq_len in (64, 100, 4096, 8192, 40000):
+            assert TC.resolve_attention_kind(TC.AttentionConfig(**kw), seq_len) \
+                == JC.resolve_attention_kind(JC.AttentionConfig(**kw), seq_len)
+
+
+SENTENCES = ["The quick brown fox jumps over the lazy dog.", "",
+             "Dr. Smith paid $42.50 on 3/14 at 10am!", "naïve café — Ünïcödé 🙂",
+             "HH AH0 L OW1 .", "   spaces   and\ttabs\n"]
+
+
+@pytest.mark.parametrize("level", ["char", "phoneme"])
+@pytest.mark.parametrize("pad", [1, 64])
+def test_encode_batch_equal(level, pad):
+    want = JT.encode_batch(SENTENCES, pad_to_multiple=pad, level=level)
+    got = TT.encode_batch(SENTENCES, pad_to_multiple=pad, level=level)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    assert TT.frontend_vocab_size(level) == JT.frontend_vocab_size(level)
+    assert TT.SYMBOLS == JT.SYMBOLS and TT.PHONEME_SYMBOLS == JT.PHONEME_SYMBOLS
+    for text in SENTENCES:
+        assert TT.clean_text(text) == JT.clean_text(text)
+        assert TT.ids_to_text(TT.text_to_ids(text)) == \
+            JT.ids_to_text(JT.text_to_ids(text))
+
+
+@pytest.fixture(scope="module")
+def corpus(tmp_path_factory):
+    from rtts.data.corpus import generate_corpus
+    from rtts.data.preprocess import preprocess_corpus
+
+    root = tmp_path_factory.mktemp("copies_corpus")
+    generate_corpus(root, n_utterances=10)
+    cfg = JC.DatasetConfig(data_dir=str(root / "data"), val_fraction=0.3,
+                           num_workers=0)
+    preprocess_corpus(cfg, str(root / "transcripts.txt"))
+    return cfg
+
+
+def _equal_batches(a, b):
+    assert a.keys() == b.keys()
+    for key in a:
+        np.testing.assert_array_equal(a[key], b[key], err_msg=key)
+
+
+def test_datasets_batch_alike(corpus):
+    path = pathlib.Path(corpus.data_dir) / corpus.manifest
+    jman, tman = JD.Manifest.load(path), TD.Manifest.load(path)
+    assert tman == TD.Manifest(jman.sample_rate, jman.hop_length, jman.n_mels,
+                               jman.clips)
+    jsplit = JD.split_manifest(jman, corpus.val_fraction, 3)
+    tsplit = TD.split_manifest(tman, corpus.val_fraction, 3)
+    assert [m.clips for m in tsplit] == [m.clips for m in jsplit]
+    tcfg = TC.from_dict(TC.DatasetConfig, JC.to_dict(corpus))
+    jds, tds = JD.TextMelDataset(jsplit[0], corpus), TD.TextMelDataset(tsplit[0],
+                                                                       tcfg)
+    for i in range(len(jds)):
+        for g, w in zip(tds[i], jds[i]):
+            np.testing.assert_array_equal(g, w)
+    jb = JD.EpochBatcher(jds, 3, seed=5, drop_last=True)
+    tb = TD.EpochBatcher(tds, 3, seed=5, drop_last=True)
+    assert tb.steps_per_epoch() == jb.steps_per_epoch()
+    for step in range(2 * jb.steps_per_epoch() + 1):
+        _equal_batches(tb.batch_at(step), jb.batch_at(step))
+    for got, want in zip(tds.batches(2, seed=1), jds.batches(2, seed=1)):
+        _equal_batches(got, want)
+
+
+def test_metric_loggers_write_alike(tmp_path, monkeypatch):
+    monkeypatch.setattr("time.time", lambda: 1234.5)
+    for cls, name in ((JaxLogger, "jax.jsonl"), (PortLogger, "port.jsonl")):
+        logger = cls(str(tmp_path / name), echo=False)
+        logger.log(3, {"loss": np.float32(1.5), "note": "x", "n": 2},
+                   prefix="train/")
+        logger.log(4, {"mcd": 7.25})
+        logger.close()
+    assert (tmp_path / "port.jsonl").read_text() == \
+        (tmp_path / "jax.jsonl").read_text()
+    lines = [json.loads(l) for l in (tmp_path / "port.jsonl").open()]
+    assert lines[0] == {"step": 3, "time": 1234.5, "train/loss": 1.5,
+                        "train/note": "x", "train/n": 2.0}

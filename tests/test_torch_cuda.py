@@ -15,6 +15,11 @@ from rtts_torch.ops.flash_attention import (dropout_keep_mask, flash_attend,
                                             flash_attend_reference,
                                             flash_bwd_dkv, flash_bwd_dq,
                                             flash_fwd)
+from rtts_torch.ops.lsh_attention import (lsh_attend_bwd,
+                                          lsh_attend_bwd_reference,
+                                          lsh_attend_chunks_kernel,
+                                          lsh_attend_chunks_reference,
+                                          lsh_attend_fwd)
 
 pytestmark = pytest.mark.cuda
 
@@ -90,6 +95,9 @@ TRAIN_CASES = {
     "encoder": (8, 8, 256, 256, 64, False, True, ENCODER_LENS, 1.0, 0),
     "decoder": (8, 8, 1024, 1024, 64, True, True, None, 1.0, 0),
     "cross": (8, 8, 1024, 256, 64, False, False, ENCODER_LENS, 0.125, 0),
+    # the longform_8k.yaml decoder's cross-attention
+    "cross_longform": (2, 8, 8192, 1024, 64, False, False, (1024, 700),
+                       0.125, 0),
     "q_offset": (2, 4, 100, 256, 64, True, True, (256, 180), 1.0, 128),
     "dh128_ragged": (2, 2, 77, 77, 128, False, True, (77, 50), 1.0, 0),
 }
@@ -201,3 +209,72 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError):
         depthwise_conv1d(x, torch.zeros(3, 1, 8, device=dev),
                          torch.zeros(16, device=dev))
+    q = torch.zeros(1, 1, 2, 16, 32, device=dev)
+    pos = torch.zeros(1, 1, 2, 16, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="head dim"):
+        lsh_attend_fwd(q, q, q, pos, pos.bool(), True, 1, 0)
+    q = torch.zeros(1, 1, 2, 24, 64, device=dev)
+    pos = torch.zeros(1, 1, 2, 24, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="chunk length"):
+        lsh_attend_fwd(q, q, q, pos, pos.bool(), True, 1, 0)
+
+
+LSH_CASES = {
+    # name: (b, h, n_hashes, L, c, dh, causal, before, after, valid length)
+    "test_c16_causal": (2, 2, 2, 64, 16, 64, True, 1, 0, 50),
+    "test_c32_dh128_window3": (2, 2, 3, 64, 32, 128, False, 1, 1, 64),
+    "nc_not_multiple_of_8": (1, 2, 3, 96, 32, 64, True, 1, 0, 80),
+    "encoder_L1024": (2, 8, 4, 1024, 64, 64, False, 1, 0, 900),
+    "decoder_L8192": (2, 8, 4, 8192, 64, 64, True, 1, 0, 8192),
+}
+
+
+def lsh_case(name, dtype, dev, seed=0):
+    """Sorted-chunk inputs as the LSH pipeline makes them: per round a
+    permutation of the positions, keys the length-normalised queries, key
+    validity from the valid length; and cotangents for out and lse."""
+    b, h, nh, l, c, dh, causal, before, after, n_valid = LSH_CASES[name]
+    g = torch.Generator().manual_seed(seed)
+    nc = nh * l // c
+    q, v, dout = (torch.randn(b, h, nc, c, dh, generator=g) for _ in range(3))
+    k = q * torch.rsqrt((q * q).mean(-1, keepdim=True) + 1e-6) * dh ** -0.5
+    pos = torch.stack([torch.randperm(l, generator=g) for _ in range(b * h * nh)])
+    pos = pos.reshape(b, h, nc, c)
+    dlse = torch.randn(b, h, nc, c, generator=g)
+    tensors = [t.to(dev, dtype) for t in (q, k, v, dout)]
+    return (tensors, pos.to(dev), (pos < n_valid).to(dev), dlse.to(dev),
+            (causal, before, after))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("name", sorted(LSH_CASES))
+def test_lsh_kernels_match_reference(dev, name, dtype):
+    """K4 and K5 against their plain versions run in f32 on the same
+    inputs; K5 twice, bit-equal."""
+    (q, k, v, dout), pos, valid, dlse, opts = lsh_case(name, dtype, dev)
+    out, lse = lsh_attend_fwd(q, k, v, pos, valid, *opts)
+    grads = lsh_attend_bwd(q, k, v, pos, valid, dout, dlse, *opts)
+    again = lsh_attend_bwd(q, k, v, pos, valid, dout, dlse, *opts)
+    torch.cuda.synchronize()
+    f = [t.float() for t in (q, k, v)]
+    want, want_lse = lsh_attend_chunks_reference(*f, pos, valid, *opts)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-6, atol=1e-4)
+    assert out.dtype == dtype and _err(out, want) < TOL[dtype], _err(out, want)
+    wants = lsh_attend_bwd_reference(*f, pos, valid, dout.float(), dlse, *opts)
+    for got_t, want_t, same, what in zip(grads, wants, again, "qkv"):
+        assert got_t.dtype == dtype and got_t.shape == want_t.shape
+        assert _err(got_t, want_t) < TOL[dtype], (what, _err(got_t, want_t))
+        assert torch.equal(got_t, same), what
+
+
+def test_lsh_autograd_launches_k4_and_k5(dev):
+    (q, k, v, dout), pos, valid, dlse, opts = lsh_case(
+        "test_c16_causal", torch.bfloat16, dev)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    before = (lsh_attend_fwd.launches, lsh_attend_bwd.launches)
+    out, lse = lsh_attend_chunks_kernel(q, k, v, pos, valid, *opts)
+    torch.autograd.backward((out, lse), (dout, dlse))
+    torch.cuda.synchronize()
+    after = (lsh_attend_fwd.launches, lsh_attend_bwd.launches)
+    assert [a - b for a, b in zip(after, before)] == [1, 1]
+    assert all(torch.isfinite(t.grad).all() for t in (q, k, v))

@@ -1,14 +1,12 @@
 """Guards around the rtts_torch port.
 
-(a) The port never imports JAX: subprocesses that make ``import jax`` fail
-    import ``rtts_torch`` and synthesize speech, and take train steps, with
-    a tiny model; and by their import statements, ``chip_smoke.py`` imports
-    nothing of JAX or of the JAX package ``rtts``, and the port reaches
-    ``rtts`` only through one port module per shared module:
-    ``rtts_torch.config``, ``rtts_torch.text``, ``rtts_torch.data``
-    (``rtts.data.dataset``) and ``rtts_torch.utils.metrics``.
-(b) ``chip_smoke.py``'s base config (a dict, so the card's machine needs no
-    PyYAML) equals ``configs/base.yaml``.
+(a) The port imports neither JAX nor the JAX package ``rtts``: subprocesses
+    that make ``import jax`` and ``import rtts`` fail import every module of
+    ``rtts_torch``, synthesize speech and take train steps (full and LSH
+    attention) with a tiny model; and by their import statements, no module
+    of the port and not ``chip_smoke.py`` names ``jax`` or ``rtts``.
+(b) ``chip_smoke.py``'s configs (dicts, so the card's machine needs no
+    PyYAML) equal ``configs/base.yaml`` and ``configs/longform_8k.yaml``.
 (c) The decoder prenet's always-on dropout zeroes about ``rate`` of the
     units, scales the rest by 1/keep, and follows its generator.
 """
@@ -30,6 +28,7 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 NO_JAX_SLICE = r"""
 import sys
 sys.modules["jax"] = None          # any `import jax` now raises ImportError
+sys.modules["rtts"] = None         # and so does any `import rtts...`
 import numpy as np
 import torch
 from rtts_torch.config import Config, from_dict
@@ -48,21 +47,27 @@ cfg = from_dict(Config, {
                 "n_early_every": 4, "n_early_size": 8, "wn_layers": 2,
                 "wn_channels": 16, "hop_length": 64}})
 g = torch.Generator().manual_seed(0)
-syn = Synthesizer(cfg, M.init(cfg.model, g), SW.init(cfg.vocoder, g),
+syn = Synthesizer(cfg, M.init(cfg.model, g, "cpu"), SW.init(cfg.vocoder, g, "cpu"),
                   max_frames=16)
 wavs = syn(["hello world", "the port imports no jax"])
 assert [w.ndim for w in wavs] == [1, 1]
 assert all(len(w) > 0 and np.isfinite(w).all() for w in wavs)
-assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules
+assert not any(m.split(".")[0] in ("jax", "rtts") for m in sys.modules
                if sys.modules[m] is not None)
 print("OK", [len(w) for w in wavs])
 """
 
 
 NO_JAX_TRAIN = r"""
+import importlib
+import pkgutil
 import sys
 sys.modules["jax"] = None          # any `import jax` now raises ImportError
+sys.modules["rtts"] = None         # and so does any `import rtts...`
 import torch
+import rtts_torch
+for info in pkgutil.walk_packages(rtts_torch.__path__, "rtts_torch."):
+    importlib.import_module(info.name)
 from rtts_torch.config import Config, from_dict
 from rtts_torch.models import reformer_tts as M
 from rtts_torch.text import frontend_vocab_size
@@ -80,7 +85,7 @@ cfg = from_dict(Config, {
               "postnet_channels": 16, "max_pos": 512,
               "reduction_factor": 2, "compute_dtype": "bfloat16"},
     "experiment": {"optim": {"warmup_steps": 1}}})
-model = M.init(cfg.model, torch.Generator().manual_seed(0))
+model = M.init(cfg.model, torch.Generator().manual_seed(0), "cpu")
 opt = make_optimizer(cfg.experiment.optim)
 state = opt.init(list(model.parameters()))
 step = make_train_step(cfg.model, opt)
@@ -95,9 +100,31 @@ losses = [float(step(model, state, batch, step_generator(0, s, "cpu"), s)
 assert all(l == l and abs(l) < 1e6 for l in losses), losses
 assert state["count"] == 2
 assert any(not torch.equal(a, b) for a, b in zip(before, model.parameters()))
-assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules
+
+# LSH self-attention in both stacks (sequences longer than one chunk)
+lsh = dict(att, kind="lsh", num_hashes=2, chunk_length=16,
+           attention_dropout=0.0)
+lsh_stack = dict(stack, attention=lsh)
+lsh_cfg = from_dict(Config, {
+    "model": {"vocab_size": frontend_vocab_size(), "d_model": 32,
+              "n_mels": 20, "encoder": dict(lsh_stack, causal=False),
+              "decoder": dict(lsh_stack, causal=True), "dec_prenet_hidden": 16,
+              "postnet_channels": 16, "max_pos": 512,
+              "compute_dtype": "float32"},
+    "experiment": {"optim": {"warmup_steps": 1}}})
+model = M.init(lsh_cfg.model, torch.Generator().manual_seed(0), "cpu")
+state = opt.init(list(model.parameters()))
+step = make_train_step(lsh_cfg.model, opt)
+batch = {"tokens": torch.randint(3, 40, (2, 40), generator=g),
+         "token_mask": torch.arange(40)[None] < torch.tensor([[40], [23]]),
+         "mel": torch.randn(2, 50, 20, generator=g),
+         "mel_mask": torch.arange(50)[None] < torch.tensor([[50], [31]])}
+lsh_losses = [float(step(model, state, batch, step_generator(0, s, "cpu"), s)
+                    ["loss"]) for s in range(2)]
+assert all(l == l and abs(l) < 1e6 for l in lsh_losses), lsh_losses
+assert not any(m.split(".")[0] in ("jax", "rtts") for m in sys.modules
                if sys.modules[m] is not None)
-print("OK", losses)
+print("OK", losses, lsh_losses)
 """
 
 
@@ -138,24 +165,26 @@ def test_chip_smoke_imports_only_the_port():
     assert not _roots(names) & {"jax", "jaxlib", "rtts"}, sorted(names)
 
 
-def test_port_reaches_the_jax_package_only_through_config_and_text():
-    shared = {"config.py": {"rtts.config"}, "text.py": {"rtts.text"},
-              "data.py": {"rtts.data.dataset"},
-              "utils/metrics.py": {"rtts.utils.metrics"}}
+def test_port_imports_nothing_of_the_jax_package():
     files = sorted((ROOT / "rtts_torch").rglob("*.py"))
-    assert len(files) > 20
-    for path in files:
+    assert len(files) > 25
+    for path in files + [ROOT / "chip_smoke.py"]:
         names = _imported_modules(path)
-        assert not _roots(names) & {"jax", "jaxlib"}, (path, sorted(names))
-        from_rtts = {n for n in names if n.split(".")[0] == "rtts"}
-        rel = path.relative_to(ROOT / "rtts_torch").as_posix()
-        assert from_rtts == shared.get(rel, set()), (path, sorted(from_rtts))
+        assert not _roots(names) & {"jax", "jaxlib", "rtts"}, (path,
+                                                               sorted(names))
 
 
 def test_chip_smoke_base_config_equals_base_yaml():
     import chip_smoke
 
     assert chip_smoke.BASE_CONFIG == load_yaml(ROOT / "configs" / "base.yaml")
+
+
+def test_chip_smoke_longform_config_equals_longform_yaml():
+    import chip_smoke
+
+    assert chip_smoke.LONGFORM_CONFIG == load_yaml(
+        ROOT / "configs" / "longform_8k.yaml")
 
 
 @pytest.mark.parametrize("rate", [0.1, 0.5])

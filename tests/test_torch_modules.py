@@ -58,7 +58,7 @@ def close(got, want, tol=TOL):
 def model():
     cfg = tiny_cfg(d=64)
     jp = JM.init(jax.random.PRNGKey(0), cfg)
-    return cfg, jp, from_numpy_tree(TM.init(cfg), np_tree(jp))
+    return cfg, jp, from_numpy_tree(TM.init(cfg, device="cpu"), np_tree(jp))
 
 
 @pytest.fixture(scope="module")
@@ -166,10 +166,13 @@ def test_stack_apply_encoder_and_decoder(model, data):
 
 def test_unported_attention_kinds_raise(model, data):
     cfg, jp, tm = model
-    lsh = dataclasses.replace(cfg.encoder, attention=dataclasses.replace(
-        cfg.encoder.attention, kind="lsh"))
-    with pytest.raises(NotImplementedError, match="lsh"):
-        stack_apply(tm.encoder, lsh, tt(data["x"]), tt(data["mask"]))
+    local = dataclasses.replace(cfg.encoder, attention=dataclasses.replace(
+        cfg.encoder.attention, kind="local"))
+    with pytest.raises(NotImplementedError, match="local"):
+        stack_apply(tm.encoder, local, tt(data["x"]), tt(data["mask"]))
+    seq_parallel = dataclasses.replace(cfg.encoder, seq_parallel_axis="seq")
+    with pytest.raises(NotImplementedError, match="parallel"):
+        stack_apply(tm.encoder, seq_parallel, tt(data["x"]), tt(data["mask"]))
 
 
 def test_encode(model, data):
@@ -209,7 +212,7 @@ def vocoder():
         for k in ("w", "b"):
             f["wn"]["end"][k] = (0.1 * rng.standard_normal(
                 f["wn"]["end"][k].shape)).astype(np.float32)
-    return jp, from_numpy_tree(TS.fold_weightnorm(TS.init(VOC_CFG)), jp)
+    return jp, from_numpy_tree(TS.fold_weightnorm(TS.init(VOC_CFG, device="cpu")), jp)
 
 
 def test_wn_apply(vocoder, data):
@@ -239,7 +242,7 @@ def test_infer_chunk(vocoder, data):
 def test_fold_weightnorm_matches_jax(data):
     """The port's fold of an unfolded tree equals the JAX fold."""
     jp = np_tree(JS.init(jax.random.PRNGKey(6), VOC_CFG))
-    tm = from_numpy_tree(TS.init(VOC_CFG), jp)
+    tm = from_numpy_tree(TS.init(VOC_CFG, device="cpu"), jp)
     assert not TS.is_folded(tm)
     folded = TS.ensure_folded(tm)
     assert TS.is_folded(folded) and TS.ensure_folded(folded) is folded

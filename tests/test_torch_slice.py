@@ -45,7 +45,7 @@ def close(got, want, tol=TOL):
 def setup():
     cfg = tiny_cfg(d=64)
     jp = JM.init(jax.random.PRNGKey(7), cfg)
-    tm = from_numpy_tree(TM.init(cfg), np_tree(jp))
+    tm = from_numpy_tree(TM.init(cfg, device="cpu"), np_tree(jp))
     rng = np.random.default_rng(8)
     b, l = 3, 23
     tokens = rng.integers(3, cfg.vocab_size, (b, l)).astype(np.int32)
@@ -108,7 +108,7 @@ def test_decode_that_stops_matches_and_vocodes(setup):
         for k in ("w", "b"):
             f["wn"]["end"][k] = (0.1 * rng.standard_normal(
                 f["wn"]["end"][k].shape)).astype(np.float32)
-    tv = from_numpy_tree(TS.fold_weightnorm(TS.init(VOC_CFG)), jv)
+    tv = from_numpy_tree(TS.fold_weightnorm(TS.init(VOC_CFG, device="cpu")), jv)
     mel = np.array(want.mel_post)[..., :VOC_CFG.n_mels]
     l = MAX_FRAMES * VOC_CFG.hop_length // VOC_CFG.n_group
     z = rng.standard_normal((mel.shape[0], l, VOC_CFG.n_group)).astype(np.float32)
@@ -122,7 +122,7 @@ def test_decode_that_stops_matches_and_vocodes(setup):
 def test_checkpoint_bridge_matches_live_tree(setup, tmp_path):
     cfg, jp, tm, tokens, mask, *_ = setup
     step_dir = save_checkpoint(tmp_path, {"params": jp, "step": 3}, step=3)
-    loaded = load_leaves_npz(TM.init(cfg), step_dir, prefix="params")
+    loaded = load_leaves_npz(TM.init(cfg, device="cpu"), step_dir, prefix="params")
     for (name, a), (name_b, b) in zip(tm.state_dict().items(),
                                       loaded.state_dict().items()):
         assert name == name_b and torch.equal(a, b), name
@@ -137,7 +137,7 @@ def test_checkpoint_bridge_matches_live_tree(setup, tmp_path):
                           stop_threshold=2.0)
     assert torch.equal(res_a.mel_post, res_b.mel_post)
     with pytest.raises(KeyError, match="missing"):
-        load_leaves_npz(TM.init(cfg), step_dir, prefix="opt_state")
+        load_leaves_npz(TM.init(cfg, device="cpu"), step_dir, prefix="opt_state")
 
 
 def test_synthesizer_text_to_mel_matches(setup):

@@ -248,7 +248,7 @@ def _torch_batch(batch):
 def test_forward_and_attn_sink_match_jax(r):
     cfg = _train_cfg(r)
     jp = JM.init(jax.random.PRNGKey(3), cfg)
-    tm = from_numpy_tree(TM.init(cfg), np_tree(jp))
+    tm = from_numpy_tree(TM.init(cfg, device="cpu"), np_tree(jp))
     batch = _batch(cfg, seed=r)
 
     @jax.jit
@@ -278,7 +278,7 @@ def test_forward_without_generator_drops_nothing():
     deterministic one, as the reference's without an rng."""
     cfg = _train_cfg(rate=0.1)
     jp = JM.init(jax.random.PRNGKey(4), cfg)
-    tm = from_numpy_tree(TM.init(cfg), np_tree(jp))
+    tm = from_numpy_tree(TM.init(cfg, device="cpu"), np_tree(jp))
     batch = _batch(cfg, seed=7)
     want = jax.jit(lambda p, b: JM.forward(
         p, cfg, b["tokens"], b["token_mask"], b["mel"], b["mel_mask"]))(
@@ -320,7 +320,7 @@ def test_train_step_matches_jax():
                         grad_clip_norm=1.0)
     lr = optim.learning_rate
     jp = JM.init(jax.random.PRNGKey(5), cfg)
-    tm = from_numpy_tree(TM.init(cfg), np_tree(jp))
+    tm = from_numpy_tree(TM.init(cfg, device="cpu"), np_tree(jp))
     names = [n for n, _ in tm.named_parameters()]
 
     j_opt = JO.make_optimizer(optim)
@@ -345,14 +345,14 @@ def test_train_step_matches_jax():
         close(metrics["grad_norm"], j_metrics["grad_norm"], MODEL_TOL)
         if step == 0:
             close(metrics["loss"], want_loss, MODEL_TOL)
-            want = dict(from_numpy_tree(TM.init(cfg), np_tree(want_grads))
+            want = dict(from_numpy_tree(TM.init(cfg, device="cpu"), np_tree(want_grads))
                         .named_parameters())
             for name, g in zip(names, grads):
                 w = want[name].detach()
                 scale = max(float(w.abs().max()), 1e-6)
                 close(g / scale, w / scale, MODEL_TOL)
         got_params = dict(tm.named_parameters())
-        want_params = from_numpy_tree(TM.init(cfg), np_tree(jp))
+        want_params = from_numpy_tree(TM.init(cfg, device="cpu"), np_tree(jp))
         for name, p in want_params.named_parameters():
             close(got_params[name], p, 3 * lr)
     assert t_state["count"] == 2
@@ -364,7 +364,7 @@ def test_train_step_matches_jax():
 def test_checkpoint_round_trip_and_jax_interop(tmp_path):
     cfg = _train_cfg()
     jp = JM.init(jax.random.PRNGKey(8), cfg)
-    tm = from_numpy_tree(TM.init(cfg), np_tree(jp))
+    tm = from_numpy_tree(TM.init(cfg, device="cpu"), np_tree(jp))
     opt = TO.make_optimizer(OptimConfig())
     state = opt.init(list(tm.parameters()))
     for i, (mu, nu) in enumerate(zip(state["mu"], state["nu"])):
@@ -379,7 +379,7 @@ def test_checkpoint_round_trip_and_jax_interop(tmp_path):
     latest = TC.latest_checkpoint(tmp_path / "port")
     meta = json.loads((tmp_path / "port" / "step_4" / "meta.json").read_text())
     assert meta["format_version"] == 2 and meta["step"] == 4
-    fresh = TM.init(cfg)
+    fresh = TM.init(cfg, device="cpu")
     fresh_state = opt.init(list(fresh.parameters()))
     assert TC.restore_checkpoint(latest, fresh, fresh_state) == 4
     for (n, a), (_, b) in zip(tm.state_dict().items(),
@@ -396,7 +396,7 @@ def test_checkpoint_round_trip_and_jax_interop(tmp_path):
     jax_opt = JO.make_optimizer(OptimConfig())
     jax_dir = jax_save(tmp_path / "jax", {"params": jp,
                                           "opt_state": jax_opt.init(jp)}, 9)
-    other = TM.init(cfg)
+    other = TM.init(cfg, device="cpu")
     assert TC.restore_checkpoint(jax_dir, other) == 9
     for (n, a), (_, b) in zip(tm.state_dict().items(),
                               other.state_dict().items()):
@@ -407,7 +407,7 @@ def test_checkpoint_round_trip_and_jax_interop(tmp_path):
 
 def test_async_checkpointer_snapshots_before_updates(tmp_path):
     cfg = _train_cfg()
-    tm = TM.init(cfg, torch.Generator().manual_seed(0))
+    tm = TM.init(cfg, torch.Generator().manual_seed(0), "cpu")
     before = {k: v.clone() for k, v in tm.state_dict().items()}
     saver = TC.AsyncCheckpointer()
     saver.save(tmp_path, tm, None, 1)
@@ -415,7 +415,7 @@ def test_async_checkpointer_snapshots_before_updates(tmp_path):
         for p in tm.parameters():
             p.add_(1.0)
     saver.wait()
-    fresh = TM.init(cfg)
+    fresh = TM.init(cfg, device="cpu")
     TC.restore_checkpoint(TC.latest_checkpoint(tmp_path), fresh)
     for k, v in fresh.state_dict().items():
         assert torch.equal(v, before[k]), k
