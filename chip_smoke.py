@@ -9,8 +9,10 @@ seeds: serving at ``configs/base.yaml``
 greedy decode -> postnet -> SqueezeWave inverse), TTS training at
 ``configs/base.yaml`` (``rtts_torch.train.train_tts.make_train_step``:
 teacher-forced forward with dropout, loss with guided attention, backward,
-clip, Adam, Noam) and TTS training with LSH attention at
-``configs/longform_8k.yaml``, phase by phase; every phase raises on failure:
+clip, Adam, Noam), TTS training with LSH attention at
+``configs/longform_8k.yaml`` and reversible TTS training with the chunked
+FFN and K6 at ``configs/serving_fast.yaml``, phase by phase; every phase
+raises on failure:
 
 1. device: the card's name and power limit;
 2. build: nvcc builds the CUDA kernels from ``rtts_torch/csrc``;
@@ -43,7 +45,9 @@ clip, Adam, Noam) and TTS training with LSH attention at
 11. kernels-lsh: K4 (LSH chunk-attend) and K5 (its backward) against their
    plain versions at four longform shapes (the decoder's b2 h8 4 hashes
    L8192, the encoder's L1024, a ragged one, one whose chunk count is not a
-   multiple of 8), bf16 and f32; K5 twice, bit-equal;
+   multiple of 8) and serving_fast.yaml's two (b8: the decoder's L1024
+   causal, the encoder's L256, both ragged), bf16 and f32; K5 twice,
+   bit-equal;
 12. LSH train slice: three longform_8k.yaml steps at full width (batch 2,
    ragged up to 1024 tokens and 8192 frames, bf16): finite loss, grad norm
    and gradients; per step 12 launches of K4 and K5 and 6 of K1 and each
@@ -54,7 +58,27 @@ clip, Adam, Noam) and TTS training with LSH attention at
 14. LSH train timing: the step at batch 2 x 8192 frames (best of 3), a
    ``torch.profiler`` view of one step, K4 and K5 against their plain
    versions and bounds, the plain attend against K4 + K5, and K1 and K3
-   at the cross-attention's shape against their plain versions and bounds.
+   at the cross-attention's shape against their plain versions and bounds;
+15. kernels-ffn: K6 (fused LN + FFN) against its plain version at the
+   decoder's (8 x 1024 rows, 512 -> 2048) and encoder's (8 x 256) FFN
+   shapes, a ragged row count and a narrow width with each activation,
+   multiplying in bf16 and f32; twice, bit-equal;
+16. reversible train slice: three ``configs/serving_fast.yaml`` steps at
+   full width (reversible residuals, LSH in both stacks, batch 8, ragged
+   up to 256 tokens and 1024 frames, bf16) with K6 on every FFN: finite
+   loss, grad norm and nonzero gradients, per step 36 launches of K6, 24
+   of K4, 12 of K5, 12 of K1 and 6 of each K3 kernel; then three steps as
+   shipped (the chunked FFN), with no K6 launch;
+17. reversible card-vs-CPU: one float32 step at 2 + 2 layers, the card
+   with K6, the CPU with its plain version, buckets counted; then
+   reversible against plain residuals on the card with dropout on;
+18. reversible timing: the step at batch 8 x 1024 frames (best of 3, peak
+   device memory) for reversible + K6, reversible + the chunked FFN,
+   reversible with an unchunked FFN and plain residuals with an unchunked
+   FFN, each with a ``torch.profiler`` view of one step; every reversible
+   peak below 0.6 of the plain one; what autograd holds after one FFN
+   sublayer's forward, chunked below unchunked; K6 against its plain
+   version and bound.
 
 Prints a JSON line of per-kernel results (time, plain time, bound, library
 time where one PyTorch call computes the same function) and, last, the JSON
@@ -68,6 +92,7 @@ from __future__ import annotations
 
 import copy
 import json
+import re
 import subprocess
 import sys
 import time
@@ -82,7 +107,9 @@ from rtts_torch.infer.decode import decode_greedy
 from rtts_torch.infer.synthesize import Synthesizer
 from rtts_torch.models import reformer_tts as M
 from rtts_torch.models import squeezewave as SW
+from rtts_torch.models import stack as TS
 from rtts_torch.ops import _build
+from rtts_torch.ops.chunked_ffn import ffn_fused, ffn_fused_reference
 from rtts_torch.ops.depthwise_conv import (depthwise_conv1d,
                                            depthwise_conv1d_reference)
 from rtts_torch.ops.flash_attention import (dropout_keep_mask, flash_attend,
@@ -95,6 +122,7 @@ from rtts_torch.ops.lsh_attention import (lsh_attend_bwd,
                                           lsh_attend_chunks_kernel,
                                           lsh_attend_chunks_reference,
                                           lsh_attend_fwd)
+from rtts_torch.reversible.ffn import FFN, chunked_ffn
 from rtts_torch.text import encode_batch, frontend_vocab_size
 from rtts_torch.train.optim import make_optimizer
 from rtts_torch.train.train_tts import make_train_step, step_generator
@@ -217,7 +245,7 @@ def phase_build():
     print(f"[build] kernels ready in {time.perf_counter() - t0:.1f} s -> "
           f"{_build.library_path()}")
     for line in _build.build_log_path().read_text().splitlines():
-        if "registers" in line:
+        if "registers" in line or re.search(r"[1-9]\d* bytes spill", line):
             print(f"[build] {line.strip()}")
 
 
@@ -571,15 +599,17 @@ TRAIN_FLASH_CASES = {
 
 def train_config(compute_dtype: str = "bfloat16", num_layers=None,
                  dropout_off: bool = False, attention_dropout: float = 0.0,
-                 base=BASE_CONFIG, **optim) -> Config:
+                 base=BASE_CONFIG, stack_overrides=None, **optim) -> Config:
     """``base`` (base.yaml by default) for training: ``num_layers`` cuts
-    both stacks, and ``dropout_off`` sets every dropout rate to 0 (the
-    decoder prenet's included), so two devices can take the same step."""
+    both stacks, ``dropout_off`` sets every dropout rate to 0 (the decoder
+    prenet's included), so two devices can take the same step, and
+    ``stack_overrides`` (a dict) sets keys of both stacks."""
     data = copy.deepcopy(base)
     model = data["model"]
     model.update(vocab_size=frontend_vocab_size("char"),
                  compute_dtype=compute_dtype)
     for stack in (model["encoder"], model["decoder"]):
+        stack.update(stack_overrides or {})
         stack["attention"]["attention_dropout"] = attention_dropout
         if num_layers is not None:
             stack["num_layers"] = num_layers
@@ -940,6 +970,11 @@ LSH_CASES = {
         2, 8, 4, 1024, 64, True, 1, 0, (1024, 700)),
     "nc 60 (not a multiple of 8) b2 h8 nh4 L960 c64 causal, invalid keys": (
         2, 8, 4, 960, 64, True, 1, 0, (960, 500)),
+    # serving_fast.yaml's train step (phases 16 and 18) at its ragged lengths
+    "serving_fast decoder b8 h8 nh4 L1024 c64 causal": (
+        8, 8, 4, 1024, 64, True, 1, 0, TRAIN_FRAME_LENS),
+    "serving_fast encoder b8 h8 nh4 L256 c64 (nc 16)": (
+        8, 8, 4, 256, 64, False, 1, 0, TRAIN_TOKEN_LENS),
 }
 _LSH_DECODER, _LSH_ENCODER = list(LSH_CASES)[:2]
 
@@ -980,7 +1015,8 @@ def _lsh_bounds(b, h, nh, l, c, causal, before, after, lens, dtype):
 
 def phase_kernels_lsh():
     """K4 and K5 against their plain versions run in f32 on the same inputs,
-    in bf16 and f32, at the longform shapes; K5 twice, bit-equal.  Returns
+    in bf16 and f32, at the longform and serving_fast shapes; K5 twice,
+    bit-equal.  Returns
     the max abs error of each at the decoder shape in bf16."""
     torch.backends.cuda.matmul.allow_tf32 = False
     main = {}
@@ -1228,6 +1264,370 @@ def phase_train_lsh_timing(model):
     return times
 
 
+# -- reversible training with the chunked FFN and K6 (configs/serving_fast.yaml)
+
+# configs/serving_fast.yaml as a dict (tests/test_torch_guards.py holds the
+# two equal)
+_SERVING_FAST_ATTENTION = {"kind": "lsh", "num_heads": 8, "head_dim": 64,
+                           "num_hashes": 4, "chunk_length": 64}
+_SERVING_FAST_STACK = {"num_layers": 6, "d_model": 512, "d_ff": 2048,
+                       "ffn_chunk_size": 256, "reversible": True}
+SERVING_FAST_CONFIG = {
+    "dataset": {"data_dir": "data", "batch_size": 8, "num_workers": 4,
+                "max_mel_len": 1024},
+    "model": {
+        "d_model": 512,
+        "n_mels": 80,
+        "encoder": dict(_SERVING_FAST_STACK, causal=False,
+                        attention=dict(_SERVING_FAST_ATTENTION)),
+        "decoder": dict(_SERVING_FAST_STACK, causal=True,
+                        attention=dict(_SERVING_FAST_ATTENTION)),
+        "compute_dtype": "bfloat16",
+        "kv_cache_dtype": "float8_e4m3fn",
+    },
+    "vocoder": {"n_flows": 12, "n_group": 128, "n_early_every": 4,
+                "n_early_size": 16, "wn_layers": 8, "wn_channels": 128},
+}
+K6_ON = {"use_pallas_ffn": True}
+
+K6_CASES = {
+    # name: (rows, d, d_ff, activation)
+    "decoder 8x1024 rows 512->2048 gelu": (8 * 1024, 512, 2048, "gelu"),
+    "encoder 8x256 rows 512->2048 gelu": (8 * 256, 512, 2048, "gelu"),
+    "ragged 8x1000+13 rows 512->2048 gelu": (8 * 1000 + 13, 512, 2048, "gelu"),
+    **{f"narrow 1037 rows 96->200 {act}": (1037, 96, 200, act)
+       for act in ("relu", "gelu", "tanh", "silu")},
+}
+_K6_DECODER = list(K6_CASES)[0]
+
+
+def _k6_case(rows, d, f, act):
+    """f32 rows and FFN parameters of the init's scales (LN and biases
+    perturbed, so every term counts), on the card."""
+    g = torch.Generator().manual_seed(SEED_DATA)
+    x = torch.randn(rows, d, generator=g)
+    params = (1.0 + 0.1 * torch.randn(d, generator=g),
+              0.1 * torch.randn(d, generator=g),
+              torch.randn(d, f, generator=g) * d ** -0.5,
+              0.1 * torch.randn(f, generator=g),
+              torch.randn(f, d, generator=g) * f ** -0.5,
+              0.1 * torch.randn(d, generator=g))
+    return x.cuda(), [t.cuda() for t in params], act
+
+
+def _k6_bound(rows, d, f, act):
+    """x read and out written in f32, the f32 weights and biases read once;
+    the two products' 4 rows d f operations at the bf16 tensor-core rate."""
+    n_bytes = 4 * (2 * rows * d + 2 * d * f + f + 3 * d)
+    return _bound(n_bytes, 4 * rows * d * f, torch.bfloat16)
+
+
+def phase_kernels_ffn():
+    """K6 against its plain version run on the same inputs, multiplying in
+    bf16 and in f32, at the stacks' shapes, a ragged row count and a narrow
+    width with each activation; twice, bit-equal.  Returns the max abs
+    error at the decoder shape in bf16."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    main = {}
+    for name, case in K6_CASES.items():
+        x, params, act = _k6_case(*case)
+        for mxu in (torch.bfloat16, torch.float32):
+            got = ffn_fused(x, *params, act, mxu)
+            again = ffn_fused(x, *params, act, mxu)
+            torch.cuda.synchronize()
+            want = ffn_fused_reference(x, *params, act, mxu)
+            err, same = _scaled_err(got, want), torch.equal(got, again)
+            tol = KERNEL_TOL[mxu]
+            print(f"[kernels-ffn] K6 {name} multiply {str(mxu)[6:]}: max err "
+                  f"{err:.3e} (abs {_abs_err(got, want):.3e}), tol {tol:g}; "
+                  f"twice bit-equal {same}")
+            _require(err <= tol, f"K6 {name} disagrees with its plain version")
+            _require(same, f"K6 {name} is not deterministic")
+            main.setdefault("ffn_fused", _abs_err(got, want))
+    d = K6_CASES[_K6_DECODER][1]
+    print(f"[kernels-ffn] K6 dynamic shared memory at d {d}: "
+          f"{4 * (d * 36 + 256 * 36 + 16 * 256)} bytes per 32-row block")
+    return main
+
+
+def _serving_fast_counts():
+    return {**_train_counts(), **_lsh_counts(),
+            "ffn_fused": ffn_fused.launches}
+
+
+def _reset_all_counts():
+    for fn in (*_TRAIN_KERNELS, *_LSH_KERNELS, ffn_fused):
+        fn.launches = 0
+
+
+def phase_train_serving_fast():
+    """Three serving_fast.yaml train steps at full width (b8, ragged up to
+    256 tokens and 1024 frames, bf16), reversible residuals with K6 on every
+    FFN, then three as shipped (the chunked FFN, no K6): finite loss, grad
+    norm and nonzero gradients, and per step the launches the code implies.
+    Returns the K6 model and the launch counts of its three steps."""
+    result = None
+    for k6 in (True, False):
+        cfg = train_config(base=SERVING_FAST_CONFIG,
+                           stack_overrides=K6_ON if k6 else None)
+        enc, dec = cfg.model.encoder.num_layers, cfg.model.decoder.num_layers
+        n_ffn, n_lsh, n_cross = enc + 2 * dec, enc + dec, dec
+        model, state, step_fn = _trainer(cfg, "cuda")
+        names = [n for n, _ in model.named_parameters()]
+        batch = train_batch(cfg, TRAIN_TOKEN_LENS, TRAIN_FRAME_LENS, "cuda")
+        torch.cuda.reset_peak_memory_stats()
+        _reset_all_counts()
+        t0 = time.perf_counter()
+        steps = [step_fn(model, state, batch,
+                         step_generator(SEED_TRAIN, step, "cuda"), step,
+                         return_grads=True) for step in range(3)]
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = _serving_fast_counts()
+        what = "K6" if k6 else "as shipped"
+        for step, (metrics, grads) in enumerate(steps):
+            _check_step(cfg, metrics, grads, names,
+                        f"serving_fast {what} step {step}")
+            print(f"[train-rev] {what} step {step}: loss "
+                  f"{float(metrics['loss']):.6f}, grad_norm "
+                  f"{float(metrics['grad_norm']):.6f}")
+        # per step: each FFN in the forward and again in the reconstruction;
+        # each LSH layer K4 in the forward and in the recompute, K5 once;
+        # each cross-attention K1 twice, each K3 kernel once
+        per_step = {"flash_train": 2 * n_cross, "flash_bwd_dkv": n_cross,
+                    "flash_bwd_dq": n_cross, "lsh_attend": 2 * n_lsh,
+                    "lsh_attend_bwd": n_lsh,
+                    "ffn_fused": 2 * n_ffn if k6 else 0}
+        print(f"[train-rev] serving_fast.yaml {what} b{len(TRAIN_TOKEN_LENS)} "
+              f"tokens {list(TRAIN_TOKEN_LENS)} frames "
+              f"{list(TRAIN_FRAME_LENS)} bf16: 3 steps in {dt:.2f} s (the "
+              f"first one cold); peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+              f"per step {({k: v / 3 for k, v in launches.items()})}")
+        want = {k: 3 * v for k, v in per_step.items()}
+        _require(launches == want, f"serving_fast {what}: expected launches "
+                 f"{want} over 3 steps, got {launches}")
+        del steps
+        if k6:
+            result = model, {"ffn_fused": launches["ffn_fused"]}
+        else:
+            del model, state
+    torch.cuda.empty_cache()
+    return result
+
+
+# reversible vs plain residuals: the CPU test's tolerance (JAX's own
+# reversible-vs-plain test, tests/test_model_lsh.py): the reconstruction
+# X2 = Y2 - g(Y1) rounds in f32, layer after layer
+REV_TOL = 5e-4
+
+
+def phase_train_serving_fast_card_vs_cpu():
+    """One f32 serving_fast step at 2 + 2 layers, every dropout 0, constant
+    lr: the card with K6 against the CPU with K6's plain version (the gate
+    forced there), from the same weights, batch and rotations, buckets
+    counted as in phase 13.  Then, on the card, reversible against plain
+    residuals from one generator with dropout on: the loss and every
+    gradient within the CPU test's tolerance, nonzero where plain's is."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = train_config("float32", num_layers=2, dropout_off=True,
+                       base=SERVING_FAST_CONFIG, stack_overrides=K6_ON,
+                       schedule="constant")
+    lr = cfg.experiment.optim.learning_rate
+    lens = ((256, 180), (512, 400))
+    batch = train_batch(cfg, *lens, "cpu")
+    hash_vectors, draw_rotations = TL.hash_vectors, TL.draw_rotations
+    gate = TS.use_ffn_kernel
+    card_buckets, agree = [], []
+
+    def card_hash(*args, **kw):
+        buckets = hash_vectors(*args, **kw)
+        card_buckets.append(buckets.cpu())
+        return buckets
+
+    def cpu_hash(*args, **kw):
+        own, card = hash_vectors(*args, **kw), card_buckets[len(agree)]
+        agree.append(((own == card).sum().item(), own.numel()))
+        return card
+
+    try:
+        TL.hash_vectors, TL.draw_rotations = card_hash, _rotation_draws()
+        _reset_all_counts()
+        card = _f32_step(cfg, batch, "cuda")
+        launches = _serving_fast_counts()
+        TL.hash_vectors, TL.draw_rotations = cpu_hash, _rotation_draws()
+        TS.use_ffn_kernel = lambda x: True
+        t0 = time.perf_counter()
+        cpu = _f32_step(cfg, batch, "cpu")
+        t1 = time.perf_counter()
+    finally:
+        TL.hash_vectors, TL.draw_rotations = hash_vectors, draw_rotations
+        TS.use_ffn_kernel = gate
+    equal, total = (sum(x) for x in zip(*agree))
+    share = equal / total
+    init = M.init(cfg.model, torch.Generator().manual_seed(SEED_TTS), "cpu")
+    names = [n for n, _ in init.named_parameters()]
+    loss_err = abs(card[0]["loss"] - cpu[0]["loss"]) / max(
+        1.0, abs(cpu[0]["loss"]))
+    norm_err = abs(card[0]["grad_norm"] - cpu[0]["grad_norm"]) / max(
+        1.0, abs(cpu[0]["grad_norm"]))
+    grad_errs = {n: ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)
+                     ).item() for n, a, b in zip(names, card[1], cpu[1])}
+    worst = max(grad_errs, key=grad_errs.get)
+    param_err = max((a - b).abs().max().item()
+                    for a, b in zip(card[2], cpu[2]))
+    print(f"[train-rev-card-vs-cpu] f32 2+2 layers K6 b2 tokens "
+          f"{list(lens[0])} frames {list(lens[1])}: buckets equal "
+          f"{equal}/{total} ({share:.6f}, min {BUCKET_SHARE_MIN}) over "
+          f"{len(agree)} LSH layers; loss {card[0]['loss']:.6f} vs "
+          f"{cpu[0]['loss']:.6f} (err {loss_err:.3e}), grad_norm err "
+          f"{norm_err:.3e}, worst gradient leaf {worst} {grad_errs[worst]:.3e}"
+          f" (relative to its largest entry), params after the update "
+          f"{param_err:.3e} (lr {lr:g}); tol {TRAIN_SLICE_TOL:g}, params "
+          f"{TRAIN_PARAM_TOL_LR:g} lr; card launches {launches} (cpu "
+          f"{t1 - t0:.1f} s)")
+    _require(len(agree) == 4 and all(n > 0 for n in launches.values()),
+             f"the card's step ran {launches}, hashed {len(agree)} layers")
+    _require(share >= BUCKET_SHARE_MIN, "card and CPU buckets disagree")
+    _require(loss_err <= TRAIN_SLICE_TOL and norm_err <= TRAIN_SLICE_TOL
+             and grad_errs[worst] <= TRAIN_SLICE_TOL
+             and param_err <= TRAIN_PARAM_TOL_LR * lr,
+             "card and CPU reversible train steps disagree")
+
+    runs = {}
+    for rev in (True, False):
+        cfg = train_config("float32", num_layers=2, base=SERVING_FAST_CONFIG,
+                           stack_overrides=dict(K6_ON, reversible=rev),
+                           schedule="constant")
+        runs[rev] = _f32_step(cfg, batch, "cuda")
+    (rev_m, rev_g, _), (plain_m, plain_g, _) = runs[True], runs[False]
+    loss_err = abs(rev_m["loss"] - plain_m["loss"]) / abs(plain_m["loss"])
+    scale = max(g.abs().max().item() for g in plain_g)
+    grad_err = max((a - b).abs().max().item()
+                   for a, b in zip(rev_g, plain_g)) / scale
+    same_zeros = all(bool((a != 0).any()) == bool((b != 0).any())
+                     for a, b in zip(rev_g, plain_g))
+    print(f"[train-rev-card-vs-cpu] reversible vs plain on the card, f32 2+2 "
+          f"layers K6, dropout on: loss {rev_m['loss']:.6f} vs "
+          f"{plain_m['loss']:.6f} (rel err {loss_err:.3e}), max gradient "
+          f"difference {grad_err:.3e} of the largest entry (tol {REV_TOL:g}); "
+          f"nonzero where plain's are: {same_zeros}")
+    _require(loss_err <= 1e-5 and grad_err <= REV_TOL and same_zeros,
+             "reversible and plain residuals disagree on the card")
+
+
+
+# the reversible step's peak device memory must stay below this share of
+# the plain step's: a backward that kept each layer's inputs would not
+REV_PEAK_SHARE_MAX = 0.6
+
+
+def _ffn_held_and_peak(chunk: int, b: int = 8, frames: int = 1024):
+    """One bf16 FFN sublayer at the decoder's shape through ``chunked_ffn``:
+    the device memory autograd holds after the forward and the peak of
+    forward + backward, both beyond the input, in MiB."""
+    p = FFN(512, 2048, generator=torch.Generator().manual_seed(SEED_DATA),
+            device="cuda")
+    x = torch.randn(b, frames, 512, device="cuda", requires_grad=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = chunked_ffn(p, x, chunk, "gelu", torch.bfloat16)
+    held = torch.cuda.memory_allocated() - base
+    out.float().sum().backward()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del p, x, out
+    torch.cuda.empty_cache()
+    return held / 2**20, peak / 2**20
+
+
+def phase_train_serving_fast_timing(model):
+    """The bf16 serving_fast train step at b8 x 256 tokens x 1024 frames,
+    every position valid, in four variants: reversible + K6, reversible +
+    the chunked FFN (as shipped), reversible with an unchunked FFN and
+    plain residuals with an unchunked FFN.  Each: best of 3 after a
+    warm-up, peak device memory reset before each step, and one profiled
+    step; the reversible peaks below ``REV_PEAK_SHARE_MAX`` of the plain
+    one.  One FFN sublayer chunked and unchunked: what autograd holds.  K6
+    at the decoder shape against its plain version and its bound."""
+    b, n_tok, frames = 8, 256, 1024
+    plain = "plain residuals, unchunked FFN"
+    variants = {"reversible + K6": K6_ON,
+                "reversible + chunked FFN (as shipped)": {},
+                "reversible, unchunked FFN": {"ffn_chunk_size": 0},
+                plain: {"reversible": False, "ffn_chunk_size": 0}}
+    params = list(model.parameters())
+    best_peak = {}
+    for name, overrides in variants.items():
+        cfg = train_config(base=SERVING_FAST_CONFIG, stack_overrides=overrides)
+        optimizer = make_optimizer(cfg.experiment.optim)
+        state = optimizer.init(params)
+        step_fn = make_train_step(cfg.model, optimizer)
+        batch = train_batch(cfg, (n_tok,) * b, (frames,) * b, "cuda")
+        gen = torch.Generator(device="cuda")
+
+        def step():
+            metrics = step_fn(model, state, batch,
+                              gen.manual_seed(SEED_TRAIN), state["count"])
+            torch.cuda.synchronize()
+            return metrics
+
+        step()   # warm-up
+        walls, peaks = [], []
+        for _ in range(3):
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            metrics = step()
+            walls.append(time.perf_counter() - t0)
+            peaks.append(torch.cuda.max_memory_allocated() / 2**30)
+            _require(bool(torch.isfinite(metrics["loss"])),
+                     f"timed serving_fast step loss ({name})")
+        best = min(walls)
+        best_peak[name] = min(peaks)
+        print(f"[train-rev-timing] {name}: train step b{b} x {n_tok} tokens x "
+              f"{frames} frames (serving_fast.yaml, bf16): walls "
+              f"{[round(w, 4) for w in walls]} s; best {best:.4f} s = "
+              f"{b * frames / best:.0f} frames/s; peak device memory "
+              f"{[round(p, 3) for p in peaks]} GiB")
+        wall, busy, n_kernels, ops = _profile(step, top=8)
+        print(f"[train-rev-timing] profile of one {name} step: wall "
+              f"{wall:.4f} s, device busy {busy:.4f} s, idle "
+              f"{1 - busy / wall:.1%}; {n_kernels} device activities; "
+              f"device time by op: {ops}")
+        del state, step_fn, batch
+        torch.cuda.empty_cache()
+    for name, peak in best_peak.items():
+        if name != plain:
+            share = peak / best_peak[plain]
+            print(f"[train-rev-timing] peak device memory {name} / plain: "
+                  f"{share:.3f} (max {REV_PEAK_SHARE_MAX})")
+            _require(share < REV_PEAK_SHARE_MAX,
+                     f"the {name} step's peak memory is not below "
+                     f"{REV_PEAK_SHARE_MAX} of the plain step's")
+    held = {chunk: _ffn_held_and_peak(chunk) for chunk in (256, 0)}
+    print(f"[train-rev-timing] one bf16 FFN sublayer b{b} x {frames} x 512 -> "
+          f"2048: held by autograd after the forward chunked (256) "
+          f"{held[256][0]:.1f} MiB vs unchunked {held[0][0]:.1f} MiB; peak of "
+          f"forward + backward {held[256][1]:.1f} vs {held[0][1]:.1f} MiB")
+    _require(held[256][0] < held[0][0], "the chunked FFN's checkpoint holds as "
+             "much as the unchunked FFN")
+
+    case = K6_CASES[_K6_DECODER]
+    x, k6_params, act = _k6_case(*case)
+    bf = torch.bfloat16
+    ms = _kernel_ms(lambda: ffn_fused(x, *k6_params, act, bf),
+                    lambda: ffn_fused_reference(x, *k6_params, act, bf), 20)
+    bound = _k6_bound(*case)
+    print(f"[train-rev-timing] K6 {_K6_DECODER} multiply bf16: kernel "
+          f"{ms[0]:.4f} ms, plain {ms[1]:.4f} ms, bound "
+          f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}); no single "
+          f"PyTorch call computes LN -> dense -> act -> dense")
+    return {"ffn_fused": dict(ms=ms[0], plain_ms=ms[1], library_ms=None,
+                              **bound)}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -1254,6 +1654,12 @@ def main() -> int:
     phase_train_lsh_card_vs_cpu()
     lsh_times = phase_train_lsh_timing(model)
     del model
+    torch.cuda.empty_cache()
+    errs.update(phase_kernels_ffn())
+    model, ffn_launches = phase_train_serving_fast()
+    phase_train_serving_fast_card_vs_cpu()
+    ffn_times = phase_train_serving_fast_timing(model)
+    del model
     _require(not any(m.split(".")[0] in ("jax", "rtts") for m in sys.modules
                      if sys.modules[m] is not None),
              "jax or the JAX package was imported")
@@ -1262,11 +1668,15 @@ def main() -> int:
     # is K1 in the train step): launches of its three train steps, times at
     # the decoder's self-attention shape (plain_ms of each K3 kernel: the
     # plain backward, all three gradients); LSH kernels: launches of the
-    # three longform train steps, times at the longform decoder shape
+    # three longform train steps, times at the longform decoder shape; K6:
+    # launches of the three serving_fast steps with K6, times at the
+    # decoder's FFN shape
     launches.update(train_launches)
     launches.update(lsh_launches)
+    launches.update(ffn_launches)
     times.update(train_times["decoder"])
     times.update(lsh_times)
+    times.update(ffn_times)
     meta = {
         "flash": ("rtts_torch/csrc/flash_fwd.cu",
                   "rtts/ops/flash_attention.py:322"),
@@ -1282,6 +1692,8 @@ def main() -> int:
                        "rtts/ops/lsh_attention.py:60"),
         "lsh_attend_bwd": ("rtts_torch/csrc/lsh_attend_bwd.cu",
                            "rtts/ops/lsh_attention.py:158"),
+        "ffn_fused": ("rtts_torch/csrc/ffn_fused.cu",
+                      "rtts/ops/chunked_ffn.py:34"),
     }
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": rep, "launches": launches[name],

@@ -284,13 +284,16 @@ def lsh_self_attention(p: Attention, x: torch.Tensor,
                        mask: Optional[torch.Tensor], causal: bool,
                        cfg: AttentionConfig,
                        generator: Optional[torch.Generator],
-                       compute_dtype=None, dropout_seed: Optional[int] = None
+                       compute_dtype=None, dropout_seed: Optional[int] = None,
+                       cache: Optional[LshCache] = None
                        ) -> Tuple[torch.Tensor, LshCache]:
     """Reformer LSH self-attention sublayer: x (B, L, D) -> (out, cache).
 
     ``generator`` draws the rotations (``cfg.hash_seed`` replaces it by a
     fresh generator with that seed); ``dropout_seed`` turns on the
-    attention-probs dropout."""
+    attention-probs dropout.  ``cache``, the cache of an earlier call on
+    the same input (the reversible backward's recompute), supplies the
+    buckets: nothing is hashed and no rotation is drawn."""
     l = x.shape[1]
     if l <= cfg.chunk_length:
         # the reference's fallback: full softmax attention for short inputs
@@ -300,11 +303,13 @@ def lsh_self_attention(p: Attention, x: torch.Tensor,
             dropout_seed=dropout_seed, impl=resolve_flash_impl(cfg.flash))
         return out, LshCache(buckets=torch.zeros((0,), dtype=torch.int64,
                                                  device=x.device))
-    if cfg.hash_seed is not None:
+    buckets = None if cache is None else cache.buckets
+    if buckets is None and cfg.hash_seed is not None:
         generator = torch.Generator(device=x.device).manual_seed(cfg.hash_seed)
     qk = _split_heads(p.w_qk(x, compute_dtype), cfg.num_heads)
     v = _split_heads(p.w_v(x, compute_dtype), cfg.num_heads)
     out, buckets = lsh_attention_core(qk, v, cfg, mask, causal, generator,
+                                      buckets=buckets,
                                       dropout_seed=dropout_seed)
     out = p.w_o(_merge_heads(out), compute_dtype)
     return out, LshCache(buckets=buckets)

@@ -10,13 +10,20 @@ compute dtype.
 
 Training: given a ``generator`` (on the stream's device) the stack applies
 ``cfg.dropout`` after every f and g and the attention dropout, with one
-kernel seed per pair drawn from the generator; without one it is the
-deterministic inference stack.  LSH layers draw their random rotations
-from the same generator, or, without one, from a device generator seeded 0
-that the stack's layers consume in turn (``cfg.attention.hash_seed`` fixes
-them per layer instead).  Gradients flow through plain residuals (autograd
-keeps the activations); the reversible backward and the chunked FFN, which
-only save memory, are not ported yet.
+kernel seed per pair drawn from the generator.  The stack dropout and the
+naive attention path's dropout draw from the generator itself, and each
+sublayer keeps the state it drew from, so the reversible backward replays
+every mask exactly and draws nothing.  Without a generator it is the
+deterministic inference stack.  LSH layers
+draw their random rotations from the same generator, or, without one, from
+a device generator seeded 0 that the stack's layers consume in turn
+(``cfg.attention.hash_seed`` fixes them per layer instead); each returns
+its buckets as the cache the reversible backward replays.
+
+Residuals per ``resolve_reversible``: reversible (``rtts_torch/reversible/
+rev.py``, activation memory constant in depth) or plain; the FFN chunked
+per ``resolve_ffn_chunk``, or fused into K6 when ``cfg.use_pallas_ffn`` is
+set and the stream is on the card.
 """
 
 from __future__ import annotations
@@ -32,8 +39,9 @@ from rtts_torch.attention.lsh import lsh_self_attention
 from rtts_torch.config import (ReformerStackConfig, resolve_attention_kind,
                                resolve_ffn_chunk, resolve_reversible)
 from rtts_torch.nn.layers import LayerNorm, dropout
+from rtts_torch.ops.chunked_ffn import chunked_ffn_fused
 from rtts_torch.ops.flash_attention import resolve_flash_impl
-from rtts_torch.reversible.ffn import FFN, _ffn_body
+from rtts_torch.reversible.ffn import FFN, chunked_ffn
 from rtts_torch.reversible.rev import reversible_sequence
 
 
@@ -101,51 +109,83 @@ def _check_supported(cfg: ReformerStackConfig, seq_len: int) -> List[str]:
     return kinds
 
 
+def use_ffn_kernel(x: torch.Tensor) -> bool:
+    """The gate of K6 for a stack with ``use_pallas_ffn`` (the port's
+    counterpart of the reference's TPU gate): the stream is on the card."""
+    return x.is_cuda
+
+
 def make_stack_layer_fns(cfg: ReformerStackConfig, cross_attend: bool,
                          compute_dtype) -> List[Tuple[Any, Any]]:
     """The (f, g) callables of one stack; aux per pair is dict(mask,
-    memory_mask, generator, hash_generator, seed[, attn_sink]).
-    ``generator`` None means no dropout; ``hash_generator`` draws the LSH
-    rotations."""
+    memory_mask, generator, hash_generator, seed, gen_states[,
+    attn_sink]).  ``generator`` None means no dropout; ``hash_generator``
+    draws the LSH rotations; ``seed`` (None: no attention dropout) is the
+    pair's kernel seed; ``gen_states`` ([None] * 3) receives the
+    generator's state before the naive attention dropout and f's and g's
+    stack dropout."""
     a = cfg.attention
     impl = resolve_flash_impl(a.flash)
     kinds = _layer_kinds(cfg)
+    mxu = torch.bfloat16 if compute_dtype == torch.bfloat16 else torch.float32
 
-    def attn_kw(aux):
+    def replayable(aux, which, device):
+        # the step's generator, its state kept at the first call; a
+        # recompute (the reversible backward) draws from that state again
+        gen, states = aux["generator"], aux["gen_states"]
+        if gen is None:
+            return None
+        if states[which] is None:
+            states[which] = gen.get_state()
+            return gen
+        replay = torch.Generator(device=device)
+        replay.set_state(states[which])
+        return replay
+
+    def attn_kw(aux, device):
+        gen = (replayable(aux, 0, device) if a.attention_dropout > 0.0
+               else None)
         return dict(num_heads=a.num_heads, compute_dtype=compute_dtype,
                     dropout_rate=a.attention_dropout,
-                    dropout_seed=aux["seed"], generator=aux["generator"],
-                    impl=impl)
+                    dropout_seed=aux["seed"], generator=gen, impl=impl)
 
-    def drop(x, aux):
-        gen = aux["generator"]
+    def drop(x, aux, which):
+        gen = replayable(aux, 1 + which, x.device) if cfg.dropout else None
         return x if gen is None else dropout(x, cfg.dropout, gen)
 
     def make_f_self(kind):
-        def f_self(p, x, memory, aux):
+        def f_self(p, x, memory, aux, cache):
             h = p.ln(x)
             k = resolve_attention_kind(a, x.shape[1]) if kind == "auto" else kind
             if k == "lsh":
-                out, _ = lsh_self_attention(
+                out, cache = lsh_self_attention(
                     p.attn, h, aux["mask"], cfg.causal, a,
                     aux["hash_generator"], compute_dtype,
-                    dropout_seed=aux["seed"])
+                    dropout_seed=aux["seed"], cache=cache)
             else:
                 out = shared_qk_self_attention(p.attn, h, mask=aux["mask"],
                                                causal=cfg.causal,
-                                               **attn_kw(aux))
-            return drop(out, aux)
+                                               **attn_kw(aux, x.device))
+            return drop(out, aux, 0), cache
 
         return f_self
 
-    def f_cross(p, x, memory, aux):
+    def f_cross(p, x, memory, aux, cache):
         out = cross_attention(p.attn, p.ln(x), memory,
                               memory_mask=aux["memory_mask"],
-                              probs_sink=aux.get("attn_sink"), **attn_kw(aux))
-        return drop(out, aux)
+                              probs_sink=aux.get("attn_sink"),
+                              **attn_kw(aux, x.device))
+        return drop(out, aux, 0), None
 
     def g_ffn(p, y, memory, aux):
-        return drop(_ffn_body(p, y, cfg.ffn_activation, compute_dtype), aux)
+        if cfg.use_pallas_ffn and use_ffn_kernel(y):
+            out = chunked_ffn_fused(p, y, cfg.ffn_activation, mxu)
+        else:
+            chunk = resolve_ffn_chunk(
+                cfg, y.shape[0], y.shape[1],
+                memory.shape[1] if memory is not None else None)
+            out = chunked_ffn(p, y, chunk, cfg.ffn_activation, compute_dtype)
+        return drop(out, aux, 1)
 
     pairs: List[Tuple[Any, Any]] = []
     for kind in kinds:
@@ -155,28 +195,20 @@ def make_stack_layer_fns(cfg: ReformerStackConfig, cross_attend: bool,
     return pairs
 
 
-def _check_residuals(cfg: ReformerStackConfig, x: torch.Tensor,
-                     memory: Optional[torch.Tensor],
-                     attn_sink: Optional[list]) -> None:
-    """Refuse what training would need and is not ported: reversible
-    residuals and the chunked FFN.  Inference runs the same forward with
-    either, so only a pass that records gradients is refused."""
-    mem_len = memory.shape[1] if memory is not None else None
-    rev = resolve_reversible(cfg, x.shape[0], x.shape[1], mem_len)
+def _resolve_residuals(cfg: ReformerStackConfig, x: torch.Tensor,
+                       memory: Optional[torch.Tensor],
+                       attn_sink: Optional[list]) -> bool:
+    """-> whether the residuals resolve reversible at x's shape; refuses
+    the guided-attention capture with them."""
+    rev = resolve_reversible(cfg, x.shape[0], x.shape[1],
+                             memory.shape[1] if memory is not None else None)
     if attn_sink is not None and rev:
         raise ValueError(
             "guided attention (attn_sink) requires plain residuals — the "
             "captured probabilities cannot cross the reversible backward; "
             "set reversible: false on this stack (resolved reversible=True "
             f"at shape {tuple(x.shape)})")
-    if not torch.is_grad_enabled():
-        return
-    chunk = resolve_ffn_chunk(cfg, x.shape[0], x.shape[1], mem_len)
-    if rev or chunk > 0:
-        raise NotImplementedError(
-            f"rtts_torch: training with reversible={rev}, ffn_chunk_size="
-            f"{chunk} at shape {tuple(x.shape)} is not ported yet (plain "
-            "residuals and an unchunked FFN only)")
+    return rev
 
 
 def stack_apply(stack: Stack, cfg: ReformerStackConfig, x: torch.Tensor,
@@ -193,7 +225,7 @@ def stack_apply(stack: Stack, cfg: ReformerStackConfig, x: torch.Tensor,
     ``attn_sink``: a list that collects each cross-attention layer's f32
     probabilities (B, H, L, Lm), for the guided-attention loss."""
     kinds = _check_supported(cfg, x.shape[1])
-    _check_residuals(cfg, x, memory, attn_sink)
+    rev = _resolve_residuals(cfg, x, memory, attn_sink)
     layer_fns = make_stack_layer_fns(cfg, memory is not None, compute_dtype)
     n = len(layer_fns)
     seeds = [None] * n
@@ -205,10 +237,10 @@ def stack_apply(stack: Stack, cfg: ReformerStackConfig, x: torch.Tensor,
         hash_generator = torch.Generator(device=x.device).manual_seed(0)
     aux_list = [{"mask": mask, "memory_mask": memory_mask,
                  "generator": generator, "hash_generator": hash_generator,
-                 "seed": seed,
+                 "seed": seed, "gen_states": [None] * 3,
                  **({"attn_sink": attn_sink} if attn_sink is not None
                     else {})}
                 for seed in seeds]
     y = reversible_sequence(layer_fns, stack.layers, x.float(), memory,
-                            aux_list)
+                            aux_list, reversible=rev)
     return stack.final_ln(y)

@@ -40,6 +40,9 @@ SIGNATURES = {
     "rtts_depthwise_conv1d": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "rtts_lsh_attend_fwd": [_P] * 7 + _LSH_SCALARS,
     "rtts_lsh_attend_bwd": [_P] * 10 + _LSH_SCALARS,
+    # x, ln scale and bias, W_in, b_in, W_out, b_out, out; dtype, n, d, f,
+    # activation, bf16 multiplies, eps, stream
+    "rtts_ffn_fused": [_P] * 8 + [_I] * 6 + [_F, _P],
 }
 
 _lib = None

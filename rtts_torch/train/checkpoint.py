@@ -10,8 +10,10 @@ f/attn/w_qk/w``), so the JAX ``restore_checkpoint`` reads the port's params
 and ``rtts_torch.convert.load_leaves_npz`` reads the JAX package's.  The
 optimizer state has the port's own keys (``rtts_torch/train/optim.py``):
 ``opt_state/count`` (int64 scalar) and, for adam/adamw,
-``opt_state/mu/<path>`` and ``opt_state/nu/<path>``.  The JAX package's
-optax state is not read and the port's is not readable by it.
+``opt_state/mu/<path>`` and ``opt_state/nu/<path>``; with gradient
+accumulation also ``opt_state/mini_step`` and ``opt_state/acc/<path>``.
+The JAX package's optax state is not read and the port's is not readable
+by it.
 """
 
 from __future__ import annotations
@@ -29,6 +31,11 @@ from torch import nn
 from rtts_torch.convert import load_flat
 
 
+# the optimizer state's counters and its per-parameter tensor lists
+_COUNTERS = ("count", "mini_step")
+_PER_PARAM = ("mu", "nu", "acc")
+
+
 def param_names(model: nn.Module) -> List[str]:
     """The JAX pytree paths of the model's parameters, in parameter order."""
     return [name.replace(".", "/") for name, _ in model.named_parameters()]
@@ -44,8 +51,10 @@ def snapshot(model: nn.Module, opt_state: Optional[Dict]) -> Dict[str, np.ndarra
     flat = {f"params/{k.replace('.', '/')}": _host(t)
             for k, t in model.state_dict().items()}
     if opt_state is not None:
-        flat["opt_state/count"] = np.asarray(opt_state["count"], np.int64)
-        for key in ("mu", "nu"):
+        for key in _COUNTERS:
+            if key in opt_state:
+                flat[f"opt_state/{key}"] = np.asarray(opt_state[key], np.int64)
+        for key in _PER_PARAM:
             for name, t in zip(param_names(model), opt_state.get(key, ())):
                 flat[f"opt_state/{key}/{name}"] = _host(t)
     return flat
@@ -163,8 +172,10 @@ def restore_checkpoint(path, model: nn.Module,
     load_flat(model, {k[len("params/"):].replace("/", "."): v
                       for k, v in stored.items() if k.startswith("params/")})
     if opt_state is not None:
-        missing = [k for k in ["opt_state/count"] if k not in stored]
-        for key in ("mu", "nu"):
+        counters = [k for k in _COUNTERS if k in opt_state]
+        missing = [f"opt_state/{k}" for k in counters
+                   if f"opt_state/{k}" not in stored]
+        for key in _PER_PARAM:
             for name, t in zip(param_names(model), opt_state.get(key, ())):
                 leaf = f"opt_state/{key}/{name}"
                 if leaf not in stored:
@@ -178,5 +189,6 @@ def restore_checkpoint(path, model: nn.Module,
         if missing:
             raise ValueError(f"checkpoint at {p} has no port optimizer state, "
                              f"e.g. {missing[:3]}")
-        opt_state["count"] = int(stored["opt_state/count"])
+        for key in counters:
+            opt_state[key] = int(stored[f"opt_state/{key}"])
     return int(meta["step"])

@@ -14,11 +14,18 @@ that decide parity:
 - Adam adds eps outside the square root of the bias-corrected second
   moment: mu_hat / (sqrt(nu_hat) + eps).
 
+Gradient accumulation (``accumulate_steps`` = k > 1) has
+``optax.MultiSteps`` semantics: every micro-step folds its gradient into the
+running mean (Welford's update, as optax), and every k-th applies the chain
+above once to that mean and clears it; the steps in between leave the
+parameters as they are.  Clipping, Adam and the schedule see one update per
+cycle, so the schedule counts updates.
+
 The state is a plain dict: ``count`` (updates applied, an int) and, for
 adam/adamw, ``mu`` and ``nu`` (one f32 tensor per parameter, in parameter
-order).  Checkpoints store it under the port's own keys
-(``rtts_torch/train/checkpoint.py``).  Gradient accumulation
-(``accumulate_steps`` > 1, optax.MultiSteps) is not ported yet.
+order); with accumulation also ``mini_step`` (micro-steps folded into the
+current cycle) and ``acc`` (the running mean gradient).  Checkpoints store
+it under the port's own keys (``rtts_torch/train/checkpoint.py``).
 """
 
 from __future__ import annotations
@@ -67,16 +74,9 @@ def make_schedule(cfg: OptimConfig):
 
 
 def lr_at_step(cfg: OptimConfig, step: int) -> float:
-    """Learning rate the update of train step ``step`` is applied at."""
-    _check_accumulate(cfg)
-    return float(make_schedule(cfg)(step))
-
-
-def _check_accumulate(cfg: OptimConfig) -> None:
-    if cfg.accumulate_steps > 1:
-        raise NotImplementedError(
-            "rtts_torch: gradient accumulation (accumulate_steps > 1, "
-            "optax.MultiSteps) is not ported yet")
+    """Learning rate the gradient of train step ``step`` is applied at:
+    that of the update which ends its accumulation cycle."""
+    return float(make_schedule(cfg)(step // max(1, cfg.accumulate_steps)))
 
 
 def global_norm(tensors) -> torch.Tensor:
@@ -89,25 +89,47 @@ class Optimizer:
     the state, ``step`` applies one update in place."""
 
     def __init__(self, cfg: OptimConfig):
-        _check_accumulate(cfg)
         if cfg.optimizer not in ("adam", "adamw", "sgd"):
             raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
+        if cfg.accumulate_steps < 1:
+            raise ValueError("accumulate_steps must be >= 1, got "
+                             f"{cfg.accumulate_steps}")
         self.cfg = cfg
         self.schedule = make_schedule(cfg)
 
     def init(self, params: List[torch.Tensor]) -> Dict:
+        def zeros():
+            return [torch.zeros_like(p, dtype=torch.float32) for p in params]
+
         state: Dict = {"count": 0}
         if self.cfg.optimizer != "sgd":
-            state["mu"] = [torch.zeros_like(p, dtype=torch.float32)
-                           for p in params]
-            state["nu"] = [torch.zeros_like(p, dtype=torch.float32)
-                           for p in params]
+            state["mu"], state["nu"] = zeros(), zeros()
+        if self.cfg.accumulate_steps > 1:
+            state["mini_step"], state["acc"] = 0, zeros()
         return state
 
     @torch.no_grad()
     def step(self, params: List[torch.Tensor], grads: List[torch.Tensor],
              state: Dict) -> None:
-        """params <- params + update(grads); ``state`` advances in place."""
+        """Fold ``grads`` into the cycle's mean and, at its end (every step
+        without accumulation), params <- params + update(mean); ``state``
+        advances in place."""
+        k = self.cfg.accumulate_steps
+        if k > 1:
+            n = state["mini_step"]
+            for acc, g in zip(state["acc"], grads):
+                acc.add_((g - acc) / (n + 1))
+            if n + 1 < k:
+                state["mini_step"] = n + 1
+                return
+            grads = [acc.clone() for acc in state["acc"]]
+            for acc in state["acc"]:
+                acc.zero_()
+            state["mini_step"] = 0
+        self._update(params, grads, state)
+
+    def _update(self, params: List[torch.Tensor], grads: List[torch.Tensor],
+                state: Dict) -> None:
         cfg = self.cfg
         if cfg.grad_clip_norm > 0:
             norm = global_norm(grads)

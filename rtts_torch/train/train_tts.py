@@ -4,9 +4,9 @@ The step is the reference's: teacher-forced forward with dropout on,
 masked mel and stop losses plus the guided-attention term (linearly
 annealed), gradients by autograd (through K1 and K3 on the card), the
 unclipped gradients' global norm as ``grad_norm``, then global-norm clip,
-Adam and the learning-rate schedule with optax's semantics
-(``rtts_torch/train/optim.py``).  Parameters and optimizer state are updated
-in place.
+Adam and the learning-rate schedule with optax's semantics, once per
+``accumulate_steps`` micro-batches (``rtts_torch/train/optim.py``).
+Parameters and optimizer state are updated in place.
 
 ``train_tts`` runs the reference's loop: ``EpochBatcher``'s step -> batch
 map and a dropout generator seeded from (seed, step), so a resumed run
@@ -15,7 +15,7 @@ replays the batches and dropout of an uninterrupted one; logging, eval
 and a graceful stop on SIGTERM/SIGINT.  Not ported, each refused or
 skipped with a message: a mesh of more than one device, the eval artifacts
 (Griffin-Lim audio, alignment and spectrogram images, alignment scalars),
-TensorBoard and hosted trackers, ``debug_nans``, gradient accumulation.
+TensorBoard and hosted trackers, ``debug_nans``.
 """
 
 from __future__ import annotations

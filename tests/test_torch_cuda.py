@@ -8,6 +8,8 @@ so on a machine without JAX they run with
 import pytest
 import torch
 
+from rtts_torch.ops.chunked_ffn import (chunked_ffn_fused, ffn_fused,
+                                        ffn_fused_reference)
 from rtts_torch.ops.depthwise_conv import (depthwise_conv1d,
                                            depthwise_conv1d_reference)
 from rtts_torch.ops.flash_attention import (dropout_keep_mask, flash_attend,
@@ -20,6 +22,7 @@ from rtts_torch.ops.lsh_attention import (lsh_attend_bwd,
                                           lsh_attend_chunks_kernel,
                                           lsh_attend_chunks_reference,
                                           lsh_attend_fwd)
+from rtts_torch.reversible.ffn import FFN, _ffn_body
 
 pytestmark = pytest.mark.cuda
 
@@ -226,6 +229,8 @@ LSH_CASES = {
     "nc_not_multiple_of_8": (1, 2, 3, 96, 32, 64, True, 1, 0, 80),
     "encoder_L1024": (2, 8, 4, 1024, 64, 64, False, 1, 0, 900),
     "decoder_L8192": (2, 8, 4, 8192, 64, 64, True, 1, 0, 8192),
+    "serving_fast_decoder_L1024": (8, 8, 4, 1024, 64, 64, True, 1, 0, 800),
+    "serving_fast_encoder_L256": (8, 8, 4, 256, 64, 64, False, 1, 0, 200),
 }
 
 
@@ -278,3 +283,67 @@ def test_lsh_autograd_launches_k4_and_k5(dev):
     after = (lsh_attend_fwd.launches, lsh_attend_bwd.launches)
     assert [a - b for a, b in zip(after, before)] == [1, 1]
     assert all(torch.isfinite(t.grad).all() for t in (q, k, v))
+
+
+def ffn_case(rows, d, f, dev, seed=0):
+    """f32 rows and FFN parameters at the init's scales, LN and biases
+    perturbed so every term counts."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(rows, d, generator=g)
+    params = (1.0 + 0.1 * torch.randn(d, generator=g),
+              0.1 * torch.randn(d, generator=g),
+              torch.randn(d, f, generator=g) * d ** -0.5,
+              0.1 * torch.randn(f, generator=g),
+              torch.randn(f, d, generator=g) * f ** -0.5,
+              0.1 * torch.randn(d, generator=g))
+    return x.to(dev), [t.to(dev) for t in params]
+
+
+@pytest.mark.parametrize("mxu", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("rows,d,f,act", [(8 * 1024, 512, 2048, "gelu"),
+                                          (1000 + 13, 96, 200, "silu")])
+def test_ffn_kernel_matches_reference(dev, rows, d, f, act, mxu):
+    """K6 against its plain version on the same f32 rows, multiplying in
+    bf16 or f32; twice, bit-equal."""
+    x, params = ffn_case(rows, d, f, dev)
+    before = ffn_fused.launches
+    got = ffn_fused(x, *params, act, mxu)
+    again = ffn_fused(x, *params, act, mxu)
+    torch.cuda.synchronize()
+    assert ffn_fused.launches == before + 2
+    want = ffn_fused_reference(x, *params, act, mxu)
+    assert got.dtype == x.dtype and _err(got, want) < TOL[mxu], _err(got, want)
+    assert torch.equal(got, again)
+
+
+def test_ffn_autograd_launches_k6_once(dev):
+    """The Function's forward is one K6 launch, its backward the f32 body's
+    autograd (no launch)."""
+    x, params = ffn_case(2 * 64, 64, 128, dev)
+    x = x.reshape(2, 64, 64).requires_grad_()
+    p = FFN(64, 128, device=dev)
+    with torch.no_grad():
+        for t, value in zip(p.parameters(), params):
+            t.copy_(value)
+    params = list(p.parameters())
+    before = ffn_fused.launches
+    out = chunked_ffn_fused(p, x, "gelu", torch.bfloat16)
+    dout = torch.randn_like(out)
+    got = torch.autograd.grad(out, [x, *params], dout)
+    torch.cuda.synchronize()
+    assert ffn_fused.launches == before + 1
+    want = torch.autograd.grad(_ffn_body(p, x, "gelu"), [x, *params], dout)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+
+
+def test_ffn_wrapper_raises_on_what_the_kernel_does_not_take(dev):
+    x, params = ffn_case(4, 1040, 8, dev)
+    with pytest.raises(ValueError, match="width"):
+        ffn_fused(x, *params, "gelu", torch.float32)
+    x, params = ffn_case(4, 64, 8, dev)
+    with pytest.raises(ValueError, match="activation"):
+        ffn_fused(x, *params, "swish", torch.float32)
+    with pytest.raises(ValueError, match="w_in"):
+        ffn_fused(x, params[0], params[1], params[2].t(), *params[3:], "gelu",
+                  torch.float32)

@@ -6,7 +6,8 @@
     attention) with a tiny model; and by their import statements, no module
     of the port and not ``chip_smoke.py`` names ``jax`` or ``rtts``.
 (b) ``chip_smoke.py``'s configs (dicts, so the card's machine needs no
-    PyYAML) equal ``configs/base.yaml`` and ``configs/longform_8k.yaml``.
+    PyYAML) equal ``configs/base.yaml``, ``configs/longform_8k.yaml`` and
+    ``configs/serving_fast.yaml``.
 (c) The decoder prenet's always-on dropout zeroes about ``rate`` of the
     units, scales the rest by 1/keep, and follows its generator.
 """
@@ -185,6 +186,12 @@ def test_chip_smoke_longform_config_equals_longform_yaml():
 
     assert chip_smoke.LONGFORM_CONFIG == load_yaml(
         ROOT / "configs" / "longform_8k.yaml")
+
+def test_chip_smoke_serving_fast_config_equals_serving_fast_yaml():
+    import chip_smoke
+
+    assert chip_smoke.SERVING_FAST_CONFIG == load_yaml(
+        ROOT / "configs" / "serving_fast.yaml")
 
 
 @pytest.mark.parametrize("rate", [0.1, 0.5])
