@@ -78,7 +78,19 @@ raises on failure:
    FFN, each with a ``torch.profiler`` view of one step; every reversible
    peak below 0.6 of the plain one; what autograd holds after one FFN
    sublayer's forward, chunked below unchunked; K6 against its plain
-   version and bound.
+   version and bound;
+19. kernels-sort: K7 (bitonic column sort) and K8 (row gather) against
+   their plain versions and ``torch.sort`` / ``index_select``, exactly,
+   twice bit-equal, at the sort probe's shapes (its own, longform_8k's
+   and serving_fast's LSH keys and packed gathers), a wide tile, the most
+   rows, narrow rows of 10 and 12 bytes and 200-byte bf16 rows;
+20. sort probe: ``rtts_torch.probes.probe_vmem_sort.bench()`` (K7 and K8
+   against the library calls and the LSH path's own sort and gather, the
+   one-hot permutation, the two ``sort_gather`` modes, the sort/gather
+   share of a longform and a serving_fast train step, the verdict), with
+   the launch counts of K7 and K8 read around it; then
+   ``lsh_attention_core`` with ``sort_gather: onehot`` against ``take`` at
+   serving_fast's shape, forward and backward, f32 and bf16.
 
 Prints a JSON line of per-kernel results (time, plain time, bound, library
 time where one PyTorch call computes the same function) and, last, the JSON
@@ -91,6 +103,7 @@ the configs are the dicts below).
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
 import re
 import subprocess
@@ -102,13 +115,15 @@ import torch
 import torch.nn.functional as F
 
 from rtts_torch.attention import lsh as TL
-from rtts_torch.config import Config, from_dict
+from rtts_torch.config import AttentionConfig, Config, from_dict
 from rtts_torch.infer.decode import decode_greedy
 from rtts_torch.infer.synthesize import Synthesizer
 from rtts_torch.models import reformer_tts as M
 from rtts_torch.models import squeezewave as SW
 from rtts_torch.models import stack as TS
 from rtts_torch.ops import _build
+from rtts_torch.ops.bitonic_sort import (MAX_ROWS, bitonic_sort_cols,
+                                         bitonic_sort_cols_reference)
 from rtts_torch.ops.chunked_ffn import ffn_fused, ffn_fused_reference
 from rtts_torch.ops.depthwise_conv import (depthwise_conv1d,
                                            depthwise_conv1d_reference)
@@ -122,6 +137,8 @@ from rtts_torch.ops.lsh_attention import (lsh_attend_bwd,
                                           lsh_attend_chunks_kernel,
                                           lsh_attend_chunks_reference,
                                           lsh_attend_fwd)
+from rtts_torch.ops.row_gather import row_gather, row_gather_reference
+from rtts_torch.probes import probe_vmem_sort as probe
 from rtts_torch.reversible.ffn import FFN, chunked_ffn
 from rtts_torch.text import encode_batch, frontend_vocab_size
 from rtts_torch.train.optim import make_optimizer
@@ -1628,6 +1645,171 @@ def phase_train_serving_fast_timing(model):
                               **bound)}
 
 
+# -- the sort probe: K7, K8 and the one-hot sort gather ----------------------------
+
+K7_CASES = {
+    # name: (rows, columns, packed LSH keys of the probe's shape or None)
+    "probe L4096 C128 packed keys": (4096, 128, "probe L4096 C128"),
+    "longform L8192 C64 packed keys": (8192, 64, "longform b2 h8 nh4 L8192"),
+    "serving_fast L1024 C256 packed keys": (1024, 256,
+                                            "serving_fast b8 h8 nh4 L1024"),
+    "wide 1024 x 2048 (8 columns a block)": (1024, 2048, None),
+    f"most rows {MAX_ROWS} x 4": (MAX_ROWS, 4, None),
+}
+K8_CASES = {
+    # name: (rows, width, indices, dtype)
+    "probe 4096 rows d128 f32": (4096, 128, 4096, torch.float32),
+    "probe 4096 rows d256 f32": (4096, 256, 4096, torch.float32),
+    "longform 16 x 8192 rows d128 bf16, 4 rounds": (
+        16 * 8192, 128, 4 * 16 * 8192, torch.bfloat16),
+    "serving_fast 64 x 1024 rows d128 bf16, 4 rounds": (
+        64 * 1024, 128, 4 * 64 * 1024, torch.bfloat16),
+    "d3 f32 (12-byte rows), repeats": (1000, 3, 2500, torch.float32),
+    "d5 bf16 (10-byte rows), repeats": (1000, 5, 2500, torch.bfloat16),
+    "d100 bf16 (200-byte rows)": (4096, 100, 4096, torch.bfloat16),
+}
+# onehot against take on the card, relative to max(1, |take|).  f32: the
+# forward bit-equal (one matched element per one-hot row, and the combine's
+# rounded products summed round by round in both modes); the gradients
+# 1e-6 (the one-hot matmuls' backward against the inverse gathers may sum
+# in another order).  bf16: the forward 1e-2 (KERNEL_TOL); the gradients
+# 4 bf16 ulps (4 x 2^-7): onehot rounds the weighted outputs and the
+# unsort's cotangents to bf16 where take combines and unsorts in f32 (the
+# reference's design), and the attention backward carries that on
+ONEHOT_GRAD_TOL = {torch.float32: 1e-6, torch.bfloat16: 4 * 2.0 ** -7}
+
+
+def _k7_case(n, cols, shape):
+    """Packed LSH keys, or int32 keys over the whole range with duplicates
+    and both extremes."""
+    if shape is not None:
+        return probe.lsh_buckets(*probe.SHAPES[shape])[1]
+    g = torch.Generator().manual_seed(SEED_DATA)
+    x = torch.randint(-2**31, 2**31 - 1, (n, cols), generator=g,
+                      dtype=torch.int64).int()
+    x[: n // 4] = x[n // 2: n // 2 + n // 4]
+    x[0, 0], x[1, 0] = -2**31, 2**31 - 1
+    return x.cuda()
+
+
+def _k8_case(rows, d, m, dtype):
+    """Rows and indices: ``m // rows`` permutations of the rows (the LSH
+    path's rounds), or ``m`` draws with repeats."""
+    g = torch.Generator().manual_seed(SEED_DATA)
+    x = torch.randn(rows, d, generator=g).to("cuda", dtype)
+    if m % rows == 0:
+        idx = torch.cat([torch.randperm(rows, generator=g)
+                         for _ in range(m // rows)])
+    else:
+        idx = torch.randint(0, rows, (m,), generator=g)
+    return x, idx.int().cuda()
+
+
+def phase_kernels_sort():
+    """K7 and K8 against their plain versions and the library calls at the
+    sort probe's shapes: equal (they move values; tolerance 0), and twice
+    bit-equal.  Returns their max abs errors at the longform shapes."""
+    errs = {}
+    for name, case in K7_CASES.items():
+        x = _k7_case(*case)
+        got, again = bitonic_sort_cols(x), bitonic_sort_cols(x)
+        torch.cuda.synchronize()
+        want = bitonic_sort_cols_reference(x)
+        err = _abs_err(got, want)
+        ok = (err == 0 and torch.equal(got, want)
+              and torch.equal(got, torch.sort(x, dim=0).values))
+        print(f"[kernels-sort] K7 {name}: max abs err {err:g} (tol 0), equal "
+              f"to torch.sort {ok}; twice bit-equal {torch.equal(got, again)}")
+        _require(ok, f"K7 {name} disagrees with its plain version")
+        _require(torch.equal(got, again), f"K7 {name} is not deterministic")
+        if name.startswith("longform"):
+            errs["bitonic_sort"] = err
+    for name, case in K8_CASES.items():
+        x, idx = _k8_case(*case)
+        got, again = row_gather(x, idx), row_gather(x, idx)
+        torch.cuda.synchronize()
+        want = row_gather_reference(x, idx)
+        err = _abs_err(got, want)
+        ok = (err == 0 and torch.equal(got, want)
+              and torch.equal(got, torch.index_select(x, 0, idx)))
+        print(f"[kernels-sort] K8 {name}: max abs err {err:g} (tol 0), equal "
+              f"to index_select {ok}; twice bit-equal "
+              f"{torch.equal(got, again)}")
+        _require(ok, f"K8 {name} disagrees with its plain version")
+        _require(torch.equal(got, again), f"K8 {name} is not deterministic")
+        if name.startswith("longform"):
+            errs["row_gather"] = err
+    return errs
+
+
+def _onehot_vs_take(dtype):
+    """``lsh_attention_core`` at serving_fast's decoder shape (b8 h8 nh4
+    L1024 causal, the ragged train lengths, hashed from one seed) in both
+    modes: (out, d qk, d v) of each."""
+    b, h, nh, l = probe.SHAPES["serving_fast b8 h8 nh4 L1024"]
+    g = torch.Generator().manual_seed(SEED_DATA)
+    qk, v, cot = (torch.randn(b, h, l, 64, generator=g).to("cuda", dtype)
+                  for _ in range(3))
+    mask = (torch.arange(l)[None, :]
+            < torch.tensor(TRAIN_FRAME_LENS)[:, None]).cuda()
+    base = AttentionConfig(**_SERVING_FAST_ATTENTION)
+    result = {}
+    for mode in ("take", "onehot"):
+        q, vv = (t.detach().requires_grad_() for t in (qk, v))
+        out, _ = TL.lsh_attention_core(
+            q, vv, dataclasses.replace(base, sort_gather=mode), mask, True,
+            torch.Generator(device="cuda").manual_seed(SEED_DATA))
+        result[mode] = (out, *torch.autograd.grad(out, (q, vv), cot))
+    return result
+
+
+def phase_sort_probe():
+    """The probe's bench() with K7's and K8's counts set to 0 before it and
+    read after it (each launched at least once); then onehot against take
+    on the card.  Returns the launch counts and the kernels' times at the
+    longform shapes."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    bitonic_sort_cols.launches = row_gather.launches = 0
+    result = probe.bench()
+    launches = {"bitonic_sort": bitonic_sort_cols.launches,
+                "row_gather": row_gather.launches}
+    print(f"[sort-probe] launches in the probe's run: {launches}")
+    _require(all(n > 0 for n in launches.values()),
+             f"the probe did not launch K7 and K8: {launches}")
+
+    for dtype in (torch.float32, torch.bfloat16):
+        got = _onehot_vs_take(dtype)
+        errs = [_scaled_err(a, b) for a, b in zip(got["onehot"],
+                                                  got["take"])]
+        same = torch.equal(got["onehot"][0], got["take"][0])
+        f32 = dtype == torch.float32
+        tol = ONEHOT_GRAD_TOL[dtype]
+        print(f"[sort-probe] lsh_attention_core serving_fast b8 h8 nh4 L1024 "
+              f"causal, ragged, {str(dtype)[6:]}: onehot vs take out "
+              f"{errs[0]:.3e} (bit-equal {same}), d qk {errs[1]:.3e}, d v "
+              f"{errs[2]:.3e}; tol: out "
+              + ("bit-equal" if f32 else f"{KERNEL_TOL[dtype]:g}")
+              + f", gradients {tol:g}")
+        _require((same if f32 else errs[0] <= KERNEL_TOL[dtype])
+                 and max(errs[1:]) <= tol,
+                 f"sort_gather onehot disagrees with take in {dtype}")
+        del got
+    torch.cuda.empty_cache()
+
+    k7 = result["sort"]["longform b2 h8 nh4 L8192"]
+    k8 = result["gather"]["longform (16, 32768, 128) bf16"]
+    # K7's bound: its compare-exchanges at the f32 rate outside the tensor
+    # cores (the card's table has no integer row); K8 moves bytes only
+    times = {"bitonic_sort": dict(ms=k7["K7"], plain_ms=k7["plain"],
+                                  library_ms=k7["torch.sort"],
+                                  **_bound(k7["bytes"], k7["ops"],
+                                           torch.float32)),
+             "row_gather": dict(ms=k8["K8"], plain_ms=k8["plain"],
+                                library_ms=k8["index_select"],
+                                **_bound(k8["bytes"], 0, torch.bfloat16))}
+    return launches, times
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -1660,6 +1842,9 @@ def main() -> int:
     phase_train_serving_fast_card_vs_cpu()
     ffn_times = phase_train_serving_fast_timing(model)
     del model
+    torch.cuda.empty_cache()
+    errs.update(phase_kernels_sort())
+    sort_launches, sort_times = phase_sort_probe()
     _require(not any(m.split(".")[0] in ("jax", "rtts") for m in sys.modules
                      if sys.modules[m] is not None),
              "jax or the JAX package was imported")
@@ -1670,13 +1855,16 @@ def main() -> int:
     # plain backward, all three gradients); LSH kernels: launches of the
     # three longform train steps, times at the longform decoder shape; K6:
     # launches of the three serving_fast steps with K6, times at the
-    # decoder's FFN shape
+    # decoder's FFN shape; K7 and K8: launches of the sort probe's run,
+    # times at the longform shapes
     launches.update(train_launches)
     launches.update(lsh_launches)
     launches.update(ffn_launches)
+    launches.update(sort_launches)
     times.update(train_times["decoder"])
     times.update(lsh_times)
     times.update(ffn_times)
+    times.update(sort_times)
     meta = {
         "flash": ("rtts_torch/csrc/flash_fwd.cu",
                   "rtts/ops/flash_attention.py:322"),
@@ -1694,6 +1882,10 @@ def main() -> int:
                            "rtts/ops/lsh_attention.py:158"),
         "ffn_fused": ("rtts_torch/csrc/ffn_fused.cu",
                       "rtts/ops/chunked_ffn.py:34"),
+        "bitonic_sort": ("rtts_torch/csrc/bitonic_sort.cu",
+                         "scripts/probe_vmem_sort.py:45"),
+        "row_gather": ("rtts_torch/csrc/row_gather.cu",
+                       "scripts/probe_vmem_sort.py:85"),
     }
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": rep, "launches": launches[name],

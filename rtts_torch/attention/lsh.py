@@ -12,7 +12,9 @@ Port of ``rtts/attention/lsh.py``, with its semantics:
 - the sort key bucket * L + position is unique, so any sort gives the
   stable order; the gathers into and out of sorted order have an
   inverse-gather backward (never a scatter-add, which is atomic and
-  nondeterministic on the card).
+  nondeterministic on the card).  ``sort_gather: onehot`` permutes with
+  one-hot matmuls instead, the combine weights folded into the unsort
+  matmul, as the reference does; its backward is autograd of the matmuls.
 - the chunk attend is K4/K5 (``rtts_torch/ops/lsh_attention.py``) on the
   card, or ``plain_attend`` (K4's plain forward with the reference's
   exp(s - lse) probabilities, and the attention-probs dropout) when
@@ -175,19 +177,21 @@ plain_attend = functools.partial(lsh_attend_chunks_reference,
                                  probs_from_lse=True)
 
 
-def _sort_gather_mode(cfg: AttentionConfig) -> str:
-    """Resolve cfg.sort_gather: "auto" and "take" gather rows by index.
-    The one-hot matmul permutation ("onehot") was the TPU's faster choice
-    at short lengths; it is not ported, and "auto" does not carry over the
-    TPU's size gate."""
+def _sort_gather_mode(cfg: AttentionConfig, bh: int, nh: int, l: int,
+                      dtype) -> str:
+    """Resolve cfg.sort_gather, with the reference's arguments: "take"
+    gathers rows by index, "onehot" permutes with one-hot matmuls (the
+    reference's choice on the v5e while the (bh, nh L, L) one-hot operand
+    stays under 4 GiB).  "auto" is "take" here: the choice is speed-only,
+    and the v5e's size gate is not carried over until the H100's numbers
+    decide it (``PERF.md``)."""
+    del bh, nh, l, dtype
     mode = cfg.sort_gather
-    if mode in ("auto", "take"):
+    if mode == "auto":
         return "take"
-    if mode == "onehot":
-        raise NotImplementedError(
-            "rtts_torch: sort_gather 'onehot' is not ported yet (use 'auto' "
-            "or 'take')")
-    raise ValueError(f"unknown sort_gather {mode!r}")
+    if mode not in ("onehot", "take"):
+        raise ValueError(f"unknown sort_gather {mode!r}")
+    return mode
 
 
 def _pick_attend_fn(cfg: AttentionConfig):
@@ -234,17 +238,25 @@ def lsh_attention_core(qk: torch.Tensor, v: torch.Tensor,
             f"int32 sort-key overflow: (total_buckets+1) * seq_len = "
             f"{(total_buckets(nb) + 1) * l} > 2^31-1 — reduce num_buckets "
             f"({nb}) or the sequence length ({l})")
-    _sort_gather_mode(cfg)
+    mode = _sort_gather_mode(cfg, b * h, nh, l, qk.dtype)
 
     if buckets is None:
         buckets = hash_vectors(qk, nb, nh, generator, mask)      # (B,H,nh,L)
     sorted_pos, undo_idx, sorted_buckets = _sort_by_bucket(buckets)
 
-    # q/k and v ride one packed operand through one gather: (B,H,nh,L,2d)
+    # q/k and v ride one packed operand through one gather: (B,H,nh,L,2d);
+    # "onehot" realises it as a matmul with the one-hot matrix of the
+    # sorted positions (exact: one matched element per row)
     bh = b * h
     packed = torch.cat([qk, v], dim=-1).reshape(bh, l, 2 * d)
-    g = _perm_rows_take(packed, sorted_pos.reshape(bh, nh, l),
-                        undo_idx.reshape(bh, nh, l))
+    if mode == "onehot":
+        idx = sorted_pos.reshape(bh, nh * l)
+        oh = (idx[..., None] == torch.arange(l, device=idx.device)).to(
+            packed.dtype)
+        g = torch.einsum("bsl,blw->bsw", oh, packed)
+    else:
+        g = _perm_rows_take(packed, sorted_pos.reshape(bh, nh, l),
+                            undo_idx.reshape(bh, nh, l))
     g = g.reshape(b, h, nh, l, 2 * d)
     qk_s, v_s = g[..., :d], g[..., d:]
     if mask is not None:
@@ -270,6 +282,19 @@ def lsh_attention_core(qk: torch.Tensor, v: torch.Tensor,
     # weights sum to slightly less than 1, and the reference keeps that)
     out_flat = out_c.reshape(b, h, nh, l, d)
     lse_flat = lse_c.reshape(b, h, nh, l)
+    if mode == "onehot":
+        # the combine folded into the unsort matmul: each sorted slot
+        # weighted by its round's combine weight (re-sorted), then one
+        # transposed one-hot matmul sums a position's nh slots
+        weighted = out_flat
+        if nh > 1:
+            lse_r = _perm_round_take(lse_flat[..., None], undo_idx,
+                                     sorted_pos)[..., 0]
+            w = torch.exp(lse_r - torch.logsumexp(lse_r, dim=2, keepdim=True))
+            w_s = _perm_round_take(w[..., None], sorted_pos, undo_idx)[..., 0]
+            weighted = out_flat * w_s.to(out_flat.dtype)[..., None]
+        out = torch.einsum("bsl,bsd->bld", oh, weighted.reshape(bh, nh * l, d))
+        return out.reshape(b, h, l, d), buckets
     if nh == 1:
         return _perm_round_take(out_flat, undo_idx, sorted_pos)[:, :, 0], \
             buckets
@@ -277,7 +302,15 @@ def lsh_attention_core(qk: torch.Tensor, v: torch.Tensor,
     got = _perm_round_take(fused, undo_idx, sorted_pos)
     out_r, lse_r = got[..., :d], got[..., d]
     w = torch.exp(lse_r - torch.logsumexp(lse_r, dim=2, keepdim=True))
-    return torch.einsum("bhnl,bhnld->bhld", w, out_r), buckets
+    # the rounded products summed round by round, as the onehot mode's
+    # unsort matmul sums them on the card (a GEMM over the rounds would
+    # fuse each product into the sum, one rounding fewer): the two modes
+    # give the same f32 bits
+    terms = w[..., None] * out_r
+    out = terms[:, :, 0]
+    for r in range(1, nh):
+        out = out + terms[:, :, r]
+    return out, buckets
 
 
 def lsh_self_attention(p: Attention, x: torch.Tensor,

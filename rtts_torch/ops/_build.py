@@ -43,6 +43,10 @@ SIGNATURES = {
     # x, ln scale and bias, W_in, b_in, W_out, b_out, out; dtype, n, d, f,
     # activation, bf16 multiplies, eps, stream
     "rtts_ffn_fused": [_P] * 8 + [_I] * 6 + [_F, _P],
+    # x, out; n, cols, columns per block, stream
+    "rtts_bitonic_sort_cols": [_P, _P, _I, _I, _I, _P],
+    # x, idx, out; m, rows, row bytes, vector bytes, stream
+    "rtts_row_gather": [_P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 _lib = None

@@ -8,6 +8,8 @@ so on a machine without JAX they run with
 import pytest
 import torch
 
+from rtts_torch.ops.bitonic_sort import (MAX_ROWS, bitonic_sort_cols,
+                                         bitonic_sort_cols_reference)
 from rtts_torch.ops.chunked_ffn import (chunked_ffn_fused, ffn_fused,
                                         ffn_fused_reference)
 from rtts_torch.ops.depthwise_conv import (depthwise_conv1d,
@@ -22,6 +24,7 @@ from rtts_torch.ops.lsh_attention import (lsh_attend_bwd,
                                           lsh_attend_chunks_kernel,
                                           lsh_attend_chunks_reference,
                                           lsh_attend_fwd)
+from rtts_torch.ops.row_gather import row_gather, row_gather_reference
 from rtts_torch.reversible.ffn import FFN, _ffn_body
 
 pytestmark = pytest.mark.cuda
@@ -347,3 +350,92 @@ def test_ffn_wrapper_raises_on_what_the_kernel_does_not_take(dev):
     with pytest.raises(ValueError, match="w_in"):
         ffn_fused(x, params[0], params[1], params[2].t(), *params[3:], "gelu",
                   torch.float32)
+
+
+# -- K7 and K8: they move values, so they equal their plain versions exactly --
+
+
+@pytest.mark.parametrize("n,cols", [
+    (1, 3), (2, 5), (64, 8), (4096, 128), (8192, 64), (1024, 256),
+    (1024, 2048),            # 8 adjacent columns a block
+    (MAX_ROWS, 4)])
+def test_bitonic_kernel_matches_sort_and_reference(dev, n, cols):
+    g = torch.Generator().manual_seed(n)
+    x = torch.randint(-2**31, 2**31 - 1, (n, cols), generator=g,
+                      dtype=torch.int64).int()
+    x[: n // 4] = x[n // 2: n // 2 + n // 4]        # duplicates
+    if n >= 4:
+        x[0, 0], x[1, 0] = -2**31, 2**31 - 1
+    x = x.to(dev)
+    before = bitonic_sort_cols.launches
+    got = bitonic_sort_cols(x)
+    again = bitonic_sort_cols(x)
+    torch.cuda.synchronize()
+    assert bitonic_sort_cols.launches == before + 2
+    assert torch.equal(got, torch.sort(x, dim=0).values)
+    assert torch.equal(got, again)
+    if n <= 8192:
+        assert torch.equal(got, bitonic_sort_cols_reference(x))
+
+
+def test_bitonic_kernel_sorts_packed_lsh_keys(dev):
+    """Packed keys bucket * L + pos of b2 h8 nh4 L8192: key % L is the
+    stable order of the buckets."""
+    g = torch.Generator().manual_seed(1)
+    l = 8192
+    buckets = torch.randint(0, 256, (64, l), generator=g)
+    keys = (buckets * l + torch.arange(l)).t().contiguous().int().to(dev)
+    got = bitonic_sort_cols(keys)
+    want = torch.sort(buckets, dim=-1, stable=True).indices.t().to(dev)
+    assert torch.equal((got % l).long(), want)
+
+
+def test_bitonic_wrapper_raises_on_what_the_kernel_does_not_take(dev):
+    with pytest.raises(ValueError, match="power of two"):
+        bitonic_sort_cols(torch.zeros((96, 4), dtype=torch.int32, device=dev))
+    with pytest.raises(ValueError, match="shared memory"):
+        bitonic_sort_cols(torch.zeros((2 * MAX_ROWS, 1), dtype=torch.int32,
+                                      device=dev))
+    with pytest.raises(ValueError, match="int32"):
+        bitonic_sort_cols(torch.zeros((64, 4), dtype=torch.int64, device=dev))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("rows,d,m", [
+    (4096, 128, 4096), (4096, 256, 4096),
+    (16 * 8192, 128, 4 * 16 * 8192),      # the longform LSH gather
+    (64 * 1024, 128, 4 * 64 * 1024),      # serving_fast's
+    (1000, 3, 1000), (1000, 5, 2500), (1000, 6, 700), (1000, 100, 1000),
+    (7, 64, 0)])
+def test_row_gather_kernel_matches_index_select(dev, dtype, rows, d, m):
+    g = torch.Generator().manual_seed(rows + d)
+    x = torch.randn(rows, d, generator=g).to(dev, dtype)
+    idx = (torch.randperm(rows, generator=g).repeat(m // rows + 1)[:m]
+           if m % rows == 0 else torch.randint(0, rows, (m,), generator=g))
+    idx = idx.int().to(dev)
+    before = row_gather.launches
+    got = row_gather(x, idx)
+    again = row_gather(x, idx)
+    torch.cuda.synchronize()
+    assert row_gather.launches == before + 2
+    assert got.dtype == dtype and got.shape == (m, d)
+    assert torch.equal(got, torch.index_select(x, 0, idx))
+    assert torch.equal(got, row_gather_reference(x, idx))
+    assert torch.equal(got, again)
+
+
+def test_row_gather_kernel_takes_unaligned_rows(dev):
+    """A view that starts one value in: no 16-byte vectors."""
+    x = torch.randn(513 * 64 + 1, device=dev)[1:].reshape(513, 64)
+    idx = torch.randint(0, 513, (300,), device=dev, dtype=torch.int32)
+    assert torch.equal(row_gather(x, idx), x[idx.long()])
+
+
+def test_row_gather_wrapper_raises_on_what_the_kernel_does_not_take(dev):
+    x = torch.zeros((8, 4), device=dev)
+    with pytest.raises(TypeError, match="dtype"):
+        row_gather(x.half(), torch.zeros(8, dtype=torch.int32, device=dev))
+    with pytest.raises(ValueError, match="int32"):
+        row_gather(x, torch.zeros(8, dtype=torch.int64, device=dev))
+    with pytest.raises(ValueError, match="idx on"):
+        row_gather(x, torch.zeros(8, dtype=torch.int32))

@@ -4,7 +4,8 @@
     that make ``import jax`` and ``import rtts`` fail import every module of
     ``rtts_torch``, synthesize speech and take train steps (full and LSH
     attention) with a tiny model; and by their import statements, no module
-    of the port and not ``chip_smoke.py`` names ``jax`` or ``rtts``.
+    of the port and not ``chip_smoke.py`` names ``jax`` or ``rtts``; the
+    sort probe runs its CPU check with both blocked.
 (b) ``chip_smoke.py``'s configs (dicts, so the card's machine needs no
     PyYAML) equal ``configs/base.yaml``, ``configs/longform_8k.yaml`` and
     ``configs/serving_fast.yaml``.
@@ -157,6 +158,39 @@ def _imported_modules(path: pathlib.Path) -> set:
 
 def _roots(names) -> set:
     return {n.split(".")[0] for n in names}
+
+
+NO_JAX_PROBE = r"""
+import sys
+sys.modules["jax"] = None          # any `import jax` now raises ImportError
+sys.modules["rtts"] = None         # and so does any `import rtts...`
+sys.modules["probe_vmem_sort"] = None   # the JAX package's probe script
+import contextlib
+import io
+from rtts_torch.probes import probe_vmem_sort
+said = io.StringIO()
+with contextlib.redirect_stdout(said):
+    assert probe_vmem_sort.main(["--check", "--device", "cpu"]) == 0
+assert "checks OK on cpu" in said.getvalue()
+assert not any(m.split(".")[0] in ("jax", "rtts", "scripts")
+               for m in sys.modules if sys.modules[m] is not None)
+print("OK")
+"""
+
+
+def test_sort_probe_runs_without_jax():
+    _run_without_jax(NO_JAX_PROBE)
+
+
+def test_port_imports_cover_the_probes_and_name_no_script():
+    """The import guard reads the probes too, and no module of the port
+    imports the JAX package's scripts."""
+    files = sorted((ROOT / "rtts_torch").rglob("*.py"))
+    assert ROOT / "rtts_torch" / "probes" / "probe_vmem_sort.py" in files
+    for path in files + [ROOT / "chip_smoke.py"]:
+        names = _imported_modules(path)
+        assert not _roots(names) & {"scripts", "probe_vmem_sort"}, (
+            path, sorted(names))
 
 
 def test_chip_smoke_imports_only_the_port():

@@ -31,7 +31,7 @@ import torch
 
 from rtts.attention import full as JFULL
 from rtts.attention import lsh as JL
-from rtts.config import AttentionConfig, OptimConfig
+from rtts.config import AttentionConfig, OptimConfig, ReformerStackConfig
 from rtts.models import reformer_tts as JM
 from rtts.ops import flash_attention as JF
 from rtts.ops import lsh_attention as JK
@@ -41,6 +41,7 @@ from rtts_torch.attention import full as TFULL
 from rtts_torch.attention import lsh as TL
 from rtts_torch.convert import from_numpy_tree
 from rtts_torch.models import reformer_tts as TM
+from rtts_torch.models import stack as TS
 from rtts_torch.ops import lsh_attention as TK
 from rtts_torch.train import optim as TO
 from rtts_torch.train.train_tts import make_train_step, step_generator
@@ -383,12 +384,129 @@ def test_use_pallas_knob_and_sort_gather():
     with pytest.raises(ValueError):
         TL._pick_attend_fn(_att_cfg(use_pallas="always"))
     qk, v, mask = (tt(x) for x in _heads())
-    with pytest.raises(NotImplementedError, match="onehot"):
-        TL.lsh_attention_core(qk, v, _att_cfg(sort_gather="onehot"), mask,
+    with pytest.raises(ValueError, match="sort_gather"):
+        TL.lsh_attention_core(qk, v, _att_cfg(sort_gather="gather"), mask,
                               True, None)
     with pytest.raises(ValueError, match="overflow"):
         TL.lsh_attention_core(qk, v, _att_cfg(num_buckets=2**26), mask, True,
                               None)
+
+
+# -- sort_gather: the one-hot matmul permutation (tests/test_sort_gather.py) -------
+
+
+def _sg_cfg(sort_gather, nh=2, **kw):
+    return _att_cfg(**{"num_hashes": nh, "hash_seed": 5,
+                       "sort_gather": sort_gather, **kw})
+
+
+def _sg_core(mode, nh, causal, dtype=torch.float32, **kw):
+    """Both modes on the same inputs and generator: (out, dqk, dv) of the
+    loss sum(out ** 2)."""
+    qk, v, mask = _heads(seed=nh)
+    tqk, tv = (torch.tensor(x, dtype=dtype, requires_grad=True)
+               for x in (qk, v))
+    out, _ = TL.lsh_attention_core(tqk, tv, _sg_cfg(mode, nh, **kw),
+                                   tt(mask), causal,
+                                   torch.Generator().manual_seed(3))
+    return (out, *torch.autograd.grad(out.float().square().sum(), (tqk, tv)))
+
+
+@pytest.mark.parametrize("nh", [1, 2])
+@pytest.mark.parametrize("causal", [False, True])
+def test_onehot_equals_take_f32(nh, causal):
+    """One matched element per one-hot row: the gather is exact, and the
+    folded combine sums the same two products."""
+    take, onehot = (_sg_core(mode, nh, causal) for mode in ("take", "onehot"))
+    assert torch.equal(onehot[0], take[0])
+
+
+def test_onehot_close_to_take_bf16():
+    # the combine weight multiplies in bf16 in the onehot path, in f32 in
+    # take's (JAX's test_sort_gather.py tolerance)
+    take, onehot = (_sg_core(mode, 2, True, torch.bfloat16)[0].float()
+                    for mode in ("take", "onehot"))
+    torch.testing.assert_close(onehot, take, atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("nh,causal", [(1, True), (2, True), (3, False)])
+def test_grads_match_between_modes(nh, causal):
+    take, onehot = (_sg_core(mode, nh, causal) for mode in ("take", "onehot"))
+    for a, b in zip(onehot[1:], take[1:]):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("n_hashes,causal,masked", [
+    (1, True, True), (2, False, True), (2, True, False)])
+def test_onehot_core_matches_jax(inject_rotations, n_hashes, causal, masked):
+    """Forward and gradients of the onehot pipeline against JAX's, both on
+    the plain attend with exp(s - lse) (use_pallas false, JAX's CPU path)."""
+    cfg = _sg_cfg("onehot", n_hashes, use_pallas=False)
+    inject_rotations(cfg.hash_seed)
+    qk, v, mask = _heads(seed=10 + n_hashes)
+    mask = mask if masked else None
+    jmask = None if mask is None else jnp.asarray(mask)
+    cot = np.random.default_rng(4).standard_normal(qk.shape).astype(np.float32)
+
+    def jax_loss(qk, v):
+        out, _ = JL.lsh_attention_core(qk, v, cfg, jmask, causal,
+                                       jax.random.PRNGKey(cfg.hash_seed))
+        return jnp.sum(out * cot), out
+
+    (_, want), want_grads = jax.value_and_grad(
+        jax_loss, argnums=(0, 1), has_aux=True)(jnp.asarray(qk), jnp.asarray(v))
+    tqk, tv = (torch.tensor(x, requires_grad=True) for x in (qk, v))
+    out, _ = TL.lsh_attention_core(tqk, tv, cfg,
+                                   None if mask is None else tt(mask), causal,
+                                   None)
+    scaled_close(out, want, TOL)
+    for g, w in zip(torch.autograd.grad(out, (tqk, tv), tt(cot)), want_grads):
+        scaled_close(g, w, GRAD_TOL)
+
+
+def test_sort_gather_mode_rule():
+    """The reference's arguments; "auto" stays "take" (JAX's v5e size gate
+    picks "onehot" at these shapes), explicit modes are honoured."""
+    for bh, nh, l in ((64, 4, 1024), (16, 4, 4096), (16, 4, 8192)):
+        assert TL._sort_gather_mode(_sg_cfg("auto"), bh, nh, l,
+                                    torch.bfloat16) == "take"
+    assert JL._sort_gather_mode(_sg_cfg("auto"), 64, 4, 1024,
+                                jnp.bfloat16) == "onehot"
+    for mode in ("take", "onehot"):
+        assert TL._sort_gather_mode(_sg_cfg(mode), 1, 1, 64,
+                                    torch.float32) == mode
+    with pytest.raises(ValueError, match="bogus"):
+        TL._sort_gather_mode(_sg_cfg("bogus"), 1, 1, 64, torch.float32)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_reversible_lsh_stack_with_onehot_equals_plain(causal):
+    """A reversible LSH stack in onehot mode: its backward replays the
+    forward's buckets through the one-hot matmuls and gives the loss and
+    gradients of plain residuals; onehot equals take there too."""
+    results = {}
+    for mode, reversible in (("onehot", True), ("onehot", False),
+                             ("take", True)):
+        cfg = ReformerStackConfig(
+            num_layers=2, d_model=32, d_ff=64, dropout=0.0,
+            reversible=reversible, ffn_chunk_size=16, causal=causal,
+            attention=_sg_cfg(mode, use_pallas=False, hash_seed=7))
+        stack = TS.Stack(cfg, False, generator=torch.Generator().manual_seed(0),
+                         device="cpu")
+        rng = np.random.default_rng(12)
+        x = torch.tensor(rng.standard_normal((2, 64, 32)).astype(np.float32),
+                         requires_grad=True)
+        mask = tt(np.arange(64)[None, :] < np.asarray([64, 51])[:, None])
+        loss = TS.stack_apply(stack, cfg, x, mask).square().mean()
+        results[mode, reversible] = (loss, *torch.autograd.grad(
+            loss, [x, *stack.parameters()]))
+    plain = results["onehot", False]
+    scale = max(float(g.abs().max()) for g in plain[1:])
+    for key in (("onehot", True), ("take", True)):
+        torch.testing.assert_close(results[key][0], plain[0], rtol=1e-5,
+                                   atol=0)
+        for g, p in zip(results[key][1:], plain[1:]):
+            torch.testing.assert_close(g, p, rtol=2e-3, atol=5e-4 * scale)
 
 
 def test_plain_attend_equals_kernel_path_on_ordinary_rows():
