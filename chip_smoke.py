@@ -17,13 +17,19 @@ raises on failure:
 1. device: the card's name and power limit;
 2. build: nvcc builds the CUDA kernels from ``rtts_torch/csrc``;
 3. kernels: K1 (flash-attention forward) and K2 (depthwise conv) on the card
-   against their plain PyTorch versions, at the serving shapes;
+   against their plain PyTorch versions, at the serving shapes (K2 also with
+   the vocoder's f32 weight and bias read by the kernel); K2's
+   ``autograd.Function`` backward against the plain conv's autograd, and a
+   backward through one full-width WN giving every depth stage the plain
+   conv's gradient;
 4. slice: the Synthesizer answers 8 sentences with finite waveforms of the
    expected lengths, through both kernels (launch counters), and the same
    weights and noise at float32 on the card match the port on the CPU;
 5. timing at the shape of ``rtts/bench.py::bench_e2e`` (batch 8, 256 tokens,
    512 frames, stop threshold 2.0, batched vocoder), and each kernel
-   against its plain version;
+   against its plain version: K1 at the encoder's shape, K2 at the batched
+   vocoder's (8, 1024, 128) and the serving path's (1, 1024, 128), in turns
+   with ``F.conv1d(groups=128)``;
 6. profile: ``torch.profiler`` over a 64-frame decode at that shape, for
    the device's busy and idle share, the kernels per decode step and the
    ops that take the device time;
@@ -41,7 +47,8 @@ raises on failure:
    batch: loss, every gradient and the parameters after the update;
 10. train timing: the step at batch 8 x 1024 frames (best of 3), a
    ``torch.profiler`` view of one step, and K1 (with lse) and K3 against
-   their plain versions at the decoder and encoder shapes;
+   their plain versions at the decoder and encoder shapes (K3 bf16 on
+   tensor cores);
 11. kernels-lsh: K4 (LSH chunk-attend) and K5 (its backward) against their
    plain versions at four longform shapes (the decoder's b2 h8 4 hashes
    L8192, the encoder's L1024, a ragged one, one whose chunk count is not a
@@ -58,7 +65,9 @@ raises on failure:
 14. LSH train timing: the step at batch 2 x 8192 frames (best of 3), a
    ``torch.profiler`` view of one step, K4 and K5 against their plain
    versions and bounds, the plain attend against K4 + K5, and K1 and K3
-   at the cross-attention's shape against their plain versions and bounds;
+   at the cross-attention's shape against their plain versions and bounds,
+   with ``F.scaled_dot_product_attention`` forward + backward there as a
+   yardstick;
 15. kernels-ffn: K6 (fused LN + FFN) against its plain version at the
    decoder's (8 x 1024 rows, 512 -> 2048) and encoder's (8 x 256) FFN
    shapes, a ragged row count and a narrow width with each activation,
@@ -92,7 +101,8 @@ raises on failure:
    ``lsh_attention_core`` with ``sort_gather: onehot`` against ``take`` at
    serving_fast's shape, forward and backward, f32 and bf16.
 
-Prints a JSON line of per-kernel results (time, plain time, bound, library
+Prints a JSON line of per-kernel results (time by the events loop, device
+time from ``torch.profiler``'s kernel events, plain time, bound, library
 time where one PyTorch call computes the same function) and, last, the JSON
 result line.
 Exits non-zero, printing no result, without a CUDA GPU.  Imports only the
@@ -279,12 +289,86 @@ def _flash_case(b, h, lq, lk, dtype, lens=None, causal=False, self_mask=True,
     return (q, k, v, mask), kw
 
 
-def _dw_case(shape, taps, dtype):
+def _dw_case(shape, taps, dtype, param_dtype=None):
+    """x (shape) in ``dtype``; w (taps, 1, C) and b (C,) in ``param_dtype``
+    (``dtype`` unless given: the vocoder passes its f32 parameters)."""
     g = torch.Generator().manual_seed(SEED_DATA)
     c = shape[-1]
+    param_dtype = param_dtype or dtype
     return (torch.randn(*shape, generator=g).to("cuda", dtype),
-            torch.randn(taps, 1, c, generator=g).to("cuda", dtype),
-            torch.randn(c, generator=g).to("cuda", dtype))
+            torch.randn(taps, 1, c, generator=g).to("cuda", param_dtype),
+            torch.randn(c, generator=g).to("cuda", param_dtype))
+
+
+def _plain_dw_grads(x, w, b, dy):
+    """Gradients of x, w and b by autograd of the plain grouped conv in f32
+    (w and b rounded to x's dtype, as K2 rounds them)."""
+    k, c = w.shape[0], x.shape[-1]
+    xf, wf, bf = (t.detach().to(x.dtype).float().requires_grad_()
+                  for t in (x, w, b))
+    y = F.conv1d(F.pad(xf.transpose(1, 2), ((k - 1) // 2, k // 2)),
+                 wf.reshape(k, c).t().unsqueeze(1), bf, groups=c)
+    y.transpose(1, 2).backward(dy.float())
+    return xf.grad, wf.grad, bf.grad
+
+
+def _check_dw_backward():
+    """K2's Function on the card: one K2 launch forward, and gradients of
+    x, w and b equal to the plain conv's autograd; then a backward through
+    one full-width WN (f32, weight-norm form, "end" made live) gives every
+    depth stage the gradient the plain version's autograd gives."""
+    for dtype in (torch.bfloat16, torch.float32):
+        x, w, b = _dw_case((8, 1024, 128), 3, dtype, torch.float32)
+        dy = torch.randn(x.shape, generator=torch.Generator().manual_seed(
+            SEED_END)).to("cuda", dtype)
+        leaves = [t.clone().requires_grad_() for t in (x, w, b)]
+        before = depthwise_conv1d.launches
+        depthwise_conv1d(*leaves).backward(dy)
+        torch.cuda.synchronize()
+        _require(depthwise_conv1d.launches == before + 1,
+                 "K2's Function did not launch K2 once")
+        errs = [_scaled_err(t.grad, want) for t, want in zip(
+            leaves, _plain_dw_grads(x, w, b, dy))]
+        tol = KERNEL_TOL[dtype]
+        print(f"[kernels] K2 Function backward (8,1024,128) K3 x "
+              f"{str(dtype)[6:]}, w/b f32: dx {errs[0]:.3e}, dw {errs[1]:.3e}"
+              f", db {errs[2]:.3e}; tol {tol:g}")
+        _require(max(errs) <= tol, "K2's gradients disagree with the plain "
+                 "conv's")
+
+    cfg = base_config("float32").vocoder
+    voc = SW.init(cfg, torch.Generator().manual_seed(SEED_VOC), "cuda")
+    wn = voc.flows[0].wn
+    with torch.no_grad():
+        wn.end.w.copy_(0.02 * torch.randn(
+            wn.end.w.shape, generator=torch.Generator().manual_seed(SEED_END)))
+    g = torch.Generator().manual_seed(SEED_DATA)
+    audio = torch.randn(2, 1024, cfg.n_group // 2, generator=g).cuda()
+    mel = torch.randn(2, 1024, cfg.n_mels, generator=g).cuda()
+
+    def depth_grads():
+        voc.zero_grad()
+        out = SW.wn_apply(wn, audio, mel, cfg.wn_layers, cfg.wn_channels)
+        out.square().sum().backward()
+        return [t.grad.clone() for d in wn.depth for t in (d.v, d.g, d.b)]
+
+    before = depthwise_conv1d.launches
+    got = depth_grads()
+    n_k2 = depthwise_conv1d.launches - before
+    SW.depthwise_conv1d = depthwise_conv1d_reference
+    try:
+        want = depth_grads()
+    finally:
+        SW.depthwise_conv1d = depthwise_conv1d
+    err = max(((a - b).abs().max() / b.abs().max()).item()
+              for a, b in zip(got, want))
+    print(f"[kernels] vocoder WN backward b2 x 1024 x 128 channels, 8 layers"
+          f" (f32): K2 launches {n_k2}; depth v/g/b gradients vs the plain "
+          f"conv's: max err {err:.3e} (relative to each tensor's largest), "
+          f"tol {TRAIN_SLICE_TOL:g}")
+    _require(n_k2 == cfg.wn_layers and err <= TRAIN_SLICE_TOL
+             and all(bool(b.abs().max() > 0) for b in want),
+             "the vocoder's depth gradients through K2 disagree")
 
 
 ENCODER_LENS = (256, 200, 131, 77, 256, 1, 64, 250)
@@ -319,12 +403,18 @@ def phase_kernels():
               f"lse err {lse_err:.3e}, tol {tol:g}")
         _require(err <= tol and lse_err <= 1e-5, f"K1 {name} disagrees")
         main.setdefault("flash", abs_err)
-    for name, (shape, taps, dtype) in {
-            "vocoder (8,1024,128) K3 bf16": ((8, 1024, 128), 3, bf),
-            "vocoder (8,1024,128) K3 f32": ((8, 1024, 128), 3, f32),
-            "(8,1024,128) K4 bf16": ((8, 1024, 128), 4, bf),
-            "(2,77,6) K3 f32 scalar path": ((2, 77, 6), 3, f32)}.items():
-        args = _dw_case(shape, taps, dtype)
+    for name, (shape, taps, dtype, param_dtype) in {
+            "serving (1,1024,128) K3 bf16, w/b f32": ((1, 1024, 128), 3, bf,
+                                                     f32),
+            "vocoder (8,1024,128) K3 bf16, w/b f32": ((8, 1024, 128), 3, bf,
+                                                     f32),
+            "vocoder (8,1024,128) K3 bf16": ((8, 1024, 128), 3, bf, bf),
+            "vocoder (8,1024,128) K3 f32": ((8, 1024, 128), 3, f32, f32),
+            "(8,1024,128) K4 bf16": ((8, 1024, 128), 4, bf, bf),
+            "(2,77,6) K3 f32 scalar path": ((2, 77, 6), 3, f32, f32),
+            "(2,77,6) K4 bf16, w/b f32, scalar path": ((2, 77, 6), 4, bf,
+                                                      f32)}.items():
+        args = _dw_case(shape, taps, dtype, param_dtype)
         got = depthwise_conv1d(*args)
         torch.cuda.synchronize()
         want = depthwise_conv1d_reference(*args)
@@ -334,6 +424,7 @@ def phase_kernels():
               f"tol {tol:g}")
         _require(err <= tol, f"K2 {name} disagrees")
         main.setdefault("depthwise", abs_err)
+    _check_dw_backward()
     return main
 
 
@@ -420,13 +511,46 @@ def _events_ms(fn, n):
     return start.elapsed_time(end) / n
 
 
-def _kernel_ms(kernel, plain, n=200):
-    """Kernel and plain version in turns (plain, kernel, kernel, plain),
-    after a warm-up; mean ms per call of each."""
-    for fn in (kernel, plain):
+def _interleaved_ms(fns, n=200, cycles=2):
+    """Mean ms per call of each function of ``fns`` by the events loop,
+    after a warm-up, in the order given and then reversed (A B C C B A),
+    ``cycles`` times: a drift of the host's speed falls alike on all."""
+    for fn in fns:
         _events_ms(fn, 10)
-    p1, k1, k2, p2 = (_events_ms(f, n) for f in (plain, kernel, kernel, plain))
-    return (k1 + k2) / 2, (p1 + p2) / 2
+    order = list(range(len(fns)))
+    times = [[] for _ in fns]
+    for _ in range(cycles):
+        for i in order + order[::-1]:
+            times[i].append(_events_ms(fns[i], n))
+    return [sum(t) / len(t) for t in times]
+
+
+def _kernel_ms(kernel, plain, n=200):
+    """(kernel, plain) mean ms per call, timed plain, kernel, kernel, plain."""
+    plain_ms, kernel_ms = _interleaved_ms((plain, kernel), n, cycles=1)
+    return kernel_ms, plain_ms
+
+
+def _device_ms(fn, n, names=None):
+    """Device time per call of ``fn``: torch.profiler's kernel events over
+    ``n`` calls (after a warm-up), those whose name holds one of ``names``
+    (every device activity when None), summed and divided by ``n``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and (names is None or any(s in e.key for s in names)))
+    _require(total > 0, f"the profiler saw no device time of {names}")
+    return total / n / 1e3
 
 
 # the least time of a kernel's function on this card: the larger of its
@@ -514,33 +638,58 @@ def phase_timing(syn: Synthesizer):
 
     bf = torch.bfloat16
     qkv, kw = _flash_case(8, 8, 256, 256, bf, ENCODER_LENS)
-    flash_ms = _kernel_ms(lambda: flash_attend(*qkv, **kw),
-                          lambda: flash_attend_reference(*qkv, **kw))
+    flash_fn = lambda: flash_attend(*qkv, **kw)  # noqa: E731
+    flash_ms = _kernel_ms(flash_fn, lambda: flash_attend_reference(*qkv, **kw))
+    flash_dev = _device_ms(flash_fn, 100, ("flash_fwd_kernel",))
     flash_bound = _flash_bounds(8, 8, 256, 256, 64, bf, False, True)["fwd"]
-    dw = _dw_case((8, 1024, 128), 3, bf)
-    dw_ms = _kernel_ms(lambda: depthwise_conv1d(*dw),
-                       lambda: depthwise_conv1d_reference(*dw))
-    # the library call: one grouped cuDNN convolution on the same values,
-    # in its channels-first layout (the layout change is not timed)
-    x_t = dw[0].transpose(1, 2).contiguous()
-    w_t = dw[1].reshape(3, 128).t().unsqueeze(1).contiguous()
-    conv = lambda: F.conv1d(x_t, w_t, dw[2], padding=1, groups=128)  # noqa: E731
-    _require(_scaled_err(conv().transpose(1, 2), depthwise_conv1d_reference(
-        *dw)) <= KERNEL_TOL[bf], "F.conv1d computes another function than K2")
-    conv_ms = _kernel_ms(conv, conv)[0]
-    dw_bytes = 2 * 8 * 1024 * 128 * 2 + 4 * 128 * 2
-    dw_bound = _bound(dw_bytes, 2 * 3 * 8 * 1024 * 128, torch.float32)
     print(f"[timing] K1 encoder shape b8 h8 L256 dh64 bf16: kernel "
-          f"{flash_ms[0]:.4f} ms, plain {flash_ms[1]:.4f} ms, bound "
-          f"{flash_bound['bound_ms']:.4f} ms ({flash_bound['bound_by']})")
-    print(f"[timing] K2 vocoder shape (8,1024,128) K3 bf16: kernel "
-          f"{dw_ms[0]:.4f} ms, plain {dw_ms[1]:.4f} ms, F.conv1d(groups=128) "
-          f"{conv_ms:.4f} ms, bound {dw_bound['bound_ms']:.4f} ms "
-          f"({dw_bound['bound_by']})")
+          f"{flash_ms[0]:.4f} ms (device {flash_dev:.4f}), plain "
+          f"{flash_ms[1]:.4f} ms, bound {flash_bound['bound_ms']:.4f} ms "
+          f"({flash_bound['bound_by']})")
+    dw = {shape: _dw_times(shape) for shape in ((8, 1024, 128),
+                                                (1, 1024, 128))}
     return {"flash": dict(ms=flash_ms[0], plain_ms=flash_ms[1],
-                          library_ms=None, **flash_bound),
-            "depthwise": dict(ms=dw_ms[0], plain_ms=dw_ms[1],
-                              library_ms=conv_ms, **dw_bound)}
+                          device_ms=flash_dev, library_ms=None, **flash_bound),
+            # the serving path's shape: Synthesizer vocodes one utterance
+            # at a time, which is where phase 4 counts K2's launches
+            "depthwise": dw[(1, 1024, 128)]}
+
+
+def _dw_times(shape, n=200) -> dict:
+    """K2 at (B, L, 128) bf16, 3 taps, with f32 weight and bias as the
+    vocoder passes them: the kernel, its plain version and the library call
+    (one grouped cuDNN convolution on the same values in its channels-first
+    layout, weights cast ahead; the layout change is not timed), each by
+    the events loop in turns (ms: the host's launch rate of back-to-back
+    calls when that is slower than the device) and by the profiler
+    (device_ms), and the bound."""
+    bf, c = torch.bfloat16, shape[-1]
+    x, w, b = _dw_case(shape, 3, bf, torch.float32)
+    kernel = lambda: depthwise_conv1d(x, w, b)  # noqa: E731
+    plain = lambda: depthwise_conv1d_reference(x, w, b)  # noqa: E731
+    x_t = x.transpose(1, 2).contiguous()
+    w_t = w.to(bf).reshape(3, c).t().unsqueeze(1).contiguous()
+    b_t = b.to(bf)
+    conv = lambda: F.conv1d(x_t, w_t, b_t, padding=1, groups=c)  # noqa: E731
+    _require(_scaled_err(conv().transpose(1, 2), plain()) <= KERNEL_TOL[bf],
+             "F.conv1d computes another function than K2")
+    # a training call goes through K2's autograd.Function (x requires grad)
+    x_grad = x.detach().requires_grad_()
+    function = lambda: depthwise_conv1d(x_grad, w, b)  # noqa: E731
+    k_ms, conv_ms, plain_ms, fn_ms = _interleaved_ms(
+        (kernel, conv, plain, function), n)
+    dev = {"kernel": _device_ms(kernel, n, ("depthwise_conv_kernel",)),
+           "plain": _device_ms(plain, n), "conv": _device_ms(conv, n)}
+    elems = x.numel()
+    bound = _bound(2 * elems * 2 + 4 * c * 4, 2 * 3 * elems, torch.float32)
+    print(f"[timing] K2 {shape} K3 bf16, w/b f32: kernel {k_ms:.4f} ms "
+          f"(device {dev['kernel']:.4f}), plain {plain_ms:.4f} ms (device "
+          f"{dev['plain']:.4f}), F.conv1d(groups={c}) {conv_ms:.4f} ms "
+          f"(device {dev['conv']:.4f}), bound {bound['bound_ms']:.4f} ms "
+          f"({bound['bound_by']}); through the autograd.Function (x "
+          f"requiring grad) {fn_ms:.4f} ms")
+    return dict(ms=k_ms, plain_ms=plain_ms, device_ms=dev["kernel"],
+                library_ms=conv_ms, **bound)
 
 
 def phase_profile(syn: Synthesizer, frames: int = 64, top: int = 6):
@@ -914,39 +1063,84 @@ def phase_train_timing(model):
                 ("encoder", "encoder b8 h8 L256 self+pad", 100))}
 
 
-def _flash_times(case: str, n: int, tag: str) -> dict:
+def _flash_times(case: str, n: int, tag: str, sdpa: bool = False) -> dict:
     """K1 (with lse) and K3's two kernels at a TRAIN_FLASH_CASES shape in
-    bf16, against their plain versions (n calls each, in turns) and their
-    bounds -> {kernel: times and bound}."""
+    bf16, against their plain versions (n calls each, in turns), with their
+    device time from the profiler and their bounds -> {kernel: times and
+    bound}.  ``sdpa`` also times F.scaled_dot_product_attention's forward
+    + backward on the same inputs as a yardstick (pad masks only)."""
     (q, k, v, dout), mask, opts = _train_flash_case(*TRAIN_FLASH_CASES[case],
                                                     torch.bfloat16)
     args = (*opts, 0.0, 0)
     kw = dict(zip(("causal", "self_mask", "sm_scale", "q_offset"), opts))
     out, lse = flash_fwd(q, k, v, mask, *args)
-    fwd = _kernel_ms(lambda: flash_fwd(q, k, v, mask, *args),
-                     lambda: flash_attend_reference(
-                         q, k, v, mask, return_lse=True, **kw), n)
+    fns = {"flash_train": lambda: flash_fwd(q, k, v, mask, *args),
+           "flash_bwd_dkv": lambda: flash_bwd_dkv(q, k, v, out, dout, lse,
+                                                  mask, *args),
+           "flash_bwd_dq": lambda: flash_bwd_dq(q, k, v, out, dout, lse, mask,
+                                                *args)}
     plain_bwd = lambda: flash_attend_bwd_reference(  # noqa: E731
         q, k, v, out, dout, lse, mask, **kw)
-    dkv = _kernel_ms(lambda: flash_bwd_dkv(q, k, v, out, dout, lse, mask,
-                                           *args), plain_bwd, n)
-    dq = _kernel_ms(lambda: flash_bwd_dq(q, k, v, out, dout, lse, mask,
-                                         *args), plain_bwd, n)
+    plains = {"flash_train": lambda: flash_attend_reference(
+        q, k, v, mask, return_lse=True, **kw),
+        "flash_bwd_dkv": plain_bwd, "flash_bwd_dq": plain_bwd}
+    names = {"flash_train": ("flash_fwd_kernel",),
+             "flash_bwd_dkv": ("flash_bwd_di", "flash_bwd_dkv"),
+             "flash_bwd_dq": ("flash_bwd_dq",)}
+    times = {kernel: _kernel_ms(fn, plains[kernel], n)
+             for kernel, fn in fns.items()}
+    dev = {kernel: _device_ms(fn, n, names[kernel])
+           for kernel, fn in fns.items()}
     b, h, l, lk = TRAIN_FLASH_CASES[case][:4]
     bounds = _flash_bounds(b, h, l, lk, 64, torch.bfloat16, opts[0],
                            mask is not None)
-    print(f"[{tag}] {case} bf16: K1 fwd+lse {fwd[0]:.4f} ms (plain "
-          f"{fwd[1]:.4f}, bound {bounds['fwd']['bound_ms']:.4f} "
-          f"{bounds['fwd']['bound_by']}); K3 dK/dV {dkv[0]:.4f} ms (bound "
-          f"{bounds['dkv']['bound_ms']:.4f} {bounds['dkv']['bound_by']}) "
-          f"+ dQ {dq[0]:.4f} ms (bound {bounds['dq']['bound_ms']:.4f} "
-          f"{bounds['dq']['bound_by']}) = {dkv[0] + dq[0]:.4f} ms (plain "
-          f"backward, all three gradients: {dkv[1]:.4f} ms)")
-    return {kernel: dict(ms=t[0], plain_ms=t[1], library_ms=None,
+    fwd, dkv, dq = (times[kernel] for kernel in fns)
+    print(f"[{tag}] {case} bf16: K1 fwd+lse {fwd[0]:.4f} ms (device "
+          f"{dev['flash_train']:.4f}; plain {fwd[1]:.4f}, bound "
+          f"{bounds['fwd']['bound_ms']:.4f} {bounds['fwd']['bound_by']}); "
+          f"K3 dK/dV {dkv[0]:.4f} ms (device {dev['flash_bwd_dkv']:.4f}; "
+          f"bound {bounds['dkv']['bound_ms']:.4f} {bounds['dkv']['bound_by']})"
+          f" + dQ {dq[0]:.4f} ms (device {dev['flash_bwd_dq']:.4f}; bound "
+          f"{bounds['dq']['bound_ms']:.4f} {bounds['dq']['bound_by']}) = "
+          f"{dkv[0] + dq[0]:.4f} ms (plain backward, all three gradients: "
+          f"{dkv[1]:.4f} ms)")
+    if sdpa:
+        lib = _sdpa_fwd_bwd(q, k, v, dout, mask, opts[2], n)
+        ours = fwd[0] + dkv[0] + dq[0]
+        ours_dev = sum(dev.values())
+        print(f"[{tag}] {case} bf16 forward + backward: K1 + K3 {ours:.4f} ms "
+              f"(device {ours_dev:.4f}); the plain versions "
+              f"{fwd[1] + dkv[1]:.4f} ms; F.scaled_dot_product_attention "
+              f"(bool pad mask, dropout 0; out err {lib['err']:.3e}) "
+              f"{lib['ms']:.4f} ms (device {lib['device_ms']:.4f})")
+    return {kernel: dict(ms=times[kernel][0], plain_ms=times[kernel][1],
+                         device_ms=dev[kernel], library_ms=None,
                          **bounds[part])
-            for kernel, t, part in (("flash_train", fwd, "fwd"),
-                                    ("flash_bwd_dkv", dkv, "dkv"),
-                                    ("flash_bwd_dq", dq, "dq"))}
+            for kernel, part in (("flash_train", "fwd"),
+                                 ("flash_bwd_dkv", "dkv"),
+                                 ("flash_bwd_dq", "dq"))}
+
+
+def _sdpa_fwd_bwd(q, k, v, dout, mask, sm_scale, n) -> dict:
+    """F.scaled_dot_product_attention forward + backward (q, k and v
+    gradients) with a boolean pad mask and no dropout: for pad-only masks
+    and rows with a valid key, the function of K1 + K3.  A yardstick the
+    port never calls."""
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    attn_mask = mask[:, None, None, :]
+
+    def fwd_bwd():
+        out = F.scaled_dot_product_attention(*leaves, attn_mask=attn_mask,
+                                             scale=sm_scale)
+        return out, torch.autograd.grad(out, leaves, dout)
+
+    out = fwd_bwd()[0]
+    err = _scaled_err(out, flash_attend_reference(
+        q.float(), k.float(), v.float(), mask, sm_scale=sm_scale))
+    _require(err <= KERNEL_TOL[torch.bfloat16],
+             "F.scaled_dot_product_attention computes another function")
+    return {"ms": _interleaved_ms((fwd_bwd,), n)[0],
+            "device_ms": _device_ms(fwd_bwd, n), "err": err}
 
 
 # -- LSH training phases (configs/longform_8k.yaml) -----------------------------
@@ -1262,21 +1456,31 @@ def phase_train_lsh_timing(model):
 
         both = _kernel_ms(lambda: fwd_bwd(lsh_attend_chunks_kernel),
                           lambda: fwd_bwd(TL.plain_attend), n)
+        dev = [_device_ms(lambda: lsh_attend_fwd(q, k, v, pos, valid, *opts),
+                          n, ("lsh_attend_fwd_kernel",)),
+               _device_ms(lambda: lsh_attend_bwd(q, k, v, pos, valid, dout,
+                                                 dlse, *opts),
+                          n, ("lsh_attend_bwd_kernel",))]
         bounds = _lsh_bounds(*case, torch.bfloat16)
-        print(f"[train-lsh-timing] {name} bf16: K4 {fwd[0]:.4f} ms (plain "
+        print(f"[train-lsh-timing] {name} bf16: K4 {fwd[0]:.4f} ms (device "
+              f"{dev[0]:.4f}; plain "
               f"{fwd[1]:.4f}, bound {bounds['fwd']['bound_ms']:.4f} "
-              f"{bounds['fwd']['bound_by']}); K5 {bwd[0]:.4f} ms (plain "
+              f"{bounds['fwd']['bound_by']}); K5 {bwd[0]:.4f} ms (device "
+              f"{dev[1]:.4f}; plain "
               f"{bwd[1]:.4f}, bound {bounds['bwd']['bound_ms']:.4f} "
               f"{bounds['bwd']['bound_by']}); forward + backward: K4 + K5 "
               f"{both[0]:.4f} ms, the plain attend (use_pallas false) "
               f"{both[1]:.4f} ms")
-        times.setdefault("lsh_attend", dict(ms=fwd[0], plain_ms=fwd[1],
-                                            library_ms=None, **bounds["fwd"]))
+        times.setdefault("lsh_attend", dict(
+            ms=fwd[0], plain_ms=fwd[1], device_ms=dev[0], library_ms=None,
+            **bounds["fwd"]))
         times.setdefault("lsh_attend_bwd", dict(
-            ms=bwd[0], plain_ms=bwd[1], library_ms=None, **bounds["bwd"]))
+            ms=bwd[0], plain_ms=bwd[1], device_ms=dev[1], library_ms=None,
+            **bounds["bwd"]))
         del q, k, v, dout, pos, valid, dlse
         torch.cuda.empty_cache()
-    _flash_times("cross b2 h8 Lq8192 Lk1024 pad", 10, "train-lsh-timing")
+    _flash_times("cross b2 h8 Lq8192 Lk1024 pad", 10, "train-lsh-timing",
+                 sdpa=True)
     torch.cuda.empty_cache()
     return times
 
@@ -1634,15 +1838,17 @@ def phase_train_serving_fast_timing(model):
     case = K6_CASES[_K6_DECODER]
     x, k6_params, act = _k6_case(*case)
     bf = torch.bfloat16
-    ms = _kernel_ms(lambda: ffn_fused(x, *k6_params, act, bf),
+    kernel = lambda: ffn_fused(x, *k6_params, act, bf)  # noqa: E731
+    ms = _kernel_ms(kernel,
                     lambda: ffn_fused_reference(x, *k6_params, act, bf), 20)
+    dev = _device_ms(kernel, 20, ("ffn_fused_kernel",))
     bound = _k6_bound(*case)
     print(f"[train-rev-timing] K6 {_K6_DECODER} multiply bf16: kernel "
-          f"{ms[0]:.4f} ms, plain {ms[1]:.4f} ms, bound "
+          f"{ms[0]:.4f} ms (device {dev:.4f}), plain {ms[1]:.4f} ms, bound "
           f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}); no single "
           f"PyTorch call computes LN -> dense -> act -> dense")
-    return {"ffn_fused": dict(ms=ms[0], plain_ms=ms[1], library_ms=None,
-                              **bound)}
+    return {"ffn_fused": dict(ms=ms[0], plain_ms=ms[1], device_ms=dev,
+                              library_ms=None, **bound)}
 
 
 # -- the sort probe: K7, K8 and the one-hot sort gather ----------------------------
@@ -1798,13 +2004,23 @@ def phase_sort_probe():
 
     k7 = result["sort"]["longform b2 h8 nh4 L8192"]
     k8 = result["gather"]["longform (16, 32768, 128) bf16"]
+    # their device time at the same shapes (after the launch counts above)
+    keys = _k7_case(*K7_CASES["longform L8192 C64 packed keys"])
+    x, idx = _k8_case(*K8_CASES["longform 16 x 8192 rows d128 bf16, 4 rounds"])
+    dev = [_device_ms(lambda: bitonic_sort_cols(keys), 20,
+                      ("bitonic_cols_kernel",)),
+           _device_ms(lambda: row_gather(x, idx), 20, ("row_gather_kernel",))]
+    print(f"[sort-probe] device time at the longform shapes: K7 "
+          f"{dev[0]:.4f} ms, K8 {dev[1]:.4f} ms")
     # K7's bound: its compare-exchanges at the f32 rate outside the tensor
     # cores (the card's table has no integer row); K8 moves bytes only
     times = {"bitonic_sort": dict(ms=k7["K7"], plain_ms=k7["plain"],
+                                  device_ms=dev[0],
                                   library_ms=k7["torch.sort"],
                                   **_bound(k7["bytes"], k7["ops"],
                                            torch.float32)),
              "row_gather": dict(ms=k8["K8"], plain_ms=k8["plain"],
+                                device_ms=dev[1],
                                 library_ms=k8["index_select"],
                                 **_bound(k8["bytes"], 0, torch.bfloat16))}
     return launches, times
@@ -1849,8 +2065,9 @@ def main() -> int:
                      if sys.modules[m] is not None),
              "jax or the JAX package was imported")
     # serving kernels: launches of one Synthesizer call, times at the
-    # encoder and vocoder shapes; base.yaml training kernels ("flash_train"
-    # is K1 in the train step): launches of its three train steps, times at
+    # encoder's shape and the serving vocoder's (1, 1024, 128); base.yaml
+    # training kernels ("flash_train" is K1 in the train step): launches of
+    # its three train steps, times at
     # the decoder's self-attention shape (plain_ms of each K3 kernel: the
     # plain backward, all three gradients); LSH kernels: launches of the
     # three longform train steps, times at the longform decoder shape; K6:
@@ -1891,7 +2108,8 @@ def main() -> int:
                 "replaces": rep, "launches": launches[name],
                 "max_abs_err": errs[name],
                 **{key: times[name][key] for key in (
-                    "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
+                    "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                    "device_ms")}}
                for name, (src, rep) in meta.items()]
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -123,6 +123,17 @@ def _decoder_step(model, cfg: ReformerTTSConfig, x_t, t, k_caches, v_caches,
     return model.decoder.final_ln((h1 + h2) * 0.5)
 
 
+def check_kv_cache_dtype(cfg: ReformerTTSConfig) -> None:
+    """Raise on a ``kv_cache_dtype`` the port does not honour yet: only the
+    compute dtype ("compute", or unset) is ported, not the reference's e4m3
+    caches with their +-448 clip."""
+    name = cfg.kv_cache_dtype
+    if name not in ("compute", None, ""):
+        raise NotImplementedError(
+            f"rtts_torch: kv_cache_dtype {name!r} is not ported yet (only "
+            "'compute')")
+
+
 def _init_caches(cfg: ReformerTTSConfig, batch: int, n_groups: int, cdt,
                  device) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
     a = cfg.decoder.attention
@@ -162,8 +173,10 @@ def decode_greedy(model, cfg: ReformerTTSConfig, memory: torch.Tensor,
 
     ``generator`` (on memory's device) draws the decoder prenet's always-on
     dropout.  ``mode`` "auto" resolves as the reference does; only kv_full
-    is ported (the other caches raise NotImplementedError).  The caches are
-    written in place."""
+    is ported (the other caches raise NotImplementedError), and only the
+    compute-dtype cache (``check_kv_cache_dtype``).  The caches are written
+    in place."""
+    check_kv_cache_dtype(cfg)
     cdt = _dtype(cfg.compute_dtype)
     if stop_threshold is None:
         stop_threshold = cfg.stop_threshold

@@ -16,7 +16,8 @@ import numpy as np
 import torch
 
 from rtts_torch.config import Config
-from rtts_torch.infer.decode import _precast_weights, decode_greedy
+from rtts_torch.infer.decode import (_precast_weights, check_kv_cache_dtype,
+                                     decode_greedy)
 from rtts_torch.models import reformer_tts as M
 from rtts_torch.models import squeezewave
 from rtts_torch.text import encode_batch
@@ -34,6 +35,7 @@ class Synthesizer:
         if mesh is not None or attn_window is not None:
             raise NotImplementedError(
                 "rtts_torch: mesh serving and attn_window are not ported yet")
+        check_kv_cache_dtype(cfg.model)
         self.cfg = cfg
         self.tts = _precast_weights(tts_model,
                                     M._dtype(cfg.model.compute_dtype))

@@ -33,6 +33,15 @@ def _dtype(name: str) -> torch.dtype:
             "float16": torch.float16}[name]
 
 
+def check_param_dtype(cfg) -> None:
+    """Raise on a ``param_dtype`` other than float32, which the port does
+    not build yet (the reference casts every parameter at init)."""
+    if cfg.param_dtype != "float32":
+        raise NotImplementedError(
+            f"rtts_torch: param_dtype {cfg.param_dtype!r} is not ported yet "
+            "(only 'float32')")
+
+
 class ConvLN(nn.Module):
     """One prenet/postnet layer: {conv, ln}."""
 
@@ -82,7 +91,9 @@ def init(cfg: ReformerTTSConfig, generator: Optional[torch.Generator] = None,
     """Random parameters with the reference's shapes and scales, drawn from
     ``generator`` (a CPU generator; seed it for reproducible weights), on
     ``device``: the card unless the caller asks for another (without a card
-    the default raises)."""
+    the default raises).  Parameters are float32: any other
+    ``param_dtype`` raises NotImplementedError."""
+    check_param_dtype(cfg)
     return ReformerTTS(cfg, generator=generator, device=device)
 
 

@@ -26,7 +26,7 @@ import torch
 from torch import nn
 
 from rtts_torch.config import SqueezeWaveConfig
-from rtts_torch.models.reformer_tts import _dtype
+from rtts_torch.models.reformer_tts import _dtype, check_param_dtype
 from rtts_torch.nn.conv import conv1d
 from rtts_torch.nn.layers import normal
 from rtts_torch.ops.depthwise_conv import depthwise_conv1d
@@ -126,7 +126,9 @@ def init(cfg: SqueezeWaveConfig, generator: Optional[torch.Generator] = None,
          device="cuda") -> SqueezeWave:
     """Random vocoder parameters (weight-norm form) drawn from ``generator``,
     on ``device``: the card unless the caller asks for another (without a
-    card the default raises)."""
+    card the default raises).  Parameters are float32: any other
+    ``param_dtype`` raises NotImplementedError."""
+    check_param_dtype(cfg)
     return SqueezeWave(cfg, generator=generator, device=device)
 
 
@@ -182,10 +184,12 @@ def _bound_log_s(log_s: torch.Tensor, clamp: float) -> torch.Tensor:
 def wn_conv(p: WNConv, x: torch.Tensor, compute_dtype=None) -> torch.Tensor:
     w = p.weight()
     if p.groups > 1 and p.groups == x.shape[-1] and w.shape[0] > 1:
-        # the depthwise stage: K2 on the card, its plain version on the CPU
+        # the depthwise stage: K2 on the card, its plain version on the CPU;
+        # both round the f32 w and b to x's dtype themselves, so no cast
+        # runs here
         if compute_dtype is not None:
-            x, w = x.to(compute_dtype), w.to(compute_dtype)
-        return depthwise_conv1d(x, w, p.b.to(x.dtype))
+            x = x.to(compute_dtype)
+        return depthwise_conv1d(x, w, p.b)
     return conv1d(x, w, p.b, p.groups, compute_dtype)
 
 

@@ -20,6 +20,8 @@ import shutil
 import subprocess
 import tempfile
 
+import torch
+
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "rtts_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -35,9 +37,13 @@ _LSH_SCALARS = [_I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P]
 # C signatures of the entry points (each returns a cudaError_t as int)
 SIGNATURES = {
     "rtts_flash_fwd": [_P] * 6 + _FLASH_SCALARS,
-    "rtts_flash_bwd_dkv": [_P] * 9 + _FLASH_SCALARS,
+    # q, k, v, o, dout, lse, kv_mask, dk, dv, Di scratch, f32 partials;
+    # number of query splits; the flash scalars
+    "rtts_flash_bwd_dkv": [_P] * 11 + [_I] + _FLASH_SCALARS,
     "rtts_flash_bwd_dq": [_P] * 8 + _FLASH_SCALARS,
-    "rtts_depthwise_conv1d": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # dims (7 ints: x dtype, w/b dtype, batch, len, channels, taps, vector
+    # width), x, w, b, out, stream
+    "rtts_depthwise_conv1d": [_P] * 6,
     "rtts_lsh_attend_fwd": [_P] * 7 + _LSH_SCALARS,
     "rtts_lsh_attend_bwd": [_P] * 10 + _LSH_SCALARS,
     # x, ln scale and bias, W_in, b_in, W_out, b_out, out; dtype, n, d, f,
@@ -50,6 +56,7 @@ SIGNATURES = {
 }
 
 _lib = None
+_functions = {}
 
 
 def _sources():
@@ -130,6 +137,21 @@ def library() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def function(name: str):
+    """The entry point ``name`` of the loaded library, resolved once."""
+    fn = _functions.get(name)
+    if fn is None:
+        fn = _functions[name] = getattr(library(), name)
+    return fn
+
+
+def stream(index: int) -> int:
+    """The handle of the current CUDA stream of the card with this index
+    (``Tensor.get_device()``), read without building a
+    ``torch.cuda.Stream``."""
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def check(err: int, name: str) -> None:

@@ -3,7 +3,7 @@
 Port of ``rtts/ops/flash_attention.py``.  ``flash_attend`` is differentiable:
 its forward launches the CUDA kernel ``rtts_torch/csrc/flash_fwd.cu`` (K1)
 and its backward the two kernels of ``rtts_torch/csrc/flash_bwd.cu`` (K3,
-FA2: dK/dV, then dQ) for tensors on the card; for tensors on the CPU the
+FA2: dK/dV, then dQ; bf16 on tensor cores) for tensors on the card; for tensors on the CPU the
 same ``torch.autograd.Function`` runs ``flash_attend_reference`` and
 ``flash_attend_bwd_reference``.  All of them compute the same masked
 softmax attention, with the reference's replace-style masks applied to f32
@@ -219,7 +219,14 @@ def _check_inputs(name, q, k, v, kv_mask):
             raise ValueError(f"{name}: kv_mask is {tuple(kv_mask.shape)} on "
                              f"{kv_mask.device}, want {(b, l_k)} on {q.device}")
         kv_mask = kv_mask.to(torch.bool).contiguous()
-    return q.contiguous(), k.contiguous(), v.contiguous(), kv_mask
+    return _aligned(q), _aligned(k), _aligned(v), kv_mask
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous from a 16-byte boundary (the bf16 kernels load 16
+    bytes at a time): a copy for the rare view that starts elsewhere."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _scalars(q, k, causal, self_mask, sm_scale, q_offset, rate, seed):
@@ -229,8 +236,7 @@ def _scalars(q, k, causal, self_mask, sm_scale, q_offset, rate, seed):
     return (_DTYPES[q.dtype], b * h, h, l_q, k.shape[2], dh, float(sm_scale),
             int(bool(causal)), int(bool(self_mask)), int(q_offset),
             int(seed) & _M32 if thr else 0, thr,
-            1.0 / (1.0 - rate) if thr else 1.0,
-            torch.cuda.current_stream(q.device).cuda_stream)
+            1.0 / (1.0 - rate) if thr else 1.0, _build.stream(q.get_device()))
 
 
 def _ptr(t):
@@ -244,7 +250,7 @@ def flash_fwd(q, k, v, kv_mask, causal, self_mask, sm_scale, q_offset,
     b, h, l_q, _ = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((b * h, l_q), device=q.device, dtype=torch.float32)
-    err = _build.library().rtts_flash_fwd(
+    err = _build.function("rtts_flash_fwd")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(kv_mask),
         out.data_ptr(), lse.data_ptr(),
         *_scalars(q, k, causal, self_mask, sm_scale, q_offset, dropout_rate,
@@ -254,16 +260,57 @@ def flash_fwd(q, k, v, kv_mask, causal, self_mask, sm_scale, q_offset,
     return out, lse
 
 
+# the bf16 dK/dV kernel's tiles (MmaTiles in flash_bwd.cu): 64 keys a
+# block, 64 (dh 64) or 32 (dh 128) queries a streamed step
+_KEY_TILE = 64
+
+
+def dkv_query_splits(bh: int, l_q: int, l_k: int, dh: int, sms: int) -> int:
+    """Blocks the bf16 dK/dV kernel splits each key tile's query range
+    into: enough to give ``sms`` SMs about six blocks each, while a split
+    keeps at least 8 query tiles and none is empty."""
+    br = 64 if dh == 64 else 32
+    n_qt = -(-l_q // br)
+    blocks = -(-l_k // _KEY_TILE) * bh
+    n = max(1, min(-(-6 * sms // max(blocks, 1)), n_qt // 8))
+    per = -(-n_qt // n) if n_qt else 1
+    return max(1, -(-n_qt // per))
+
+
+_SM_COUNT = {}
+
+
+def _sm_count(device: torch.device) -> int:
+    n = _SM_COUNT.get(device.index)
+    if n is None:
+        n = _SM_COUNT[device.index] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return n
+
+
 def flash_bwd_dkv(q, k, v, out, dout, lse, kv_mask, causal, self_mask,
                   sm_scale, q_offset, dropout_rate, dropout_seed):
-    """Launch K3's dK/dV kernel -> (dk, dv); counts in ``flash_bwd_dkv.launches``."""
+    """Launch K3's dK/dV kernel -> (dk, dv); counts in
+    ``flash_bwd_dkv.launches``.  In bf16 each key tile's query range is
+    split over ``dkv_query_splits`` blocks whose f32 partials are summed in
+    a fixed order; f32 runs one block per key tile."""
     q, k, v, kv_mask = _check_inputs("flash_bwd_dkv", q, k, v, kv_mask)
-    out, dout = out.contiguous(), dout.to(q.dtype).contiguous()
+    out, dout = _aligned(out), _aligned(dout.to(q.dtype))
+    b, h, l_q, dh = q.shape
+    l_k = k.shape[2]
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    err = _build.library().rtts_flash_bwd_dkv(
+    di = part = None
+    n_split = 1
+    if q.dtype == torch.bfloat16:
+        f32 = dict(dtype=torch.float32, device=q.device)
+        di = torch.empty(b * h * l_q, **f32)
+        n_split = dkv_query_splits(b * h, l_q, l_k, dh, _sm_count(q.device))
+        if n_split > 1:
+            part = torch.empty(2 * n_split * b * h * l_k * dh, **f32)
+    err = _build.function("rtts_flash_bwd_dkv")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         dout.data_ptr(), lse.contiguous().data_ptr(), _ptr(kv_mask),
-        dk.data_ptr(), dv.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), _ptr(di), _ptr(part), n_split,
         *_scalars(q, k, causal, self_mask, sm_scale, q_offset, dropout_rate,
                   dropout_seed))
     _build.check(err, "rtts_flash_bwd_dkv")
@@ -275,9 +322,9 @@ def flash_bwd_dq(q, k, v, out, dout, lse, kv_mask, causal, self_mask,
                  sm_scale, q_offset, dropout_rate, dropout_seed):
     """Launch K3's dQ kernel -> dq; counts in ``flash_bwd_dq.launches``."""
     q, k, v, kv_mask = _check_inputs("flash_bwd_dq", q, k, v, kv_mask)
-    out, dout = out.contiguous(), dout.to(q.dtype).contiguous()
+    out, dout = _aligned(out), _aligned(dout.to(q.dtype))
     dq = torch.empty_like(q)
-    err = _build.library().rtts_flash_bwd_dq(
+    err = _build.function("rtts_flash_bwd_dq")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         dout.data_ptr(), lse.contiguous().data_ptr(), _ptr(kv_mask),
         dq.data_ptr(),

@@ -14,6 +14,7 @@ from rtts_torch.ops.chunked_ffn import (chunked_ffn_fused, ffn_fused,
                                         ffn_fused_reference)
 from rtts_torch.ops.depthwise_conv import (depthwise_conv1d,
                                            depthwise_conv1d_reference)
+from rtts_torch.ops import flash_attention as FA
 from rtts_torch.ops.flash_attention import (dropout_keep_mask, flash_attend,
                                             flash_attend_bwd_reference,
                                             flash_attend_reference,
@@ -186,6 +187,67 @@ def test_kernel_keep_masks_equal_dropout_keep_mask(dev, q_offset):
     assert torch.equal((dv.transpose(-1, -2) > 0).float(), want)
 
 
+@pytest.mark.parametrize("q_offset", [0, 37])
+def test_bf16_kernel_keep_masks_equal_dropout_keep_mask(dev, q_offset):
+    """The bf16 kernels' keep bits, as above: every kept entry of K1's
+    output and of K3's dV is 1 / (L keep_prob) rounded to bf16, every
+    dropped one 0, so their zero patterns are the dense mask."""
+    b, h, l, rate, seed = 2, 3, 128, 0.1, 0xDEADBEEF
+    zeros = torch.zeros(b, h, l, l, device=dev, dtype=torch.bfloat16)
+    eye = torch.eye(l, device=dev, dtype=torch.bfloat16)
+    eye = eye.expand(b, h, l, l).contiguous()
+    args = (False, False, 1.0, q_offset, rate, seed)
+    out, lse = flash_fwd(zeros, zeros, eye, None, *args)
+    _, dv = flash_bwd_dkv(zeros, zeros, eye, out, eye, lse, None, *args)
+    torch.cuda.synchronize()
+    want = dropout_keep_mask(seed, b * h, l, l, rate, q_offset,
+                             dev).reshape(b, h, l, l)
+    assert torch.equal((out > 0).float(), want)
+    assert torch.equal((dv.transpose(-1, -2) > 0).float(), want)
+
+
+@pytest.mark.parametrize("splits", [2, 3, 7])
+@pytest.mark.parametrize("name", ["decoder", "q_offset", "dh128_ragged",
+                                  "cross"])
+def test_flash_dkv_query_splits_match_reference_and_repeat(dev, monkeypatch,
+                                                          name, splits):
+    """The bf16 dK/dV kernel with each key tile's query range split over
+    blocks (forced, where the automatic rule would not split): within the
+    bf16 tolerance of the plain backward, and the same bits run to run."""
+    monkeypatch.setattr(FA, "dkv_query_splits", lambda *shape: splits)
+    (q, k, v, dout, mask), opts = train_case(name, torch.bfloat16, dev)
+    args = (opts["causal"], opts["self_mask"], opts["sm_scale"],
+            opts["q_offset"], 0.1, 0x9E3779B9)
+    out, lse = flash_fwd(q, k, v, mask, *args)
+    got = flash_bwd_dkv(q, k, v, out, dout, lse, mask, *args)
+    again = flash_bwd_dkv(q, k, v, out, dout, lse, mask, *args)
+    torch.cuda.synchronize()
+    f = [t.float() for t in (q, k, v)]
+    wants = flash_attend_bwd_reference(
+        *f, out.float(), dout.float(), lse, mask, **opts, dropout_rate=0.1,
+        dropout_seed=0x9E3779B9)[1:]
+    for got_t, want_t, same, what in zip(got, wants, again, ("dk", "dv")):
+        err = _err(got_t, want_t)
+        assert err < TOL[torch.bfloat16], (what, err)
+        assert torch.equal(got_t, same), what
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_flash_dkv_split_is_bit_equal_run_to_run(dev, rate):
+    """The longform cross-attention's shape splits every key tile's 8192
+    queries (the automatic rule): dK/dV are the same bits on every run."""
+    (q, k, v, dout, mask), opts = train_case("cross_longform",
+                                             torch.bfloat16, dev)
+    args = (opts["causal"], opts["self_mask"], opts["sm_scale"],
+            opts["q_offset"], rate, 0x9E3779B9)
+    out, lse = flash_fwd(q, k, v, mask, *args)
+    runs = [flash_bwd_dkv(q, k, v, out, dout, lse, mask, *args)
+            for _ in range(3)]
+    torch.cuda.synchronize()
+    for dk, dv in runs[1:]:
+        assert torch.equal(dk, runs[0][0]) and torch.equal(dv, runs[0][1])
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("shape,taps", [((8, 1024, 128), 3), ((2, 37, 128), 4),
                                         ((2, 50, 6), 3)])
@@ -204,6 +266,91 @@ def test_depthwise_kernel_matches_reference(dev, dtype, shape, taps):
     assert err < (1e-5 if dtype == torch.float32 else TOL[dtype]), err
 
 
+@pytest.mark.parametrize("shape,taps", [((1, 1024, 128), 3),
+                                        ((8, 1024, 128), 3),
+                                        ((2, 50, 6), 4)])
+def test_depthwise_kernel_reads_f32_params_with_bf16_x(dev, shape, taps):
+    """The vocoder's call: bf16 x with the folded f32 weight and bias, which
+    the kernel rounds to bf16 itself; the plain version rounds the same."""
+    g = torch.Generator().manual_seed(2)
+    c = shape[-1]
+    x = torch.randn(*shape, generator=g).to(dev, torch.bfloat16)
+    w = torch.randn(taps, 1, c, generator=g).to(dev)
+    b = torch.randn(c, generator=g).to(dev)
+    before = depthwise_conv1d.launches
+    got = depthwise_conv1d(x, w, b)
+    torch.cuda.synchronize()
+    assert depthwise_conv1d.launches == before + 1
+    want = depthwise_conv1d_reference(x, w, b)
+    assert torch.equal(want, depthwise_conv1d_reference(x, w.bfloat16(),
+                                                        b.bfloat16()))
+    assert got.dtype == torch.bfloat16
+    assert _err(got, want) < TOL[torch.bfloat16], _err(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_depthwise_function_backward_matches_plain_conv(dev, dtype):
+    """K2's Function: forward one K2 launch, gradients of x, w and b equal
+    to autograd of the plain version's conv in f32."""
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(8, 1024, 128, generator=g).to(dev, dtype)
+    w, b = (torch.randn(*s, generator=g).to(dev) for s in ((3, 1, 128),
+                                                          (128,)))
+    dy = torch.randn(8, 1024, 128, generator=g).to(dev, dtype)
+    leaves = [t.clone().requires_grad_() for t in (x, w, b)]
+    before = depthwise_conv1d.launches
+    depthwise_conv1d(*leaves).backward(dy)
+    torch.cuda.synchronize()
+    assert depthwise_conv1d.launches == before + 1
+    # the plain version's function: w and b rounded to x's dtype
+    plain = [t.detach().to(dtype).float().requires_grad_() for t in (x, w, b)]
+    y = torch.nn.functional.conv1d(
+        torch.nn.functional.pad(plain[0].transpose(1, 2), (1, 1)),
+        plain[1].reshape(3, 128).t().unsqueeze(1), plain[2], groups=128)
+    y.transpose(1, 2).backward(dy.float())
+    for got, want in zip(leaves, plain):
+        assert got.grad.dtype == got.dtype
+        assert _err(got.grad, want.grad) < TOL[dtype], _err(got.grad,
+                                                            want.grad)
+
+
+def test_vocoder_backward_gives_depth_weights_the_plain_conv_gradient(
+        dev, monkeypatch):
+    """A backward through one WN layer stack of a full-width vocoder flow
+    (f32, weight-norm form, the "end" conv made live) on the card: K2's
+    Function gives every depth stage's v, g and b the gradient that the
+    plain conv's autograd gives."""
+    from rtts_torch.config import SqueezeWaveConfig
+    from rtts_torch.models import squeezewave as SW
+
+    cfg = SqueezeWaveConfig(compute_dtype="float32")
+    model = SW.init(cfg, torch.Generator().manual_seed(4), dev)
+    wn = model.flows[0].wn
+    with torch.no_grad():
+        wn.end.w.copy_(0.02 * torch.randn(
+            wn.end.w.shape, generator=torch.Generator().manual_seed(5)))
+    g = torch.Generator().manual_seed(6)
+    audio = torch.randn(2, 512, cfg.n_group // 2, generator=g).to(dev)
+    mel = torch.randn(2, 512, cfg.n_mels, generator=g).to(dev)
+
+    def depth_grads():
+        model.zero_grad()
+        out = SW.wn_apply(wn, audio, mel, cfg.wn_layers, cfg.wn_channels)
+        out.square().sum().backward()
+        return [t.grad.clone() for d in wn.depth for t in (d.v, d.g, d.b)]
+
+    before = depthwise_conv1d.launches
+    got = depth_grads()
+    assert depthwise_conv1d.launches == before + cfg.wn_layers
+    monkeypatch.setattr(SW, "depthwise_conv1d", depthwise_conv1d_reference)
+    want = depth_grads()
+    assert depthwise_conv1d.launches == before + cfg.wn_layers
+    for a, b in zip(got, want):
+        scale = b.abs().max()
+        assert bool(scale > 0)
+        assert ((a - b).abs().max() / scale).item() < TOL[torch.float32]
+
+
 def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     q, k, v = _qkv(1, 1, 16, 16, 32, torch.float32, dev)
     with pytest.raises(ValueError, match="head dim"):
@@ -215,6 +362,12 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError):
         depthwise_conv1d(x, torch.zeros(3, 1, 8, device=dev),
                          torch.zeros(16, device=dev))
+    with pytest.raises(ValueError, match="taps"):
+        depthwise_conv1d(x, torch.zeros(9, 1, 16, device=dev),
+                         torch.zeros(16, device=dev))
+    with pytest.raises(TypeError):
+        depthwise_conv1d(x, torch.zeros(3, 1, 16, device=dev),
+                         torch.zeros(16, device=dev, dtype=torch.bfloat16))
     q = torch.zeros(1, 1, 2, 16, 32, device=dev)
     pos = torch.zeros(1, 1, 2, 16, dtype=torch.int32, device=dev)
     with pytest.raises(ValueError, match="head dim"):

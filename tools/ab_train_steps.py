@@ -10,8 +10,8 @@ checkout, so the port and the kernels are that checkout's: it builds the
 kernels, makes seeded weights and runs the checkout's base.yaml and
 longform_8k.yaml timing phases (best of 3 after a warm-up, one profiled
 step, the kernels against their plain versions).  Prints every run's lines
-prefixed by its label, then one JSON line of each run's best step wall and
-of every timed step's wall.
+prefixed by its label, then one JSON line of each run's best step wall, of
+every timed step's wall and of the profiled step's device busy time.
 """
 
 from __future__ import annotations
@@ -41,6 +41,8 @@ for base, timing in ((S.BASE_CONFIG, S.phase_train_timing),
 """
 _STEP = re.compile(r"^\[(train-timing|train-lsh-timing)\] train step .*"
                    r"walls \[([0-9., ]+)\] s; best ([0-9.]+) s")
+_BUSY = re.compile(r"^\[(train-timing|train-lsh-timing)\] profile of one "
+                   r"step: wall [0-9.]+ s, device busy ([0-9.]+) s")
 
 
 def main(argv) -> int:
@@ -52,6 +54,7 @@ def main(argv) -> int:
              "B": pathlib.Path(argv[2]).resolve()}
     best = {"A": {}, "B": {}}
     walls = {"A": {}, "B": {}}
+    busy = {"A": {}, "B": {}}
     for label in "ABBA" * cycles:
         root = roots[label]
         proc = subprocess.run([sys.executable, "-c", _RUN.format(root=str(root))],
@@ -64,11 +67,16 @@ def main(argv) -> int:
                     float(hit.group(3)))
                 walls[label].setdefault(hit.group(1), []).extend(
                     float(w) for w in hit.group(2).split(","))
+            hit = _BUSY.match(line)
+            if hit:
+                busy[label].setdefault(hit.group(1), []).append(
+                    float(hit.group(2)))
         if proc.returncode != 0:
             print(proc.stderr[-4000:], file=sys.stderr)
             print(f"{label} ({root}) exited {proc.returncode}", file=sys.stderr)
             return 1
     print(json.dumps({"best_step_s": best, "step_walls_s": walls,
+                      "device_busy_s": busy,
                       "roots": {k: str(v) for k, v in roots.items()}}))
     return 0
 
