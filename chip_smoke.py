@@ -16,12 +16,12 @@ raises on failure:
 
 1. device: the card's name and power limit;
 2. build: nvcc builds the CUDA kernels from ``rtts_torch/csrc``;
-3. kernels: K1 (flash-attention forward) and K2 (depthwise conv) on the card
-   against their plain PyTorch versions, at the serving shapes (K2 also with
-   the vocoder's f32 weight and bias read by the kernel); K2's
-   ``autograd.Function`` backward against the plain conv's autograd, and a
-   backward through one full-width WN giving every depth stage the plain
-   conv's gradient;
+3. kernels: K1 (flash-attention forward; bf16 on tensor cores) and K2
+   (depthwise conv) on the card against their plain PyTorch versions, at
+   the serving shapes (K2 also with the vocoder's f32 weight and bias read
+   by the kernel); K2's ``autograd.Function`` backward against the plain
+   conv's autograd, and a backward through one full-width WN giving every
+   depth stage the plain conv's gradient;
 4. slice: the Synthesizer answers 8 sentences with finite waveforms of the
    expected lengths, through both kernels (launch counters), and the same
    weights and noise at float32 on the card match the port on the CPU;
@@ -34,9 +34,10 @@ raises on failure:
    the device's busy and idle share, the kernels per decode step and the
    ops that take the device time;
 7. kernels-train: K1 with dropout and its lse, and K3 (the dK/dV and dQ
-   kernels), against their plain versions at the training shapes (base.yaml's
-   and the longform decoder's cross-attention, 8192 x 1024), in bf16
-   and f32, at dropout 0 and 0.1; the kernels' keep masks against
+   kernels; both bf16 paths on tensor cores), against their plain versions
+   at the training shapes (base.yaml's and the longform decoder's
+   cross-attention, 8192 x 1024), in bf16 and f32, at dropout 0 and 0.1;
+   the kernels' keep masks against
    ``dropout_keep_mask`` bit for bit;
 8. train slice: three train steps at base.yaml (batch 8, ragged lengths up
    to 256 tokens and 1024 frames, bf16) with finite loss, grad norm and
@@ -49,11 +50,13 @@ raises on failure:
    ``torch.profiler`` view of one step, and K1 (with lse) and K3 against
    their plain versions at the decoder and encoder shapes (K3 bf16 on
    tensor cores);
-11. kernels-lsh: K4 (LSH chunk-attend) and K5 (its backward) against their
-   plain versions at four longform shapes (the decoder's b2 h8 4 hashes
-   L8192, the encoder's L1024, a ragged one, one whose chunk count is not a
-   multiple of 8) and serving_fast.yaml's two (b8: the decoder's L1024
-   causal, the encoder's L256, both ragged), bf16 and f32; K5 twice,
+11. kernels-lsh: K4 (LSH chunk-attend) and K5 (its backward: a dQ kernel
+   per query chunk, a dK/dV kernel per key chunk; bf16 on tensor cores)
+   against their plain versions at four longform shapes (the decoder's b2
+   h8 4 hashes L8192, the encoder's L1024, a ragged one, one whose chunk
+   count is not a multiple of 8), a window of one chunk on each side
+   (before 1, after 1) and serving_fast.yaml's two (b8: the decoder's
+   L1024 causal, the encoder's L256, both ragged), bf16 and f32; K5 twice,
    bit-equal;
 12. LSH train slice: three longform_8k.yaml steps at full width (batch 2,
    ragged up to 1024 tokens and 8192 frames, bf16): finite loss, grad norm
@@ -66,8 +69,10 @@ raises on failure:
    ``torch.profiler`` view of one step, K4 and K5 against their plain
    versions and bounds, the plain attend against K4 + K5, and K1 and K3
    at the cross-attention's shape against their plain versions and bounds,
-   with ``F.scaled_dot_product_attention`` forward + backward there as a
-   yardstick;
+   with ``F.scaled_dot_product_attention`` there as the yardstick: its
+   forward alone against K1, forward + backward against K1 + K3; the
+   registers, spill, shared memory and blocks an SM that the runtime
+   reports of K5's and K1's bf16 kernels;
 15. kernels-ffn: K6 (fused LN + FFN) against its plain version at the
    decoder's (8 x 1024 rows, 512 -> 2048) and encoder's (8 x 256) FFN
    shapes, a ragged row count and a narrow width with each activation,
@@ -101,10 +106,12 @@ raises on failure:
    ``lsh_attention_core`` with ``sort_gather: onehot`` against ``take`` at
    serving_fast's shape, forward and backward, f32 and bf16.
 
-Prints a JSON line of per-kernel results (time by the events loop, device
-time from ``torch.profiler``'s kernel events, plain time, bound, library
-time where one PyTorch call computes the same function) and, last, the JSON
-result line.
+Prints a JSON line of per-kernel results, each entry at one shape (K1 at
+three: ``flash`` at serving, ``flash_train`` at base.yaml's decoder,
+``flash_cross`` at the longform cross-attention): time by the events loop,
+device time from ``torch.profiler``'s kernel events, plain time, bound,
+library time where one PyTorch call computes the same function, launches
+on the main path; and, last, the JSON result line.
 Exits non-zero, printing no result, without a CUDA GPU.  Imports only the
 port: no JAX and nothing of the JAX package (PyYAML is not needed either:
 the configs are the dicts below).
@@ -532,9 +539,14 @@ def _kernel_ms(kernel, plain, n=200):
 
 
 def _device_ms(fn, n, names=None):
-    """Device time per call of ``fn``: torch.profiler's kernel events over
-    ``n`` calls (after a warm-up), those whose name holds one of ``names``
-    (every device activity when None), summed and divided by ``n``."""
+    """Device time per call of ``fn`` from torch.profiler's kernel events
+    over ``n`` calls (after a warm-up).  The profiler does not always record
+    every launch (it has recorded 1 of 10 and 62 of 100), so each kernel
+    counts as its mean time per recorded launch times its launches a call,
+    ceil(recorded / n), and the call is the sum over its kernels.  With
+    ``names``, only the kernels whose name holds one of them: each name must
+    match, and each such kernel, launched once a call, must be recorded
+    between 1 and n times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -546,11 +558,31 @@ def _device_ms(fn, n, names=None):
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA
-                and (names is None or any(s in e.key for s in names)))
+    device = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and e.count > 0]
+    if names is not None:
+        device = [e for e in device if any(s in e.key for s in names)]
+        counts = {e.key[:60]: e.count for e in device}
+        _require(all(any(s in e.key for e in device) for s in names)
+                 and all(1 <= c <= n for c in counts.values()),
+                 f"the profiler recorded {counts} launches of {names} in "
+                 f"{n} calls, not 1 to {n} of each")
+        if any(c < n for c in counts.values()):
+            print(f"[profiler] recorded fewer than {n} launches: {counts}")
+    total = sum(e.self_device_time_total / e.count * -(-e.count // n)
+                for e in device)
     _require(total > 0, f"the profiler saw no device time of {names}")
-    return total / n / 1e3
+    return total / 1e3
+
+
+def _print_resources(tag: str, names, entry: str, *args: int) -> None:
+    """What the runtime reports of the bf16 kernels behind the entry point
+    ``entry`` (``rtts_*_resources``) on this card, one line each."""
+    for name, r in zip(names, _build.resources(entry, *args,
+                                               kernels=len(names))):
+        print(f"[{tag}] {name} on this card: {r['registers']} registers and "
+              f"{r['spill_bytes']} spill bytes a thread, {r['smem_bytes']} B "
+              f"of shared memory a block, {r['blocks_per_sm']} blocks an SM")
 
 
 # the least time of a kernel's function on this card: the larger of its
@@ -640,7 +672,7 @@ def phase_timing(syn: Synthesizer):
     qkv, kw = _flash_case(8, 8, 256, 256, bf, ENCODER_LENS)
     flash_fn = lambda: flash_attend(*qkv, **kw)  # noqa: E731
     flash_ms = _kernel_ms(flash_fn, lambda: flash_attend_reference(*qkv, **kw))
-    flash_dev = _device_ms(flash_fn, 100, ("flash_fwd_kernel",))
+    flash_dev = _device_ms(flash_fn, 100, ("flash_fwd",))
     flash_bound = _flash_bounds(8, 8, 256, 256, 64, bf, False, True)["fwd"]
     print(f"[timing] K1 encoder shape b8 h8 L256 dh64 bf16: kernel "
           f"{flash_ms[0]:.4f} ms (device {flash_dev:.4f}), plain "
@@ -761,6 +793,11 @@ TRAIN_FLASH_CASES = {
     "cross b2 h8 Lq8192 Lk1024 pad": (2, 8, 8192, 1024, (1024, 700), False,
                                       False, 0.125, 0),
 }
+# the shapes at which the kernels line reports K1 and K3 (times, bounds
+# and errors): base.yaml's decoder self-attention, and K1 again at the
+# longform decoder's cross-attention
+BASE_DECODER = "decoder b8 h8 L1024 causal+self"
+LONGFORM_CROSS = "cross b2 h8 Lq8192 Lk1024 pad"
 
 
 def train_config(compute_dtype: str = "bfloat16", num_layers=None,
@@ -863,7 +900,9 @@ def _check_keep_masks():
 def phase_kernels_train():
     """K1 (with dropout, returning lse) and K3 against the plain forward
     and backward run in f32 on the same inputs.  Returns the max abs error
-    of each kernel at the first case (the encoder's, bf16, dropout 0)."""
+    of each kernel in bf16 at dropout 0 at the shapes the kernels line
+    reports: BASE_DECODER for K1 and K3, LONGFORM_CROSS for K1 as
+    "flash_cross"."""
     torch.backends.cuda.matmul.allow_tf32 = False
     main = {}
     for name, case in TRAIN_FLASH_CASES.items():
@@ -897,8 +936,12 @@ def phase_kernels_train():
                 for kernel, keys in (("flash_train", ("out",)),
                                      ("flash_bwd_dkv", ("dk", "dv")),
                                      ("flash_bwd_dq", ("dq",))):
-                    main.setdefault(kernel, max(_abs_err(got[key], ref[key])
-                                                for key in keys))
+                    if name == BASE_DECODER:
+                        main.setdefault(kernel, max(
+                            _abs_err(got[key], ref[key]) for key in keys))
+                if name == LONGFORM_CROSS:
+                    main.setdefault("flash_cross",
+                                    _abs_err(got["out"], ref["out"]))
     _check_keep_masks()
     return main
 
@@ -1059,7 +1102,7 @@ def phase_train_timing(model):
 
     return {name: _flash_times(case, n, "train-timing")
             for name, case, n in (
-                ("decoder", "decoder b8 h8 L1024 causal+self", 20),
+                ("decoder", BASE_DECODER, 20),
                 ("encoder", "encoder b8 h8 L256 self+pad", 100))}
 
 
@@ -1084,7 +1127,7 @@ def _flash_times(case: str, n: int, tag: str, sdpa: bool = False) -> dict:
     plains = {"flash_train": lambda: flash_attend_reference(
         q, k, v, mask, return_lse=True, **kw),
         "flash_bwd_dkv": plain_bwd, "flash_bwd_dq": plain_bwd}
-    names = {"flash_train": ("flash_fwd_kernel",),
+    names = {"flash_train": ("flash_fwd",),
              "flash_bwd_dkv": ("flash_bwd_di", "flash_bwd_dkv"),
              "flash_bwd_dq": ("flash_bwd_dq",)}
     times = {kernel: _kernel_ms(fn, plains[kernel], n)
@@ -1104,18 +1147,26 @@ def _flash_times(case: str, n: int, tag: str, sdpa: bool = False) -> dict:
           f"{bounds['dq']['bound_ms']:.4f} {bounds['dq']['bound_by']}) = "
           f"{dkv[0] + dq[0]:.4f} ms (plain backward, all three gradients: "
           f"{dkv[1]:.4f} ms)")
+    library = {}
     if sdpa:
         lib = _sdpa_fwd_bwd(q, k, v, dout, mask, opts[2], n)
+        fwd_lib = _sdpa_fwd(q, k, v, mask, opts[2], n)
+        library["flash_train"] = fwd_lib["ms"]
         ours = fwd[0] + dkv[0] + dq[0]
         ours_dev = sum(dev.values())
+        print(f"[{tag}] {case} bf16 forward: K1 {fwd[0]:.4f} ms (device "
+              f"{dev['flash_train']:.4f}); F.scaled_dot_product_attention "
+              f"forward alone (bool pad mask, dropout 0; out err "
+              f"{fwd_lib['err']:.3e}) {fwd_lib['ms']:.4f} ms (device "
+              f"{fwd_lib['device_ms']:.4f}); card now: {_clocks()}")
         print(f"[{tag}] {case} bf16 forward + backward: K1 + K3 {ours:.4f} ms "
               f"(device {ours_dev:.4f}); the plain versions "
               f"{fwd[1] + dkv[1]:.4f} ms; F.scaled_dot_product_attention "
               f"(bool pad mask, dropout 0; out err {lib['err']:.3e}) "
               f"{lib['ms']:.4f} ms (device {lib['device_ms']:.4f})")
     return {kernel: dict(ms=times[kernel][0], plain_ms=times[kernel][1],
-                         device_ms=dev[kernel], library_ms=None,
-                         **bounds[part])
+                         device_ms=dev[kernel],
+                         library_ms=library.get(kernel), **bounds[part])
             for kernel, part in (("flash_train", "fwd"),
                                  ("flash_bwd_dkv", "dkv"),
                                  ("flash_bwd_dq", "dq"))}
@@ -1141,6 +1192,34 @@ def _sdpa_fwd_bwd(q, k, v, dout, mask, sm_scale, n) -> dict:
              "F.scaled_dot_product_attention computes another function")
     return {"ms": _interleaved_ms((fwd_bwd,), n)[0],
             "device_ms": _device_ms(fwd_bwd, n), "err": err}
+
+
+def _clocks() -> str:
+    """The card's SM and memory clocks, power draw and temperature, as
+    nvidia-smi reads them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.mem,power.draw,"
+         "temperature.gpu", "--format=csv,noheader"], capture_output=True,
+        text=True, check=True).stdout.strip()
+
+
+def _sdpa_fwd(q, k, v, mask, sm_scale, n) -> dict:
+    """F.scaled_dot_product_attention's forward alone, with a boolean pad
+    mask and no dropout, under no_grad: K1's function at pad-only masks
+    (rows with a valid key).  A yardstick the port never calls."""
+    attn_mask = mask[:, None, None, :]
+
+    def fwd():
+        with torch.no_grad():
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask,
+                                                  scale=sm_scale)
+
+    err = _scaled_err(fwd(), flash_attend_reference(
+        q.float(), k.float(), v.float(), mask, sm_scale=sm_scale))
+    _require(err <= KERNEL_TOL[torch.bfloat16],
+             "F.scaled_dot_product_attention computes another function")
+    return {"ms": _interleaved_ms((fwd,), n)[0],
+            "device_ms": _device_ms(fwd, n), "err": err}
 
 
 # -- LSH training phases (configs/longform_8k.yaml) -----------------------------
@@ -1181,6 +1260,9 @@ LSH_CASES = {
         2, 8, 4, 1024, 64, True, 1, 0, (1024, 700)),
     "nc 60 (not a multiple of 8) b2 h8 nh4 L960 c64 causal, invalid keys": (
         2, 8, 4, 960, 64, True, 1, 0, (960, 500)),
+    # K5's dK/dV kernel meets query chunks from both sides
+    "window 3 (before 1, after 1) b2 h8 nh4 L1024 c64 causal, invalid keys": (
+        2, 8, 4, 1024, 64, True, 1, 1, (1024, 700)),
     # serving_fast.yaml's train step (phases 16 and 18) at its ragged lengths
     "serving_fast decoder b8 h8 nh4 L1024 c64 causal": (
         8, 8, 4, 1024, 64, True, 1, 0, TRAIN_FRAME_LENS),
@@ -1276,7 +1358,8 @@ def phase_train_lsh():
     1024 tokens and 8192 frames, bf16): finite loss, grad norm and
     gradients; per step 12 launches of K4 and K5 (6 encoder + 6 decoder
     LSH self-attention layers) and 6 of K1 and of each K3 kernel (the
-    decoder's cross-attention).  Returns the model and the launch counts."""
+    decoder's cross-attention).  Returns the model and the launch counts
+    of K4, K5 and K1 (as "flash_cross")."""
     cfg = train_config(base=LONGFORM_CONFIG)
     torch.cuda.reset_peak_memory_stats()
     model, state, step_fn = _trainer(cfg, "cuda")
@@ -1309,7 +1392,7 @@ def phase_train_lsh():
     _require(launches == want, f"expected launches {want} over 3 steps, got "
              f"{launches}")
     del steps
-    return model, _lsh_counts()
+    return model, {"flash_cross": launches["flash_train"], **_lsh_counts()}
 
 
 def _rotation_draws():
@@ -1402,7 +1485,8 @@ def phase_train_lsh_timing(model):
     torch.profiler; K4 and K5 against their plain versions and bounds at
     the decoder and encoder shapes; the plain attend (use_pallas false)
     against K4 + K5, forward and backward, at both; K1 and K3 at the
-    cross-attention's shape."""
+    cross-attention's shape; the registers, shared memory and blocks an SM
+    of K5's and K1's bf16 kernels."""
     cfg = train_config(base=LONGFORM_CONFIG)
     optimizer = make_optimizer(cfg.experiment.optim)
     state = optimizer.init(list(model.parameters()))
@@ -1460,7 +1544,7 @@ def phase_train_lsh_timing(model):
                           n, ("lsh_attend_fwd_kernel",)),
                _device_ms(lambda: lsh_attend_bwd(q, k, v, pos, valid, dout,
                                                  dlse, *opts),
-                          n, ("lsh_attend_bwd_kernel",))]
+                          n, ("lsh_bwd_dq", "lsh_bwd_dkv"))]
         bounds = _lsh_bounds(*case, torch.bfloat16)
         print(f"[train-lsh-timing] {name} bf16: K4 {fwd[0]:.4f} ms (device "
               f"{dev[0]:.4f}; plain "
@@ -1479,8 +1563,14 @@ def phase_train_lsh_timing(model):
             **bounds["bwd"]))
         del q, k, v, dout, pos, valid, dlse
         torch.cuda.empty_cache()
-    _flash_times("cross b2 h8 Lq8192 Lk1024 pad", 10, "train-lsh-timing",
-                 sdpa=True)
+    c, _, before, after = LSH_CASES[_LSH_DECODER][4:8]
+    _print_resources("train-lsh-timing", ("K5 dQ kernel", "K5 dK/dV kernel"),
+                     "rtts_lsh_attend_bwd_resources", 64, c,
+                     before + 1 + after)
+    times["cross"] = _flash_times(LONGFORM_CROSS, 10, "train-lsh-timing",
+                                  sdpa=True)
+    _print_resources("train-lsh-timing", ("K1",), "rtts_flash_fwd_resources",
+                     64)
     torch.cuda.empty_cache()
     return times
 
@@ -2067,9 +2157,12 @@ def main() -> int:
     # serving kernels: launches of one Synthesizer call, times at the
     # encoder's shape and the serving vocoder's (1, 1024, 128); base.yaml
     # training kernels ("flash_train" is K1 in the train step): launches of
-    # its three train steps, times at
-    # the decoder's self-attention shape (plain_ms of each K3 kernel: the
-    # plain backward, all three gradients); LSH kernels: launches of the
+    # its three train steps, times and errors at the decoder's
+    # self-attention shape (plain_ms of each K3 kernel: the plain backward,
+    # all three gradients); "flash_cross", K1 again: launches of the three
+    # longform train steps, times and error at the longform decoder's
+    # cross-attention, where F.scaled_dot_product_attention's forward
+    # computes its function (library_ms); LSH kernels: launches of the
     # three longform train steps, times at the longform decoder shape; K6:
     # launches of the three serving_fast steps with K6, times at the
     # decoder's FFN shape; K7 and K8: launches of the sort probe's run,
@@ -2079,6 +2172,7 @@ def main() -> int:
     launches.update(ffn_launches)
     launches.update(sort_launches)
     times.update(train_times["decoder"])
+    times["flash_cross"] = lsh_times.pop("cross")["flash_train"]
     times.update(lsh_times)
     times.update(ffn_times)
     times.update(sort_times)
@@ -2088,6 +2182,8 @@ def main() -> int:
         "depthwise": ("rtts_torch/csrc/depthwise_conv.cu",
                       "rtts/ops/depthwise_conv.py:29"),
         "flash_train": ("rtts_torch/csrc/flash_fwd.cu",
+                        "rtts/ops/flash_attention.py:322"),
+        "flash_cross": ("rtts_torch/csrc/flash_fwd.cu",
                         "rtts/ops/flash_attention.py:322"),
         "flash_bwd_dkv": ("rtts_torch/csrc/flash_bwd.cu",
                           "rtts/ops/flash_attention.py:509"),

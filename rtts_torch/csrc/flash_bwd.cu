@@ -67,6 +67,7 @@
 // TF32 tensor cores would not hold the f32 tolerances.
 
 #include "flash_common.cuh"
+#include "mma_tiles.cuh"
 
 namespace {
 
@@ -309,8 +310,6 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(BwdArgs a) {
 
 // ---- the bf16 tensor-core path ----------------------------------------------
 
-using bf16 = __nv_bfloat16;
-
 constexpr int kMmaThreads = 128;  // four warps, 16 rows of the block's tile each
 constexpr int kKeyTile = 64;      // keys owned by a dK/dV block
 constexpr int kQueryTile = 64;    // queries owned by a dQ block
@@ -325,113 +324,6 @@ struct MmaTiles {
   static constexpr size_t kDqSmem =
       sizeof(bf16) * (2 * kQueryTile + 4 * kKeyStream) * kLd + sizeof(int) * 2 * kKeyStream;
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, zero-filled when !valid (src must still be a
-// valid address)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// four 8x8 bf16 matrices from shared memory; lane l addresses one row
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-// c (16x8 f32) += a (16x16 bf16, row) * b (16x8 bf16, col)
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two f32 rounded to bf16, lo in the low half (the lower column of a pair)
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// x0, x1 as the sum of two bf16 pairs: hi = bf16(x), lo = bf16(x - hi),
-// which keeps 16 of f32's 24 mantissa bits
-__device__ __forceinline__ void split_bf16(uint32_t& hi, uint32_t& lo, float x0, float x1) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  const float2 hf = __bfloat1622float2(h);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = pack_bf16(x0 - hf.x, x1 - hf.y);
-}
-
-// The A operand (16 x 16, row-major) of a k-step from two accumulator
-// tiles of 16 x 8 (columns 0-7 in c0, 8-15 in c1), as hi + lo bf16
-// operands: two products with the same B give the f32 accumulator's
-// product to about 2^-16, where one bf16 rounding (2^-9) would not hold
-// the bf16 tolerance on sums that cancel.
-__device__ __forceinline__ void acc_to_a(uint32_t (&hi)[4], uint32_t (&lo)[4],
-                                         const float (&c0)[4], const float (&c1)[4]) {
-  split_bf16(hi[0], lo[0], c0[0], c0[1]);
-  split_bf16(hi[1], lo[1], c0[2], c0[3]);
-  split_bf16(hi[2], lo[2], c1[0], c1[1]);
-  split_bf16(hi[3], lo[3], c1[2], c1[3]);
-}
-
-// smem offsets (in bf16) of lane's row address for ldmatrix x4:
-//   a_off: the A operand of rows r0..r0+15, columns c0..c0+15 (also B
-//          through .trans from a (k, n) row-major tile: k rows r0.., n
-//          columns c0..c0+15, giving two 8-column n-tiles);
-//   b_off: B operands of two n-tiles from an (n, k) row-major tile: n rows
-//          r0..r0+15, k columns c0..c0+15 (no .trans).
-template <int LD>
-__device__ __forceinline__ int a_off(int r0, int c0, int lane) {
-  return (r0 + (lane & 15)) * LD + c0 + (lane >> 4) * 8;
-}
-template <int LD>
-__device__ __forceinline__ int b_off(int r0, int c0, int lane) {
-  return (r0 + (lane & 7) + ((lane >> 4) << 3)) * LD + c0 + ((lane >> 3) & 1) * 8;
-}
-
-// ROWS rows from r0 of a (n, DH) bf16 tensor into a padded smem tile, zeros
-// past n, by 16-byte cp.async (the caller commits)
-template <int DH, int ROWS>
-__device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* src, int r0, int n,
-                                                int tid) {
-  constexpr int kChunks = DH / 8, kLd = DH + 8;
-  static_assert(ROWS * kChunks % kMmaThreads == 0, "tile not a multiple of the block");
-#pragma unroll
-  for (int it = 0; it < ROWS * kChunks / kMmaThreads; ++it) {
-    const int i = tid + it * kMmaThreads, r = i / kChunks, ch = i % kChunks, g = r0 + r;
-    const bool valid = g < n;
-    cp_async16(dst + r * kLd + ch * 8, src + (size_t)(valid ? g : 0) * DH + ch * 8, valid);
-  }
-}
-
-// key validity: 1 valid, 0 pad, -1 past the end
-__device__ __forceinline__ int key_state(const uint8_t* kv_mask, int b, int gk, int lk) {
-  return gk >= lk ? -1 : (kv_mask == nullptr ? 1 : (kv_mask[(size_t)b * lk + gk] != 0));
-}
 
 // Di = rowsum(o o dO) in f32 for every (bh, query) row: DH / 8 lanes a row,
 // 16 bytes each, summed across the lanes in a fixed order
@@ -484,8 +376,8 @@ flash_bwd_dkv_mma_kernel(BwdArgs a, const float* __restrict__ di, float* __restr
   const float* lse_b = a.lse + (size_t)bh * a.lq;
   const float* di_b = di + (size_t)bh * a.lq;
 
-  load_tile_async<DH, kKeyTile>(ks, kb, k0, a.lk, tid);
-  load_tile_async<DH, kKeyTile>(vs, vb, k0, a.lk, tid);
+  load_tile_async<DH, kKeyTile, kMmaThreads>(ks, kb, k0, a.lk, tid);
+  load_tile_async<DH, kKeyTile, kMmaThreads>(vs, vb, k0, a.lk, tid);
   cp_async_commit();
 
   // this thread's key rows kr and kr + 8 of the warp's 16
@@ -504,8 +396,8 @@ flash_bwd_dkv_mma_kernel(BwdArgs a, const float* __restrict__ di, float* __restr
 
   auto load_stage = [&](int stage, int it) {
     const int q0 = it * kBr;
-    load_tile_async<DH, kBr>(qs + stage * kBr * kLd, qb, q0, a.lq, tid);
-    load_tile_async<DH, kBr>(dos + stage * kBr * kLd, dob, q0, a.lq, tid);
+    load_tile_async<DH, kBr, kMmaThreads>(qs + stage * kBr * kLd, qb, q0, a.lq, tid);
+    load_tile_async<DH, kBr, kMmaThreads>(dos + stage * kBr * kLd, dob, q0, a.lq, tid);
     for (int r = tid; r < kBr; r += kMmaThreads) {
       const int gq = q0 + r;
       lse_s[stage * kBr + r] = gq < a.lq ? lse_b[gq] : 0.f;
@@ -678,8 +570,8 @@ __global__ void __launch_bounds__(kMmaThreads) flash_bwd_dq_mma_kernel(BwdArgs a
   const bf16* ob = static_cast<const bf16*>(a.o) + (size_t)bh * a.lq * DH;
   const bf16* dob = static_cast<const bf16*>(a.dout) + (size_t)bh * a.lq * DH;
 
-  load_tile_async<DH, kQueryTile>(qs, qb, q0, a.lq, tid);
-  load_tile_async<DH, kQueryTile>(dos, dob, q0, a.lq, tid);
+  load_tile_async<DH, kQueryTile, kMmaThreads>(qs, qb, q0, a.lq, tid);
+  load_tile_async<DH, kQueryTile, kMmaThreads>(dos, dob, q0, a.lq, tid);
   cp_async_commit();
 
   // lse and Di = rowsum(o o dO) of this thread's rows qr and qr + 8: the
@@ -711,8 +603,8 @@ __global__ void __launch_bounds__(kMmaThreads) flash_bwd_dq_mma_kernel(BwdArgs a
 
   auto load_stage = [&](int stage, int kt) {
     const int k0 = kt * kBc;
-    load_tile_async<DH, kBc>(ks + stage * kBc * kLd, kb, k0, a.lk, tid);
-    load_tile_async<DH, kBc>(vs + stage * kBc * kLd, vb, k0, a.lk, tid);
+    load_tile_async<DH, kBc, kMmaThreads>(ks + stage * kBc * kLd, kb, k0, a.lk, tid);
+    load_tile_async<DH, kBc, kMmaThreads>(vs + stage * kBc * kLd, vb, k0, a.lk, tid);
     for (int c = tid; c < kBc; c += kMmaThreads)
       ms_s[stage * kBc + c] = key_state(a.kv_mask, b, k0 + c, a.lk);
   };

@@ -61,4 +61,9 @@ __device__ __forceinline__ float mask_score(float x, int mv, int qpos, int gk, i
   return x;
 }
 
+// key validity: 1 valid, 0 pad, -1 past the end
+__device__ __forceinline__ int key_state(const uint8_t* kv_mask, int b, int gk, int lk) {
+  return gk >= lk ? -1 : (kv_mask == nullptr ? 1 : (kv_mask[(size_t)b * lk + gk] != 0));
+}
+
 }  // namespace

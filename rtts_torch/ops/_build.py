@@ -45,7 +45,9 @@ SIGNATURES = {
     # width), x, w, b, out, stream
     "rtts_depthwise_conv1d": [_P] * 6,
     "rtts_lsh_attend_fwd": [_P] * 7 + _LSH_SCALARS,
-    "rtts_lsh_attend_bwd": [_P] * 10 + _LSH_SCALARS,
+    # q, k, v, pos, valid, dout, dlse, dq, dk, dv, the f32 row stats; the
+    # route (1 tensor cores, 0 f32 FMA); the LSH scalars
+    "rtts_lsh_attend_bwd": [_P] * 11 + [_I] + _LSH_SCALARS,
     # x, ln scale and bias, W_in, b_in, W_out, b_out, out; dtype, n, d, f,
     # activation, bf16 multiplies, eps, stream
     "rtts_ffn_fused": [_P] * 8 + [_I] * 6 + [_F, _P],
@@ -53,6 +55,10 @@ SIGNATURES = {
     "rtts_bitonic_sort_cols": [_P, _P, _I, _I, _I, _P],
     # x, idx, out; m, rows, row bytes, vector bytes, stream
     "rtts_row_gather": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # what the runtime reports of the bf16 kernels (``resources``): dh
+    # (K5: dh, chunk length, window chunks), out
+    "rtts_flash_fwd_resources": [_I, _P],
+    "rtts_lsh_attend_bwd_resources": [_I, _I, _I, _P],
 }
 
 _lib = None
@@ -152,6 +158,16 @@ def stream(index: int) -> int:
     (``Tensor.get_device()``), read without building a
     ``torch.cuda.Stream``."""
     return torch._C._cuda_getCurrentRawStream(index)
+
+
+def resources(name: str, *args: int, kernels: int = 1) -> list:
+    """What the runtime reports of the ``kernels`` kernels behind the entry
+    point ``name`` (``rtts_*_resources``) on this card: for each, registers
+    and spill bytes a thread, dynamic shared bytes a block, blocks an SM."""
+    out = (ctypes.c_int * (4 * kernels))()
+    check(function(name)(*args, out), name)
+    keys = ("registers", "spill_bytes", "smem_bytes", "blocks_per_sm")
+    return [dict(zip(keys, out[4 * i:4 * i + 4])) for i in range(kernels)]
 
 
 def check(err: int, name: str) -> None:

@@ -3,11 +3,11 @@
 Port of ``rtts/ops/flash_attention.py``.  ``flash_attend`` is differentiable:
 its forward launches the CUDA kernel ``rtts_torch/csrc/flash_fwd.cu`` (K1)
 and its backward the two kernels of ``rtts_torch/csrc/flash_bwd.cu`` (K3,
-FA2: dK/dV, then dQ; bf16 on tensor cores) for tensors on the card; for tensors on the CPU the
-same ``torch.autograd.Function`` runs ``flash_attend_reference`` and
-``flash_attend_bwd_reference``.  All of them compute the same masked
-softmax attention, with the reference's replace-style masks applied to f32
-scores before the softmax:
+FA2: dK/dV, then dQ), bf16 on tensor cores, for tensors on the card; for
+tensors on the CPU the same ``torch.autograd.Function`` runs
+``flash_attend_reference`` and ``flash_attend_bwd_reference``.  All of
+them compute the same masked softmax attention, with the reference's
+replace-style masks applied to f32 scores before the softmax:
 
 - pad keys (``kv_mask`` False):     score := MASK_VALUE      (-1e9)
 - causal, q_offset + row < col:     score := MASK_VALUE      (-1e9)

@@ -17,8 +17,9 @@ ORIGINAL position, in this order:
 
 ``lsh_attend_chunks_kernel`` is differentiable and returns (out, lse).  On
 CUDA tensors its forward launches ``rtts_torch/csrc/lsh_attend_fwd.cu`` (K4)
-and its backward ``rtts_torch/csrc/lsh_attend_bwd.cu`` (K5), or they raise;
-on CPU tensors the same ``torch.autograd.Function`` runs
+and its backward ``rtts_torch/csrc/lsh_attend_bwd.cu`` (K5: a dQ kernel per
+query chunk, then a dK/dV kernel per key chunk; bf16 on tensor cores), or
+they raise; on CPU tensors the same ``torch.autograd.Function`` runs
 ``lsh_attend_chunks_reference`` and ``lsh_attend_bwd_reference``.  The
 backward takes both cotangents: the multi-round combine differentiates
 through lse, so dS = P (dP - rowsum(dP P)) + P dlse, zero on the self
@@ -38,7 +39,7 @@ import torch
 
 from rtts_torch.ops import _build
 from rtts_torch.ops.flash_attention import (MASK_VALUE, SELF_MASK_VALUE,
-                                            keep_bits)
+                                            _aligned, keep_bits)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
@@ -173,8 +174,9 @@ def lsh_attend_bwd_reference(q, k, v, pos, valid, dout, dlse, causal, before,
 
 
 def _check(name, q, k, v, pos, valid, before, after):
-    """Raise on what the kernels do not take -> contiguous q, k, v, int32
-    positions and uint8 validity, all (N = B*H, nc, c[, d])."""
+    """Raise on what the kernels do not take -> q, k, v contiguous from
+    16-byte boundaries, int32 positions and uint8 validity, all (N = B*H,
+    nc, c[, d])."""
     b, h, nc, c, d = q.shape
     if q.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {q.device}")
@@ -197,7 +199,7 @@ def _check(name, q, k, v, pos, valid, before, after):
             raise ValueError(f"{name}: {tname} is {tuple(t.shape)} on "
                              f"{t.device}, want {tuple(q.shape[:4])}")
     n = b * h
-    return ([t.reshape(n, nc, c, d).contiguous() for t in (q, k, v)],
+    return ([_aligned(t.reshape(n, nc, c, d)) for t in (q, k, v)],
             pos.reshape(n, nc, c).to(torch.int32).contiguous(),
             valid.reshape(n, nc, c).to(torch.uint8).contiguous())
 
@@ -226,31 +228,42 @@ def lsh_attend_fwd(q, k, v, pos, valid, causal, before, after,
     return out.reshape(q.shape), lse.reshape(q.shape[:4])
 
 
+def bwd_route(dtype: torch.dtype, c: int) -> int:
+    """Which K5 kernels a (dtype, chunk length) takes on the card, as the
+    C entry point's ``mma`` argument: 1, the tensor-core kernels (bf16, c
+    16, 32 or 64: mma.sync products), or 0, the FMA kernels (f32, for the
+    f32 tolerance).  The plain version is never a fallback: what neither
+    takes raises."""
+    if c not in _CHUNKS:
+        raise ValueError(f"lsh_attend_bwd: chunk length {c} not in {_CHUNKS}")
+    return int(dtype == torch.bfloat16)
+
+
 def lsh_attend_bwd(q, k, v, pos, valid, dout, dlse, causal, before, after,
                    mask_value=MASK_VALUE, self_mask_value=SELF_MASK_VALUE):
     """Launch K5 -> (dq, dk, dv) like (q, k, v); counts in
-    ``lsh_attend_bwd.launches``.  The kernel writes dQ and, per window
-    offset, the f32 dK/dV contributions already placed at their key chunk;
-    summing the offsets (in a fixed order) gives dK and dV: no atomics, so
-    two runs on the same inputs are bit-equal."""
+    ``lsh_attend_bwd.launches``.  Two kernels, on the route of
+    ``bwd_route``: one per query chunk writes dQ and each row's f32
+    softmax max, sum and D - dlse (the ``stats`` scratch, 12 bytes a row);
+    one per key chunk reads them and writes dK and dV.  Each gradient entry
+    has one writer and no atomics, so two runs on the same inputs are
+    bit-equal."""
     (qc, kc, vc), pos32, val8 = _check("lsh_attend_bwd", q, k, v, pos, valid,
                                       before, after)
-    n_off = before + 1 + after
-    doc = dout.to(q.dtype).reshape(qc.shape).contiguous()
+    doc = _aligned(dout.to(q.dtype).reshape(qc.shape))
     dlsec = dlse.to(torch.float32).reshape(pos32.shape).contiguous()
-    dq = torch.empty_like(qc)
-    dk_off = torch.empty((n_off,) + qc.shape, device=q.device,
-                         dtype=torch.float32)
-    dv_off = torch.empty_like(dk_off)
+    dq, dk, dv = (torch.empty_like(qc) for _ in range(3))
+    stats = torch.empty((3,) + pos32.shape, device=q.device,
+                        dtype=torch.float32)
     err = _build.library().rtts_lsh_attend_bwd(
         qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), pos32.data_ptr(),
         val8.data_ptr(), doc.data_ptr(), dlsec.data_ptr(), dq.data_ptr(),
-        dk_off.data_ptr(), dv_off.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
+        bwd_route(q.dtype, q.shape[3]),
         *_scalars(q, causal, before, after, mask_value, self_mask_value))
     _build.check(err, "rtts_lsh_attend_bwd")
     lsh_attend_bwd.launches += 1
-    return (dq.reshape(q.shape), dk_off.sum(0).to(k.dtype).reshape(q.shape),
-            dv_off.sum(0).to(v.dtype).reshape(q.shape))
+    return dq.reshape(q.shape), dk.reshape(q.shape), dv.reshape(q.shape)
 
 
 lsh_attend_fwd.launches = 0

@@ -387,6 +387,8 @@ LSH_CASES = {
     "decoder_L8192": (2, 8, 4, 8192, 64, 64, True, 1, 0, 8192),
     "serving_fast_decoder_L1024": (8, 8, 4, 1024, 64, 64, True, 1, 0, 800),
     "serving_fast_encoder_L256": (8, 8, 4, 256, 64, 64, False, 1, 0, 200),
+    # a window on both sides: K5's per-key-chunk walk meets offsets -1, 0, 1
+    "window3_c64_causal": (2, 2, 4, 256, 64, 64, True, 1, 1, 200),
 }
 
 

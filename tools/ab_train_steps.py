@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
-"""Time the base.yaml and longform_8k.yaml train steps of two checkouts of
-this repo on one NVIDIA GPU, in the order A B B A.
+"""Time the base.yaml, longform_8k.yaml and serving_fast.yaml train steps
+of two checkouts of this repo on one NVIDIA GPU, in the order A B B A.
 
     python3 tools/ab_train_steps.py DIR_A DIR_B [CYCLES]
 
 CYCLES (default 1) repeats the order A B B A.
 Each run is a process of its own that imports the ``chip_smoke.py`` of its
 checkout, so the port and the kernels are that checkout's: it builds the
-kernels, makes seeded weights and runs the checkout's base.yaml and
-longform_8k.yaml timing phases (best of 3 after a warm-up, one profiled
-step, the kernels against their plain versions).  Prints every run's lines
+kernels, makes seeded weights and runs the checkout's base.yaml,
+longform_8k.yaml and serving_fast.yaml timing phases (best of 3 after a
+warm-up, one profiled step, the kernels against their plain versions; the
+serving_fast phase times four variants, of which the step as shipped,
+reversible with the chunked FFN, is read here).  Prints every run's lines
 prefixed by its label, then one JSON line of each run's best step wall, of
 every timed step's wall and of the profiled step's device busy time.
 """
@@ -31,7 +33,9 @@ from rtts_torch.models import reformer_tts as M
 S.phase_device()
 S.phase_build()
 for base, timing in ((S.BASE_CONFIG, S.phase_train_timing),
-                     (S.LONGFORM_CONFIG, S.phase_train_lsh_timing)):
+                     (S.LONGFORM_CONFIG, S.phase_train_lsh_timing),
+                     (S.SERVING_FAST_CONFIG,
+                      S.phase_train_serving_fast_timing)):
     cfg = S.train_config(base=base)
     model = M.init(cfg.model, torch.Generator().manual_seed(S.SEED_TTS),
                    "cuda")
@@ -39,10 +43,13 @@ for base, timing in ((S.BASE_CONFIG, S.phase_train_timing),
     del model
     torch.cuda.empty_cache()
 """
-_STEP = re.compile(r"^\[(train-timing|train-lsh-timing)\] train step .*"
+_SHIPPED = "reversible \\+ chunked FFN \\(as shipped\\)"
+_STEP = re.compile(r"^\[(train-timing|train-lsh-timing|train-rev-timing)\] "
+                   r"(?:" + _SHIPPED + r": )?train step .*"
                    r"walls \[([0-9., ]+)\] s; best ([0-9.]+) s")
-_BUSY = re.compile(r"^\[(train-timing|train-lsh-timing)\] profile of one "
-                   r"step: wall [0-9.]+ s, device busy ([0-9.]+) s")
+_BUSY = re.compile(r"^\[(train-timing|train-lsh-timing|train-rev-timing)\] "
+                   r"profile of one (?:" + _SHIPPED + r" )?step: wall [0-9.]+ "
+                   r"s, device busy ([0-9.]+) s")
 
 
 def main(argv) -> int:
