@@ -50,18 +50,19 @@ raises on failure:
    ``torch.profiler`` view of one step, and K1 (with lse) and K3 against
    their plain versions at the decoder and encoder shapes (K3 bf16 on
    tensor cores);
-11. kernels-lsh: K4 (LSH chunk-attend) and K5 (its backward: a dQ kernel
-   per query chunk, a dK/dV kernel per key chunk; bf16 on tensor cores)
-   against their plain versions at four longform shapes (the decoder's b2
+11. kernels-lsh: K4 (LSH chunk-attend; bf16 on tensor cores) and K5 (its
+   backward: a dQ kernel per query chunk, a dK/dV kernel per key chunk;
+   bf16 on tensor cores) against their plain versions at four longform
+   shapes (the decoder's b2
    h8 4 hashes L8192, the encoder's L1024, a ragged one, one whose chunk
    count is not a multiple of 8), a window of one chunk on each side
    (before 1, after 1) and serving_fast.yaml's two (b8: the decoder's
-   L1024 causal, the encoder's L256, both ragged), bf16 and f32; K5 twice,
-   bit-equal;
+   L1024 causal, the encoder's L256, both ragged), bf16 and f32; K4 and
+   K5 twice, bit-equal;
 12. LSH train slice: three longform_8k.yaml steps at full width (batch 2,
    ragged up to 1024 tokens and 8192 frames, bf16): finite loss, grad norm
    and gradients; per step 12 launches of K4 and K5 and 6 of K1 and each
-   K3 kernel;
+   K3 kernel; K4's launches counted by shape;
 13. LSH train card-vs-CPU: one float32 step at 2 + 2 layers from the same
    weights, batch and rotations: the share of equal buckets, then loss,
    every gradient and the parameters after the update;
@@ -72,17 +73,19 @@ raises on failure:
    with ``F.scaled_dot_product_attention`` there as the yardstick: its
    forward alone against K1, forward + backward against K1 + K3; the
    registers, spill, shared memory and blocks an SM that the runtime
-   reports of K5's and K1's bf16 kernels;
-15. kernels-ffn: K6 (fused LN + FFN) against its plain version at the
-   decoder's (8 x 1024 rows, 512 -> 2048) and encoder's (8 x 256) FFN
-   shapes, a ragged row count and a narrow width with each activation,
-   multiplying in bf16 and f32; twice, bit-equal;
+   reports of K4's, K5's and K1's bf16 kernels;
+15. kernels-ffn: K6 (fused LN + FFN; bf16 multiplies on tensor cores)
+   against its plain version at the decoder's (8 x 1024 rows, 512 -> 2048)
+   and encoder's (8 x 256) FFN shapes, a ragged row count and a narrow
+   width with each activation, multiplying in bf16 and f32, with the rows
+   a block it takes; twice, bit-equal;
 16. reversible train slice: three ``configs/serving_fast.yaml`` steps at
    full width (reversible residuals, LSH in both stacks, batch 8, ragged
    up to 256 tokens and 1024 frames, bf16) with K6 on every FFN: finite
    loss, grad norm and nonzero gradients, per step 36 launches of K6, 24
-   of K4, 12 of K5, 12 of K1 and 6 of each K3 kernel; then three steps as
-   shipped (the chunked FFN), with no K6 launch;
+   of K4, 12 of K5, 12 of K1 and 6 of each K3 kernel, K4's and K6's
+   counted by shape; then three steps as shipped (the chunked FFN), with no
+   K6 launch;
 17. reversible card-vs-CPU: one float32 step at 2 + 2 layers, the card
    with K6, the CPU with its plain version, buckets counted; then
    reversible against plain residuals on the card with dropout on;
@@ -91,8 +94,12 @@ raises on failure:
    reversible with an unchunked FFN and plain residuals with an unchunked
    FFN, each with a ``torch.profiler`` view of one step; every reversible
    peak below 0.6 of the plain one; what autograd holds after one FFN
-   sublayer's forward, chunked below unchunked; K6 against its plain
-   version and bound;
+   sublayer's forward, chunked below unchunked; K6 at the decoder's and
+   encoder's FFN against its plain version, its bound and the unfused
+   bf16 FFN (a yardstick: F.layer_norm, bf16 torch.matmul, the
+   activation, bf16 torch.matmul), with the runtime's resources of its
+   kernels; K4 at serving_fast's two LSH shapes against its plain version
+   and bound; each with its launches a step;
 19. kernels-sort: K7 (bitonic column sort) and K8 (row gather) against
    their plain versions and ``torch.sort`` / ``index_select``, exactly,
    twice bit-equal, at the sort probe's shapes (its own, longform_8k's
@@ -119,6 +126,7 @@ the configs are the dicts below).
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import json
@@ -139,6 +147,8 @@ from rtts_torch.models import reformer_tts as M
 from rtts_torch.models import squeezewave as SW
 from rtts_torch.models import stack as TS
 from rtts_torch.ops import _build
+from rtts_torch.ops import chunked_ffn as CF
+from rtts_torch.ops import lsh_attention as LA
 from rtts_torch.ops.bitonic_sort import (MAX_ROWS, bitonic_sort_cols,
                                          bitonic_sort_cols_reference)
 from rtts_torch.ops.chunked_ffn import ffn_fused, ffn_fused_reference
@@ -156,6 +166,7 @@ from rtts_torch.ops.lsh_attention import (lsh_attend_bwd,
                                           lsh_attend_fwd)
 from rtts_torch.ops.row_gather import row_gather, row_gather_reference
 from rtts_torch.probes import probe_vmem_sort as probe
+from rtts_torch.nn.layers import activation
 from rtts_torch.reversible.ffn import FFN, chunked_ffn
 from rtts_torch.text import encode_batch, frontend_vocab_size
 from rtts_torch.train.optim import make_optimizer
@@ -546,23 +557,32 @@ def _device_ms(fn, n, names=None):
     ceil(recorded / n), and the call is the sum over its kernels.  With
     ``names``, only the kernels whose name holds one of them: each name must
     match, and each such kernel, launched once a call, must be recorded
-    between 1 and n times."""
+    between 1 and n times; a profile that recorded none of a name's
+    launches (it has happened once in 10 calls) is taken again, three
+    times in all."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    device = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and e.count > 0]
-    if names is not None:
+    for attempt in range(1, 4):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        device = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and e.count > 0]
+        if names is None:
+            break
         device = [e for e in device if any(s in e.key for s in names)]
         counts = {e.key[:60]: e.count for e in device}
+        if all(any(s in e.key for e in device) for s in names):
+            break
+        print(f"[profiler] profile {attempt} of 3 recorded {counts} "
+              f"launches of {names} in {n} calls")
+    if names is not None:
         _require(all(any(s in e.key for e in device) for s in names)
                  and all(1 <= c <= n for c in counts.values()),
                  f"the profiler recorded {counts} launches of {names} in "
@@ -1317,9 +1337,11 @@ def phase_kernels_lsh():
         for dtype in (torch.bfloat16, torch.float32):
             (q, k, v, dout), pos, valid, dlse, opts = _lsh_case(*case, dtype)
             out, lse = lsh_attend_fwd(q, k, v, pos, valid, *opts)
+            out2, lse2 = lsh_attend_fwd(q, k, v, pos, valid, *opts)
             grads = lsh_attend_bwd(q, k, v, pos, valid, dout, dlse, *opts)
             again = lsh_attend_bwd(q, k, v, pos, valid, dout, dlse, *opts)
             torch.cuda.synchronize()
+            same_fwd = torch.equal(out, out2) and torch.equal(lse, lse2)
             f = [t.float() for t in (q, k, v)]
             want, want_lse = lsh_attend_chunks_reference(*f, pos, valid, *opts)
             wants = lsh_attend_bwd_reference(*f, pos, valid, dout.float(),
@@ -1330,22 +1352,53 @@ def phase_kernels_lsh():
             lse_err = _scaled_err(lse, want_lse)
             same = all(torch.equal(a, b) for a, b in zip(grads, again))
             tol = KERNEL_TOL[dtype]
+            route = LA.fwd_route(dtype, q.shape[3], q.shape[4])
             print(f"[kernels-lsh] {name} {str(dtype)[6:]}: "
                   + ", ".join(f"{key} {e:.3e}" for key, e in errs.items())
-                  + f", lse {lse_err:.3e}; tol {tol:g}; K5 twice bit-equal "
-                  f"{same}")
+                  + f", lse {lse_err:.3e}; tol {tol:g}; K4 (route "
+                  f"{'tensor cores' if route else 'FMA'}"
+                  f") twice bit-equal {same_fwd}, K5 {same}")
             _require(all(e <= tol for e in errs.values()) and lse_err <= 1e-5,
                      f"K4/K5 {name} disagree with their plain versions")
-            _require(same, f"K5 {name} is not deterministic")
+            _require(same and same_fwd, f"K4/K5 {name} is not deterministic")
             main.setdefault("lsh_attend", _abs_err(out, want))
             main.setdefault("lsh_attend_bwd", max(
                 _abs_err(got[key], ref[key]) for key in ("dq", "dk", "dv")))
-            del out, lse, grads, again, want, wants, got, ref
+            del out, lse, out2, lse2, grads, again, want, wants, got, ref
     torch.cuda.empty_cache()
     return main
 
 
 _LSH_KERNELS = (lsh_attend_fwd, lsh_attend_bwd)
+# launches of K4 (by q's shape) and K6 (by x's) over a train phase's three
+# steps, recorded by phases 12 and 16 for the timing phases
+SHAPE_LAUNCHES = {}
+
+
+@contextlib.contextmanager
+def _shape_tally(module, name: str):
+    """Count the calls of ``module.name`` (a kernel wrapper, which the
+    autograd Functions look up at call time) by the shape of their first
+    argument, into the dict it yields.  The wrapper adds to its launch count through
+    the same module name, so the count moves to the stand-in and back."""
+    fn = getattr(module, name)
+    tally = {}
+
+    def counted(x, *args, **kwargs):
+        tally[tuple(x.shape)] = tally.get(tuple(x.shape), 0) + 1
+        return fn(x, *args, **kwargs)
+
+    counted.launches = fn.launches
+    setattr(module, name, counted)
+    try:
+        yield tally
+    finally:
+        fn.launches = counted.launches
+        setattr(module, name, fn)
+
+
+def _launches_per_step(kernel: str, shape) -> float:
+    return SHAPE_LAUNCHES.get(kernel, {}).get(tuple(shape), 0) / 3
 
 
 def _lsh_counts():
@@ -1371,12 +1424,14 @@ def phase_train_lsh():
     for fn in _LSH_KERNELS:
         fn.launches = 0
     t0 = time.perf_counter()
-    steps = [step_fn(model, state, batch,
-                     step_generator(SEED_TRAIN, step, "cuda"), step,
-                     return_grads=True) for step in range(3)]
+    with _shape_tally(LA, "lsh_attend_fwd") as k4_shapes:
+        steps = [step_fn(model, state, batch,
+                         step_generator(SEED_TRAIN, step, "cuda"), step,
+                         return_grads=True) for step in range(3)]
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = {**_train_counts(), **_lsh_counts()}
+    SHAPE_LAUNCHES["lsh_attend"] = k4_shapes
     for step, (metrics, grads) in enumerate(steps):
         _check_step(cfg, metrics, grads, names, f"LSH train step {step}")
         print(f"[train-lsh] step {step}: loss {float(metrics['loss']):.6f}, "
@@ -1385,7 +1440,7 @@ def phase_train_lsh():
           f"{list(LSH_TOKEN_LENS)} frames {list(LSH_FRAME_LENS)} bf16: 3 steps "
           f"in {dt:.2f} s (the first one cold); peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
-          f"{launches}")
+          f"{launches}; K4's by (B, H, chunks, c, dh): {k4_shapes}")
     want = {"lsh_attend": 3 * n_lsh, "lsh_attend_bwd": 3 * n_lsh,
             "flash_train": 3 * n_cross, "flash_bwd_dkv": 3 * n_cross,
             "flash_bwd_dq": 3 * n_cross}
@@ -1541,13 +1596,14 @@ def phase_train_lsh_timing(model):
         both = _kernel_ms(lambda: fwd_bwd(lsh_attend_chunks_kernel),
                           lambda: fwd_bwd(TL.plain_attend), n)
         dev = [_device_ms(lambda: lsh_attend_fwd(q, k, v, pos, valid, *opts),
-                          n, ("lsh_attend_fwd_kernel",)),
+                          n, ("lsh_attend_fwd_mma",)),
                _device_ms(lambda: lsh_attend_bwd(q, k, v, pos, valid, dout,
                                                  dlse, *opts),
                           n, ("lsh_bwd_dq", "lsh_bwd_dkv"))]
         bounds = _lsh_bounds(*case, torch.bfloat16)
+        per_step = _launches_per_step("lsh_attend", q.shape)
         print(f"[train-lsh-timing] {name} bf16: K4 {fwd[0]:.4f} ms (device "
-              f"{dev[0]:.4f}; plain "
+              f"{dev[0]:.4f}; {per_step:g} launches a longform step; plain "
               f"{fwd[1]:.4f}, bound {bounds['fwd']['bound_ms']:.4f} "
               f"{bounds['fwd']['bound_by']}); K5 {bwd[0]:.4f} ms (device "
               f"{dev[1]:.4f}; plain "
@@ -1564,6 +1620,9 @@ def phase_train_lsh_timing(model):
         del q, k, v, dout, pos, valid, dlse
         torch.cuda.empty_cache()
     c, _, before, after = LSH_CASES[_LSH_DECODER][4:8]
+    _print_resources("train-lsh-timing", ("K4",),
+                     "rtts_lsh_attend_fwd_resources", 64, c,
+                     before + 1 + after)
     _print_resources("train-lsh-timing", ("K5 dQ kernel", "K5 dK/dV kernel"),
                      "rtts_lsh_attend_bwd_resources", 64, c,
                      before + 1 + after)
@@ -1649,15 +1708,17 @@ def phase_kernels_ffn():
             want = ffn_fused_reference(x, *params, act, mxu)
             err, same = _scaled_err(got, want), torch.equal(got, again)
             tol = KERNEL_TOL[mxu]
-            print(f"[kernels-ffn] K6 {name} multiply {str(mxu)[6:]}: max err "
-                  f"{err:.3e} (abs {_abs_err(got, want):.3e}), tol {tol:g}; "
-                  f"twice bit-equal {same}")
+            sms = torch.cuda.get_device_properties(
+                x.device).multi_processor_count
+            route = CF.ffn_route(mxu, *x.shape, sms)
+            print(f"[kernels-ffn] K6 {name} multiply {str(mxu)[6:]} ("
+                  + (f"tensor cores, {route} rows a block" if route else
+                     "FMA") + f"): max err {err:.3e} (abs "
+                  f"{_abs_err(got, want):.3e}), tol {tol:g}; twice bit-equal "
+                  f"{same}")
             _require(err <= tol, f"K6 {name} disagrees with its plain version")
             _require(same, f"K6 {name} is not deterministic")
             main.setdefault("ffn_fused", _abs_err(got, want))
-    d = K6_CASES[_K6_DECODER][1]
-    print(f"[kernels-ffn] K6 dynamic shared memory at d {d}: "
-          f"{4 * (d * 36 + 256 * 36 + 16 * 256)} bytes per 32-row block")
     return main
 
 
@@ -1689,13 +1750,18 @@ def phase_train_serving_fast():
         torch.cuda.reset_peak_memory_stats()
         _reset_all_counts()
         t0 = time.perf_counter()
-        steps = [step_fn(model, state, batch,
-                         step_generator(SEED_TRAIN, step, "cuda"), step,
-                         return_grads=True) for step in range(3)]
+        with _shape_tally(LA, "lsh_attend_fwd") as k4_shapes, \
+                _shape_tally(CF, "ffn_fused") as k6_shapes:
+            steps = [step_fn(model, state, batch,
+                             step_generator(SEED_TRAIN, step, "cuda"), step,
+                             return_grads=True) for step in range(3)]
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         launches = _serving_fast_counts()
         what = "K6" if k6 else "as shipped"
+        if k6:
+            SHAPE_LAUNCHES["serving_fast lsh_attend"] = k4_shapes
+            SHAPE_LAUNCHES["ffn_fused"] = k6_shapes
         for step, (metrics, grads) in enumerate(steps):
             _check_step(cfg, metrics, grads, names,
                         f"serving_fast {what} step {step}")
@@ -1714,7 +1780,9 @@ def phase_train_serving_fast():
               f"{list(TRAIN_FRAME_LENS)} bf16: 3 steps in {dt:.2f} s (the "
               f"first one cold); peak device memory "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
-              f"per step {({k: v / 3 for k, v in launches.items()})}")
+              f"per step {({k: v / 3 for k, v in launches.items()})}; over 3 "
+              f"steps K4's by (B, H, chunks, c, dh) {k4_shapes}, K6's by "
+              f"(rows, d) {k6_shapes}")
         want = {k: 3 * v for k, v in per_step.items()}
         _require(launches == want, f"serving_fast {what}: expected launches "
                  f"{want} over 3 steps, got {launches}")
@@ -1862,7 +1930,11 @@ def phase_train_serving_fast_timing(model):
     warm-up, peak device memory reset before each step, and one profiled
     step; the reversible peaks below ``REV_PEAK_SHARE_MAX`` of the plain
     one.  One FFN sublayer chunked and unchunked: what autograd holds.  K6
-    at the decoder shape against its plain version and its bound."""
+    at the decoder's and the encoder's FFN shapes against its plain
+    version, its bound and the unfused bf16 FFN, with its launches a step
+    and the runtime's resources of its kernels; K4 at serving_fast's two
+    LSH shapes against its plain version and bound, with its launches a
+    step.  Returns K6's times at the decoder's shape."""
     b, n_tok, frames = 8, 256, 1024
     plain = "plain residuals, unchunked FFN"
     variants = {"reversible + K6": K6_ON,
@@ -1925,20 +1997,74 @@ def phase_train_serving_fast_timing(model):
     _require(held[256][0] < held[0][0], "the chunked FFN's checkpoint holds as "
              "much as the unchunked FFN")
 
-    case = K6_CASES[_K6_DECODER]
-    x, k6_params, act = _k6_case(*case)
+    times = {}
     bf = torch.bfloat16
-    kernel = lambda: ffn_fused(x, *k6_params, act, bf)  # noqa: E731
-    ms = _kernel_ms(kernel,
-                    lambda: ffn_fused_reference(x, *k6_params, act, bf), 20)
-    dev = _device_ms(kernel, 20, ("ffn_fused_kernel",))
-    bound = _k6_bound(*case)
-    print(f"[train-rev-timing] K6 {_K6_DECODER} multiply bf16: kernel "
-          f"{ms[0]:.4f} ms (device {dev:.4f}), plain {ms[1]:.4f} ms, bound "
-          f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}); no single "
-          f"PyTorch call computes LN -> dense -> act -> dense")
-    return {"ffn_fused": dict(ms=ms[0], plain_ms=ms[1], device_ms=dev,
-                              library_ms=None, **bound)}
+    for name in list(K6_CASES)[:2]:   # the decoder's and the encoder's FFN
+        case = K6_CASES[name]
+        x, k6_params, act = _k6_case(*case)
+        kernel = lambda: ffn_fused(x, *k6_params, act, bf)  # noqa: E731
+        ms = _kernel_ms(
+            kernel, lambda: ffn_fused_reference(x, *k6_params, act, bf), 20)
+        dev = _device_ms(kernel, 20, ("ffn_fused_cast", "ffn_fused_mma"))
+        bound = _k6_bound(*case)
+        unfused = _interleaved_ms((kernel, _unfused_ffn(x, k6_params, act)),
+                                  50, cycles=1)
+        per_step = _launches_per_step("ffn_fused", x.shape)
+        print(f"[train-rev-timing] K6 {name} multiply bf16: kernel "
+              f"{ms[0]:.4f} ms (device {dev:.4f}; {per_step:g} launches a "
+              f"serving_fast + K6 step), plain {ms[1]:.4f} ms, bound "
+              f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}); no single "
+              f"PyTorch call computes LN -> dense -> act -> dense")
+        print(f"[train-rev-timing] K6 {name} against the unfused bf16 FFN "
+              f"(F.layer_norm, bf16 torch.matmul, the activation, bf16 "
+              f"torch.matmul; a yardstick, not one call): K6 "
+              f"{unfused[0]:.4f} ms, unfused {unfused[1]:.4f} ms")
+        times.setdefault("ffn_fused", dict(ms=ms[0], plain_ms=ms[1],
+                                           device_ms=dev, library_ms=None,
+                                           **bound))
+    d = K6_CASES[_K6_DECODER][1]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for rows in sorted({CF.ffn_route(bf, K6_CASES[name][0], d, sms)
+                        for name in list(K6_CASES)[:2]}, reverse=True):
+        _print_resources("train-rev-timing", (f"K6 at {rows} rows a block",),
+                         "rtts_ffn_fused_resources", rows, CF._pad(d))
+
+    # K4 at serving_fast's two LSH shapes, with its launches a step (the
+    # longform shapes are phase 14's)
+    for name in [n for n in LSH_CASES if n.startswith("serving_fast")]:
+        case = LSH_CASES[name]
+        (q, k, v, _), pos, valid, _, opts = _lsh_case(*case, bf)
+        ms = _kernel_ms(lambda: lsh_attend_fwd(q, k, v, pos, valid, *opts),
+                        lambda: lsh_attend_chunks_reference(q, k, v, pos,
+                                                            valid, *opts), 20)
+        dev = _device_ms(lambda: lsh_attend_fwd(q, k, v, pos, valid, *opts),
+                         20, ("lsh_attend_fwd_mma",))
+        bound = _lsh_bounds(*case, bf)["fwd"]
+        per_step = _launches_per_step("serving_fast lsh_attend", q.shape)
+        print(f"[train-rev-timing] {name} bf16: K4 {ms[0]:.4f} ms (device "
+              f"{dev:.4f}; {per_step:g} launches a serving_fast step; plain "
+              f"{ms[1]:.4f}, bound {bound['bound_ms']:.4f} "
+              f"{bound['bound_by']})")
+        del q, k, v, pos, valid
+    torch.cuda.empty_cache()
+    return times
+
+
+def _unfused_ffn(x, params, act):
+    """The FFN in plain PyTorch ops at bf16 multiplies: LayerNorm in f32,
+    the two products by bf16 torch.matmul (cuBLAS), the activation between;
+    the weights cast each call, as the model's forward does."""
+    ln_scale, ln_bias, w_in, b_in, w_out, b_out = params
+    fn = activation(act)
+
+    def run():
+        h = F.layer_norm(x.float(), (x.shape[-1],), ln_scale, ln_bias,
+                         CF.EPS).to(torch.bfloat16)
+        mid = fn(torch.matmul(h, w_in.to(torch.bfloat16)).float() + b_in)
+        out = torch.matmul(mid.to(torch.bfloat16), w_out.to(torch.bfloat16))
+        return (out.float() + b_out).to(x.dtype)
+
+    return run
 
 
 # -- the sort probe: K7, K8 and the one-hot sort gather ----------------------------

@@ -63,8 +63,7 @@
 // one offset at a time.  Full f32 products: TF32 would not hold the f32
 // tolerance.
 
-#include "flash_common.cuh"
-#include "mma_tiles.cuh"
+#include "lsh_common.cuh"
 
 namespace {
 
@@ -81,16 +80,6 @@ struct BwdArgs {
   int n, nc, causal, before, after;
   float mask_value, self_mask_value;
 };
-
-__device__ __forceinline__ int wrap_chunk(int x, int nc) { return ((x % nc) + nc) % nc; }
-
-// the masked score of (query position qp, key position kp, key validity kv)
-__device__ __forceinline__ float lsh_mask(float x, int kv, int qp, int kp, const BwdArgs& a) {
-  if (!kv) x = a.mask_value;
-  if (a.causal && qp < kp) x = a.mask_value;
-  if (qp == kp) x = a.self_mask_value;
-  return x;
-}
 
 // ---- the bf16 tensor-core path ----------------------------------------------
 
@@ -130,15 +119,8 @@ __global__ void __launch_bounds__(2 * C, DH == 64 ? kMinBlocks64 : 1)
 
   load_tile_async<DH, C, kThreads>(qs, q + row0 * DH, 0, C, tid);
   load_tile_async<DH, C, kThreads>(dos, static_cast<const bf16*>(a.dout) + row0 * DH, 0, C, tid);
-  for (int o = 0; o < n_off; ++o) {
-    const size_t key0 = ((size_t)n * nc + wrap_chunk(i + o - a.before, nc)) * C;
-    load_tile_async<DH, C, kThreads>(ks + o * C * kLd, k + key0 * DH, 0, C, tid);
-    load_tile_async<DH, C, kThreads>(vs + o * C * kLd, v + key0 * DH, 0, C, tid);
-    for (int c = tid; c < C; c += kThreads) {
-      kpos_s[o * C + c] = a.pos[key0 + c];
-      kval_s[o * C + c] = a.valid[key0 + c];
-    }
-  }
+  load_window<DH, C, kThreads>(ks, vs, kpos_s, kval_s, k, v, a.pos, a.valid, n, nc, i, a.before,
+                               n_off, tid);
   cp_async_commit();
   const int qr = 16 * warp + g;  // this thread's rows qr and qr + 8
   const int qpos[2] = {a.pos[row0 + qr], a.pos[row0 + qr + 8]};
@@ -146,47 +128,10 @@ __global__ void __launch_bounds__(2 * C, DH == 64 ? kMinBlocks64 : 1)
   __syncthreads();
 
   // pass 1: S, the rows' joint max and sum (online), O = P V unnormalised
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  float acc[kDT][4];
-#pragma unroll
-  for (int d = 0; d < kDT; ++d)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[d][e] = 0.f;
-  for (int o = 0; o < n_off; ++o) {
-    float s[kNT][4];
-    warp_abt<DH, C>(s, qs, 16 * warp, ks + o * C * kLd, lane);
-    float tmax[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int j = 0; j < kNT; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int h = e >> 1, c = o * C + 8 * j + 2 * t4 + (e & 1);
-        s[j][e] = lsh_mask(s[j][e], kval_s[c], qpos[h], kpos_s[c], a);
-        tmax[h] = fmaxf(tmax[h], s[j][e]);
-      }
-    }
-    float alpha[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const float m_new = fmaxf(m[h], quad_max(tmax[h]));
-      alpha[h] = exp_fast(m[h] - m_new);
-      m[h] = m_new;
-      l[h] *= alpha[h];
-    }
-#pragma unroll
-    for (int d = 0; d < kDT; ++d)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[d][e] *= alpha[e >> 1];
-#pragma unroll
-    for (int j = 0; j < kNT; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[j][e] = exp_fast(s[j][e] - m[e >> 1]);
-        l[e >> 1] += s[j][e];
-      }
-    }
-    warp_acc_xb<DH, C, true>(acc, s, vs + o * C * kLd, lane);
-  }
+  // (K4's function, lsh_common.cuh)
+  float m[2], l[2], acc[kDT][4];
+  window_softmax_pv<DH, C, true>(acc, m, l, qs, ks, vs, kpos_s, kval_s, qpos, n_off, a, warp,
+                                 lane);
 
   // D = rowsum(dO o O) / l, the stats, and dd = D - dlse
   float inv_l[2], dd[2];

@@ -44,21 +44,27 @@ SIGNATURES = {
     # dims (7 ints: x dtype, w/b dtype, batch, len, channels, taps, vector
     # width), x, w, b, out, stream
     "rtts_depthwise_conv1d": [_P] * 6,
-    "rtts_lsh_attend_fwd": [_P] * 7 + _LSH_SCALARS,
+    # q, k, v, pos, valid, out, lse; the route (1 tensor cores, 0 f32
+    # FMA); the LSH scalars
+    "rtts_lsh_attend_fwd": [_P] * 7 + [_I] + _LSH_SCALARS,
     # q, k, v, pos, valid, dout, dlse, dq, dk, dv, the f32 row stats; the
     # route (1 tensor cores, 0 f32 FMA); the LSH scalars
     "rtts_lsh_attend_bwd": [_P] * 11 + [_I] + _LSH_SCALARS,
-    # x, ln scale and bias, W_in, b_in, W_out, b_out, out; dtype, n, d, f,
-    # activation, bf16 multiplies, eps, stream
-    "rtts_ffn_fused": [_P] * 8 + [_I] * 6 + [_F, _P],
+    # x, ln scale and bias, W_in, b_in, W_out, b_out, out, the bf16 weight
+    # scratch; dtype, n, d, f, the scratch's padded d and f, activation,
+    # the route (rows a block on tensor cores, 0 f32 FMA), eps, stream
+    "rtts_ffn_fused": [_P] * 9 + [_I] * 8 + [_F, _P],
     # x, out; n, cols, columns per block, stream
     "rtts_bitonic_sort_cols": [_P, _P, _I, _I, _I, _P],
     # x, idx, out; m, rows, row bytes, vector bytes, stream
     "rtts_row_gather": [_P, _P, _P, _I, _I, _I, _I, _P],
     # what the runtime reports of the bf16 kernels (``resources``): dh
-    # (K5: dh, chunk length, window chunks), out
+    # (K4, K5: dh, chunk length, window chunks; K6: rows a block, width),
+    # out
     "rtts_flash_fwd_resources": [_I, _P],
+    "rtts_lsh_attend_fwd_resources": [_I, _I, _I, _P],
     "rtts_lsh_attend_bwd_resources": [_I, _I, _I, _P],
+    "rtts_ffn_fused_resources": [_I, _I, _P],
 }
 
 _lib = None

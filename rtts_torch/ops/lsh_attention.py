@@ -16,14 +16,15 @@ ORIGINAL position, in this order:
 - self, q_pos == k_pos (even on an invalid key):    score := self_mask_value
 
 ``lsh_attend_chunks_kernel`` is differentiable and returns (out, lse).  On
-CUDA tensors its forward launches ``rtts_torch/csrc/lsh_attend_fwd.cu`` (K4)
-and its backward ``rtts_torch/csrc/lsh_attend_bwd.cu`` (K5: a dQ kernel per
-query chunk, then a dK/dV kernel per key chunk; bf16 on tensor cores), or
-they raise; on CPU tensors the same ``torch.autograd.Function`` runs
-``lsh_attend_chunks_reference`` and ``lsh_attend_bwd_reference``.  The
-backward takes both cotangents: the multi-round combine differentiates
-through lse, so dS = P (dP - rowsum(dP P)) + P dlse, zero on the self
-entries (their score is a constant), while dV keeps every entry.
+CUDA tensors its forward launches ``rtts_torch/csrc/lsh_attend_fwd.cu`` (K4;
+bf16 on tensor cores) and its backward ``rtts_torch/csrc/lsh_attend_bwd.cu``
+(K5: a dQ kernel per query chunk, then a dK/dV kernel per key chunk; bf16
+on tensor cores), or they raise; on CPU tensors the same
+``torch.autograd.Function`` runs ``lsh_attend_chunks_reference`` and
+``lsh_attend_bwd_reference``.  The backward takes both cotangents: the
+multi-round combine differentiates through lse, so dS = P (dP - rowsum(dP
+P)) + P dlse, zero on the self entries (their score is a constant), while
+dV keeps every entry.
 
 The kernels normalise by the joint softmax's own sum, as the TPU kernels
 do, so a row whose only surviving entries are self entries at -1e5 gets
@@ -211,10 +212,26 @@ def _scalars(q, causal, before, after, mask_value, self_mask_value):
             torch.cuda.current_stream(q.device).cuda_stream)
 
 
+def fwd_route(dtype: torch.dtype, c: int, dh: int) -> int:
+    """Which K4 kernel a (dtype, chunk length, head dim) takes on the card,
+    as the C entry point's ``mma`` argument: 1, the tensor-core kernel
+    (bf16: mma.sync products, P rounded to bf16 once), or 0, the FMA kernel
+    (f32, for the f32 tolerance).  The plain version is never a fallback:
+    what neither takes raises."""
+    if c not in _CHUNKS:
+        raise ValueError(f"lsh_attend_fwd: chunk length {c} not in {_CHUNKS}")
+    if dh not in _HEAD_DIMS:
+        raise ValueError(f"lsh_attend_fwd: head dim {dh} not in {_HEAD_DIMS}")
+    if dtype not in _DTYPES:
+        raise TypeError(f"lsh_attend_fwd: dtype {dtype} not in "
+                        "float32/bfloat16")
+    return int(dtype == torch.bfloat16)
+
+
 def lsh_attend_fwd(q, k, v, pos, valid, causal, before, after,
                    mask_value=MASK_VALUE, self_mask_value=SELF_MASK_VALUE):
-    """Launch K4 -> (out like q, lse (B, H, nc, c) f32); counts in
-    ``lsh_attend_fwd.launches``."""
+    """Launch K4 on the route of ``fwd_route`` -> (out like q, lse (B, H,
+    nc, c) f32); counts in ``lsh_attend_fwd.launches``."""
     (qc, kc, vc), pos32, val8 = _check("lsh_attend_fwd", q, k, v, pos, valid,
                                       before, after)
     out = torch.empty_like(qc)
@@ -222,6 +239,7 @@ def lsh_attend_fwd(q, k, v, pos, valid, causal, before, after,
     err = _build.library().rtts_lsh_attend_fwd(
         qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), pos32.data_ptr(),
         val8.data_ptr(), out.data_ptr(), lse.data_ptr(),
+        fwd_route(q.dtype, q.shape[3], q.shape[4]),
         *_scalars(q, causal, before, after, mask_value, self_mask_value))
     _build.check(err, "rtts_lsh_attend_fwd")
     lsh_attend_fwd.launches += 1

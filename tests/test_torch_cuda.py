@@ -389,6 +389,11 @@ LSH_CASES = {
     "serving_fast_encoder_L256": (8, 8, 4, 256, 64, 64, False, 1, 0, 200),
     # a window on both sides: K5's per-key-chunk walk meets offsets -1, 0, 1
     "window3_c64_causal": (2, 2, 4, 256, 64, 64, True, 1, 1, 200),
+    # windows that wrap onto their own chunk: nc 1 (the chunk twice), nc 2
+    # (the other chunk on both sides); c 16 with a window on both sides
+    "nc1_c64_causal": (2, 2, 1, 64, 64, 64, True, 1, 0, 50),
+    "nc2_c32_window3": (2, 2, 1, 64, 32, 64, False, 1, 1, 40),
+    "c16_window3_causal": (1, 2, 2, 128, 16, 64, True, 1, 1, 100),
 }
 
 
@@ -430,6 +435,22 @@ def test_lsh_kernels_match_reference(dev, name, dtype):
         assert torch.equal(got_t, same), what
 
 
+@pytest.mark.parametrize("name", sorted(LSH_CASES))
+def test_lsh_fwd_bf16_tensor_cores_match_reference_and_repeat(dev, name):
+    """K4's bf16 route (tensor cores, P rounded to bf16 once) against its
+    plain version in f32 on the same inputs, lse included; twice,
+    bit-equal."""
+    (q, k, v, _), pos, valid, _, opts = lsh_case(name, torch.bfloat16, dev)
+    out, lse = lsh_attend_fwd(q, k, v, pos, valid, *opts)
+    out2, lse2 = lsh_attend_fwd(q, k, v, pos, valid, *opts)
+    torch.cuda.synchronize()
+    want, want_lse = lsh_attend_chunks_reference(
+        *(t.float() for t in (q, k, v)), pos, valid, *opts)
+    assert _err(out, want) < TOL[torch.bfloat16], _err(out, want)
+    assert _err(lse, want_lse) < 1e-5, _err(lse, want_lse)
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+
+
 def test_lsh_autograd_launches_k4_and_k5(dev):
     (q, k, v, dout), pos, valid, dlse, opts = lsh_case(
         "test_c16_causal", torch.bfloat16, dev)
@@ -457,12 +478,20 @@ def ffn_case(rows, d, f, dev, seed=0):
     return x.to(dev), [t.to(dev) for t in params]
 
 
+# chip_smoke.py's K6_CASES (the decoder's and encoder's FFN, a ragged row
+# count, a narrow width with each activation), and one width past 512 (32
+# rows a block on tensor cores)
+K6_SHAPES = [(8 * 1024, 512, 2048, "gelu"), (1000 + 13, 96, 200, "silu"),
+             (8 * 256, 512, 2048, "gelu"), (8 * 1000 + 13, 512, 2048, "gelu"),
+             (1037, 96, 200, "relu"), (1037, 96, 200, "gelu"),
+             (1037, 96, 200, "tanh"), (3000, 1024, 256, "relu")]
+
+
 @pytest.mark.parametrize("mxu", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("rows,d,f,act", [(8 * 1024, 512, 2048, "gelu"),
-                                          (1000 + 13, 96, 200, "silu")])
+@pytest.mark.parametrize("rows,d,f,act", K6_SHAPES)
 def test_ffn_kernel_matches_reference(dev, rows, d, f, act, mxu):
     """K6 against its plain version on the same f32 rows, multiplying in
-    bf16 or f32; twice, bit-equal."""
+    bf16 (tensor cores) or f32 (FMA); twice, bit-equal."""
     x, params = ffn_case(rows, d, f, dev)
     before = ffn_fused.launches
     got = ffn_fused(x, *params, act, mxu)
@@ -471,6 +500,22 @@ def test_ffn_kernel_matches_reference(dev, rows, d, f, act, mxu):
     assert ffn_fused.launches == before + 2
     want = ffn_fused_reference(x, *params, act, mxu)
     assert got.dtype == x.dtype and _err(got, want) < TOL[mxu], _err(got, want)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("rows,d,f", [(8 * 1024, 512, 2048),
+                                      (8 * 256, 512, 2048)])
+def test_ffn_kernel_takes_bf16_rows(dev, rows, d, f):
+    """The train path's input: bf16 rows, bf16 out, multiplying in bf16;
+    twice, bit-equal."""
+    x, params = ffn_case(rows, d, f, dev)
+    x = x.bfloat16()
+    got = ffn_fused(x, *params, "gelu", torch.bfloat16)
+    again = ffn_fused(x, *params, "gelu", torch.bfloat16)
+    torch.cuda.synchronize()
+    want = ffn_fused_reference(x, *params, "gelu", torch.bfloat16)
+    assert got.dtype == torch.bfloat16
+    assert _err(got, want) < TOL[torch.bfloat16], _err(got, want)
     assert torch.equal(got, again)
 
 

@@ -11,10 +11,15 @@
     ``configs/serving_fast.yaml``.
 (c) The decoder prenet's always-on dropout zeroes about ``rate`` of the
     units, scales the rest by 1/keep, and follows its generator.
+(d) The ctypes signatures the port loads its kernels with
+    (``rtts_torch.ops._build.SIGNATURES``) match the C entry points'
+    prototypes in ``rtts_torch/csrc``, argument by argument.
 """
 
 import ast
+import ctypes
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -24,6 +29,7 @@ import torch
 
 from rtts.config import load_yaml
 from rtts_torch.nn.layers import PrenetMLP, dropout
+from rtts_torch.ops._build import SIGNATURES
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
@@ -250,3 +256,36 @@ def test_prenet_dropout_follows_its_generator():
     assert torch.equal(run(3), run(3))
     assert not torch.equal(run(3), run(4))
     assert torch.equal(run(3, rate=0.0), run(4, rate=0.0))
+
+
+def _c_kind(arg: str):
+    """The ctypes kind of one C parameter declaration."""
+    if "*" in arg:
+        return ctypes.c_void_p
+    if "unsigned" in arg or "uint32_t" in arg:
+        return ctypes.c_uint
+    return {"int": ctypes.c_int, "float": ctypes.c_float}[arg.split()[-2]]
+
+
+def _c_entry_points() -> dict:
+    """Each ``extern "C" int rtts_*(...)`` of the kernel sources, its
+    argument-list macros expanded: its arguments as ctypes kinds."""
+    found = {}
+    for path in sorted((ROOT / "rtts_torch" / "csrc").glob("*.cu")):
+        text = path.read_text().replace("\\\n", " ")
+        for macro, body in re.findall(r"#define (RTTS_\w+) ([^\n]*)", text):
+            text = text.replace(f"({macro},", f"({body},").replace(
+                f", {macro})", f", {body})")
+        for name, args in re.findall(r'extern "C" int (rtts_\w+)\(([^)]*)\)',
+                                     text):
+            found[name] = [_c_kind(a.strip()) for a in args.split(",")]
+    return found
+
+
+def test_every_c_entry_point_has_a_signature():
+    assert sorted(_c_entry_points()) == sorted(SIGNATURES)
+
+
+@pytest.mark.parametrize("name", sorted(SIGNATURES))
+def test_signature_matches_the_c_prototype(name):
+    assert _c_entry_points()[name] == SIGNATURES[name], name

@@ -1,4 +1,5 @@
-"""The bf16 tensor-core K1 and K5, and K5's split into two kernels, on the CPU.
+"""The bf16 tensor-core K1, K4 and K5, and K5's split into two kernels, on
+the CPU.
 
 The kernels cannot run here, so their arithmetic is emulated in plain
 torch, step for step where a rounding happens:
@@ -6,26 +7,33 @@ torch, step for step where a rounding happens:
 - K1 (``rtts_torch/csrc/flash_fwd.cu``): S from bf16 tiles with f32 sums,
   an online softmax over 64-key tiles, and P o R rounded to bf16 once as
   the A operand of P.V (as the TPU kernel rounds it), or as hi + lo;
+- K4 (``rtts_torch/csrc/lsh_attend_fwd.cu``): S from bf16 chunks with f32
+  sums, the joint softmax online over the window's offsets, and P rounded
+  to bf16 once for O = P V (as the TPU kernel rounds it);
 - K5 (``rtts_torch/csrc/lsh_attend_bwd.cu``): P (for O = P V and dV) and
   dS (for dQ and dK) as hi + lo bf16 operands, or rounded once;
 - K5's structure: a pass per query chunk that writes dQ and each row's
   max, sum and D - dlse, then a pass per key chunk that walks the window
   offsets and writes dK and dV, with no per-offset slab.
 
-The first two hold the card tests' bf16 tolerance against the f32 plain
+The first three hold the card tests' bf16 tolerance against the f32 plain
 versions at the shapes of ``chip_smoke.py`` phases 3, 7 and 11 that stay
-small on the CPU; the third holds the f32 plain backward to 1e-5.
+small on the CPU; the fourth holds the f32 plain backward to 1e-5.  The
+route functions of K4, K5 and K6 (which kernel a dtype and shape take on
+the card) are held here too.
 """
 
 import pytest
 import torch
 
+from rtts_torch.ops.chunked_ffn import ffn_route
 from rtts_torch.ops.flash_attention import (_drop_rscale,
                                             flash_attend_reference,
                                             masked_scores)
-from rtts_torch.ops.lsh_attention import (bwd_route, look_adjacent,
-                                          lsh_attend_bwd_reference, unwindow,
-                                          window_scores)
+from rtts_torch.ops.lsh_attention import (bwd_route, fwd_route, look_adjacent,
+                                          lsh_attend_bwd_reference,
+                                          lsh_attend_chunks_reference,
+                                          unwindow, window_scores)
 from tests.test_torch_cuda import (ENCODER_LENS, TOL, _err, lsh_case,
                                    train_case)
 from tests.test_torch_flash_bf16 import SMALL_CASES, _bf16, _hi_lo
@@ -121,6 +129,64 @@ def test_k1_p_rounded_once_stays_within_the_bf16_tolerance(kind, name, rate):
     hi_lo_err, _ = _k1_errors(args, opts, _hi_lo, rate)
     assert err < BF16_TOL and hi_lo_err < BF16_TOL, (err, hi_lo_err)
     assert lse_err < 1e-5, lse_err
+
+
+# -- K4 ------------------------------------------------------------------------
+
+def lsh_fwd_tc(q, k, v, pos, valid, causal, before, after, p_operand):
+    """K4's bf16 arithmetic: S in f32 from the bf16 chunks, per window
+    offset the masked scores, the joint max m and sum l of the unrounded
+    exp(S - m) online, O scaled by exp(m_old - m_new) and then O +=
+    ``p_operand``(exp(S - m)) V in f32; out = O / l rounded to bf16, lse =
+    m + log(l)."""
+    s, _, _ = window_scores(q, k, pos, valid, causal, before, after)
+    c = q.shape[3]
+    v_adj = look_adjacent(v, before, after).float()
+    m = torch.full(s.shape[:-1] + (1,), -float("inf"))
+    l = torch.zeros_like(m)
+    o = torch.zeros(q.shape)
+    for off in range(before + 1 + after):
+        so = s[..., off * c:(off + 1) * c]
+        m_new = torch.maximum(m, so.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        e = torch.exp(so - m_new)
+        l = l * alpha + e.sum(-1, keepdim=True)
+        o = o * alpha + p_operand(e) @ v_adj[..., off * c:(off + 1) * c, :]
+        m = m_new
+    return (o / l).bfloat16(), (m + torch.log(l))[..., 0]
+
+
+def _k4_case(name):
+    """bf16 chunk-attend inputs of a phase-11 case or a split case (nc 1
+    and 2, a window on both sides)."""
+    if name in SPLIT_CASES:
+        (q, k, v, pos, valid, _, _), opts = _split_case(name)
+        q, k, v = (t.bfloat16() for t in (q, k, v))
+    else:
+        (q, k, v, _), pos, valid, _, opts = lsh_case(name, torch.bfloat16,
+                                                     "cpu")
+    return (q, k, v, pos, valid), opts
+
+
+# the phase-11 shapes small enough for the CPU, and windows that wrap onto
+# their own chunk (nc 1 and 2; SPLIT_CASES below)
+K4_CASES = ("test_c16_causal", "test_c32_dh128_window3",
+            "nc_not_multiple_of_8", "encoder_L1024", "window3_c64_causal",
+            "serving_fast_encoder_L256", "nc 1, before 1",
+            "nc 2, before 1 after 1 (a chunk seen twice)")
+
+
+@pytest.mark.parametrize("name", K4_CASES)
+def test_k4_p_rounded_once_stays_within_the_bf16_tolerance(name):
+    """The rounding K4 ships: P to bf16 once, as on the TPU.  P >= 0, so
+    P V has no sums that cancel; lse is the f32 one."""
+    args, opts = _k4_case(name)
+    out, lse = lsh_fwd_tc(*args, *opts, _bf16)
+    q, k, v, pos, valid = args
+    want, want_lse = lsh_attend_chunks_reference(q.float(), k.float(),
+                                                 v.float(), pos, valid, *opts)
+    assert _err(out, want) < BF16_TOL, _err(out, want)
+    assert _err(lse, want_lse) < 1e-5, _err(lse, want_lse)
 
 
 # -- K5 ------------------------------------------------------------------------
@@ -297,3 +363,49 @@ def test_k5_route_of_each_dtype_and_chunk_length(dtype, c, route):
 def test_k5_route_refuses_other_chunk_lengths():
     with pytest.raises(ValueError, match="chunk length"):
         bwd_route(torch.bfloat16, 24)
+
+
+@pytest.mark.parametrize("dtype,c,dh,route", [
+    (torch.bfloat16, 16, 64, TENSOR_CORES), (torch.bfloat16, 32, 64,
+                                             TENSOR_CORES),
+    (torch.bfloat16, 64, 64, TENSOR_CORES), (torch.bfloat16, 64, 128,
+                                             TENSOR_CORES),
+    (torch.float32, 16, 64, FMA), (torch.float32, 64, 128, FMA)])
+def test_k4_route_of_each_dtype_chunk_length_and_head_dim(dtype, c, dh,
+                                                          route):
+    assert fwd_route(dtype, c, dh) == route
+
+
+@pytest.mark.parametrize("dtype,c,dh,error,match", [
+    (torch.bfloat16, 24, 64, ValueError, "chunk length"),
+    (torch.bfloat16, 64, 32, ValueError, "head dim"),
+    (torch.float16, 64, 64, TypeError, "dtype")])
+def test_k4_route_refuses_what_no_kernel_takes(dtype, c, dh, error, match):
+    with pytest.raises(error, match=match):
+        fwd_route(dtype, c, dh)
+
+
+H100_SMS = 132
+
+
+@pytest.mark.parametrize("n,d,rows", [
+    (8 * 1024, 512, 64),    # the decoder FFN: 128 blocks
+    (8 * 1000 + 13, 512, 64),
+    (8 * 256, 512, 16),     # the encoder FFN: 32 blocks at 64 rows, 128 at 16
+    (1037, 96, 16),         # 65 blocks at 16 rows
+    (3000, 1024, 32),       # too wide for 64 rows
+    (64, 1024, 16)])
+def test_k6_route_takes_tensor_cores_and_fills_the_card(n, d, rows):
+    """bf16 multiplies: the largest row tile the width allows, halved while
+    the halved tile's grid still fits on the SMs in one wave."""
+    assert ffn_route(torch.bfloat16, n, d, H100_SMS) == rows
+    assert ffn_route(torch.float32, n, d, H100_SMS) == FMA
+
+
+@pytest.mark.parametrize("mxu,d,error,match", [
+    (torch.bfloat16, 1040, ValueError, "width"),
+    (torch.float32, 0, ValueError, "width"),
+    (torch.float16, 512, TypeError, "mxu_dtype")])
+def test_k6_route_refuses_what_no_kernel_takes(mxu, d, error, match):
+    with pytest.raises(error, match=match):
+        ffn_route(mxu, 8, d, H100_SMS)

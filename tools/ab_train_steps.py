@@ -1,19 +1,32 @@
 #!/usr/bin/env python3
-"""Time the base.yaml, longform_8k.yaml and serving_fast.yaml train steps
-of two checkouts of this repo on one NVIDIA GPU, in the order A B B A.
+"""Time the train steps, or K4 and K6, of two checkouts of this repo on one
+NVIDIA GPU, in the order A B B A.
 
     python3 tools/ab_train_steps.py DIR_A DIR_B [CYCLES]
+    python3 tools/ab_train_steps.py --kernels DIR_A DIR_B [CYCLES]
 
 CYCLES (default 1) repeats the order A B B A.
 Each run is a process of its own that imports the ``chip_smoke.py`` of its
-checkout, so the port and the kernels are that checkout's: it builds the
-kernels, makes seeded weights and runs the checkout's base.yaml,
-longform_8k.yaml and serving_fast.yaml timing phases (best of 3 after a
-warm-up, one profiled step, the kernels against their plain versions; the
-serving_fast phase times four variants, of which the step as shipped,
-reversible with the chunked FFN, is read here).  Prints every run's lines
-prefixed by its label, then one JSON line of each run's best step wall, of
-every timed step's wall and of the profiled step's device busy time.
+checkout, so the port and the kernels are that checkout's.
+
+Steps (the default): it builds the kernels, makes seeded weights and runs
+the checkout's base.yaml, longform_8k.yaml and serving_fast.yaml timing
+phases (best of 3 after a warm-up, one profiled step, the kernels against
+their plain versions; the serving_fast phase times four variants, of which
+two are read here: the step as shipped, reversible with the chunked FFN,
+and reversible + K6, under "train-rev-timing K6").  The JSON line holds
+each run's best step wall, every timed step's wall and the profiled step's
+device busy time.
+
+``--kernels``: K4 (LSH chunk-attend forward) in bf16 at the longform
+decoder's and encoder's LSH shapes and serving_fast's two, and K6 (fused
+LN + FFN) multiplying in bf16 at the decoder's and encoder's FFN.  Each:
+ms by CUDA events over back-to-back calls after a warm-up, and device ms
+from ``torch.profiler`` (every kernel whose name holds ``lsh_attend_fwd``
+or ``ffn_fused``: the cast and the main kernel of K6 count together).  The
+JSON line holds each run's times by kernel and shape.
+
+Prints every run's lines prefixed by its label, then the JSON line.
 """
 
 from __future__ import annotations
@@ -24,14 +37,16 @@ import re
 import subprocess
 import sys
 
-_RUN = """
+_HEAD = """
 import sys
 import torch
 sys.path.insert(0, {root!r})
 import chip_smoke as S
-from rtts_torch.models import reformer_tts as M
 S.phase_device()
 S.phase_build()
+"""
+_STEPS = _HEAD + """
+from rtts_torch.models import reformer_tts as M
 for base, timing in ((S.BASE_CONFIG, S.phase_train_timing),
                      (S.LONGFORM_CONFIG, S.phase_train_lsh_timing),
                      (S.SERVING_FAST_CONFIG,
@@ -43,47 +58,96 @@ for base, timing in ((S.BASE_CONFIG, S.phase_train_timing),
     del model
     torch.cuda.empty_cache()
 """
-_SHIPPED = "reversible \\+ chunked FFN \\(as shipped\\)"
+_KERNELS = _HEAD + """
+from rtts_torch.ops.chunked_ffn import ffn_fused
+from rtts_torch.ops.lsh_attention import lsh_attend_fwd
+bf = torch.bfloat16
+lsh = [S._LSH_DECODER, S._LSH_ENCODER] + [n for n in S.LSH_CASES
+                                          if n.startswith("serving_fast")]
+for name in lsh:
+    (q, k, v, _), pos, valid, _, opts = S._lsh_case(*S.LSH_CASES[name], bf)
+    fn = lambda: lsh_attend_fwd(q, k, v, pos, valid, *opts)
+    S._events_ms(fn, 20)
+    ms = S._events_ms(fn, 100)
+    dev = S._device_ms(fn, 50, ("lsh_attend_fwd",))
+    print(f"[ab-kernels] K4 {{name}}: {{ms:.4f}} ms (device {{dev:.4f}})")
+    del q, k, v, pos, valid
+for name in list(S.K6_CASES)[:2]:
+    x, params, act = S._k6_case(*S.K6_CASES[name])
+    fn = lambda: ffn_fused(x, *params, act, bf)
+    S._events_ms(fn, 10)
+    ms = S._events_ms(fn, 50)
+    dev = S._device_ms(fn, 20, ("ffn_fused",))
+    print(f"[ab-kernels] K6 {{name}}: {{ms:.4f}} ms (device {{dev:.4f}})")
+"""
+
+# the serving_fast variants read, by their label in the phase's lines
+_VARIANTS = "(reversible \\+ chunked FFN \\(as shipped\\)|reversible \\+ K6)"
 _STEP = re.compile(r"^\[(train-timing|train-lsh-timing|train-rev-timing)\] "
-                   r"(?:" + _SHIPPED + r": )?train step .*"
+                   r"(?:" + _VARIANTS + r": )?train step .*"
                    r"walls \[([0-9., ]+)\] s; best ([0-9.]+) s")
 _BUSY = re.compile(r"^\[(train-timing|train-lsh-timing|train-rev-timing)\] "
-                   r"profile of one (?:" + _SHIPPED + r" )?step: wall [0-9.]+ "
+                   r"profile of one (?:" + _VARIANTS + r" )?step: wall [0-9.]+ "
                    r"s, device busy ([0-9.]+) s")
+_KERNEL = re.compile(r"^\[ab-kernels\] (K[46]) (.+): ([0-9.]+) ms "
+                     r"\(device ([0-9.]+)\)$")
+
+
+def _key(hit) -> str:
+    """The phase's tag, with " K6" for serving_fast's K6 variant."""
+    return hit.group(1) + (" K6" if hit.group(2) == "reversible + K6" else "")
+
+
+def _read_steps(line: str, found: dict) -> None:
+    hit = _STEP.match(line)
+    if hit:
+        found["best_step_s"].setdefault(_key(hit), []).append(
+            float(hit.group(4)))
+        found["step_walls_s"].setdefault(_key(hit), []).extend(
+            float(w) for w in hit.group(3).split(","))
+    hit = _BUSY.match(line)
+    if hit:
+        found["device_busy_s"].setdefault(_key(hit), []).append(
+            float(hit.group(3)))
+
+
+def _read_kernels(line: str, found: dict) -> None:
+    hit = _KERNEL.match(line)
+    if hit:
+        found["times"].setdefault(f"{hit.group(1)} {hit.group(2)}", []).append(
+            {"ms": float(hit.group(3)), "device_ms": float(hit.group(4))})
+
+
+# what each mode runs, how it reads a line, and the JSON line's keys
+_MODES = {"steps": (_STEPS, _read_steps,
+                    ("best_step_s", "step_walls_s", "device_busy_s")),
+          "kernels": (_KERNELS, _read_kernels, ("times",))}
 
 
 def main(argv) -> int:
-    if len(argv) not in (3, 4):
+    mode = "kernels" if "--kernels" in argv else "steps"
+    args = [a for a in argv[1:] if a != "--kernels"]
+    if len(args) not in (2, 3):
         print(__doc__, file=sys.stderr)
         return 2
-    cycles = int(argv[3]) if len(argv) == 4 else 1
-    roots = {"A": pathlib.Path(argv[1]).resolve(),
-             "B": pathlib.Path(argv[2]).resolve()}
-    best = {"A": {}, "B": {}}
-    walls = {"A": {}, "B": {}}
-    busy = {"A": {}, "B": {}}
+    run, read, keys = _MODES[mode]
+    cycles = int(args[2]) if len(args) == 3 else 1
+    roots = {"A": pathlib.Path(args[0]).resolve(),
+             "B": pathlib.Path(args[1]).resolve()}
+    found = {label: {key: {} for key in keys} for label in roots}
     for label in "ABBA" * cycles:
         root = roots[label]
-        proc = subprocess.run([sys.executable, "-c", _RUN.format(root=str(root))],
+        proc = subprocess.run([sys.executable, "-c", run.format(root=str(root))],
                               cwd=root, capture_output=True, text=True)
         for line in proc.stdout.splitlines():
             print(f"{label} {line}")
-            hit = _STEP.match(line)
-            if hit:
-                best[label].setdefault(hit.group(1), []).append(
-                    float(hit.group(3)))
-                walls[label].setdefault(hit.group(1), []).extend(
-                    float(w) for w in hit.group(2).split(","))
-            hit = _BUSY.match(line)
-            if hit:
-                busy[label].setdefault(hit.group(1), []).append(
-                    float(hit.group(2)))
+            read(line, found[label])
         if proc.returncode != 0:
             print(proc.stderr[-4000:], file=sys.stderr)
             print(f"{label} ({root}) exited {proc.returncode}", file=sys.stderr)
             return 1
-    print(json.dumps({"best_step_s": best, "step_walls_s": walls,
-                      "device_busy_s": busy,
+    print(json.dumps({**{key: {label: found[label][key] for label in roots}
+                         for key in keys},
                       "roots": {k: str(v) for k, v in roots.items()}}))
     return 0
 
