@@ -61,8 +61,9 @@ raises on failure:
    K5 twice, bit-equal;
 12. LSH train slice: three longform_8k.yaml steps at full width (batch 2,
    ragged up to 1024 tokens and 8192 frames, bf16): finite loss, grad norm
-   and gradients; per step 12 launches of K4 and K5 and 6 of K1 and each
-   K3 kernel; K4's launches counted by shape;
+   and gradients; per step 12 launches of K4, K5 and K7's path entry (the
+   bucket sort) and 6 of K1 and each K3 kernel; K4's and K7's launches
+   counted by shape;
 13. LSH train card-vs-CPU: one float32 step at 2 + 2 layers from the same
    weights, batch and rotations: the share of equal buckets, then loss,
    every gradient and the parameters after the update;
@@ -83,9 +84,9 @@ raises on failure:
    full width (reversible residuals, LSH in both stacks, batch 8, ragged
    up to 256 tokens and 1024 frames, bf16) with K6 on every FFN: finite
    loss, grad norm and nonzero gradients, per step 36 launches of K6, 24
-   of K4, 12 of K5, 12 of K1 and 6 of each K3 kernel, K4's and K6's
-   counted by shape; then three steps as shipped (the chunked FFN), with no
-   K6 launch;
+   of K4 and of K7's path entry (forward and recompute), 12 of K5, 12 of
+   K1 and 6 of each K3 kernel, K4's, K6's and K7's counted by shape; then
+   three steps as shipped (the chunked FFN), with no K6 launch;
 17. reversible card-vs-CPU: one float32 step at 2 + 2 layers, the card
    with K6, the CPU with its plain version, buckets counted; then
    reversible against plain residuals on the card with dropout on;
@@ -100,22 +101,32 @@ raises on failure:
    activation, bf16 torch.matmul), with the runtime's resources of its
    kernels; K4 at serving_fast's two LSH shapes against its plain version
    and bound; each with its launches a step;
-19. kernels-sort: K7 (bitonic column sort) and K8 (row gather) against
-   their plain versions and ``torch.sort`` / ``index_select``, exactly,
-   twice bit-equal, at the sort probe's shapes (its own, longform_8k's
-   and serving_fast's LSH keys and packed gathers), a wide tile, the most
-   rows, narrow rows of 10 and 12 bytes and 200-byte bf16 rows;
+19. kernels-sort: K7's path entry (the LSH bucket sort) against its plain
+   version at the LSH train steps' four bucket shapes, lengths that are
+   not a power of two and the most keys, with padded rows; K7's column
+   entry (bitonic column sort) and K8 (row gather) against their plain
+   versions and ``torch.sort`` / ``index_select``; all exactly, twice
+   bit-equal; the column entry and K8 at the sort probe's shapes (its own,
+   longform_8k's and serving_fast's LSH keys and packed gathers), a wide
+   tile, the most rows, narrow rows of 10 and 12 bytes and 200-byte bf16
+   rows;
 20. sort probe: ``rtts_torch.probes.probe_vmem_sort.bench()`` (K7 and K8
    against the library calls and the LSH path's own sort and gather, the
    one-hot permutation, the two ``sort_gather`` modes, the sort/gather
    share of a longform and a serving_fast train step, the verdict), with
    the launch counts of K7 and K8 read around it; then
    ``lsh_attention_core`` with ``sort_gather: onehot`` against ``take`` at
-   serving_fast's shape, forward and backward, f32 and bf16.
+   serving_fast's shape, forward and backward, f32 and bf16; then K7's path
+   entry at the four bucket shapes against its plain version, one
+   ``torch.sort`` and its bound, and one CTA a row against a 2-CTA cluster
+   a row on 64 rows of 1024 to 32768 keys.
 
 Prints a JSON line of per-kernel results, each entry at one shape (K1 at
 three: ``flash`` at serving, ``flash_train`` at base.yaml's decoder,
-``flash_cross`` at the longform cross-attention): time by the events loop,
+``flash_cross`` at the longform cross-attention; K7 at two:
+``sort_by_bucket``, its path entry, at the longform decoder's buckets,
+``bitonic_sort``, its column entry, at the probe's longform keys): time by
+the events loop,
 device time from ``torch.profiler``'s kernel events, plain time, bound,
 library time where one PyTorch call computes the same function, launches
 on the main path; and, last, the JSON result line.
@@ -129,6 +140,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import functools
 import json
 import re
 import subprocess
@@ -147,10 +159,13 @@ from rtts_torch.models import reformer_tts as M
 from rtts_torch.models import squeezewave as SW
 from rtts_torch.models import stack as TS
 from rtts_torch.ops import _build
+from rtts_torch.ops import bitonic_sort as BS
 from rtts_torch.ops import chunked_ffn as CF
 from rtts_torch.ops import lsh_attention as LA
 from rtts_torch.ops.bitonic_sort import (MAX_ROWS, bitonic_sort_cols,
-                                         bitonic_sort_cols_reference)
+                                         bitonic_sort_cols_reference,
+                                         sort_by_bucket,
+                                         sort_by_bucket_reference)
 from rtts_torch.ops.chunked_ffn import ffn_fused, ffn_fused_reference
 from rtts_torch.ops.depthwise_conv import (depthwise_conv1d,
                                            depthwise_conv1d_reference)
@@ -1369,9 +1384,10 @@ def phase_kernels_lsh():
     return main
 
 
-_LSH_KERNELS = (lsh_attend_fwd, lsh_attend_bwd)
-# launches of K4 (by q's shape) and K6 (by x's) over a train phase's three
-# steps, recorded by phases 12 and 16 for the timing phases
+_LSH_KERNELS = (lsh_attend_fwd, lsh_attend_bwd, sort_by_bucket)
+# launches of K4 (by q's shape), K6 (by x's) and K7's path entry (by the
+# buckets') over a train phase's three steps, recorded by phases 12 and 16
+# for the timing phases
 SHAPE_LAUNCHES = {}
 
 
@@ -1403,16 +1419,18 @@ def _launches_per_step(kernel: str, shape) -> float:
 
 def _lsh_counts():
     return {"lsh_attend": lsh_attend_fwd.launches,
-            "lsh_attend_bwd": lsh_attend_bwd.launches}
+            "lsh_attend_bwd": lsh_attend_bwd.launches,
+            "sort_by_bucket": sort_by_bucket.launches}
 
 
 def phase_train_lsh():
     """Three longform_8k.yaml train steps at full width (b2, ragged up to
     1024 tokens and 8192 frames, bf16): finite loss, grad norm and
-    gradients; per step 12 launches of K4 and K5 (6 encoder + 6 decoder
-    LSH self-attention layers) and 6 of K1 and of each K3 kernel (the
-    decoder's cross-attention).  Returns the model and the launch counts
-    of K4, K5 and K1 (as "flash_cross")."""
+    gradients; per step 12 launches of K4, K5 and K7's path entry (6
+    encoder + 6 decoder LSH self-attention layers) and 6 of K1 and of each
+    K3 kernel (the decoder's cross-attention); K4's and K7's counted by
+    shape.  Returns the model and the launch counts of K4, K5, K7 and K1
+    (as "flash_cross")."""
     cfg = train_config(base=LONGFORM_CONFIG)
     torch.cuda.reset_peak_memory_stats()
     model, state, step_fn = _trainer(cfg, "cuda")
@@ -1424,7 +1442,8 @@ def phase_train_lsh():
     for fn in _LSH_KERNELS:
         fn.launches = 0
     t0 = time.perf_counter()
-    with _shape_tally(LA, "lsh_attend_fwd") as k4_shapes:
+    with _shape_tally(LA, "lsh_attend_fwd") as k4_shapes, \
+            _shape_tally(BS, "sort_by_bucket") as k7_shapes:
         steps = [step_fn(model, state, batch,
                          step_generator(SEED_TRAIN, step, "cuda"), step,
                          return_grads=True) for step in range(3)]
@@ -1432,6 +1451,7 @@ def phase_train_lsh():
     dt = time.perf_counter() - t0
     launches = {**_train_counts(), **_lsh_counts()}
     SHAPE_LAUNCHES["lsh_attend"] = k4_shapes
+    SHAPE_LAUNCHES["sort_by_bucket"] = k7_shapes
     for step, (metrics, grads) in enumerate(steps):
         _check_step(cfg, metrics, grads, names, f"LSH train step {step}")
         print(f"[train-lsh] step {step}: loss {float(metrics['loss']):.6f}, "
@@ -1440,8 +1460,10 @@ def phase_train_lsh():
           f"{list(LSH_TOKEN_LENS)} frames {list(LSH_FRAME_LENS)} bf16: 3 steps "
           f"in {dt:.2f} s (the first one cold); peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
-          f"{launches}; K4's by (B, H, chunks, c, dh): {k4_shapes}")
+          f"{launches}; K4's by (B, H, chunks, c, dh): {k4_shapes}; K7's "
+          f"by the buckets' (B, H, nh, L): {k7_shapes}")
     want = {"lsh_attend": 3 * n_lsh, "lsh_attend_bwd": 3 * n_lsh,
+            "sort_by_bucket": 3 * n_lsh,
             "flash_train": 3 * n_cross, "flash_bwd_dkv": 3 * n_cross,
             "flash_bwd_dq": 3 * n_cross}
     _require(launches == want, f"expected launches {want} over 3 steps, got "
@@ -1751,7 +1773,8 @@ def phase_train_serving_fast():
         _reset_all_counts()
         t0 = time.perf_counter()
         with _shape_tally(LA, "lsh_attend_fwd") as k4_shapes, \
-                _shape_tally(CF, "ffn_fused") as k6_shapes:
+                _shape_tally(CF, "ffn_fused") as k6_shapes, \
+                _shape_tally(BS, "sort_by_bucket") as k7_shapes:
             steps = [step_fn(model, state, batch,
                              step_generator(SEED_TRAIN, step, "cuda"), step,
                              return_grads=True) for step in range(3)]
@@ -1762,6 +1785,7 @@ def phase_train_serving_fast():
         if k6:
             SHAPE_LAUNCHES["serving_fast lsh_attend"] = k4_shapes
             SHAPE_LAUNCHES["ffn_fused"] = k6_shapes
+            SHAPE_LAUNCHES["serving_fast sort_by_bucket"] = k7_shapes
         for step, (metrics, grads) in enumerate(steps):
             _check_step(cfg, metrics, grads, names,
                         f"serving_fast {what} step {step}")
@@ -1769,11 +1793,12 @@ def phase_train_serving_fast():
                   f"{float(metrics['loss']):.6f}, grad_norm "
                   f"{float(metrics['grad_norm']):.6f}")
         # per step: each FFN in the forward and again in the reconstruction;
-        # each LSH layer K4 in the forward and in the recompute, K5 once;
-        # each cross-attention K1 twice, each K3 kernel once
+        # each LSH layer K4 and K7 in the forward and in the recompute (from
+        # the cached buckets), K5 once; each cross-attention K1 twice, each
+        # K3 kernel once
         per_step = {"flash_train": 2 * n_cross, "flash_bwd_dkv": n_cross,
                     "flash_bwd_dq": n_cross, "lsh_attend": 2 * n_lsh,
-                    "lsh_attend_bwd": n_lsh,
+                    "lsh_attend_bwd": n_lsh, "sort_by_bucket": 2 * n_lsh,
                     "ffn_fused": 2 * n_ffn if k6 else 0}
         print(f"[train-rev] serving_fast.yaml {what} b{len(TRAIN_TOKEN_LENS)} "
               f"tokens {list(TRAIN_TOKEN_LENS)} frames "
@@ -1782,7 +1807,7 @@ def phase_train_serving_fast():
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
               f"per step {({k: v / 3 for k, v in launches.items()})}; over 3 "
               f"steps K4's by (B, H, chunks, c, dh) {k4_shapes}, K6's by "
-              f"(rows, d) {k6_shapes}")
+              f"(rows, d) {k6_shapes}, K7's by (B, H, nh, L) {k7_shapes}")
         want = {k: 3 * v for k, v in per_step.items()}
         _require(launches == want, f"serving_fast {what}: expected launches "
                  f"{want} over 3 steps, got {launches}")
@@ -2090,6 +2115,39 @@ K8_CASES = {
     "d5 bf16 (10-byte rows), repeats": (1000, 5, 2500, torch.bfloat16),
     "d100 bf16 (200-byte rows)": (4096, 100, 4096, torch.bfloat16),
 }
+SORT_PATH_CASES = {
+    # name: (the buckets' shape, batch rows padded whole); each batch row
+    # else padded from a random length on (the overflow bucket)
+    "longform decoder (2, 8, 4, 8192)": ((2, 8, 4, 8192), 0),
+    "longform encoder (2, 8, 4, 1024)": ((2, 8, 4, 1024), 0),
+    "serving_fast decoder (8, 8, 4, 1024), one row padded whole": (
+        (8, 8, 4, 1024), 1),
+    "serving_fast encoder (8, 8, 4, 256), one row padded whole": (
+        (8, 8, 4, 256), 1),
+    "L 960 (2, 3, 2, 960)": ((2, 3, 2, 960), 0),
+    "L 5000, one CTA a row (3, 2, 25, 5000)": ((3, 2, 25, 5000), 0),
+    f"most keys (2, 1, 2, {MAX_ROWS})": ((2, 1, 2, MAX_ROWS), 0),
+}
+_SORT_LONGFORM = list(SORT_PATH_CASES)[0]
+# the four shapes the LSH train steps give K7's path entry
+SORT_PATH_SHAPES = list(SORT_PATH_CASES)[:4]
+
+
+def _bucket_case(shape, masked_rows=0, seed=SEED_DATA, device="cuda"):
+    """Buckets (B, H, nh, L) int64 in [0, nb] as ``hash_vectors`` gives
+    them, nb the auto count at chunk 64 and itself the overflow bucket of
+    padding: each batch row valid up to a random length of at least L / 2,
+    the last ``masked_rows`` padded whole."""
+    g = torch.Generator().manual_seed(seed)
+    b, l = shape[0], shape[-1]
+    nb = TL.auto_num_buckets(l, 64)
+    buckets = torch.randint(0, nb, shape, generator=g)
+    lens = torch.randint(l // 2, l + 1, (b,), generator=g)
+    lens[b - masked_rows:] = 0
+    pad = torch.arange(l)[None, :] >= lens[:, None]
+    return torch.where(pad[:, None, None, :], nb, buckets).to(device)
+
+
 # onehot against take on the card, relative to max(1, |take|).  f32: the
 # forward bit-equal (one matched element per one-hot row, and the combine's
 # rounded products summed round by round in both modes); the gradients
@@ -2128,10 +2186,34 @@ def _k8_case(rows, d, m, dtype):
 
 
 def phase_kernels_sort():
-    """K7 and K8 against their plain versions and the library calls at the
-    sort probe's shapes: equal (they move values; tolerance 0), and twice
-    bit-equal.  Returns their max abs errors at the longform shapes."""
+    """K7's path entry against its plain version at the LSH train steps'
+    four shapes, a length that is not a power of two, one CTA a row and the
+    most keys; K7's column entry and K8 against their plain versions and
+    the library calls at the sort probe's shapes: equal (they move values;
+    tolerance 0), and twice bit-equal.  Returns their max abs errors at the
+    longform shapes."""
     errs = {}
+    for name, (shape, masked) in SORT_PATH_CASES.items():
+        buckets = _bucket_case(shape, masked)
+        got, again = sort_by_bucket(buckets), sort_by_bucket(buckets)
+        torch.cuda.synchronize()
+        want = sort_by_bucket_reference(buckets)
+        err = max(_abs_err(g, w) for g, w in zip(got, want))
+        ok = err == 0 and all(torch.equal(g, w) and g.dtype == w.dtype
+                              for g, w in zip(got, want))
+        same = all(torch.equal(g, a) for g, a in zip(got, again))
+        route = BS.sort_route(buckets.numel() // shape[-1], shape[-1],
+                              BS._sm_count(0))
+        print(f"[kernels-sort] K7 sort_by_bucket {name} (CTAs a row, rows a "
+              f"block: {route}): max abs err {err:g} (tol 0) over "
+              f"sorted_pos, undo_idx, sorted_buckets; equal, int64, {ok}; "
+              f"twice bit-equal {same}")
+        _require(ok, f"K7 sort_by_bucket {name} disagrees with its plain "
+                 "version")
+        _require(same, f"K7 sort_by_bucket {name} is not deterministic")
+        if name == _SORT_LONGFORM:
+            errs["sort_by_bucket"] = err
+        del buckets, got, again, want
     for name, case in K7_CASES.items():
         x = _k7_case(*case)
         got, again = bitonic_sort_cols(x), bitonic_sort_cols(x)
@@ -2185,11 +2267,83 @@ def _onehot_vs_take(dtype):
     return result
 
 
+def _sort_on_route(buckets, cluster: int):
+    """K7's path entry with ``cluster`` CTAs a row and one row a block,
+    whatever ``sort_route`` would pick."""
+    route = BS.sort_route
+    BS.sort_route = lambda rows, l, sms: (cluster, 1)
+    try:
+        return sort_by_bucket(buckets)
+    finally:
+        BS.sort_route = route
+
+
+def _sort_path_times():
+    """K7's path entry at the LSH train steps' four shapes against its
+    plain version (``torch.sort`` + ``torch.argsort``), one
+    ``torch.sort(keys, dim=-1)`` (values and indices, without the inverse)
+    and its bound, with its launches a step.  Returns the times at the
+    longform decoder's shape."""
+    times = None
+    for name in SORT_PATH_SHAPES:
+        shape, masked = SORT_PATH_CASES[name]
+        buckets = _bucket_case(shape, masked)
+        l, rows = shape[-1], buckets.numel() // shape[-1]
+        keys = buckets * l + torch.arange(l, device="cuda")
+        fns = (lambda: sort_by_bucket(buckets),
+               lambda: sort_by_bucket_reference(buckets),
+               lambda: torch.sort(keys, dim=-1))
+        ms = _interleaved_ms(fns, 100)
+        dev = [_device_ms(fns[0], 50, ("BucketIO",)),
+               _device_ms(fns[1], 50), _device_ms(fns[2], 50)]
+        # bytes: the int64 buckets in, three int64 outputs; operations: the
+        # compare-exchanges over the padded rows at the f32 rate outside
+        # the tensor cores (the card's table has no integer row)
+        work = probe.sort_bound(1 << (l - 1).bit_length(), rows)
+        bound = _bound(rows * l * 4 * 8, work["ops"], torch.float32)
+        per_step = (_launches_per_step("sort_by_bucket", shape)
+                    or _launches_per_step("serving_fast sort_by_bucket",
+                                          shape))
+        print(f"[sort-path] K7 sort_by_bucket {name}: {ms[0]:.4f} ms (device "
+              f"{dev[0]:.4f}; {per_step:g} launches a step); plain, torch.sort "
+              f"+ argsort, {ms[1]:.4f} ms (device {dev[1]:.4f}); "
+              f"torch.sort(keys, dim=-1) {ms[2]:.4f} ms (device "
+              f"{dev[2]:.4f}); bound {bound['bound_ms']:.4f} ms "
+              f"({bound['bound_by']})")
+        if times is None:
+            times = dict(ms=ms[0], plain_ms=ms[1], device_ms=dev[0],
+                         library_ms=ms[2], **bound)
+        del buckets, keys
+    return times
+
+
+def _sort_route_sweep(lengths=(1024, 2048, 4096, 8192, 16384, MAX_ROWS)):
+    """K7's path entry on 64 rows (the longform steps' B H nh) of each
+    length, one CTA a row against a 2-CTA cluster a row: device time of
+    each, equal outputs, and the CTAs a row ``sort_route`` takes."""
+    for l in lengths:
+        buckets = _bucket_case((2, 8, 4, l))
+        want = sort_by_bucket_reference(buckets)
+        dev = []
+        for cluster in (1, 2):
+            got = _sort_on_route(buckets, cluster)
+            _require(all(torch.equal(g, w) for g, w in zip(got, want)),
+                     f"K7 sort_by_bucket (2, 8, 4, {l}) on {cluster} CTAs a "
+                     "row disagrees with its plain version")
+            run = functools.partial(_sort_on_route, buckets, cluster)
+            dev.append(_device_ms(run, 50, ("BucketIO",)))
+        print(f"[sort-path] K7 sort_by_bucket (2, 8, 4, {l}): device one CTA "
+              f"a row {dev[0]:.4f} ms, a 2-CTA cluster a row {dev[1]:.4f} ms; "
+              f"the route takes {BS.sort_route(64, l, BS._sm_count(0))[0]}")
+        del buckets, want
+
+
 def phase_sort_probe():
     """The probe's bench() with K7's and K8's counts set to 0 before it and
     read after it (each launched at least once); then onehot against take
-    on the card.  Returns the launch counts and the kernels' times at the
-    longform shapes."""
+    on the card; then K7's path entry at the LSH train steps' shapes.
+    Returns the launch counts of the column entry and K8 and the kernels'
+    times at the longform shapes."""
     torch.backends.cuda.matmul.allow_tf32 = False
     bitonic_sort_cols.launches = row_gather.launches = 0
     result = probe.bench()
@@ -2223,8 +2377,7 @@ def phase_sort_probe():
     # their device time at the same shapes (after the launch counts above)
     keys = _k7_case(*K7_CASES["longform L8192 C64 packed keys"])
     x, idx = _k8_case(*K8_CASES["longform 16 x 8192 rows d128 bf16, 4 rounds"])
-    dev = [_device_ms(lambda: bitonic_sort_cols(keys), 20,
-                      ("bitonic_cols_kernel",)),
+    dev = [_device_ms(lambda: bitonic_sort_cols(keys), 20, ("ColumnIO",)),
            _device_ms(lambda: row_gather(x, idx), 20, ("row_gather_kernel",))]
     print(f"[sort-probe] device time at the longform shapes: K7 "
           f"{dev[0]:.4f} ms, K8 {dev[1]:.4f} ms")
@@ -2238,7 +2391,9 @@ def phase_sort_probe():
              "row_gather": dict(ms=k8["K8"], plain_ms=k8["plain"],
                                 device_ms=dev[1],
                                 library_ms=k8["index_select"],
-                                **_bound(k8["bytes"], 0, torch.bfloat16))}
+                                **_bound(k8["bytes"], 0, torch.bfloat16)),
+             "sort_by_bucket": _sort_path_times()}
+    _sort_route_sweep()
     return launches, times
 
 
@@ -2291,8 +2446,10 @@ def main() -> int:
     # computes its function (library_ms); LSH kernels: launches of the
     # three longform train steps, times at the longform decoder shape; K6:
     # launches of the three serving_fast steps with K6, times at the
-    # decoder's FFN shape; K7 and K8: launches of the sort probe's run,
-    # times at the longform shapes
+    # decoder's FFN shape; K7's path entry ("sort_by_bucket"): launches of
+    # the three longform train steps, times at the longform decoder's
+    # buckets; K7's column entry ("bitonic_sort") and K8: launches of the
+    # sort probe's run, times at the longform shapes
     launches.update(train_launches)
     launches.update(lsh_launches)
     launches.update(ffn_launches)
@@ -2321,6 +2478,8 @@ def main() -> int:
                            "rtts/ops/lsh_attention.py:158"),
         "ffn_fused": ("rtts_torch/csrc/ffn_fused.cu",
                       "rtts/ops/chunked_ffn.py:34"),
+        "sort_by_bucket": ("rtts_torch/csrc/bitonic_sort.cu",
+                           "scripts/probe_vmem_sort.py:45"),
         "bitonic_sort": ("rtts_torch/csrc/bitonic_sort.cu",
                          "scripts/probe_vmem_sort.py:45"),
         "row_gather": ("rtts_torch/csrc/row_gather.cu",

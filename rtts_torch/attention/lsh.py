@@ -10,11 +10,13 @@ Port of ``rtts/attention/lsh.py``, with its semantics:
   (mixed-radix) for a list of bucket factors; padding goes to the overflow
   bucket nb, so key validity falls out of the sort.
 - the sort key bucket * L + position is unique, so any sort gives the
-  stable order; the gathers into and out of sorted order have an
-  inverse-gather backward (never a scatter-add, which is atomic and
-  nondeterministic on the card).  ``sort_gather: onehot`` permutes with
-  one-hot matmuls instead, the combine weights folded into the unsort
-  matmul, as the reference does; its backward is autograd of the matmuls.
+  stable order: K7's path entry (``rtts_torch/ops/bitonic_sort.py``) on
+  the card, ``torch.sort`` + ``argsort`` on the CPU; the gathers into and
+  out of sorted order have an inverse-gather backward (never a
+  scatter-add, which is atomic and nondeterministic on the card).
+  ``sort_gather: onehot`` permutes with one-hot matmuls instead, the
+  combine weights folded into the unsort matmul, as the reference does;
+  its backward is autograd of the matmuls.
 - the chunk attend is K4/K5 (``rtts_torch/ops/lsh_attention.py``) on the
   card, or ``plain_attend`` (K4's plain forward with the reference's
   exp(s - lse) probabilities, and the attention-probs dropout) when
@@ -42,6 +44,7 @@ import torch
 from rtts_torch.attention.full import (Attention, _len_norm, _merge_heads,
                                        _split_heads, shared_qk_self_attention)
 from rtts_torch.config import AttentionConfig
+from rtts_torch.ops import bitonic_sort as BS
 from rtts_torch.ops.flash_attention import resolve_flash_impl
 from rtts_torch.ops.lsh_attention import (  # noqa: F401 (re-exported)
     dropout_lane, lsh_attend_chunks_kernel, lsh_attend_chunks_reference,
@@ -117,12 +120,9 @@ def _sort_by_bucket(buckets: torch.Tensor
 
     Per round, sort by the unique key bucket * L + position (the stable
     sort: ties by original position).  sorted_pos[..., s] is the original
-    position of sorted slot s; undo_idx is the inverse permutation."""
-    l = buckets.shape[-1]
-    pos = torch.arange(l, device=buckets.device)
-    sorted_keys, sorted_pos = torch.sort(buckets * l + pos, dim=-1)
-    undo_idx = torch.argsort(sorted_pos, dim=-1)
-    return sorted_pos, undo_idx, sorted_keys // l
+    position of sorted slot s; undo_idx is the inverse permutation.  K7's
+    path entry on the card (one launch), its plain version on the CPU."""
+    return BS.sort_by_bucket(buckets)
 
 
 class _PermRowsTake(torch.autograd.Function):

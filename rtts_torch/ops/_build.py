@@ -56,6 +56,9 @@ SIGNATURES = {
     "rtts_ffn_fused": [_P] * 9 + [_I] * 8 + [_F, _P],
     # x, out; n, cols, columns per block, stream
     "rtts_bitonic_sort_cols": [_P, _P, _I, _I, _I, _P],
+    # buckets, sorted_pos, undo_idx, sorted_buckets; rows, L, CTAs a row,
+    # rows a block, stream
+    "rtts_sort_by_bucket": [_P] * 4 + [_I] * 4 + [_P],
     # x, idx, out; m, rows, row bytes, vector bytes, stream
     "rtts_row_gather": [_P, _P, _P, _I, _I, _I, _I, _P],
     # what the runtime reports of the bf16 kernels (``resources``): dh

@@ -15,9 +15,10 @@ the kernels K7 and K8:
 the kernels, on the CPU their plain versions.  ``bench()`` runs on the card
 (CUDA events after a warm-up, each candidate timed forward then reversed):
 
-A. K7 against ``torch.sort`` (values), ``torch.argsort`` + ``take_along_dim``
-   and the LSH path's ``_sort_by_bucket`` (its ``torch.sort`` +
-   ``torch.argsort`` on the (B, H, nh, L) buckets);
+A. K7's column entry against ``torch.sort`` (values), ``torch.argsort`` +
+   ``take_along_dim``, the LSH path's ``_sort_by_bucket`` (K7's path entry
+   on the (B, H, nh, L) buckets) and its torch route
+   ``sort_by_bucket_reference`` (``torch.sort`` + ``torch.argsort``);
 B. K8 against the one-hot bf16 matmul (f32 accumulation), ``index_select``
    and the LSH path's ``_perm_rows_take``;
 C. the LSH core's ``sort_gather`` modes, ``onehot`` against ``take``,
@@ -29,7 +30,8 @@ gathers of (16, 32768, 128) bf16 packed qk + v) and serving_fast.yaml's (b8
 h8 nh4 L1024: 256 columns, gathers of (64, 4096, 128)).  Then it profiles
 one train step of each config and prints the verdict: a fused sort + attend
 can save at most the share of the step's device time that ``aten::sort``,
-``aten::argsort`` and ``aten::gather`` take, forward and backward.
+``aten::argsort``, ``aten::gather`` and K7's path entry take, forward and
+backward.
 
     python -m rtts_torch.probes.probe_vmem_sort            # bench, on the card
     python -m rtts_torch.probes.probe_vmem_sort --check    # the kernels
@@ -49,7 +51,8 @@ from rtts_torch.attention import lsh as TL
 from rtts_torch.config import AttentionConfig, Config, from_dict
 from rtts_torch.models import reformer_tts as M
 from rtts_torch.ops.bitonic_sort import (bitonic_sort_cols,
-                                         bitonic_sort_cols_reference)
+                                         bitonic_sort_cols_reference,
+                                         sort_by_bucket_reference)
 from rtts_torch.ops.row_gather import row_gather, row_gather_reference
 from rtts_torch.text import frontend_vocab_size
 from rtts_torch.train.optim import make_optimizer
@@ -106,6 +109,9 @@ STEP_MODELS = {
         (8, 256, 1024)),
 }
 SORT_GATHER_OPS = ("aten::sort", "aten::argsort", "aten::gather")
+# K7's path entry, launched through ctypes (no aten op holds it): by the
+# name of its kernels
+K7_PATH_KERNEL = "BucketIO"
 # a fused sort + attend is a large kernel to write and keep; below this
 # share of the step's device time it cannot pay for itself
 PAYS_MIN_SHARE = 0.05
@@ -204,6 +210,7 @@ def bench_sort(name: str, iters: int = 20) -> dict:
         "argsort+take": lambda: torch.take_along_dim(
             keys, torch.argsort(keys, dim=0), dim=0),
         "_sort_by_bucket": lambda: TL._sort_by_bucket(buckets),
+        "sort_by_bucket_reference": lambda: sort_by_bucket_reference(buckets),
     }, iters)
     work = sort_bound(*keys.shape)
     bound = _bound_ms(work["bytes"], work["ops"])
@@ -211,8 +218,10 @@ def bench_sort(name: str, iters: int = 20) -> dict:
           f"{work['compare_exchanges']} compare-exchanges): K7 "
           f"{ms['K7']:.4f} ms | plain {ms['plain']:.4f} ms | torch.sort "
           f"{ms['torch.sort']:.4f} ms | argsort+take "
-          f"{ms['argsort+take']:.4f} ms | _sort_by_bucket (sort + argsort of "
-          f"{tuple(buckets.shape)}) {ms['_sort_by_bucket']:.4f} ms | bound "
+          f"{ms['argsort+take']:.4f} ms | _sort_by_bucket (K7's path entry "
+          f"on {tuple(buckets.shape)}) {ms['_sort_by_bucket']:.4f} ms | "
+          f"sort_by_bucket_reference (sort + argsort) "
+          f"{ms['sort_by_bucket_reference']:.4f} ms | bound "
           f"{bound:.4f} ms (bytes)", flush=True)
     return dict(ms, bound_ms=bound, **work)
 
@@ -338,10 +347,11 @@ def _train_step(name: str):
     return step
 
 
-def sort_gather_share(events, busy_us: float) -> dict:
+def sort_gather_share(events, busy_us: float, k7_us: float = 0.0) -> dict:
     """Device time (us) of each of SORT_GATHER_OPS in a profile's function
     events, counting an op only where no other of them encloses it (argsort
-    calls sort), and its share of ``busy_us``."""
+    calls sort), with ``k7_us`` of K7's path entry, and its share of
+    ``busy_us``."""
     def enclosed(e):
         p = e.cpu_parent
         while p is not None:
@@ -354,6 +364,7 @@ def sort_gather_share(events, busy_us: float) -> dict:
     for e in events:
         if e.name in SORT_GATHER_OPS and not enclosed(e):
             by_op[e.name] += e.device_time_total
+    by_op["K7 sort_by_bucket"] = k7_us
     total = sum(by_op.values())
     return {"by_op_us": by_op, "us": total, "busy_us": busy_us,
             "share": total / busy_us if busy_us else float("nan")}
@@ -370,14 +381,17 @@ def step_share(name: str) -> dict:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         step()
-    busy = sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA)
+    device = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in device)
     if busy <= 0:
         raise RuntimeError("probe_vmem_sort: the profiler saw no device work")
-    share = sort_gather_share(prof.events(), busy)
+    k7 = sum(e.self_device_time_total for e in device
+             if K7_PATH_KERNEL in e.key)
+    share = sort_gather_share(prof.events(), busy, k7)
     b, n_tok, frames = STEP_MODELS[name][1]
     print(f"D. {name} train step b{b} x {n_tok} tokens x {frames} frames "
-          f"bf16: device busy {busy / 1e3:.3f} ms; sort/argsort/gather "
+          f"bf16: device busy {busy / 1e3:.3f} ms; sort/argsort/gather/K7 "
           f"{share['us'] / 1e3:.3f} ms = {share['share']:.2%} ("
           + ", ".join(f"{k} {v / 1e3:.3f} ms"
                       for k, v in share["by_op_us"].items()) + ")",
@@ -404,21 +418,23 @@ def bench() -> dict:
 
 def verdict(result: dict) -> dict:
     """A fused sort + attend saves at most the sort + gather share of a
-    step, and only where both primitives beat the LSH path's own ops."""
+    step, and only where both primitives beat the LSH path's torch ops (the
+    sort's: ``sort_by_bucket_reference``, since the path's own sort is K7's
+    path entry)."""
     lf_sort = result["sort"]["longform b2 h8 nh4 L8192"]
     lf_gather = result["gather"]["longform (16, 32768, 128) bf16"]
-    k7_gain = lf_sort["_sort_by_bucket"] / lf_sort["K7"]
+    k7_gain = lf_sort["sort_by_bucket_reference"] / lf_sort["K7"]
     k8_gain = lf_gather["_perm_rows_take"] / lf_gather["K8"]
     shares = {name: s["share"] for name, s in result["share"].items()}
     pays = (max(shares.values()) >= PAYS_MIN_SHARE and k7_gain > 1
             and k8_gain > 1)
-    print(f"verdict (H100): sort/argsort/gather take "
+    print(f"verdict (H100): sort/argsort/gather/K7 take "
           + ", ".join(f"{v:.2%} of the {k} step" for k, v in shares.items())
-          + f"'s device time; at the longform shape the LSH path's sort takes "
-          f"{k7_gain:.2f}x K7's time and its gather {k8_gain:.2f}x K8's; a "
-          f"fused sort + attend {'would' if pays else 'would not'} pay (it "
-          f"needs a share of at least {PAYS_MIN_SHARE:.0%} and both "
-          f"primitives faster than the path's)", flush=True)
+          + f"'s device time; at the longform shape the torch sort takes "
+          f"{k7_gain:.2f}x K7's time and the path's gather {k8_gain:.2f}x "
+          f"K8's; a fused sort + attend {'would' if pays else 'would not'} "
+          f"pay (it needs a share of at least {PAYS_MIN_SHARE:.0%} and both "
+          f"primitives faster than the torch ops)", flush=True)
     return {"shares": shares, "k7_gain": k7_gain, "k8_gain": k8_gain,
             "pays": pays}
 

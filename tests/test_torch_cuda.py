@@ -8,8 +8,13 @@ so on a machine without JAX they run with
 import pytest
 import torch
 
+from rtts_torch.attention import lsh as TL
+from rtts_torch.config import AttentionConfig
+from rtts_torch.ops import bitonic_sort as BS
 from rtts_torch.ops.bitonic_sort import (MAX_ROWS, bitonic_sort_cols,
-                                         bitonic_sort_cols_reference)
+                                         bitonic_sort_cols_reference,
+                                         sort_by_bucket,
+                                         sort_by_bucket_reference)
 from rtts_torch.ops.chunked_ffn import (chunked_ffn_fused, ffn_fused,
                                         ffn_fused_reference)
 from rtts_torch.ops.depthwise_conv import (depthwise_conv1d,
@@ -598,6 +603,98 @@ def test_bitonic_wrapper_raises_on_what_the_kernel_does_not_take(dev):
                                       device=dev))
     with pytest.raises(ValueError, match="int32"):
         bitonic_sort_cols(torch.zeros((64, 4), dtype=torch.int64, device=dev))
+
+
+def bucket_case(shape, dev, seed=0, masked_rows=0):
+    """Buckets (..., L) in [0, nb] as ``hash_vectors`` gives them (nb the
+    auto count at chunk 64, nb itself the overflow bucket of padding): a
+    ragged tail of each batch row padded, and the last ``masked_rows``
+    batch rows padded whole."""
+    g = torch.Generator().manual_seed(seed)
+    l = shape[-1]
+    nb = TL.auto_num_buckets(l, 64)
+    buckets = torch.randint(0, nb, shape, generator=g)
+    if len(shape) == 4:
+        lens = torch.randint(1, l + 1, (shape[0],), generator=g)
+        lens[: shape[0] - masked_rows].clamp_(min=l // 2)
+        lens[shape[0] - masked_rows:] = 0
+        pad = torch.arange(l)[None, :] >= lens[:, None]
+        buckets = torch.where(pad[:, None, None, :], nb, buckets)
+    return buckets.to(dev)
+
+
+SORT_SHAPES = [
+    (2, 8, 4, 8192),      # longform decoder
+    (2, 8, 4, 1024),      # longform encoder
+    (8, 8, 4, 1024),      # serving_fast decoder
+    (8, 8, 4, 256),       # serving_fast encoder
+    (2, 3, 2, 960), (1, 2, 1, 96), (3, 5), (7, 1), (4, 777), (1, 9000),
+    (1, 2, 1, MAX_ROWS), (3, 2, 25, 5000)]
+
+
+@pytest.mark.parametrize("masked_rows", [0, 1])
+@pytest.mark.parametrize("shape", SORT_SHAPES)
+def test_sort_by_bucket_kernel_equals_its_plain_version(dev, shape,
+                                                        masked_rows):
+    buckets = bucket_case(shape, dev, masked_rows=masked_rows)
+    before = sort_by_bucket.launches
+    got = sort_by_bucket(buckets)
+    again = sort_by_bucket(buckets)
+    torch.cuda.synchronize()
+    assert sort_by_bucket.launches == before + 2
+    want = sort_by_bucket_reference(buckets)
+    for g, a, w in zip(got, again, want):
+        assert g.dtype == torch.int64 and g.shape == buckets.shape
+        assert torch.equal(g, w)
+        assert torch.equal(g, a)
+
+
+@pytest.mark.parametrize("cluster", [1, 2])
+@pytest.mark.parametrize("shape", [(2, 8, 4, 8192), (64, 1024), (5, MAX_ROWS),
+                                   (2, 8, 4, 1000), (40, 16), (3, 5000)])
+def test_sort_by_bucket_kernel_on_both_routes(dev, monkeypatch, shape,
+                                              cluster):
+    """One CTA a row and a 2-CTA cluster a row, whatever the route would
+    take (the fewest rows a block that make whole warps): the same bits."""
+    def route(rows, l, sms):
+        p = max(1 << (l - 1).bit_length(), 8 * cluster)
+        return cluster, max(1, 32 // BS._threads_a_row(p // cluster))
+
+    monkeypatch.setattr(BS, "sort_route", route)
+    buckets = bucket_case(shape, dev, seed=3)
+    for g, w in zip(sort_by_bucket(buckets), sort_by_bucket_reference(buckets)):
+        assert torch.equal(g, w)
+
+
+def test_sort_by_bucket_takes_the_plain_version_past_max_rows(dev):
+    buckets = bucket_case((2, MAX_ROWS + 1), dev)
+    before = sort_by_bucket.launches
+    got = sort_by_bucket(buckets)
+    assert sort_by_bucket.launches == before
+    for g, w in zip(got, sort_by_bucket_reference(buckets)):
+        assert torch.equal(g, w)
+
+
+def test_sort_by_bucket_wrapper_raises_on_what_the_kernel_does_not_take(dev):
+    with pytest.raises(ValueError, match="int64"):
+        sort_by_bucket(torch.zeros((4, 8), dtype=torch.int32, device=dev))
+    with pytest.raises(ValueError, match="int64"):
+        sort_by_bucket(torch.zeros((), dtype=torch.int64, device=dev))
+
+
+def test_lsh_layer_forward_launches_k7_once(dev):
+    cfg = AttentionConfig(kind="lsh", num_heads=2, head_dim=64, num_hashes=2,
+                          chunk_length=64)
+    g = torch.Generator().manual_seed(0)
+    qk, v = (torch.randn(2, 2, 512, 64, generator=g).to(dev)
+             for _ in range(2))
+    mask = (torch.arange(512)[None, :] < torch.tensor([512, 300])[:, None])
+    before = sort_by_bucket.launches
+    out, buckets = TL.lsh_attention_core(
+        qk, v, cfg, mask.to(dev), True, torch.Generator(dev).manual_seed(0))
+    torch.cuda.synchronize()
+    assert sort_by_bucket.launches == before + 1
+    assert out.shape == qk.shape and bool(torch.isfinite(out).all())
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

@@ -102,10 +102,20 @@ def _heads(seed=0, b=2, h=2, l=64, d=16, pad=10):
     return qk, v, mask
 
 
-@pytest.mark.parametrize("num_buckets,n_hashes,masked", [
-    (8, 2, True), (8, 3, False), ([4, 6], 2, True)])
-def test_hash_and_sort_equal_jax(num_buckets, n_hashes, masked):
-    qk, _, mask = _heads()
+@pytest.mark.parametrize("num_buckets,n_hashes,masked,l,pad", [
+    pytest.param(8, 2, True, 64, 10, id="8-2-True"),
+    pytest.param(8, 3, False, 64, 10, id="8-3-False"),
+    pytest.param([4, 6], 2, True, 64, 10, id="num_buckets2-2-True"),
+    # lengths that are not a power of two, at the auto bucket counts of
+    # chunk 16 and 64; one round; one batch row masked whole
+    pytest.param(TL.auto_num_buckets(96, 16), 2, True, 96, 30, id="L96-c16"),
+    pytest.param(TL.auto_num_buckets(960, 64), 2, True, 960, 300,
+                 id="L960-c64"),
+    pytest.param(8, 1, True, 64, 10, id="nh1"),
+    pytest.param(8, 2, True, 64, 64, id="row-masked"),
+])
+def test_hash_and_sort_equal_jax(num_buckets, n_hashes, masked, l, pad):
+    qk, _, mask = _heads(l=l, pad=pad)
     mask = mask if masked else None
     rot_size = TL.total_buckets(num_buckets) if isinstance(num_buckets, int) \
         else sum(num_buckets)

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from rtts.attention import lsh as JL
 from rtts.config import load_yaml
 from rtts_torch.ops import bitonic_sort as K7
 from rtts_torch.ops import row_gather as K8
@@ -87,9 +88,96 @@ def test_bitonic_refuses_other_dtypes_and_ranks():
 @pytest.mark.parametrize("n,cols,sms,want", [
     (8192, 64, 132, 1), (4096, 128, 132, 1), (1024, 256, 132, 1),
     (1024, 2048, 132, 8), (1024, 528, 132, 4), (32768, 2048, 132, 1),
-    (8192, 2048, 132, 4), (64, 8, 1, 8), (64, 12, 1, 4)])
+    # 1024 threads hold a column of 8192 keys: one column a block
+    (8192, 2048, 132, 1), (64, 8, 1, 8), (64, 12, 1, 4),
+    # short columns: enough of them to make a warp
+    (1, 3, 132, 32), (16, 5, 1, 16)])
 def test_columns_per_block(n, cols, sms, want):
     assert K7.columns_per_block(n, cols, sms) == want
+
+
+# -- K7's path entry: the LSH bucket sort -------------------------------------------
+
+
+def _k7_recipe(buckets: np.ndarray):
+    """What K7's path entry computes, with its column entry's plain
+    version: keys bucket * L + pos, each row padded with INT32_MAX to a
+    power of two (at least 8) and sorted; slot s < L holds position key % L
+    and bucket key // L, and undo[position] = s."""
+    *lead, l = buckets.shape
+    rows = buckets.reshape(-1, l).astype(np.int64)
+    p = max(1 << (l - 1).bit_length(), 8)
+    keys = np.full((p, rows.shape[0]), np.iinfo(np.int32).max, np.int32)
+    keys[:l] = (rows * l + np.arange(l)).T
+    got = K7.bitonic_sort_cols_reference(torch.from_numpy(keys)).numpy()
+    got = got[:l].T
+    pos, bucket = got % l, got // l
+    undo = np.empty_like(pos)
+    np.put_along_axis(undo, pos, np.broadcast_to(np.arange(l), pos.shape), -1)
+    return [a.reshape(*lead, l) for a in (pos, undo, bucket)]
+
+
+@pytest.mark.parametrize("shape,nb", [((2, 2, 2, 96), 16), ((1, 2, 1, 5), 4),
+                                      ((2, 1, 3, 64), 8), ((1, 1, 2, 1), 2)])
+def test_k7_recipe_and_wrapper_equal_jax_sort_by_bucket(shape, nb):
+    """Padding goes to the overflow bucket nb: a ragged tail in the last
+    batch row, and the first (batch, head) masked whole."""
+    rng = np.random.default_rng(sum(shape))
+    buckets = rng.integers(0, nb, shape).astype(np.int32)
+    buckets[-1, ..., shape[-1] // 2:] = nb
+    buckets[0, 0] = nb
+    want = [np.asarray(w) for w in JL._sort_by_bucket(jnp.asarray(buckets))]
+    for got, w in zip(_k7_recipe(buckets), want):
+        np.testing.assert_array_equal(got, w)
+    got = K7.sort_by_bucket(torch.from_numpy(buckets).long())
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int64
+        np.testing.assert_array_equal(g.numpy(), w)
+
+
+@pytest.mark.parametrize("rows,l,sms,want", [
+    (64, 8192, 132, (2, 1)),     # longform decoder: a 2-CTA cluster a row
+    (64, 4096, 132, (2, 1)), (64, 2048, 132, (1, 1)),
+    (64, 1024, 132, (1, 1)),     # longform encoder: one CTA a row
+    (256, 1024, 132, (1, 1)),    # serving_fast decoder
+    (256, 256, 132, (1, 1)),     # serving_fast encoder: a warp a row
+    (2048, 256, 132, (1, 8)),    # many short rows share a block
+    (1, 5, 132, (1, 32)), (40, 16, 1, (1, 128)),
+    (64, K7.MAX_ROWS, 132, (2, 1)), (200, K7.MAX_ROWS, 132, (1, 1)),
+    (3, K7.MAX_ROWS + 1, 132, None), (0, 64, 132, None), (4, 0, 132, None)])
+def test_sort_route(rows, l, sms, want):
+    assert K7.sort_route(rows, l, sms) == want
+
+
+def test_sort_routes_launch_whole_warps_within_the_limits():
+    for rows in (1, 3, 64, 131, 132, 1000):
+        for l in (1, 2, 7, 8, 9, 100, 256, 257, 1000, 4096, 8192, 9000,
+                  K7.MAX_ROWS):
+            cluster, block = K7.sort_route(rows, l, 132)
+            keys = max(1 << (l - 1).bit_length(), 8) // cluster
+            threads = block * K7._threads_a_row(keys)
+            assert threads % 32 == 0 and threads <= 1024, (rows, l)
+            assert block * keys * 4 <= K7._SMEM_BYTES, (rows, l)
+
+
+def test_sort_by_bucket_refuses_other_dtypes_ranks_and_devices():
+    for x in (torch.zeros((4, 8)), torch.zeros((4, 8), dtype=torch.int32),
+              torch.tensor(3)):
+        with pytest.raises(ValueError, match="int64"):
+            K7.sort_by_bucket(x)
+    with pytest.raises(ValueError, match="device"):
+        K7.sort_by_bucket(torch.zeros((4, 8), dtype=torch.int64,
+                                      device="meta"))
+
+
+def test_sort_by_bucket_takes_the_plain_version_on_cpu_tensors():
+    buckets = torch.randint(0, 9, (3, 2, 100),
+                            generator=torch.Generator().manual_seed(0))
+    launches = K7.sort_by_bucket.launches
+    got = K7.sort_by_bucket(buckets)
+    for g, w in zip(got, K7.sort_by_bucket_reference(buckets)):
+        assert torch.equal(g, w)
+    assert K7.sort_by_bucket.launches == launches
 
 
 # -- K8 ------------------------------------------------------------------------------
@@ -202,14 +290,18 @@ def test_sort_gather_share_counts_enclosed_ops_once():
               _event("aten::mm", 500.0)]
     share = P.sort_gather_share(events, 1000.0)
     assert share["by_op_us"] == {"aten::sort": 10.0, "aten::argsort": 30.0,
-                                 "aten::gather": 35.0}
+                                 "aten::gather": 35.0, "K7 sort_by_bucket": 0.0}
     assert share["us"] == 75.0 and share["share"] == 0.075
+    # K7's path entry (no aten op holds it) adds its kernels' time
+    share = P.sort_gather_share(events, 1000.0, k7_us=25.0)
+    assert share["by_op_us"]["K7 sort_by_bucket"] == 25.0
+    assert share["us"] == 100.0 and share["share"] == 0.1
 
 
 def test_verdict_needs_a_share_and_two_faster_primitives():
     def result(share, k7, k8):
         return {"sort": {"longform b2 h8 nh4 L8192": {
-                    "_sort_by_bucket": 1.0, "K7": k7}},
+                    "sort_by_bucket_reference": 1.0, "K7": k7}},
                 "gather": {"longform (16, 32768, 128) bf16": {
                     "_perm_rows_take": 1.0, "K8": k8}},
                 "share": {"longform_8k": {"share": share},

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the train steps, or K4 and K6, of two checkouts of this repo on one
-NVIDIA GPU, in the order A B B A.
+"""Time the train steps, or K4, K6 and the LSH bucket sort, of two checkouts
+of this repo on one NVIDIA GPU, in the order A B B A.
 
     python3 tools/ab_train_steps.py DIR_A DIR_B [CYCLES]
     python3 tools/ab_train_steps.py --kernels DIR_A DIR_B [CYCLES]
@@ -19,12 +19,16 @@ each run's best step wall, every timed step's wall and the profiled step's
 device busy time.
 
 ``--kernels``: K4 (LSH chunk-attend forward) in bf16 at the longform
-decoder's and encoder's LSH shapes and serving_fast's two, and K6 (fused
-LN + FFN) multiplying in bf16 at the decoder's and encoder's FFN.  Each:
-ms by CUDA events over back-to-back calls after a warm-up, and device ms
-from ``torch.profiler`` (every kernel whose name holds ``lsh_attend_fwd``
-or ``ffn_fused``: the cast and the main kernel of K6 count together).  The
-JSON line holds each run's times by kernel and shape.
+decoder's and encoder's LSH shapes and serving_fast's two, K6 (fused
+LN + FFN) multiplying in bf16 at the decoder's and encoder's FFN, and the
+LSH path's bucket sort ``rtts_torch.attention.lsh._sort_by_bucket`` at the
+four bucket shapes of those steps (K7 where the checkout has it on the
+path, else ``torch.sort`` + ``torch.argsort``).  Each: ms by CUDA events
+over back-to-back calls after a warm-up, and device ms from
+``torch.profiler`` (K4 and K6: every kernel whose name holds
+``lsh_attend_fwd`` or ``ffn_fused``, so the cast and the main kernel of K6
+count together; the sort: every kernel of the call).  The JSON line holds
+each run's times by kernel and shape.
 
 Prints every run's lines prefixed by its label, then the JSON line.
 """
@@ -79,6 +83,17 @@ for name in list(S.K6_CASES)[:2]:
     ms = S._events_ms(fn, 50)
     dev = S._device_ms(fn, 20, ("ffn_fused",))
     print(f"[ab-kernels] K6 {{name}}: {{ms:.4f}} ms (device {{dev:.4f}})")
+from rtts_torch.attention import lsh as TL
+for shape in ((2, 8, 4, 8192), (2, 8, 4, 1024), (8, 8, 4, 1024),
+              (8, 8, 4, 256)):
+    g = torch.Generator().manual_seed(S.SEED_DATA)
+    buckets = torch.randint(0, TL.auto_num_buckets(shape[-1], 64), shape,
+                            generator=g).cuda()
+    fn = lambda: TL._sort_by_bucket(buckets)
+    S._events_ms(fn, 20)
+    ms = S._events_ms(fn, 100)
+    dev = S._device_ms(fn, 50)
+    print(f"[ab-kernels] K7 sort {{shape}}: {{ms:.4f}} ms (device {{dev:.4f}})")
 """
 
 # the serving_fast variants read, by their label in the phase's lines
@@ -89,7 +104,7 @@ _STEP = re.compile(r"^\[(train-timing|train-lsh-timing|train-rev-timing)\] "
 _BUSY = re.compile(r"^\[(train-timing|train-lsh-timing|train-rev-timing)\] "
                    r"profile of one (?:" + _VARIANTS + r" )?step: wall [0-9.]+ "
                    r"s, device busy ([0-9.]+) s")
-_KERNEL = re.compile(r"^\[ab-kernels\] (K[46]) (.+): ([0-9.]+) ms "
+_KERNEL = re.compile(r"^\[ab-kernels\] (K[467]) (.+): ([0-9.]+) ms "
                      r"\(device ([0-9.]+)\)$")
 
 
