@@ -10,8 +10,10 @@ greedy decode -> postnet -> SqueezeWave inverse), TTS training at
 ``configs/base.yaml`` (``rtts_torch.train.train_tts.make_train_step``:
 teacher-forced forward with dropout, loss with guided attention, backward,
 clip, Adam, Noam), TTS training with LSH attention at
-``configs/longform_8k.yaml`` and reversible TTS training with the chunked
-FFN and K6 at ``configs/serving_fast.yaml``, phase by phase; every phase
+``configs/longform_8k.yaml``, reversible TTS training with the chunked
+FFN and K6 at ``configs/serving_fast.yaml``, vocoder training at
+``configs/base.yaml`` (``rtts_torch.train.train_vocoder``) and the audio
+frontend (Griffin-Lim, log-mel, denoiser), phase by phase; every phase
 raises on failure:
 
 1. device: the card's name and power limit;
@@ -119,13 +121,44 @@ raises on failure:
    serving_fast's shape, forward and backward, f32 and bf16; then K7's path
    entry at the four bucket shapes against its plain version, one
    ``torch.sort`` and its bound, and one CTA a row against a 2-CTA cluster
-   a row on 64 rows of 1024 to 32768 keys.
+   a row on 64 rows of 1024 to 32768 keys;
+21. kernels-vocoder-train: K2 at the vocoder train step's shape (8, 128,
+   128), 3 taps, bf16 x with f32 w/b and f32, against its plain version,
+   twice bit-equal, and its ``autograd.Function``'s three gradients
+   against the plain conv's autograd;
+22. vocoder train slice: three ``base.yaml`` vocoder steps at full width
+   (``rtts_torch.train.train_vocoder.make_train_step``: flow NLL, backward
+   through K2's Function, clip, Adam, Noam; batch 8 x 16384 samples,
+   random mel and audio x 0.1, bf16): finite loss, grad norm and
+   gradients, every gradient nonzero at step 3, 96 K2 launches per step;
+   one eval step and one ``infer`` on the batch's mel, 96 each; one step
+   at ``flagship.yaml``'s vocoder settings (f32, ``log_s_clamp`` 5.0);
+   then ``train_vocoder`` on a corpus of random ``.rclip`` clips the phase
+   writes: 4 steps with evals at 2 and 4 (``val/mr_stft`` finite, the wav
+   artifacts written, checkpoints), a resume to 6 whose last metrics
+   equal 6 steps in one run;
+23. vocoder train card-vs-CPU: one f32 step at reduced depth (5 flows,
+   early emission every 2, 32 groups, 2 WN layers x 32 channels, "end"
+   live, ``log_s_clamp`` 2.0) on the card (K2) and the CPU (its plain
+   version): the metrics, every gradient and the parameters after the
+   update;
+24. vocoder train timing: the step at b8 x 16384 (best of 3, peak memory,
+   host synchronizations by CUDA's sync debug mode), a ``torch.profiler``
+   view of one step with slogdet's share, slogdet of the 12 1x1 weights
+   alone, K2 at (8, 128, 128) against its plain version, ``F.conv1d`` and
+   its bound, and the Function's backward;
+25. audio: the Synthesizer without a vocoder answers a sentence through
+   Griffin-Lim on the card; Griffin-Lim from one angle and the log-mel on
+   the card against the CPU, the log-mel's matmul DFT against
+   ``torch.fft``; the denoiser on a vocoded utterance, card against CPU.
 
 Prints a JSON line of per-kernel results, each entry at one shape (K1 at
 three: ``flash`` at serving, ``flash_train`` at base.yaml's decoder,
 ``flash_cross`` at the longform cross-attention; K7 at two:
 ``sort_by_bucket``, its path entry, at the longform decoder's buckets,
-``bitonic_sort``, its column entry, at the probe's longform keys): time by
+``bitonic_sort``, its column entry, at the probe's longform keys; K2 at
+two: ``depthwise`` at serving, ``depthwise_train`` in vocoder training):
+time by
 the events loop,
 device time from ``torch.profiler``'s kernel events, plain time, bound,
 library time where one PyTorch call computes the same function, launches
@@ -142,18 +175,25 @@ import copy
 import dataclasses
 import functools
 import json
+import pathlib
 import re
+import shutil
+import struct
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from rtts_torch.attention import lsh as TL
+from rtts_torch.audio.griffin import _griffin_lim_from_angle
+from rtts_torch.audio.stft import log_mel_spectrogram
 from rtts_torch.config import AttentionConfig, Config, from_dict
 from rtts_torch.infer.decode import decode_greedy
+from rtts_torch.infer.denoiser import Denoiser, denoise
 from rtts_torch.infer.synthesize import Synthesizer
 from rtts_torch.models import reformer_tts as M
 from rtts_torch.models import squeezewave as SW
@@ -186,6 +226,11 @@ from rtts_torch.reversible.ffn import FFN, chunked_ffn
 from rtts_torch.text import encode_batch, frontend_vocab_size
 from rtts_torch.train.optim import make_optimizer
 from rtts_torch.train.train_tts import make_train_step, step_generator
+from rtts_torch.train.train_vocoder import make_eval_step as \
+    make_vocoder_eval_step
+from rtts_torch.train.train_vocoder import make_train_step as \
+    make_vocoder_train_step
+from rtts_torch.train.train_vocoder import train_vocoder
 
 # configs/base.yaml as a dict (tests/test_torch_guards.py holds the two equal)
 _STACK_ATTENTION = {"kind": "auto", "num_heads": 8, "head_dim": 64,
@@ -250,6 +295,12 @@ DROP_SEED = 0x9E3779B9
 def _scaled_err(got, want) -> float:
     got, want = got.float().cpu(), want.float().cpu()
     return ((got - want).abs() / want.abs().clamp_min(1.0)).max().item()
+
+
+def _rel_err(got, want) -> float:
+    """max |got - want| / max |want|: the error against the signal's scale."""
+    got, want = got.float().cpu(), want.float().cpu()
+    return ((got - want).abs().max() / want.abs().max()).item()
 
 
 def _abs_err(got, want) -> float:
@@ -573,30 +624,31 @@ def _device_ms(fn, n, names=None):
     ``names``, only the kernels whose name holds one of them: each name must
     match, and each such kernel, launched once a call, must be recorded
     between 1 and n times; a profile that recorded none of a name's
-    launches (it has happened once in 10 calls) is taken again, three
-    times in all."""
+    launches (it has happened once in 10 calls, and three times in a row
+    for K7's path entry at 64 x 8192), or without ``names`` no kernel at
+    all (once, for SDPA's forward at the longform cross), is taken again,
+    six times in all."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    for attempt in range(1, 4):
+    for attempt in range(1, 7):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(n):
                 fn()
             torch.cuda.synchronize()
+        wanted = names or ("",)     # without names: any kernel at all
         device = [e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA and e.count > 0]
-        if names is None:
-            break
-        device = [e for e in device if any(s in e.key for s in names)]
+                  if e.device_type == DeviceType.CUDA and e.count > 0
+                  and any(s in e.key for s in wanted)]
         counts = {e.key[:60]: e.count for e in device}
-        if all(any(s in e.key for e in device) for s in names):
+        if all(any(s in e.key for e in device) for s in wanted):
             break
-        print(f"[profiler] profile {attempt} of 3 recorded {counts} "
-              f"launches of {names} in {n} calls")
+        print(f"[profiler] profile {attempt} of 6 recorded {counts} "
+              f"launches of {names or 'any kernel'} in {n} calls")
     if names is not None:
         _require(all(any(s in e.key for e in device) for s in names)
                  and all(1 <= c <= n for c in counts.values()),
@@ -783,12 +835,10 @@ def phase_profile(syn: Synthesizer, frames: int = 64, top: int = 6):
     print(f"[profile] device time by op: {ops}")
 
 
-def _profile(fn, top: int = 6):
+def _profile_events(fn):
     """Run ``fn`` (which ends in a synchronize) once under torch.profiler
-    -> (wall s, device busy s, device activities, the top ops by device
-    time as text).  The wall includes the profiler's own host overhead;
-    device busy is the sum of the device activities it recorded."""
-    from torch.autograd import DeviceType
+    -> (wall s, the profiler's ``key_averages()``).  The wall includes the
+    profiler's own host overhead."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -796,7 +846,14 @@ def _profile(fn, top: int = 6):
         t0 = time.perf_counter()
         fn()
         wall = time.perf_counter() - t0
-    events = prof.key_averages()
+    return wall, prof.key_averages()
+
+
+def _profile_summary(events, top: int = 6):
+    """-> (device busy s, device activities, the top ops by device time as
+    text).  Device busy is the sum of the device activities recorded."""
+    from torch.autograd import DeviceType
+
     device = [e for e in events if e.device_type == DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in device) / 1e6
     n_kernels = sum(e.count for e in device)
@@ -804,8 +861,16 @@ def _profile(fn, top: int = 6):
     ops = sorted((e for e in events if e.device_type == DeviceType.CPU
                   and e.self_device_time_total > 0),
                  key=lambda e: e.self_device_time_total, reverse=True)[:top]
-    return wall, busy, n_kernels, ", ".join(
+    return busy, n_kernels, ", ".join(
         f"{e.key} {e.self_device_time_total / 1e6 / busy:.1%}" for e in ops)
+
+
+def _profile(fn, top: int = 6):
+    """Run ``fn`` (which ends in a synchronize) once under torch.profiler
+    -> (wall s, device busy s, device activities, the top ops by device
+    time as text)."""
+    wall, events = _profile_events(fn)
+    return (wall, *_profile_summary(events, top))
 
 
 # -- training phases ------------------------------------------------------------
@@ -2396,6 +2461,461 @@ def phase_sort_probe():
     _sort_route_sweep()
     return launches, times
 
+# -- vocoder training (phases 21-25) -------------------------------------------
+
+# configs/flagship.yaml's vocoder settings beside base.yaml's
+FLAGSHIP_VOCODER = {"compute_dtype": "float32", "log_s_clamp": 5.0}
+VOC_BATCH = 8              # rtts/bench.py::bench_vocoder_train's batch
+VOC_SHAPE = (8, 128, 128)  # K2 in the train step: 16384 / 128 squeezed rows
+# the reduced vocoder of phase 23: early emission still exercised
+VOC_SMALL = {"n_flows": 5, "n_early_every": 2, "n_early_size": 8,
+             "n_group": 32, "wn_layers": 2, "wn_channels": 32,
+             "log_s_clamp": 2.0, "compute_dtype": "float32"}
+# the audio phase, card vs CPU: f32 FFTs (cuFFT vs pocketfft) and matmuls
+# in other summation orders, through 32 Griffin-Lim iterations, relative
+# to the largest sample
+AUDIO_TOL = 1e-3
+VOC_DIR = pathlib.Path(__file__).resolve().parent / "build" / "chip_smoke_vocoder"
+
+
+def vocoder_config(**overrides) -> Config:
+    """base.yaml (vocoder bf16) with ``overrides`` on its vocoder."""
+    cfg = base_config()
+    return dataclasses.replace(cfg, vocoder=dataclasses.replace(
+        cfg.vocoder, **overrides))
+
+
+def vocoder_batch(voc, batch: int, device, seed: int = SEED_DATA):
+    """Random mel and audio x 0.1 of one crop, as bench_vocoder_train."""
+    g = torch.Generator().manual_seed(seed)
+    seg = voc.audio_segment_length
+    return {"mel": torch.randn(batch, seg // voc.hop_length, voc.n_mels,
+                               generator=g).to(device),
+            "audio": (0.1 * torch.randn(batch, seg, generator=g)).to(device)}
+
+
+def phase_kernels_vocoder_train():
+    """K2 at the train step's shape, bf16 x with f32 w/b and f32: against
+    its plain version, twice bit-equal, and the Function's gradients
+    against the plain conv's autograd.  Returns the bf16 case's error."""
+    main = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        x, w, b = _dw_case(VOC_SHAPE, 3, dtype, torch.float32)
+        got = depthwise_conv1d(x, w, b)
+        again = depthwise_conv1d(x, w, b)
+        torch.cuda.synchronize()
+        want = depthwise_conv1d_reference(x, w, b)
+        err, abs_err = _scaled_err(got, want), _abs_err(got, want)
+        dy = torch.randn(x.shape, generator=torch.Generator().manual_seed(
+            SEED_END)).to("cuda", dtype)
+        leaves = [t.clone().requires_grad_() for t in (x, w, b)]
+        depthwise_conv1d(*leaves).backward(dy)
+        grad_errs = [_scaled_err(t.grad, g) for t, g in zip(
+            leaves, _plain_dw_grads(x, w, b, dy))]
+        tol = KERNEL_TOL[dtype]
+        print(f"[kernels-vocoder-train] K2 {VOC_SHAPE} K3 x {str(dtype)[6:]}, "
+              f"w/b f32: max err {err:.3e} (abs {abs_err:.3e}), twice "
+              f"bit-equal {torch.equal(got, again)}; Function gradients dx "
+              f"{grad_errs[0]:.3e}, dw {grad_errs[1]:.3e}, db "
+              f"{grad_errs[2]:.3e}; tol {tol:g}")
+        _require(err <= tol and max(grad_errs) <= tol
+                 and torch.equal(got, again), f"K2 {dtype} at {VOC_SHAPE}")
+        main.setdefault("depthwise_train", abs_err)
+    return main
+
+
+def _check_vocoder_step(metrics, grads, names, what, nonzero=False):
+    _require(all(bool(torch.isfinite(v)) for v in metrics.values()),
+             f"{what}: non-finite metrics {metrics}")
+    for name, g in zip(names, grads):
+        _require(bool(torch.isfinite(g).all()),
+                 f"{what}: non-finite gradient of {name}")
+        _require(not nonzero or bool((g != 0).any()),
+                 f"{what}: zero gradient of {name}")
+
+
+def _write_clip(path, n_frames: int, voc, g) -> None:
+    """A random clip in the .rclip layout ``rtts_torch.data.read_clip``
+    reads: magic, version 1, n_tokens, n_frames, n_mels, n_samples, then
+    int32 tokens, f32 mel frames and f32 samples."""
+    tokens = torch.randint(3, 40, (12,), generator=g, dtype=torch.int32)
+    mel = torch.randn(n_frames, voc.n_mels, generator=g)
+    audio = 0.1 * torch.randn(n_frames * voc.hop_length, generator=g)
+    with open(path, "wb") as f:
+        f.write(b"RCLP" + struct.pack("<5I", 1, tokens.numel(), n_frames,
+                                      voc.n_mels, audio.numel()))
+        for t in (tokens, mel, audio):
+            f.write(t.numpy().tobytes())
+
+
+def _vocoder_corpus(root: pathlib.Path, voc, n_clips: int = 6) -> None:
+    """``n_clips`` random clips, each longer than one crop, and the
+    ``manifest.json`` that ``rtts_torch.data.Manifest.load`` reads."""
+    root.mkdir(parents=True, exist_ok=True)
+    g = torch.Generator().manual_seed(SEED_DATA)
+    crop = voc.audio_segment_length // voc.hop_length
+    clips = []
+    for i in range(n_clips):
+        n_frames = crop + 8 * (i + 1)
+        path = root / f"clip{i}.rclip"
+        _write_clip(path, n_frames, voc, g)
+        clips.append({"clip": str(path), "n_frames": n_frames,
+                      "n_samples": n_frames * voc.hop_length,
+                      "n_tokens": 12})
+    (root / "manifest.json").write_text(json.dumps({
+        "sample_rate": voc.sample_rate, "hop_length": voc.hop_length,
+        "n_mels": voc.n_mels, "clips": clips}))
+
+
+def _trainer_vocoder_config(data_dir: pathlib.Path) -> Config:
+    """base.yaml's vocoder and optimizer with a short run's cadence: eval
+    every 2 steps over one batch, a checkpoint every 2, every step logged."""
+    cfg = base_config()
+    exp = cfg.experiment
+    return dataclasses.replace(
+        cfg,
+        dataset=dataclasses.replace(cfg.dataset, data_dir=str(data_dir),
+                                    val_fraction=0.2),
+        experiment=dataclasses.replace(
+            exp, eval_batches=1,
+            logging=dataclasses.replace(exp.logging, log_every_steps=1,
+                                        eval_every_steps=2),
+            checkpoint=dataclasses.replace(exp.checkpoint,
+                                           save_every_steps=2, keep=2)))
+
+
+def _train_vocoder_resume(device) -> dict:
+    """``train_vocoder`` on a corpus written here: 4 steps (eval at 2 and
+    4), a resume to 6, and 6 steps in one run.  Returns the runs' metrics
+    and the first run's val lines, wav artifacts and checkpoints."""
+    shutil.rmtree(VOC_DIR, ignore_errors=True)
+    _vocoder_corpus(VOC_DIR / "data", base_config().vocoder)
+    cfg = _trainer_vocoder_config(VOC_DIR / "data")
+    work = VOC_DIR / "a"
+    first = train_vocoder(cfg, str(work), max_steps=4, device=device)
+    vals = [json.loads(line) for line in open(work / "metrics.jsonl")
+            if "val/loss_vocoder" in line]
+    artifacts = sorted(p.name for p in (work / "artifacts").glob("*.wav"))
+    checkpoints = sorted(p.name for p in (work / "checkpoints").glob("step_*"))
+    resumed = train_vocoder(cfg, str(work), max_steps=6, device=device)
+    whole = train_vocoder(cfg, str(VOC_DIR / "b"), max_steps=6,
+                          device=device)
+    return {"first": first, "resumed": resumed, "whole": whole, "vals": vals,
+            "artifacts": artifacts, "checkpoints": checkpoints}
+
+
+def phase_train_vocoder():
+    """Three base.yaml vocoder train steps at full width (b8 x 16384
+    samples, bf16), 96 K2 launches each, gradients finite and, at step 3,
+    nonzero everywhere; one eval step and one ``infer``, 96 launches each;
+    one step at flagship.yaml's vocoder settings; then ``train_vocoder``
+    with an eval, a checkpoint and a resume.  Returns the model and the
+    three steps' K2 launches."""
+    cfg = vocoder_config()
+    voc = cfg.vocoder
+    per_step = voc.n_flows * voc.wn_layers
+    model = SW.init(voc, torch.Generator().manual_seed(SEED_VOC), "cuda")
+    names = [n for n, _ in model.named_parameters()]
+    optimizer = make_optimizer(cfg.experiment.optim)
+    state = optimizer.init(list(model.parameters()))
+    step_fn = make_vocoder_train_step(voc, optimizer)
+    batch = vocoder_batch(voc, VOC_BATCH, "cuda")
+    depthwise_conv1d.launches = 0
+    t0 = time.perf_counter()
+    steps = [step_fn(model, state, batch, return_grads=True)
+             for _ in range(3)]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = depthwise_conv1d.launches
+    for i, (metrics, grads) in enumerate(steps):
+        _check_vocoder_step(metrics, grads, names, f"vocoder step {i + 1}",
+                            nonzero=i == 2)
+        print(f"[train-vocoder] step {i + 1}: loss "
+              f"{float(metrics['loss_vocoder']):.6f}, z_rms "
+              f"{float(metrics['z_rms']):.4f}, log_det_mean "
+              f"{float(metrics['log_det_mean']):.3e}, grad_norm "
+              f"{float(metrics['grad_norm']):.6f}; zero gradients "
+              f"{sum(not bool((g != 0).any()) for g in grads)} of "
+              f"{len(grads)}")
+    print(f"[train-vocoder] base.yaml vocoder b{VOC_BATCH} x "
+          f"{voc.audio_segment_length} samples bf16: 3 steps in {dt:.2f} s "
+          f"(the first one cold); K2 launches {launches}")
+    _require(launches == 3 * per_step,
+             f"expected {per_step} K2 launches per step, got {launches} "
+             "over 3 steps")
+
+    depthwise_conv1d.launches = 0
+    metrics = make_vocoder_eval_step(voc)(model, batch)
+    eval_launches = depthwise_conv1d.launches
+    depthwise_conv1d.launches = 0
+    audio = SW.infer(model, voc, batch["mel"],
+                     generator=torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    infer_launches = depthwise_conv1d.launches
+    print(f"[train-vocoder] eval step: loss "
+          f"{float(metrics['loss_vocoder']):.6f}, K2 launches "
+          f"{eval_launches}; infer on the batch's mel -> {tuple(audio.shape)}"
+          f", K2 launches {infer_launches}")
+    _require(all(bool(torch.isfinite(v)) for v in metrics.values())
+             and eval_launches == per_step and infer_launches == per_step
+             and audio.shape == batch["audio"].shape
+             and bool(torch.isfinite(audio).all()), "vocoder eval / infer")
+
+    flag = dataclasses.replace(voc, **FLAGSHIP_VOCODER)
+    flag_model = SW.init(flag, torch.Generator().manual_seed(SEED_VOC),
+                         "cuda")
+    flag_opt = make_optimizer(cfg.experiment.optim)
+    flag_state = flag_opt.init(list(flag_model.parameters()))
+    depthwise_conv1d.launches = 0
+    metrics, grads = make_vocoder_train_step(flag, flag_opt)(
+        flag_model, flag_state, batch, return_grads=True)
+    torch.cuda.synchronize()
+    flag_launches = depthwise_conv1d.launches
+    _check_vocoder_step(metrics, grads, names, "flagship vocoder step")
+    print(f"[train-vocoder] flagship.yaml vocoder (f32, log_s_clamp 5.0): "
+          f"loss {float(metrics['loss_vocoder']):.6f}, grad_norm "
+          f"{float(metrics['grad_norm']):.6f}; K2 launches {flag_launches}")
+    _require(flag_launches == per_step, "flagship step K2 launches")
+    del flag_model, flag_state
+
+    t0 = time.perf_counter()
+    try:
+        run = _train_vocoder_resume("cuda")
+    finally:
+        shutil.rmtree(VOC_DIR, ignore_errors=True)
+    vals = run["vals"]
+    print(f"[train-vocoder] train_vocoder: 4 steps, evals at "
+          f"{[v['step'] for v in vals]}: "
+          + "; ".join(f"val/loss_vocoder {v['val/loss_vocoder']:.6f} "
+                      f"val/mr_stft {v.get('val/mr_stft', float('nan')):.4f}"
+                      for v in vals)
+          + f"; artifacts {run['artifacts']}, checkpoints "
+          f"{run['checkpoints']}; resumed to 6: loss "
+          f"{run['resumed']['loss_vocoder']!r} vs 6 in one run "
+          f"{run['whole']['loss_vocoder']!r} ({time.perf_counter() - t0:.1f}"
+          f" s)")
+    same = {k: run["resumed"][k] == run["whole"][k]
+            for k in run["whole"] if k != "steps_per_sec"}
+    _require([v["step"] for v in vals] == [2, 4]
+             and all(np.isfinite(v["val/mr_stft"]) for v in vals)
+             and run["artifacts"] == ["vocoder_step2.wav",
+                                      "vocoder_step4.wav"]
+             and "step_4" in run["checkpoints"]
+             and np.isfinite(run["first"]["loss_vocoder"]),
+             f"train_vocoder's evals, artifacts or checkpoints: {vals}, "
+             f"{run['artifacts']}, {run['checkpoints']}")
+    _require(all(same.values()), f"the resumed run's metrics differ from "
+             f"one run's: {same}")
+    return model, {"depthwise_train": launches}
+
+
+def _vocoder_f32_step(voc, optim, batch, device):
+    model = SW.init(voc, torch.Generator().manual_seed(SEED_VOC), "cpu")
+    g = torch.Generator().manual_seed(SEED_END)
+    with torch.no_grad():   # live "end" convs: the WN stacks reach z
+        for flow in model.flows:
+            for p in (flow.wn.end.w, flow.wn.end.b):
+                p.copy_(0.05 * torch.randn(p.shape, generator=g))
+    model = model.to(device)
+    optimizer = make_optimizer(optim)
+    state = optimizer.init(list(model.parameters()))
+    metrics, grads = make_vocoder_train_step(voc, optimizer)(
+        model, state, {k: v.to(device) for k, v in batch.items()},
+        return_grads=True)
+    return ({k: float(v) for k, v in metrics.items()},
+            [g.cpu() for g in grads],
+            [p.detach().cpu() for p in model.parameters()],
+            [n for n, _ in model.named_parameters()])
+
+
+def phase_train_vocoder_card_vs_cpu():
+    """One f32 vocoder step at reduced depth (``VOC_SMALL``), "end" live,
+    constant lr: the card (K2) against the CPU (its plain version in the
+    same autograd.Function), from the same weights and batch."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = vocoder_config(**VOC_SMALL, audio_segment_length=4096)
+    optim = dataclasses.replace(cfg.experiment.optim, schedule="constant")
+    lr = optim.learning_rate
+    batch = vocoder_batch(cfg.vocoder, 4, "cpu")
+    cpu = _vocoder_f32_step(cfg.vocoder, optim, batch, "cpu")
+    depthwise_conv1d.launches = 0
+    card = _vocoder_f32_step(cfg.vocoder, optim, batch, "cuda")
+    launches = depthwise_conv1d.launches
+    errs = {k: abs(card[0][k] - cpu[0][k]) / max(1.0, abs(cpu[0][k]))
+            for k in cpu[0]}
+    grad_errs = {n: ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)
+                     ).item() for n, a, b in zip(cpu[3], card[1], cpu[1])}
+    worst = max(grad_errs, key=grad_errs.get)
+    param_err = max((a - b).abs().max().item()
+                    for a, b in zip(card[2], cpu[2]))
+    n_dw = cfg.vocoder.n_flows * cfg.vocoder.wn_layers
+    print(f"[train-vocoder-card-vs-cpu] f32 {VOC_SMALL} b4 x 4096 samples: "
+          f"loss {card[0]['loss_vocoder']:.6f} vs {cpu[0]['loss_vocoder']:.6f}"
+          f", worst metric err {max(errs.values()):.3e}, worst gradient leaf "
+          f"{worst} {grad_errs[worst]:.3e} (relative to its largest entry), "
+          f"params after the update {param_err:.3e} (lr {lr:g}); tol "
+          f"{TRAIN_SLICE_TOL:g}, params {TRAIN_PARAM_TOL_LR:g} lr; card K2 "
+          f"launches {launches}")
+    _require(launches == n_dw, f"the card's step launched K2 {launches} "
+             f"times, not {n_dw}")
+    _require(max(errs.values()) <= TRAIN_SLICE_TOL
+             and grad_errs[worst] <= TRAIN_SLICE_TOL
+             and all(bool(g.abs().max() > 0) for g in cpu[1])
+             and param_err <= TRAIN_PARAM_TOL_LR * lr,
+             "card and CPU vocoder steps disagree")
+
+
+def _sync_warnings(fn) -> int:
+    """How many host synchronizations ``fn`` makes, by CUDA's sync debug
+    mode (a warning "called a synchronizing CUDA operation" each; the
+    mode's own notice that it is a prototype does not count)."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("called a synchronizing" in str(w.message) for w in caught)
+
+
+def _dw_backward_ms(shape, n=200) -> dict:
+    """K2's Function at ``shape`` (bf16 x, f32 w/b): forward alone and
+    forward + backward (the plain f32 conv's autograd) by the events loop;
+    the backward is their difference; and the device time of forward +
+    backward by the profiler."""
+    x, w, b = _dw_case(shape, 3, torch.bfloat16, torch.float32)
+    dy = torch.randn(x.shape, generator=torch.Generator().manual_seed(
+        SEED_END)).to("cuda", x.dtype)
+    leaves = [t.detach().requires_grad_() for t in (x, w, b)]
+    fwd = lambda: depthwise_conv1d(*leaves)  # noqa: E731
+    both = lambda: torch.autograd.grad(depthwise_conv1d(*leaves), leaves,  # noqa: E731
+                                       dy)
+    fwd_ms, both_ms = _interleaved_ms((fwd, both), n)
+    return {"fwd": fwd_ms, "fwd_bwd": both_ms, "bwd": both_ms - fwd_ms,
+            "fwd_bwd_device": _device_ms(both, n)}
+
+
+def phase_train_vocoder_timing(model):
+    """The bf16 vocoder train step at b8 x 16384 samples: best of 3 after a
+    warm-up, peak device memory, host synchronizations, a profile of one
+    step (with slogdet's share), slogdet alone; K2 at (8, 128, 128)
+    against its plain version, F.conv1d and its bound, and the Function's
+    backward."""
+    cfg = vocoder_config()
+    voc = cfg.vocoder
+    optimizer = make_optimizer(cfg.experiment.optim)
+    state = optimizer.init(list(model.parameters()))
+    step_fn = make_vocoder_train_step(voc, optimizer)
+    batch = vocoder_batch(voc, VOC_BATCH, "cuda")
+
+    def step():
+        metrics = step_fn(model, state, batch)
+        torch.cuda.synchronize()
+        return metrics
+
+    step()   # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        metrics = step()
+        walls.append(time.perf_counter() - t0)
+        _require(bool(torch.isfinite(metrics["loss_vocoder"])),
+                 "timed vocoder step loss")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    best = min(walls)
+    audio_s = VOC_BATCH * voc.audio_segment_length / voc.sample_rate
+    syncs = _sync_warnings(lambda: step_fn(model, state, batch))
+    control = _sync_warnings(lambda: batch["audio"][0, 0].item())
+    _require(control >= 1, "CUDA's sync debug mode reported no "
+             "synchronization in .item()")
+    print(f"[train-vocoder-timing] vocoder train step b{VOC_BATCH} x "
+          f"{voc.audio_segment_length} samples (base.yaml, bf16): walls "
+          f"{[round(w, 4) for w in walls]} s; best {best:.4f} s = "
+          f"{audio_s / best:.1f} audio s/s (train RTF {best / audio_s:.5f}); "
+          f"peak memory {peak:.3f} GiB; host synchronizations in one step "
+          f"{syncs} (.item(), the control: {control})")
+    wall, events = _profile_events(step)
+    busy, n_kernels, ops = _profile_summary(events)
+    slog = sum(e.device_time_total for e in events
+               if e.key == "aten::linalg_slogdet") / 1e6
+    print(f"[train-vocoder-timing] profile of one step: wall {wall:.4f} s, "
+          f"device busy {busy:.4f} s, idle {1 - busy / wall:.1%}; "
+          f"{n_kernels} device activities; slogdet {slog * 1e3:.4f} ms "
+          f"({slog / busy:.2%} of busy); device time by op: {ops}")
+    ws = [f.inv1x1.w_1x1.detach().float() for f in model.flows]
+    slog_ms = _events_ms(lambda: [torch.linalg.slogdet(w) for w in ws], 50)
+    slog_syncs = _sync_warnings(lambda: [torch.linalg.slogdet(w)
+                                         for w in ws])
+    print(f"[train-vocoder-timing] slogdet of the 12 1x1 weights "
+          f"({sorted({w.shape[0] for w in ws})}): {slog_ms:.4f} ms a step "
+          f"by events; host synchronizations {slog_syncs}")
+    times = _dw_times(VOC_SHAPE)
+    bwd = _dw_backward_ms(VOC_SHAPE)
+    print(f"[train-vocoder-timing] K2's Function at {VOC_SHAPE}: forward "
+          f"{bwd['fwd']:.4f} ms, forward + backward {bwd['fwd_bwd']:.4f} ms "
+          f"(device {bwd['fwd_bwd_device']:.4f}), "
+          f"backward {bwd['bwd']:.4f} ms (events)")
+    return {"depthwise_train": times}
+
+
+def phase_audio():
+    """Griffin-Lim serving on the card (no vocoder), Griffin-Lim and the
+    log-mel card against CPU, and the denoiser on a vocoded utterance."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = base_config()
+    tts = M.init(cfg.model, torch.Generator().manual_seed(SEED_TTS), "cuda")
+    syn = Synthesizer(cfg, tts, None, max_frames=256)
+    mel, lengths = syn.text_to_mel(SENTENCES[:1])
+    t0 = time.perf_counter()
+    wav = syn.mel_to_audio(mel[0], int(lengths[0]))
+    dt = time.perf_counter() - t0
+    hop = cfg.dataset.audio.hop_length
+    print(f"[audio] Synthesizer without a vocoder: {int(lengths[0])} frames "
+          f"-> {wav.shape[0]} samples by Griffin-Lim (32 iterations) on the "
+          f"card in {dt:.3f} s")
+    _require(wav.shape == (int(lengths[0]) * hop,)
+             and bool(np.isfinite(wav).all()), "Griffin-Lim serving")
+    del syn, tts
+
+    g = torch.Generator().manual_seed(SEED_DATA)
+    mag = torch.randn(128, 513, generator=g).abs()
+    angle = (2 * torch.rand(mag.shape, generator=g) - 1) * np.pi
+    gl = [_griffin_lim_from_angle(mag.to(d), angle.to(d), 1024, 256, 32)
+          for d in ("cpu", "cuda")]
+    gl_err = _rel_err(gl[1], gl[0])
+    x = 0.1 * torch.randn(2, 16384, generator=g)
+    audio_cfg = cfg.dataset.audio
+    cpu_mel = log_mel_spectrogram(x, audio_cfg)
+    card = {m: log_mel_spectrogram(x.cuda(), audio_cfg, method=m)
+            for m in ("matmul", "fft")}
+    mel_errs = (_rel_err(card["matmul"], card["fft"]),
+                _rel_err(card["matmul"], cpu_mel))
+    print(f"[audio] Griffin-Lim 128 frames x 32 iterations, one angle: card "
+          f"vs CPU err {gl_err:.3e} (tol {AUDIO_TOL:g}); log-mel b2 x 16384 "
+          f"on the card, matmul vs fft {mel_errs[0]:.3e}, vs the CPU "
+          f"{mel_errs[1]:.3e} (tol {AUDIO_TOL:g})")
+    _require(gl_err <= AUDIO_TOL and max(mel_errs) <= AUDIO_TOL,
+             "Griffin-Lim or the log-mel: card and CPU disagree")
+
+    _, voc = build_models(cfg, "cuda")
+    utt = SW.infer(voc, cfg.vocoder, card["matmul"][:1],
+                   generator=torch.Generator(device="cuda").manual_seed(0))[0]
+    den = Denoiser(voc, cfg.vocoder, strength=0.1)
+    out = den(utt.cpu().numpy())
+    want = denoise(utt.cpu(), den.bias.cpu(), 0.1)
+    den_err = _rel_err(torch.from_numpy(out), want)
+    print(f"[audio] denoiser on a vocoded utterance of {utt.shape[0]} "
+          f"samples: bias spectrum {tuple(den.bias.shape)} on "
+          f"{den.bias.device}, card vs CPU denoise err {den_err:.3e} (tol "
+          f"{AUDIO_TOL:g})")
+    _require(den.bias.is_cuda and out.shape == (utt.shape[0],)
+             and bool(np.isfinite(out).all()) and den_err <= AUDIO_TOL,
+             "the denoiser")
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2432,6 +2952,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     errs.update(phase_kernels_sort())
     sort_launches, sort_times = phase_sort_probe()
+    torch.cuda.empty_cache()
+    errs.update(phase_kernels_vocoder_train())
+    model, voc_launches = phase_train_vocoder()
+    phase_train_vocoder_card_vs_cpu()
+    voc_times = phase_train_vocoder_timing(model)
+    del model
+    torch.cuda.empty_cache()
+    phase_audio()
     _require(not any(m.split(".")[0] in ("jax", "rtts") for m in sys.modules
                      if sys.modules[m] is not None),
              "jax or the JAX package was imported")
@@ -2449,16 +2977,20 @@ def main() -> int:
     # decoder's FFN shape; K7's path entry ("sort_by_bucket"): launches of
     # the three longform train steps, times at the longform decoder's
     # buckets; K7's column entry ("bitonic_sort") and K8: launches of the
-    # sort probe's run, times at the longform shapes
+    # sort probe's run, times at the longform shapes; K2 in vocoder
+    # training ("depthwise_train"): launches of phase 22's three train
+    # steps, times and error at their (8, 128, 128) bf16 shape
     launches.update(train_launches)
     launches.update(lsh_launches)
     launches.update(ffn_launches)
     launches.update(sort_launches)
+    launches.update(voc_launches)
     times.update(train_times["decoder"])
     times["flash_cross"] = lsh_times.pop("cross")["flash_train"]
     times.update(lsh_times)
     times.update(ffn_times)
     times.update(sort_times)
+    times.update(voc_times)
     meta = {
         "flash": ("rtts_torch/csrc/flash_fwd.cu",
                   "rtts/ops/flash_attention.py:322"),
@@ -2484,6 +3016,8 @@ def main() -> int:
                          "scripts/probe_vmem_sort.py:45"),
         "row_gather": ("rtts_torch/csrc/row_gather.cu",
                        "scripts/probe_vmem_sort.py:85"),
+        "depthwise_train": ("rtts_torch/csrc/depthwise_conv.cu",
+                            "rtts/ops/depthwise_conv.py:29"),
     }
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": rep, "launches": launches[name],

@@ -2,8 +2,9 @@
 
 The frozen dataclass tree (dataset / model / vocoder / experiment), the
 strict ``from_dict``, ``to_dict``, dot-path ``apply_overrides``, YAML load
-and save (PyYAML imported inside ``load_yaml``/``save_config`` only, so the
-port runs without it) and the attention-kind resolver, with the same field
+and save (PyYAML imported inside ``load_yaml`` only; ``save_config`` writes
+the tree in YAML's flow style itself, so the trainers run without PyYAML)
+and the attention-kind resolver, with the same field
 names and defaults: a YAML file means the same model to both packages
 (``tests/test_torch_copies.py`` holds them equal).  What differs:
 ``resolve_reversible`` and ``resolve_ffn_chunk`` estimate memory with the
@@ -718,10 +719,28 @@ def load_config(
     return from_dict(Config, data)
 
 
-def save_config(cfg: Config, path: Union[str, pathlib.Path]) -> None:
-    import yaml
+def _flow_yaml(x: Any) -> str:
+    """``x`` (a ``to_dict`` tree) in YAML's flow style: JSON, but with floats
+    that YAML 1.1 reads as floats (1.0e-05, not 1e-05; .inf, .nan)."""
+    if isinstance(x, dict):
+        return "{" + ", ".join(f"{json.dumps(str(k))}: {_flow_yaml(v)}"
+                               for k, v in x.items()) + "}"
+    if isinstance(x, (list, tuple)):
+        return "[" + ", ".join(_flow_yaml(v) for v in x) + "]"
+    if isinstance(x, float):
+        if x != x or x in (float("inf"), float("-inf")):
+            return {"nan": ".nan", "inf": ".inf", "-inf": "-.inf"}[repr(x)]
+        mantissa, e, exponent = repr(x).partition("e")
+        if e and "." not in mantissa:
+            mantissa += ".0"
+        return mantissa + e + exponent
+    return json.dumps(x)
 
+
+def save_config(cfg: Config, path: Union[str, pathlib.Path]) -> None:
+    """Write ``cfg`` as YAML in flow style, with no PyYAML needed (the
+    trainers run where it is not installed); ``load_yaml`` reads it back to
+    the same tree."""
     p = pathlib.Path(path)
     p.parent.mkdir(parents=True, exist_ok=True)
-    with open(p, "w") as f:
-        yaml.safe_dump(to_dict(cfg), f, sort_keys=False)
+    p.write_text(_flow_yaml(to_dict(cfg)) + "\n")

@@ -1,14 +1,15 @@
 """The training data pipeline of the port: a copy of the parts of
-``rtts/data/dataset.py`` that TTS training uses.
+``rtts/data/dataset.py`` that TTS and vocoder training use.
 
 ``Manifest`` and ``split_manifest`` (the train/val split), ``ClipStore``
-(``.rclip`` or ``.npz`` clips), the length-bucketed ``TextMelDataset`` and
-the deterministic step -> batch ``EpochBatcher``, with the same batches as
-the JAX package's (``tests/test_torch_copies.py``).  The JAX package's
-optional C++ prefetching loader is not part of the copy: the clips are read
-and collated in Python whatever ``num_workers`` says, which gives the same
-batches.  ``to_device`` turns a numpy batch into tensors on the training
-device.
+(``.rclip`` or ``.npz`` clips), the length-bucketed ``TextMelDataset``, the
+deterministic step -> batch ``EpochBatcher`` and the vocoder's
+``MelAudioDataset`` (mel window, audio crop), with the same batches and
+crops as the JAX package's (``tests/test_torch_copies.py``).  The JAX
+package's optional C++ prefetching loader is not part of the copy: the
+clips are read and collated in Python whatever ``num_workers`` says, which
+gives the same batches.  ``to_device`` turns a numpy batch into tensors on
+the training device.
 """
 
 from __future__ import annotations
@@ -204,6 +205,44 @@ class EpochBatcher:
 
     def batch_at(self, step: int) -> Dict[str, np.ndarray]:
         return self.ds.collate([self.ds[i] for i in self._chunk_at(step)])
+
+
+class MelAudioDataset:
+    """(mel window, audio crop) pairs for vocoder training."""
+
+    def __init__(self, man: Manifest, segment_samples: int,
+                 store: Optional[ClipStore] = None):
+        self.man = man
+        self.hop = man.hop_length
+        if segment_samples % self.hop != 0:
+            raise ValueError("segment length must be a multiple of hop")
+        self.segment = segment_samples
+        self.frames = segment_samples // self.hop
+        self.store = store or ClipStore()
+        # only clips long enough for one crop
+        self.usable = [c for c in man.clips
+                       if c["n_samples"] >= self.segment]
+        if not self.usable:
+            raise ValueError("no clip long enough for the crop length")
+
+    def sample(self, rng: np.random.Generator, batch_size: int
+               ) -> Dict[str, np.ndarray]:
+        """``batch_size`` random crops: clip picks, then frame offsets, drawn
+        from ``rng`` in the reference's order -> {mel (B, frames, n_mels),
+        audio (B, segment)} float32."""
+        picks = [int(rng.integers(len(self.usable))) for _ in range(batch_size)]
+        offsets = []
+        for p in picks:
+            max_f = self.usable[p]["n_frames"] - self.frames
+            offsets.append(int(rng.integers(0, max_f + 1)))
+        mels, audios = [], []
+        for p, f0 in zip(picks, offsets):
+            d = self.store.load(self.usable[p]["clip"])
+            mels.append(d["mel"][f0:f0 + self.frames])
+            s0 = f0 * self.hop
+            audios.append(d["audio"][s0:s0 + self.segment])
+        return {"mel": np.stack(mels).astype(np.float32),
+                "audio": np.stack(audios).astype(np.float32)}
 
 
 def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:

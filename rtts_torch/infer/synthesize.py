@@ -1,11 +1,11 @@
 """End-to-end text -> waveform inference: ``Synthesizer``.
 
-Port of ``rtts/infer/synthesize.py`` for the vocoder path: text -> token ids
-(``rtts_torch.text``) -> encoder -> ``kv_full`` greedy decode -> postnet ->
-SqueezeWave inverse.  Not ported yet, and raising NotImplementedError: the
-Griffin-Lim fallback (no vocoder), multi-device serving (``mesh``), the
-monotonic cross-attention window, streaming vocoding and the ``serve*``
-batching surfaces.
+Port of ``rtts/infer/synthesize.py``: text -> token ids (``rtts_torch.text``)
+-> encoder -> ``kv_full`` greedy decode -> postnet -> SqueezeWave inverse,
+or Griffin-Lim on the Synthesizer's device when no vocoder is given.  Not
+ported yet, and raising NotImplementedError: multi-device serving
+(``mesh``), the monotonic cross-attention window, streaming vocoding and the
+``serve*`` batching surfaces.
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from rtts_torch.audio.griffin import mel_to_audio as gl_mel_to_audio
 from rtts_torch.config import Config
 from rtts_torch.infer.decode import (_precast_weights, check_kv_cache_dtype,
                                      decode_greedy)
@@ -67,19 +68,19 @@ class Synthesizer:
                      streaming_chunk: int = 0) -> np.ndarray:
         """One utterance (T, n_mels) -> waveform through the vocoder, with
         its noise drawn from a generator seeded 0 (as the reference's
-        default key)."""
-        if self.vocoder is None:
-            raise NotImplementedError(
-                "rtts_torch: the Griffin-Lim path (no vocoder) is not ported")
-        if streaming_chunk > 0:
-            raise NotImplementedError(
-                "rtts_torch: streaming vocoding is not ported yet")
+        default key), or through Griffin-Lim when there is no vocoder
+        (which ignores ``streaming_chunk``, as the reference's does)."""
         if length is not None:
             mel = mel[:length]
         mel_t = torch.as_tensor(np.asarray(mel), dtype=torch.float32,
-                                device=self.device)[None]
+                                device=self.device)
+        if self.vocoder is None:
+            return gl_mel_to_audio(mel_t, self.cfg.dataset.audio).cpu().numpy()
+        if streaming_chunk > 0:
+            raise NotImplementedError(
+                "rtts_torch: streaming vocoding is not ported yet")
         gen = torch.Generator(device=self.device).manual_seed(0)
-        audio = squeezewave.infer(self.vocoder, self.cfg.vocoder, mel_t,
+        audio = squeezewave.infer(self.vocoder, self.cfg.vocoder, mel_t[None],
                                   generator=gen)
         return audio[0].cpu().numpy()
 

@@ -1,10 +1,13 @@
-"""SqueezeWave flow vocoder, inference direction (mel -> waveform).
+"""SqueezeWave flow vocoder: training (audio -> z) and inference
+(mel -> waveform).
 
-Port of the inference half of ``rtts/models/squeezewave.py``.  Audio is
-squeezed into ``n_group`` channels (L = samples / n_group); each flow's WN
-runs a pointwise in-conv, ``wn_layers`` x [depthwise conv (kernel K2) ->
-pointwise conv -> gated tanh/sigmoid unit conditioned on the upsampled mel
--> residual/skip], and an end conv giving (log_s, t).  Inference inverts the
+Port of ``rtts/models/squeezewave.py``.  Audio is squeezed into
+``n_group`` channels (L = samples / n_group); each flow's WN runs a
+pointwise in-conv, ``wn_layers`` x [depthwise conv (kernel K2) -> pointwise
+conv -> gated tanh/sigmoid unit conditioned on the upsampled mel ->
+residual/skip], and an end conv giving (log_s, t).  ``forward`` runs the
+flows on audio for the NLL (the 1x1's log-determinant by
+``torch.linalg.slogdet`` on the weight's device); inference inverts the
 affine couplings and the invertible 1x1 convs on Gaussian noise z.
 
 On the card the depthwise stage always runs K2: the reference's
@@ -165,6 +168,20 @@ def _channel_schedule(cfg: SqueezeWaveConfig) -> List[Tuple[int, bool]]:
     return sched
 
 
+def squeeze_audio(audio: torch.Tensor, n_group: int) -> torch.Tensor:
+    """(B, T) -> (B, L, n_group)"""
+    b, t = audio.shape
+    if t % n_group != 0:
+        raise ValueError(f"audio length {t} not divisible by n_group "
+                         f"{n_group}")
+    return audio.reshape(b, t // n_group, n_group)
+
+
+def unsqueeze_audio(x: torch.Tensor) -> torch.Tensor:
+    """(B, L, n_group) -> (B, L * n_group)"""
+    return x.reshape(x.shape[0], -1)
+
+
 def upsample_mel(mel: torch.Tensor, target_len: int) -> torch.Tensor:
     """(B, M, n_mels) -> (B, target_len, n_mels) by frame repetition."""
     m = mel.shape[1]
@@ -212,6 +229,40 @@ def wn_apply(wn: WN, audio_half: torch.Tensor, mel_up: torch.Tensor,
     return wn_conv(wn.end, skip_total, compute_dtype)
 
 
+def forward(model: SqueezeWave, cfg: SqueezeWaveConfig, mel: torch.Tensor,
+            audio: torch.Tensor, compute_dtype=None
+            ) -> Tuple[torch.Tensor, List[torch.Tensor], List[torch.Tensor]]:
+    """mel (B, M, n_mels), audio (B, T) -> (z (B, L, n_group), the per-flow
+    bounded log_s, the per-flow L * log|det W|).  T must equal M *
+    hop_length.  The 1x1 convs, the coupling and z stay f32; the WN runs in
+    the compute dtype."""
+    cdt = compute_dtype or _dtype(cfg.compute_dtype)
+    x = squeeze_audio(audio, cfg.n_group).float()
+    l = x.shape[1]
+    mel_up = upsample_mel(mel, l).to(cdt)
+    z_out: List[torch.Tensor] = []
+    log_s_list: List[torch.Tensor] = []
+    log_det_list: List[torch.Tensor] = []
+    for k, (n_rem, early) in enumerate(_channel_schedule(cfg)):
+        if early:
+            z_out.append(x[..., :cfg.n_early_size])
+            x = x[..., cfg.n_early_size:]
+        fp = model.flows[k]
+        w = fp.inv1x1.w_1x1.float()
+        x = x @ w
+        log_det_list.append(l * torch.linalg.slogdet(w).logabsdet)
+        n_half = n_rem // 2
+        a0, a1 = x[..., :n_half], x[..., n_half:]
+        st = wn_apply(fp.wn, a0.to(cdt), mel_up, cfg.wn_layers,
+                      cfg.wn_channels, cdt).float()
+        log_s = _bound_log_s(st[..., :n_half], cfg.log_s_clamp)
+        a1 = a1 * torch.exp(log_s) + st[..., n_half:]
+        log_s_list.append(log_s)
+        x = torch.cat([a0, a1], dim=-1)
+    z_out.append(x)
+    return torch.cat(z_out, dim=-1), log_s_list, log_det_list
+
+
 @torch.no_grad()
 def _infer_chunk(model: SqueezeWave, mel_c: torch.Tensor, z_c: torch.Tensor, *,
                  cfg: SqueezeWaveConfig) -> torch.Tensor:
@@ -242,7 +293,7 @@ def _infer_chunk(model: SqueezeWave, mel_c: torch.Tensor, z_c: torch.Tensor, *,
         x = x @ w_inv.float()
         if early:
             x = torch.cat([early_chunks.pop(), x], dim=-1)
-    return x.reshape(x.shape[0], -1)
+    return unsqueeze_audio(x)
 
 
 def infer(model: SqueezeWave, cfg: SqueezeWaveConfig, mel: torch.Tensor,

@@ -11,11 +11,13 @@ Parameters and optimizer state are updated in place.
 ``train_tts`` runs the reference's loop: ``EpochBatcher``'s step -> batch
 map and a dropout generator seeded from (seed, step), so a resumed run
 replays the batches and dropout of an uninterrupted one; logging, eval
-(losses, MCD, stop-length error), periodic and final checkpoints, resume,
-and a graceful stop on SIGTERM/SIGINT.  Not ported, each refused or
-skipped with a message: a mesh of more than one device, the eval artifacts
-(Griffin-Lim audio, alignment and spectrogram images, alignment scalars),
-TensorBoard and hosted trackers, ``debug_nans``.
+(losses, MCD, stop-length error, and the Griffin-Lim render of the first
+val prediction as ``audio_step{N}.wav`` with its MR-STFT distance to the
+shortest val clip), periodic and final checkpoints, resume, and a graceful
+stop on SIGTERM/SIGINT.  Not ported, each refused or skipped with a
+message: a mesh of more than one device, the spectrogram and alignment
+images and the alignment scalars (they need ``rtts/infer/diagnostics.py``
+and matplotlib), TensorBoard and hosted trackers, ``debug_nans``.
 """
 
 from __future__ import annotations
@@ -29,6 +31,8 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from rtts_torch.audio.griffin import mel_to_audio
+from rtts_torch.audio.wav import write_wav
 from rtts_torch.config import Config, save_config
 from rtts_torch.data import (EpochBatcher, Manifest, TextMelDataset,
                              split_manifest, to_device)
@@ -40,7 +44,9 @@ from rtts_torch.train.interrupt import GracefulStop
 from rtts_torch.train.losses import (guided_attention_loss, make_stop_target,
                                      tts_loss)
 from rtts_torch.train.optim import global_norm, lr_at_step, make_optimizer
-from rtts_torch.train.quality import mel_cepstral_distortion, stop_length_mae
+from rtts_torch.train.quality import (mel_cepstral_distortion,
+                                     multi_resolution_stft_distance,
+                                     stop_length_mae)
 from rtts_torch.utils.metrics import make_logger
 
 
@@ -118,16 +124,21 @@ def make_eval_step(model_cfg):
     return eval_step
 
 
-def _check_supported(cfg: Config) -> None:
-    exp = cfg.experiment
-    mesh = exp.mesh
+def check_single_device(cfg: Config) -> None:
+    """Raise on a mesh of more than one device, which no trainer of the
+    port runs yet."""
+    mesh = cfg.experiment.mesh
     if (mesh.data_parallel not in (-1, 1) or mesh.model_parallel != 1
             or mesh.dcn_parallel != 1 or mesh.num_processes != 1):
         raise NotImplementedError(
             "rtts_torch: training on a mesh of more than one device is not "
             "ported yet (data_parallel, model_parallel, dcn_parallel and "
             "num_processes must be 1)")
-    if exp.debug_nans:
+
+
+def _check_supported(cfg: Config) -> None:
+    check_single_device(cfg)
+    if cfg.experiment.debug_nans:
         raise NotImplementedError("rtts_torch: debug_nans is not ported")
 
 
@@ -150,8 +161,8 @@ def train_tts(cfg: Config, workdir: str, max_steps: Optional[int] = None,
     with stop_ctx as stopper:
         max_steps = max_steps if max_steps is not None else exp.max_steps
         save_config(cfg, work / "config.yaml")
-        print("rtts_torch: eval artifacts (spectrogram and alignment images, "
-              "Griffin-Lim audio, alignment scalars) are not ported; skipped")
+        print("rtts_torch: the eval's spectrogram and alignment images and "
+              "alignment scalars are not ported; skipped")
 
         man = Manifest.load(manifest_path or pathlib.Path(cfg.dataset.data_dir)
                             / cfg.dataset.manifest)
@@ -212,7 +223,8 @@ def train_tts(cfg: Config, workdir: str, max_steps: Optional[int] = None,
             saved = False
             if ((step + 1) % exp.logging.eval_every_steps == 0
                     or step + 1 == max_steps):
-                val_metrics = _run_eval(cfg, eval_step, model, val_ds, device)
+                val_metrics = _run_eval(cfg, eval_step, model, val_ds, device,
+                                        work, step + 1)
                 logger.log(step + 1, val_metrics, prefix="val/")
                 _save(step + 1, metric=float(val_metrics.get("loss", 0.0)))
                 saved = True
@@ -233,17 +245,45 @@ def train_tts(cfg: Config, workdir: str, max_steps: Optional[int] = None,
     return last_metrics
 
 
-def _run_eval(cfg: Config, eval_step, model, val_ds, device
-              ) -> Dict[str, float]:
-    """Mean eval metrics over the first ``eval_batches`` val batches."""
+def _run_eval(cfg: Config, eval_step, model, val_ds, device, work,
+              step: int) -> Dict[str, float]:
+    """Mean eval metrics over the first ``eval_batches`` val batches; then
+    the first prediction rendered by Griffin-Lim (8 iterations, on
+    ``device``) to ``audio_step{step}.wav``, with ``mr_stft_gl`` and
+    ``spectral_convergence_gl`` against the shortest val clip's audio.
+    A failing artifact is reported and never stops training."""
     agg: Dict[str, float] = {}
     n = 0
+    post_example = batch_example = None
     for i, batch in enumerate(val_ds.batches(cfg.dataset.batch_size,
                                              shuffle=False)):
         if i >= cfg.experiment.eval_batches:
             break
-        metrics, _ = eval_step(model, to_device(batch, device))
+        metrics, post = eval_step(model, to_device(batch, device))
         for k, v in metrics.items():
             agg[k] = agg.get(k, 0.0) + float(v)
         n += 1
-    return {k: v / max(n, 1) for k, v in agg.items()}
+        if post_example is None:
+            post_example, batch_example = post[0], batch
+    out = {k: v / max(n, 1) for k, v in agg.items()}
+    if post_example is None:
+        return out
+    try:
+        art = pathlib.Path(work) / cfg.experiment.logging.artifacts_dir
+        t_len = int(batch_example["mel_mask"][0].sum())
+        wav = mel_to_audio(post_example[:t_len].float(), cfg.dataset.audio,
+                           n_iter=8).cpu().numpy()
+        write_wav(art / f"audio_step{step}.wav", wav,
+                  cfg.dataset.audio.sample_rate)
+        # the render is Griffin-Lim, so the values carry a phase floor
+        # (suffix _gl).  The first eval batch is the first length-sorted
+        # chunk, so example 0 is the shortest val clip
+        order0 = min(range(len(val_ds)),
+                     key=lambda i: val_ds.man.clips[i]["n_frames"])
+        gt_audio = val_ds.store.load(val_ds.man.clips[order0]["clip"])["audio"]
+        wf = multi_resolution_stft_distance(wav, gt_audio)
+        out["mr_stft_gl"] = wf["mr_stft"]
+        out["spectral_convergence_gl"] = wf["spectral_convergence"]
+    except Exception as e:  # artifacts must never kill training
+        print(f"eval artifact generation failed: {e!r}")
+    return out

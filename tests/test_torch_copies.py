@@ -3,10 +3,12 @@ equal to the originals on the CPU.
 
 ``rtts_torch`` imports nothing of ``rtts``, so it keeps copies of what it
 uses: the configuration tree (``rtts_torch/config.py``), the text frontend
-(``rtts_torch/text/``), the TTS data pipeline (``rtts_torch/data.py``) and
-the metric logger (``rtts_torch/utils/metrics.py``).  Each must behave as
-its original: the same config from the same YAML, the same token ids, the
-same batches, the same JSONL lines.
+(``rtts_torch/text/``), the TTS and vocoder data pipeline
+(``rtts_torch/data.py``), the metric logger (``rtts_torch/utils/metrics.py``),
+wav IO and resampling (``rtts_torch/audio/``) and the host-side quality
+scalars (``rtts_torch/train/quality.py``).  Each must behave as its
+original: the same config from the same YAML, the same token ids, the same
+batches and crops, the same JSONL lines, files, samples and scalars.
 """
 
 import dataclasses
@@ -21,9 +23,15 @@ import rtts.config as JC
 import rtts.text as JT
 import rtts_torch.config as TC
 import rtts_torch.text as TT
+from rtts.audio import resample as JR
+from rtts.audio import wav as JW
 from rtts.data import dataset as JD
+from rtts.train import quality as JQ
 from rtts.utils.metrics import MetricLogger as JaxLogger
 from rtts_torch import data as TD
+from rtts_torch.audio import resample as TR
+from rtts_torch.audio import wav as TW
+from rtts_torch.train import quality as TQ
 from rtts_torch.utils.metrics import MetricLogger as PortLogger
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -146,3 +154,93 @@ def test_metric_loggers_write_alike(tmp_path, monkeypatch):
     lines = [json.loads(l) for l in (tmp_path / "port.jsonl").open()]
     assert lines[0] == {"step": 3, "time": 1234.5, "train/loss": 1.5,
                         "train/note": "x", "train/n": 2.0}
+
+
+def test_vocoder_datasets_crop_alike(corpus):
+    """``MelAudioDataset.sample``: the same picks, offsets and crops from
+    the same generator, bit for bit, and the same refusals."""
+    path = pathlib.Path(corpus.data_dir) / corpus.manifest
+    jman, tman = JD.Manifest.load(path), TD.Manifest.load(path)
+    hop = jman.hop_length
+    seg = hop * min(c["n_frames"] for c in jman.clips) // 2 * 2
+    jds = JD.MelAudioDataset(jman, corpus, seg)
+    tds = TD.MelAudioDataset(tman, seg)
+    assert [c["clip"] for c in tds.usable] == [c["clip"] for c in jds.usable]
+    for seed in (0, (3, 7)):
+        jr, tr = np.random.default_rng(seed), np.random.default_rng(seed)
+        for bsz in (4, 1, 3):
+            got, want = tds.sample(tr, bsz), jds.sample(jr, bsz)
+            _equal_batches(got, want)
+            assert got["audio"].shape == (bsz, seg)
+            assert got["mel"].shape == (bsz, seg // hop, jman.n_mels)
+    longest = max(c["n_samples"] for c in jman.clips)
+    for bad in (hop + 1, hop * (longest // hop + 1)):
+        with pytest.raises(ValueError) as want:
+            JD.MelAudioDataset(jman, corpus, bad)
+        with pytest.raises(ValueError, match=str(want.value)):
+            TD.MelAudioDataset(tman, bad)
+
+
+@pytest.mark.parametrize("width", [1, 2, 4])
+def test_wav_io_alike(tmp_path, width):
+    """Each package reads what the other writes, to the same samples; the
+    writers give the same bytes; 8/16/32-bit stereo files read alike."""
+    import wave
+
+    x = np.clip(np.random.default_rng(0).standard_normal(999) * 0.4,
+                -1.2, 1.2).astype(np.float32)
+    TW.write_wav(tmp_path / "t" / "port.wav", x, 22050)
+    JW.write_wav(tmp_path / "j" / "jax.wav", x, 22050)
+    assert (tmp_path / "t" / "port.wav").read_bytes() == \
+        (tmp_path / "j" / "jax.wav").read_bytes()
+    for path in (tmp_path / "t" / "port.wav", tmp_path / "j" / "jax.wav"):
+        (a, sr_a), (b, sr_b) = TW.read_wav(path), JW.read_wav(path)
+        np.testing.assert_array_equal(a, b)
+        assert sr_a == sr_b == 22050
+    raw = np.random.default_rng(width).integers(0, 256, 2 * width * 64,
+                                                dtype=np.uint8)
+    with wave.open(str(tmp_path / "stereo.wav"), "wb") as w:
+        w.setnchannels(2)
+        w.setsampwidth(width)
+        w.setframerate(16000)
+        w.writeframes(raw.tobytes())
+    (a, sr_a), (b, sr_b) = (m.read_wav(tmp_path / "stereo.wav")
+                            for m in (TW, JW))
+    np.testing.assert_array_equal(a, b)
+    assert a.shape == (64,) and sr_a == sr_b == 16000
+
+
+# small up/down factors: a 16 kHz -> 22.05 kHz pair (up 441, down 320)
+# makes np.convolve run 1e10 multiply-adds per call
+@pytest.mark.parametrize("rates", [(16000, 24000), (48000, 16000),
+                                   (22050, 22050)])
+def test_resample_alike(rates):
+    x = np.random.default_rng(1).standard_normal(2000).astype(np.float32)
+    got, want = TR.resample_poly(x, *rates), JR.resample_poly(x, *rates)
+    assert got.dtype == want.dtype == np.float32
+    np.testing.assert_array_equal(got, want)
+
+
+def test_waveform_quality_scalars_alike():
+    rng = np.random.default_rng(2)
+    true = rng.standard_normal(9000)
+    pred = true + 0.3 * rng.standard_normal(9000)
+    np.testing.assert_array_equal(TQ._stft_mag(pred, 512, 128, 240),
+                                  JQ._stft_mag(pred, 512, 128, 240))
+    assert TQ._stft_mag(pred[:100], 512, 128, 240).shape == (0, 257)
+    for p, t in ((pred, true), (pred[:1500], true), (true, true),
+                 (pred[:100], true[:100])):
+        got = TQ.multi_resolution_stft_distance(p, t)
+        want = JQ.multi_resolution_stft_distance(p, t)
+        assert got.keys() == want.keys()
+        np.testing.assert_array_equal(list(got.values()),
+                                      list(want.values()))
+
+
+def test_attention_diagonality_alike():
+    rng = np.random.default_rng(3)
+    align = rng.random((40, 30))
+    align /= align.sum(1, keepdims=True)
+    for args in ((40, 30), (25, 12), (1, 1), (0, 5), (40, 30, 0.3)):
+        assert TQ.attention_diagonality(align, *args) == \
+            JQ.attention_diagonality(align, *args)

@@ -3,7 +3,7 @@
 (a) The port imports neither JAX nor the JAX package ``rtts``: subprocesses
     that make ``import jax`` and ``import rtts`` fail import every module of
     ``rtts_torch``, synthesize speech and take train steps (full and LSH
-    attention) with a tiny model; and by their import statements, no module
+    attention, and the vocoder's) with a tiny model; and by their import statements, no module
     of the port and not ``chip_smoke.py`` names ``jax`` or ``rtts``; the
     sort probe runs its CPU check with both blocked.
 (b) ``chip_smoke.py``'s configs (dicts, so the card's machine needs no
@@ -130,9 +130,24 @@ batch = {"tokens": torch.randint(3, 40, (2, 40), generator=g),
 lsh_losses = [float(step(model, state, batch, step_generator(0, s, "cpu"), s)
                     ["loss"]) for s in range(2)]
 assert all(l == l and abs(l) < 1e6 for l in lsh_losses), lsh_losses
+
+# a vocoder train step (flow NLL through K2's plain version)
+from rtts_torch.config import SqueezeWaveConfig
+from rtts_torch.models import squeezewave as SW
+from rtts_torch.train.train_vocoder import make_train_step as voc_step
+voc = SqueezeWaveConfig(n_mels=20, n_flows=2, n_group=32, n_early_every=4,
+                        n_early_size=8, wn_layers=2, wn_channels=16,
+                        hop_length=64, compute_dtype="float32")
+vmodel = SW.init(voc, torch.Generator().manual_seed(0), "cpu")
+state = opt.init(list(vmodel.parameters()))
+vbatch = {"mel": torch.randn(2, 4, 20, generator=g),
+          "audio": 0.1 * torch.randn(2, 256, generator=g)}
+voc_losses = [float(voc_step(voc, opt)(vmodel, state, vbatch)["loss_vocoder"])
+              for s in range(2)]
+assert all(l == l and abs(l) < 1e6 for l in voc_losses), voc_losses
 assert not any(m.split(".")[0] in ("jax", "rtts") for m in sys.modules
                if sys.modules[m] is not None)
-print("OK", losses, lsh_losses)
+print("OK", losses, lsh_losses, voc_losses)
 """
 
 
@@ -232,6 +247,16 @@ def test_chip_smoke_serving_fast_config_equals_serving_fast_yaml():
 
     assert chip_smoke.SERVING_FAST_CONFIG == load_yaml(
         ROOT / "configs" / "serving_fast.yaml")
+
+
+def test_chip_smoke_flagship_vocoder_settings_equal_flagship_yaml():
+    """Phase 22's flagship step: base.yaml's vocoder with flagship.yaml's
+    vocoder settings is flagship.yaml's vocoder."""
+    import chip_smoke
+
+    base = load_yaml(ROOT / "configs" / "base.yaml")["vocoder"]
+    flagship = load_yaml(ROOT / "configs" / "flagship.yaml")["vocoder"]
+    assert {**base, **chip_smoke.FLAGSHIP_VOCODER} == flagship
 
 
 @pytest.mark.parametrize("rate", [0.1, 0.5])

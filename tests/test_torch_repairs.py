@@ -12,9 +12,14 @@
   ``depthwise_conv1d_pallas`` in Pallas interpret mode.  And the vocoder's
   depthwise stage hands K2 its float32 weight and bias as stored, so no
   cast runs before it.
+- ``save_config`` without PyYAML (the card's machine has none): the
+  trainers write ``config.yaml`` first, so both failed to start there; it
+  now always writes YAML's flow style itself, which both packages read
+  back to the same tree.
 """
 
 import dataclasses
+import json
 
 import jax
 import jax.numpy as jnp
@@ -29,6 +34,8 @@ from rtts_torch.infer.synthesize import Synthesizer
 from rtts_torch.models import reformer_tts as TM
 from rtts_torch.models import squeezewave as TS
 from rtts_torch.ops import depthwise_conv as DW
+
+ROOT = __import__("pathlib").Path(__file__).resolve().parent.parent
 
 # f32 on both sides at "highest" precision: conv gradients summed in
 # another order (~1e-7 relative)
@@ -158,3 +165,25 @@ def test_vocoder_depth_weights_get_a_gradient_on_the_cpu():
     for depth in wn.depth:
         for t in (depth.v, depth.g, depth.b):
             assert t.grad is not None and bool(t.grad.abs().sum() > 0)
+
+
+@pytest.mark.parametrize("name", ["base.yaml", "flagship.yaml",
+                                  "longform_8k.yaml"])
+def test_save_config_without_pyyaml_reads_back(tmp_path, monkeypatch, name):
+    import sys
+
+    from rtts.config import load_config as jax_load_config
+    from rtts_torch.config import load_config, load_yaml, save_config, to_dict
+
+    cfg = load_config(str(ROOT / "configs" / name))
+    monkeypatch.setitem(sys.modules, "yaml", None)   # import yaml raises
+    save_config(cfg, tmp_path / "config.yaml")
+    with pytest.raises(ImportError):
+        load_yaml(tmp_path / "config.yaml")
+    monkeypatch.undo()
+    # the tree as YAML gives it back: lists where to_dict has tuples
+    assert load_yaml(tmp_path / "config.yaml") == \
+        json.loads(json.dumps(to_dict(cfg)))
+    assert load_config(str(tmp_path / "config.yaml")) == cfg
+    assert jax_load_config(str(tmp_path / "config.yaml")) == \
+        jax_load_config(str(ROOT / "configs" / name))

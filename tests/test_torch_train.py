@@ -512,8 +512,10 @@ def test_train_tts_runs_resumes_and_replays(prepared, tmp_path):
     lines = [json.loads(l) for l in open(work / "metrics.jsonl")]
     assert any("train/loss_guided_attn" in l for l in lines)
     val = next(l for l in lines if "val/loss" in l)
-    for key in ("val/mcd", "val/stop_len_mae", "val/loss_mel_post"):
+    for key in ("val/mcd", "val/stop_len_mae", "val/loss_mel_post",
+                "val/mr_stft_gl", "val/spectral_convergence_gl"):
         assert np.isfinite(val[key]), (key, val)
+    assert (work / "artifacts" / "audio_step4.wav").stat().st_size > 44
     assert (work / "checkpoints" / "step_4").exists()
     m2 = train_tts(cfg, str(work), max_steps=6, device="cpu")
     m3 = train_tts(cfg, str(tmp_path / "b"), max_steps=6, device="cpu")
