@@ -12,9 +12,12 @@ teacher-forced forward with dropout, loss with guided attention, backward,
 clip, Adam, Noam), TTS training with LSH attention at
 ``configs/longform_8k.yaml``, reversible TTS training with the chunked
 FFN and K6 at ``configs/serving_fast.yaml``, vocoder training at
-``configs/base.yaml`` (``rtts_torch.train.train_vocoder``) and the audio
-frontend (Griffin-Lim, log-mel, denoiser), phase by phase; every phase
-raises on failure:
+``configs/base.yaml`` (``rtts_torch.train.train_vocoder``), the audio
+frontend (Griffin-Lim, log-mel, denoiser), and serving in every decode
+cache at ``configs/longform_8k.yaml`` (kv_lsh_chunk),
+``configs/serving_fast.yaml`` (e4m3 caches, staged) and
+``configs/parity_local.yaml`` (local attention, kv_local; its training
+too), phase by phase; every phase raises on failure:
 
 1. device: the card's name and power limit;
 2. build: nvcc builds the CUDA kernels from ``rtts_torch/csrc``;
@@ -150,14 +153,41 @@ raises on failure:
 25. audio: the Synthesizer without a vocoder answers a sentence through
    Griffin-Lim on the card; Griffin-Lim from one angle and the log-mel on
    the card against the CPU, the log-mel's matmul DFT against
-   ``torch.fft``; the denoiser on a vocoded utterance, card against CPU.
+   ``torch.fft``; the denoiser on a vocoded utterance, card against CPU;
+26. serving-longform: ``longform_8k.yaml`` as ``rtts/bench.py::
+   bench_longform`` shapes it, b2 x 1024 random tokens x 8192 frames,
+   mode "auto" (asserted to resolve kv_lsh_chunk), stop threshold 2.0:
+   the encoder's K4 and K7 launches (6 each), decode frames/s, a profile
+   of 64 steps at group 4096 (idle share), and the per-step time of
+   kv_lsh_chunk against kv_full at groups 1024, 4096 and 8191 with caches
+   filled from a seed, in turns;
+27. serving-fast: ``serving_fast.yaml`` as shipped (kv_full, e4m3,
+   staged): the Synthesizer answers 8 sentences (K4, K7 at the encoder, K2
+   at the vocoder); then b8 x 256 tokens x 1024 frames with the e4m3 and
+   the compute-dtype cache, staged and not, in turns: frames/s, the
+   relative mel L1 of e4m3 against compute, staged against not;
+28. parity-local: K4/K5 on ``parity_local.yaml``'s local layers (b8 h4,
+   8 chunks of 32, causal) against the f32 plain attend, forward and
+   backward, bf16 and f32; the Synthesizer in kv_local ("auto"); b8 x 512
+   frames in kv_local and kv_full (frames/s); three bf16 train steps at
+   full width with K4/K5 launches by shape (2 of each a step on the local
+   layers); one f32 step at 2 + 2 layers ([local, lsh]) card vs CPU,
+   buckets counted as in phase 13; K4 and K5 at the local shape against
+   their plain versions and bounds;
+29. decode-syncs: kv_lsh_chunk, kv_lsh (longform), kv_full with e4m3,
+   staging and unroll 4 (serving_fast), kv_local with ``attn_window``
+   (parity_local): three steps each under CUDA's sync debug mode "error",
+   and a whole 64-group decode synchronizing exactly once per ``unroll``
+   steps (the stop check).
 
 Prints a JSON line of per-kernel results, each entry at one shape (K1 at
 three: ``flash`` at serving, ``flash_train`` at base.yaml's decoder,
 ``flash_cross`` at the longform cross-attention; K7 at two:
 ``sort_by_bucket``, its path entry, at the longform decoder's buckets,
 ``bitonic_sort``, its column entry, at the probe's longform keys; K2 at
-two: ``depthwise`` at serving, ``depthwise_train`` in vocoder training):
+two: ``depthwise`` at serving, ``depthwise_train`` in vocoder training;
+K4 and K5 also at parity_local's local layers, ``lsh_attend_local`` and
+``lsh_attend_bwd_local``, with the launches of phase 28's train steps):
 time by
 the events loop,
 device time from ``torch.profiler``'s kernel events, plain time, bound,
@@ -192,6 +222,7 @@ from rtts_torch.attention import lsh as TL
 from rtts_torch.audio.griffin import _griffin_lim_from_angle
 from rtts_torch.audio.stft import log_mel_spectrogram
 from rtts_torch.config import AttentionConfig, Config, from_dict
+from rtts_torch.infer import decode as TD
 from rtts_torch.infer.decode import decode_greedy
 from rtts_torch.infer.denoiser import Denoiser, denoise
 from rtts_torch.infer.synthesize import Synthesizer
@@ -1557,12 +1588,24 @@ def phase_train_lsh_card_vs_cpu():
     the same weights, batch and rotations.  The CPU hashes for itself, to
     count the buckets that agree, and then attends with the card's buckets,
     so that a flipped near-tie does not move the comparison."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     cfg = train_config("float32", num_layers=2, dropout_off=True,
                        base=LONGFORM_CONFIG, schedule="constant")
+    launches = _lsh_step_card_vs_cpu(cfg, ((256, 180), (1024, 700)),
+                                     "train-lsh", 4)
+    _require(all(n > 0 for n in launches.values()),
+             f"the card's step ran {launches}")
+
+
+def _lsh_step_card_vs_cpu(cfg: Config, lens, tag: str, n_hashed: int):
+    """One f32 step of ``cfg`` (an LSH model) on the card and on the CPU
+    from the same weights, batch (lengths ``lens``) and rotations; the CPU
+    hashes for itself, to count the buckets that agree, and then attends
+    with the card's buckets, so that a flipped near-tie does not move the
+    comparison.  ``n_hashed``: the LSH layers the step must hash.  Returns
+    the card's launches of K1, K3, K4, K5 and K7."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     lr = cfg.experiment.optim.learning_rate
-    lens = ((256, 180), (1024, 700))
     batch = train_batch(cfg, *lens, "cpu")
     hash_vectors, draw_rotations = TL.hash_vectors, TL.draw_rotations
     card_buckets, agree = [], []
@@ -1603,7 +1646,8 @@ def phase_train_lsh_card_vs_cpu():
     worst = max(grad_errs, key=grad_errs.get)
     param_err = max((a - b).abs().max().item()
                     for a, b in zip(card[2], cpu[2]))
-    print(f"[train-lsh-card-vs-cpu] f32 2+2 layers b2 tokens {list(lens[0])} "
+    print(f"[{tag}-card-vs-cpu] f32 2+2 layers b{len(lens[0])} tokens "
+          f"{list(lens[0])} "
           f"frames {list(lens[1])}: buckets equal {equal}/{total} "
           f"({share:.6f}, min {BUCKET_SHARE_MIN}) over {len(agree)} LSH "
           f"layers; loss {card[0]['loss']:.6f} vs {cpu[0]['loss']:.6f} (err "
@@ -1612,13 +1656,15 @@ def phase_train_lsh_card_vs_cpu():
           f"params after the update {param_err:.3e} (lr {lr:g}); tol "
           f"{TRAIN_SLICE_TOL:g}, params {TRAIN_PARAM_TOL_LR:g} lr; card "
           f"launches {launches} (cpu {t1 - t0:.1f} s)")
-    _require(len(agree) == 4 and all(n > 0 for n in launches.values()),
+    _require(len(agree) == n_hashed
+             and all(launches[k] > 0 for k in _lsh_counts()),
              f"the card's step ran {launches}, hashed {len(agree)} layers")
     _require(share >= BUCKET_SHARE_MIN, "card and CPU buckets disagree")
     _require(loss_err <= TRAIN_SLICE_TOL and norm_err <= TRAIN_SLICE_TOL
              and grad_errs[worst] <= TRAIN_SLICE_TOL
              and param_err <= TRAIN_PARAM_TOL_LR * lr,
-             "card and CPU LSH train steps disagree")
+             f"{tag}: card and CPU train steps disagree")
+    return launches
 
 
 def phase_train_lsh_timing(model):
@@ -2917,6 +2963,458 @@ def phase_audio():
              "the denoiser")
 
 
+# -- serving in every decode cache (phases 26-29) -------------------------------
+
+# configs/parity_local.yaml as a dict (tests/test_torch_guards.py holds the
+# two equal)
+_PARITY_LOCAL_ATTENTION = {"kind": "lsh", "num_heads": 4, "head_dim": 64,
+                           "num_hashes": 2, "chunk_length": 32,
+                           "num_chunks_before": 1}
+PARITY_LOCAL_CONFIG = {
+    "dataset": {"data_dir": "data_flagship", "batch_size": 8,
+                "max_mel_len": 512},
+    "model": {
+        "d_model": 256,
+        "n_mels": 80,
+        "reduction_factor": 2,
+        "guided_attention_weight": 2.0,
+        "guided_attention_decay_steps": 1500,
+        "encoder": {"num_layers": 4, "d_model": 256, "d_ff": 1024,
+                    "reversible": True, "causal": False,
+                    "attention": dict(_PARITY_LOCAL_ATTENTION)},
+        "decoder": {"num_layers": 4, "d_model": 256, "d_ff": 1024,
+                    "reversible": False, "causal": True,
+                    "attn_layers": ["local", "lsh", "local", "lsh"],
+                    "attention": dict(_PARITY_LOCAL_ATTENTION)},
+        "compute_dtype": "bfloat16",
+    },
+    "experiment": {"max_steps": 2000,
+                   "optim": {"learning_rate": 3.0e-4, "warmup_steps": 200,
+                             "schedule": "noam"},
+                   "checkpoint": {"save_every_steps": 500},
+                   "logging": {"eval_every_steps": 500}},
+}
+# parity_local's ragged train batch (its max_mel_len is 512)
+# (192 tokens: the encoder's LSH chunks, 12 a row, differ in shape from
+# the local layers' 8)
+LOCAL_TOKEN_LENS = (192, 150, 99, 58, 192, 9, 48, 187)
+LOCAL_FRAME_LENS = (512, 400, 262, 154, 500, 20, 128, 512)
+# the local layers' chunk attend in a parity_local train step: b8 h4, 256
+# groups in chunks of 32, causal, one chunk back, the ragged groups valid
+LOCAL_CASE = (8, 4, 1, 256, 32, True, 1, 0,
+              tuple(-(-n // 2) for n in LOCAL_FRAME_LENS))
+_DECODE_KERNELS = (flash_attend, lsh_attend_fwd, sort_by_bucket,
+                   depthwise_conv1d)
+# the kv_lsh_chunk / kv_full crossover: per-step time at these groups
+CROSSOVER_STEPS = (1024, 4096, 8191)
+
+
+def serving_config(base, **model_overrides) -> Config:
+    """A shipped config as served: the vocabulary size set, bf16, and
+    ``model_overrides``."""
+    data = copy.deepcopy(base)
+    data["model"].update(vocab_size=frontend_vocab_size("char"),
+                         **model_overrides)
+    data.setdefault("vocoder", {})["compute_dtype"] = "bfloat16"
+    return from_dict(Config, data)
+
+
+def _decode_counts():
+    return {"flash": flash_attend.launches, "lsh_attend": lsh_attend_fwd.launches,
+            "sort_by_bucket": sort_by_bucket.launches,
+            "depthwise": depthwise_conv1d.launches}
+
+
+def _reset_decode_counts():
+    for fn in _DECODE_KERNELS:
+        fn.launches = 0
+
+
+def _timed_decode(tts, model_cfg, memory, mask, frames, **kw):
+    """One greedy decode to ``frames`` frames at stop threshold 2.0 (no row
+    stops) -> (wall s by the host clock, the result)."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = decode_greedy(tts, model_cfg, memory, mask, max_frames=frames,
+                        generator=gen, stop_threshold=2.0, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    b = memory.shape[0]
+    _require(tuple(res.mel_post.shape) == (b, frames, model_cfg.n_mels)
+             and bool(torch.isfinite(res.mel_post).all())
+             and bool((res.lengths == frames).all()),
+             f"decode to {frames} frames: shape "
+             f"{tuple(res.mel_post.shape)}, lengths {res.lengths.tolist()}")
+    return wall, res
+
+
+def _check_wavs(wavs, lengths, hop, n):
+    _require(len(wavs) == n, "wrong number of waveforms")
+    for w, frames in zip(wavs, lengths):
+        _require(w.shape == (int(frames) * hop,)
+                 and bool(np.isfinite(w).all()),
+                 f"waveform {w.shape} for {frames} frames")
+
+
+def _filled_decoder(tts, model_cfg, memory, mask, frames, mode, t,
+                    window=None):
+    """A decoder (``decode_greedy``'s state and step) at step ``t`` of a
+    ``frames`` decode in ``mode`` (with the cross-attention ``window``),
+    its caches filled from a seed: random keys and values, every
+    kv_lsh_chunk ring full of positions below t."""
+    n_groups = frames // model_cfg.reduction_factor
+    rotations, nb = None, 0
+    if mode in ("kv_lsh", "kv_lsh_chunk"):
+        rotations, nb = TD._decode_rotations(model_cfg, None, frames, "cuda")
+    local_spec = (TD._local_spec(model_cfg, n_groups) if mode == "kv_local"
+                  else None)
+    dec = TD._Decoder(tts, model_cfg, memory, mask, n_groups, n_groups, mode,
+                      torch.Generator(device="cuda").manual_seed(0), 2.0,
+                      rotations, nb, local_spec, window)
+    g = torch.Generator(device="cuda").manual_seed(SEED_DATA)
+    for cache in dec.k_caches + dec.v_caches:
+        cache.copy_(TD._to_kv(torch.randn(cache.shape, generator=g,
+                                          device="cuda"), cache.dtype))
+    for ring in dec.b_caches:
+        if isinstance(ring, tuple):
+            idx, cnt = ring
+            idx.copy_(torch.randint(0, t, idx.shape, generator=g,
+                                    device="cuda"))
+            cnt.fill_(idx.shape[-1])
+    dec.prev = torch.randn(dec.prev.shape, generator=g, device="cuda")
+    return dec
+
+
+def _step_ms(dec, t: int, n: int = 20) -> float:
+    """Host wall per decode step at group t (the step rewrites position t),
+    after two warm-up steps."""
+    for _ in range(2):
+        dec.step(t)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        dec.step(t)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+def phase_serving_longform():
+    """configs/longform_8k.yaml served as ``rtts/bench.py::bench_longform``
+    shapes it: b2 x 1024 random tokens, 8192 frames, mode "auto" (which
+    must resolve kv_lsh_chunk), stop threshold 2.0; the encoder's K4 and
+    K7 launches; decode frames/s; the device's idle share over 64 steps at
+    group 4096; and the per-step time of kv_lsh_chunk against kv_full at
+    groups 1024, 4096 and 8191 with caches filled from a seed, in turns
+    (chunk, full, full, chunk)."""
+    cfg = serving_config(LONGFORM_CONFIG)
+    mcfg = cfg.model
+    tts = TD._precast_weights(
+        M.init(mcfg, torch.Generator().manual_seed(SEED_TTS), "cuda"),
+        torch.bfloat16)
+    b, n_tok, frames = 2, 1024, 8192
+    mode = TD._auto_mode(mcfg, frames)
+    _require(mode == "kv_lsh_chunk", f"auto resolved {mode}, not kv_lsh_chunk")
+    tokens, mask = _bench_inputs(cfg, b, n_tok)
+    _reset_decode_counts()
+    with torch.no_grad():
+        memory = M.encode(tts, mcfg, tokens, mask)
+    enc = _decode_counts()
+    n_enc = mcfg.encoder.num_layers
+    _require(enc["lsh_attend"] == n_enc and enc["sort_by_bucket"] == n_enc,
+             f"the LSH encoder launched {enc}, not {n_enc} K4 and K7")
+    wall, res = _timed_decode(tts, mcfg, memory, mask, frames, mode="auto")
+    print(f"[serving-longform] longform_8k.yaml b{b} x {n_tok} tokens x "
+          f"{frames} frames (bf16, auto -> {mode}, stop 2.0): encoder "
+          f"launches K4 {enc['lsh_attend']}, K7 {enc['sort_by_bucket']}; "
+          f"decode wall {wall:.3f} s = {b * frames / wall:.1f} frames/s, "
+          f"{wall / (frames // mcfg.reduction_factor) * 1e3:.3f} ms a step")
+    del res
+    dec = _filled_decoder(tts, mcfg, memory, mask, frames, mode, 4096)
+    dec.step(4096)
+
+    def window():
+        for _ in range(64):
+            dec.step(4096)
+        torch.cuda.synchronize()
+
+    pwall, busy, n_kernels, ops = _profile(window)
+    print(f"[serving-longform] profile of 64 kv_lsh_chunk steps at group "
+          f"4096: wall {pwall:.4f} s, device busy {busy:.4f} s, idle "
+          f"{1 - busy / pwall:.1%}; {n_kernels / 64:.1f} device activities "
+          f"a step; device time by op: {ops}")
+    del dec
+    step_ms = {}
+    for t in CROSSOVER_STEPS:
+        decs = {m: _filled_decoder(tts, mcfg, memory, mask, frames, m, t)
+                for m in ("kv_lsh_chunk", "kv_full")}
+        runs = {m: [] for m in decs}
+        for m in ("kv_lsh_chunk", "kv_full", "kv_full", "kv_lsh_chunk"):
+            runs[m].append(_step_ms(decs[m], t))
+        for m, ms in runs.items():
+            step_ms[(m, t)] = sum(ms) / len(ms)
+        del decs
+    print("[serving-longform] per-step ms (host wall, mean of two turns of "
+          "20 steps), kv_lsh_chunk vs kv_full (b2, caches filled): "
+          + "; ".join(
+              f"group {t}: {step_ms[('kv_lsh_chunk', t)]:.3f} vs "
+              f"{step_ms[('kv_full', t)]:.3f} (ratio "
+              f"{step_ms[('kv_full', t)] / step_ms[('kv_lsh_chunk', t)]:.3f})"
+              for t in CROSSOVER_STEPS))
+    torch.cuda.empty_cache()
+
+
+def phase_serving_fast():
+    """configs/serving_fast.yaml as shipped (kv_full, e4m3 caches, staged
+    "auto" on at 1024 groups): the Synthesizer answers 8 sentences, with
+    the encoder's K4/K7 and the vocoder's K2 launches; then b8 x 256
+    tokens x 1024 frames (stop 2.0) with the e4m3 and the compute-dtype
+    cache, each staged and not, in turns (A B C D D C B A): decode
+    frames/s, and the relative mel L1 of e4m3 against compute."""
+    cfg = serving_config(SERVING_FAST_CONFIG)
+    mcfg = cfg.model
+    _require(TD._auto_mode(mcfg, 1024) == "kv_full"
+             and TD._auto_staged(1024)
+             and TD._kv_dtype(mcfg, torch.bfloat16) == torch.float8_e4m3fn,
+             "serving_fast does not resolve kv_full, staged, e4m3")
+    tts, voc = build_models(cfg, "cuda")
+    syn = Synthesizer(cfg, tts, voc, max_frames=1024)
+    _reset_decode_counts()
+    t0 = time.perf_counter()
+    wavs = syn(SENTENCES)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = _decode_counts()
+    _, lengths = syn.text_to_mel(SENTENCES)
+    _check_wavs(wavs, lengths, cfg.vocoder.hop_length, len(SENTENCES))
+    n_enc = mcfg.encoder.num_layers
+    _require(counts["lsh_attend"] >= n_enc
+             and counts["sort_by_bucket"] >= n_enc
+             and counts["depthwise"] >= cfg.vocoder.n_flows
+             * cfg.vocoder.wn_layers * len(SENTENCES),
+             f"serving_fast launched {counts}")
+    print(f"[serving-fast] Synthesizer, serving_fast.yaml as shipped (kv_full"
+          f", e4m3, staged): {len(wavs)} sentences -> frames "
+          f"{lengths.tolist()} in {dt:.2f} s; launches {counts}")
+    tokens, mask = _bench_inputs(cfg, 8, 256)
+    with torch.no_grad():
+        memory = M.encode(syn.tts, mcfg, tokens, mask)
+    frames = 1024
+    variants = [(kv, staged) for kv in ("float8_e4m3fn", "compute")
+                for staged in (True, False)]
+    walls = {v: [] for v in variants}
+    mels = {}
+    for v in variants + variants[::-1]:
+        kv_cfg = dataclasses.replace(mcfg, kv_cache_dtype=v[0])
+        wall, res = _timed_decode(syn.tts, kv_cfg, memory, mask, frames,
+                                  staged=v[1])
+        walls[v].append(wall)
+        mels[v] = res.mel_post
+    for v in variants:
+        best = min(walls[v])
+        print(f"[serving-fast] kv_full b8 x {frames} frames, cache {v[0]}, "
+              f"staged {v[1]}: walls {[round(w, 3) for w in walls[v]]} s; "
+              f"best {8 * frames / best:.1f} frames/s")
+    ref = mels[("compute", True)]
+    l1 = ((mels[("float8_e4m3fn", True)] - ref).abs().mean()
+          / ref.abs().mean()).item()
+    staged_diff = max(_scaled_err(mels[(kv, True)], mels[(kv, False)])
+                      for kv in ("float8_e4m3fn", "compute"))
+    print(f"[serving-fast] relative mel L1, e4m3 vs compute cache: {l1:.4e}; "
+          f"staged vs not, max scaled difference {staged_diff:.3e}")
+    _require(all(bool(torch.isfinite(m).all()) for m in mels.values()),
+             "non-finite serving_fast mel")
+    del syn, tts, voc, mels
+    torch.cuda.empty_cache()
+
+
+def _local_attend_check(dtype):
+    """K4/K5 (the kernels' Function) in ``dtype`` against the plain attend
+    in f32 on the same values, at the parity_local local layers' inputs:
+    out, lse and the gradients of q, k and v."""
+    (q, k, v, dout), _, valid, dlse, opts = _lsh_case(*LOCAL_CASE, dtype)
+    b, h, nc, c = valid.shape
+    pos = torch.arange(nc * c, device="cuda").reshape(1, 1, nc, c).expand(
+        b, h, nc, c)
+    lens = torch.tensor(LOCAL_CASE[-1], device="cuda")
+    valid = pos < lens[:, None, None, None]
+    res = {}
+    for name, attend, cast in (("kernel", lsh_attend_chunks_kernel, dtype),
+                               ("plain", TL.plain_attend, torch.float32)):
+        leaves = [t.detach().to(cast).requires_grad_() for t in (q, k, v)]
+        out, lse = attend(*leaves, pos, valid, *opts)
+        grads = torch.autograd.grad((out, lse), leaves, (dout, dlse))
+        res[name] = (out, lse, *grads)
+    errs = {key: _scaled_err(a, b_) for key, a, b_ in zip(
+        ("out", "lse", "dq", "dk", "dv"), res["kernel"], res["plain"])}
+    return errs, (q, k, v, dout, pos, valid, dlse, opts)
+
+
+def phase_parity_local():
+    """configs/parity_local.yaml: K4/K5 on the local layers against the
+    plain attend at their train shape (b8 h4, 256 groups, chunk 32, causal,
+    one chunk back), forward and backward, bf16 and f32; the Synthesizer
+    answers 8 sentences in kv_local ("auto"); b8 x 256 tokens x 512 frames
+    in kv_local and kv_full (frames/s); three bf16 train steps at full
+    width (b8, ragged up to 128 tokens and 512 frames) with K4/K5 launches
+    by shape, the local layers' among them; one f32 step at 2 + 2 layers
+    ([local, lsh]) card vs CPU.  Returns the local kernels' launches over
+    the three steps and their times."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    errs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        e, case = _local_attend_check(dtype)
+        tol = KERNEL_TOL[dtype]
+        print(f"[parity-local] K4/K5 vs the plain attend at the local layers' "
+              f"shape {tuple(case[0].shape)} {str(dtype)[6:]}: "
+              + ", ".join(f"{key} {v:.3e}" for key, v in e.items())
+              + f"; tol {tol:g}")
+        _require(all(v <= tol for v in e.values()),
+                 "K4/K5 disagree with the plain attend on the local layers")
+        errs.setdefault(dtype, e)
+    cfg = serving_config(PARITY_LOCAL_CONFIG)
+    mcfg = cfg.model
+    _require(TD._auto_mode(mcfg, 512) == "kv_local",
+             "parity_local does not resolve kv_local")
+    tts, voc = build_models(cfg, "cuda")
+    syn = Synthesizer(cfg, tts, voc, max_frames=512)
+    _reset_decode_counts()
+    wavs = syn(SENTENCES)
+    counts = _decode_counts()
+    _, lengths = syn.text_to_mel(SENTENCES)
+    _check_wavs(wavs, lengths, cfg.vocoder.hop_length, len(SENTENCES))
+    _require(counts["lsh_attend"] >= mcfg.encoder.num_layers,
+             f"parity_local serving launched {counts}")
+    tokens, mask = _bench_inputs(cfg, 8, 256)
+    with torch.no_grad():
+        memory = M.encode(syn.tts, mcfg, tokens, mask)
+    walls = {m: [] for m in ("kv_local", "kv_full")}
+    for m in ("kv_local", "kv_full", "kv_full", "kv_local"):
+        walls[m].append(_timed_decode(syn.tts, mcfg, memory, mask, 512,
+                                      mode=m)[0])
+    print(f"[parity-local] Synthesizer (auto -> kv_local): frames "
+          f"{lengths.tolist()}; launches {counts}; decode b8 x 512 frames "
+          "(256 groups, bf16, stop 2.0): " + "; ".join(
+              f"{m} walls {[round(w, 3) for w in ws]} s, best "
+              f"{8 * 512 / min(ws):.1f} frames/s" for m, ws in walls.items()))
+    del syn, tts, voc
+    torch.cuda.empty_cache()
+
+    tcfg = train_config(base=PARITY_LOCAL_CONFIG)
+    model, state, step_fn = _trainer(tcfg, "cuda")
+    names = [n for n, _ in model.named_parameters()]
+    batch = train_batch(tcfg, LOCAL_TOKEN_LENS, LOCAL_FRAME_LENS, "cuda")
+    for fn in _LSH_KERNELS:
+        fn.launches = 0
+    with _shape_tally(LA, "lsh_attend_fwd") as k4_shapes, \
+            _shape_tally(LA, "lsh_attend_bwd") as k5_shapes:
+        for step in range(3):
+            metrics, grads = step_fn(model, state, batch,
+                                     step_generator(SEED_TRAIN, step, "cuda"),
+                                     step, return_grads=True)
+            _check_step(tcfg, metrics, grads, names, f"parity_local step "
+                        f"{step}")
+    torch.cuda.synchronize()
+    local_shape = (8, 4, 256 // 32, 32, 64)
+    n_local = tcfg.model.decoder.attn_layers.count("local")
+    local = {"fwd": k4_shapes.get(local_shape, 0),
+             "bwd": k5_shapes.get(local_shape, 0)}
+    print(f"[parity-local] three bf16 train steps b8 tokens "
+          f"{list(LOCAL_TOKEN_LENS)} frames {list(LOCAL_FRAME_LENS)}: loss "
+          f"{float(metrics['loss']):.6f}; K4 launches by shape {k4_shapes}, "
+          f"K5 {k5_shapes}; the local layers' {local_shape}: K4 "
+          f"{local['fwd'] / 3:g} and K5 {local['bwd'] / 3:g} a step")
+    _require(local["fwd"] == 3 * n_local and local["bwd"] == 3 * n_local,
+             f"the local layers launched K4/K5 {local} times in 3 steps, "
+             f"not {3 * n_local}")
+    del model, state, grads
+    torch.cuda.empty_cache()
+
+    f32 = train_config("float32", num_layers=2, dropout_off=True,
+                       base=PARITY_LOCAL_CONFIG, schedule="constant")
+    f32 = dataclasses.replace(f32, model=dataclasses.replace(
+        f32.model, decoder=dataclasses.replace(
+            f32.model.decoder, attn_layers=["local", "lsh"])))
+    _lsh_step_card_vs_cpu(f32, ((128, 90), (512, 380)), "parity-local", 3)
+
+    q, k, v, dout, pos, valid, dlse, opts = _local_attend_check(
+        torch.bfloat16)[1]
+    fwd = _kernel_ms(lambda: lsh_attend_fwd(q, k, v, pos, valid, *opts),
+                     lambda: lsh_attend_chunks_reference(q, k, v, pos, valid,
+                                                         *opts), 100)
+    bwd = _kernel_ms(
+        lambda: lsh_attend_bwd(q, k, v, pos, valid, dout, dlse, *opts),
+        lambda: lsh_attend_bwd_reference(q, k, v, pos, valid, dout, dlse,
+                                         *opts), 100)
+    dev = [_device_ms(lambda: lsh_attend_fwd(q, k, v, pos, valid, *opts),
+                      100, ("lsh_attend_fwd_mma",)),
+           _device_ms(lambda: lsh_attend_bwd(q, k, v, pos, valid, dout, dlse,
+                                             *opts),
+                      100, ("lsh_bwd_dq", "lsh_bwd_dkv"))]
+    bounds = _lsh_bounds(*LOCAL_CASE, torch.bfloat16)
+    print(f"[parity-local] the local layers' shape bf16: K4 {fwd[0]:.4f} ms "
+          f"(device {dev[0]:.4f}; plain {fwd[1]:.4f}, bound "
+          f"{bounds['fwd']['bound_ms']:.4f} {bounds['fwd']['bound_by']}); K5 "
+          f"{bwd[0]:.4f} ms (device {dev[1]:.4f}; plain {bwd[1]:.4f}, bound "
+          f"{bounds['bwd']['bound_ms']:.4f} {bounds['bwd']['bound_by']})")
+    e = errs[torch.bfloat16]
+    return ({"lsh_attend_local": local["fwd"],
+             "lsh_attend_bwd_local": local["bwd"]},
+            {"lsh_attend_local": dict(
+                ms=fwd[0], plain_ms=fwd[1], device_ms=dev[0],
+                library_ms=None, **bounds["fwd"]),
+             "lsh_attend_bwd_local": dict(
+                 ms=bwd[0], plain_ms=bwd[1], device_ms=dev[1],
+                 library_ms=None, **bounds["bwd"])},
+            {"lsh_attend_local": e["out"],
+             "lsh_attend_bwd_local": max(e["dq"], e["dk"], e["dv"])})
+
+
+def phase_decode_syncs():
+    """Each new decode path at a small length, on full-width models with
+    random weights: three steps under CUDA's sync debug mode "error" (any
+    synchronizing call raises), then a whole decode of 64 groups counted
+    in mode "warn", which must synchronize exactly once per ``unroll``
+    steps (the stop check)."""
+    cases = [("longform kv_lsh_chunk", LONGFORM_CONFIG, "kv_lsh_chunk", {}),
+             ("longform kv_lsh", LONGFORM_CONFIG, "kv_lsh", {}),
+             ("serving_fast kv_full e4m3, staged, unroll 4",
+              SERVING_FAST_CONFIG, "kv_full",
+              {"staged": True, "stage_min": 16, "unroll": 4}),
+             ("parity_local kv_local, attn_window (2, 4)",
+              PARITY_LOCAL_CONFIG, "kv_local", {"attn_window": (2, 4)})]
+    for name, base, mode, kw in cases:
+        cfg = serving_config(base)
+        mcfg = cfg.model
+        tts = TD._precast_weights(
+            M.init(mcfg, torch.Generator().manual_seed(SEED_TTS), "cuda"),
+            torch.bfloat16)
+        tokens, mask = _bench_inputs(cfg, 2, 128)
+        with torch.no_grad():
+            memory = M.encode(tts, mcfg, tokens, mask)
+        frames = 64 * mcfg.reduction_factor
+        dec = _filled_decoder(tts, mcfg, memory, mask, frames, mode, 3,
+                              kw.get("attn_window"))
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for t in range(3):
+                dec.step(t)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        syncs = _sync_warnings(lambda: decode_greedy(
+            tts, mcfg, memory, mask, max_frames=frames, stop_threshold=2.0,
+            mode=mode, **kw))
+        checks = 64 // kw.get("unroll", 1)
+        print(f"[decode-syncs] {name}: three steps under sync debug mode "
+              f"'error' raised nothing; a decode of 64 groups synchronized "
+              f"{syncs} times ({checks} stop checks)")
+        _require(syncs == checks, f"{name}: {syncs} synchronizations, not "
+                 f"{checks}")
+        del tts, dec
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -2960,6 +3458,10 @@ def main() -> int:
     del model
     torch.cuda.empty_cache()
     phase_audio()
+    phase_serving_longform()
+    phase_serving_fast()
+    local_launches, local_times, local_errs = phase_parity_local()
+    phase_decode_syncs()
     _require(not any(m.split(".")[0] in ("jax", "rtts") for m in sys.modules
                      if sys.modules[m] is not None),
              "jax or the JAX package was imported")
@@ -2979,18 +3481,24 @@ def main() -> int:
     # buckets; K7's column entry ("bitonic_sort") and K8: launches of the
     # sort probe's run, times at the longform shapes; K2 in vocoder
     # training ("depthwise_train"): launches of phase 22's three train
-    # steps, times and error at their (8, 128, 128) bf16 shape
+    # steps, times and error at their (8, 128, 128) bf16 shape; K4 and K5
+    # on parity_local's local layers ("lsh_attend_local",
+    # "lsh_attend_bwd_local"): their launches in phase 28's three train
+    # steps, times and errors at that shape
     launches.update(train_launches)
     launches.update(lsh_launches)
     launches.update(ffn_launches)
     launches.update(sort_launches)
     launches.update(voc_launches)
+    launches.update(local_launches)
     times.update(train_times["decoder"])
     times["flash_cross"] = lsh_times.pop("cross")["flash_train"]
     times.update(lsh_times)
     times.update(ffn_times)
     times.update(sort_times)
     times.update(voc_times)
+    times.update(local_times)
+    errs.update(local_errs)
     meta = {
         "flash": ("rtts_torch/csrc/flash_fwd.cu",
                   "rtts/ops/flash_attention.py:322"),
@@ -3018,6 +3526,10 @@ def main() -> int:
                        "scripts/probe_vmem_sort.py:85"),
         "depthwise_train": ("rtts_torch/csrc/depthwise_conv.cu",
                             "rtts/ops/depthwise_conv.py:29"),
+        "lsh_attend_local": ("rtts_torch/csrc/lsh_attend_fwd.cu",
+                             "rtts/ops/lsh_attention.py:60"),
+        "lsh_attend_bwd_local": ("rtts_torch/csrc/lsh_attend_bwd.cu",
+                                 "rtts/ops/lsh_attention.py:158"),
     }
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": rep, "launches": launches[name],

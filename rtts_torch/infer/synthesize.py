@@ -1,11 +1,11 @@
 """End-to-end text -> waveform inference: ``Synthesizer``.
 
 Port of ``rtts/infer/synthesize.py``: text -> token ids (``rtts_torch.text``)
--> encoder -> ``kv_full`` greedy decode -> postnet -> SqueezeWave inverse,
-or Griffin-Lim on the Synthesizer's device when no vocoder is given.  Not
-ported yet, and raising NotImplementedError: multi-device serving
-(``mesh``), the monotonic cross-attention window, streaming vocoding and the
-``serve*`` batching surfaces.
+-> encoder -> greedy decode (any cache of ``decode_greedy``, in
+``kv_cache_dtype``) -> postnet -> SqueezeWave inverse, or Griffin-Lim on the
+Synthesizer's device when no vocoder is given.  Not ported yet, and raising
+NotImplementedError: multi-device serving (``mesh``), streaming vocoding
+and the ``serve*`` batching surfaces.
 """
 
 from __future__ import annotations
@@ -17,7 +17,7 @@ import torch
 
 from rtts_torch.audio.griffin import mel_to_audio as gl_mel_to_audio
 from rtts_torch.config import Config
-from rtts_torch.infer.decode import (_precast_weights, check_kv_cache_dtype,
+from rtts_torch.infer.decode import (_kv_dtype, _precast_weights,
                                      decode_greedy)
 from rtts_torch.models import reformer_tts as M
 from rtts_torch.models import squeezewave
@@ -26,25 +26,30 @@ from rtts_torch.text import encode_batch
 
 class Synthesizer:
     def __init__(self, cfg: Config, tts_model: M.ReformerTTS, vocoder=None,
-                 max_frames: int = 1024, mode: str = "auto", mesh=None,
-                 attn_window=None):
+                 max_frames: int = 1024, mode: str = "auto", unroll: int = 1,
+                 staged="auto", mesh=None, attn_window=None):
         """``tts_model`` and ``vocoder`` are modules on the device to serve
         from.  The TTS weights are cast to the compute dtype once, in place;
         the vocoder is weight-norm folded at load (a copy if it is not
-        folded yet).  ``mode`` selects the decode cache (see
-        ``decode_greedy``)."""
-        if mesh is not None or attn_window is not None:
+        folded yet).  ``mode``, ``unroll``, ``staged`` and ``attn_window``
+        (w_back, w_fwd) go to ``decode_greedy``; an unknown
+        ``kv_cache_dtype`` raises here."""
+        if mesh is not None:
             raise NotImplementedError(
-                "rtts_torch: mesh serving and attn_window are not ported yet")
-        check_kv_cache_dtype(cfg.model)
+                "rtts_torch: mesh serving is not ported yet")
+        cdt = M._dtype(cfg.model.compute_dtype)
+        _kv_dtype(cfg.model, cdt)
         self.cfg = cfg
-        self.tts = _precast_weights(tts_model,
-                                    M._dtype(cfg.model.compute_dtype))
+        self.tts = _precast_weights(tts_model, cdt)
         self.vocoder = (squeezewave.ensure_folded(vocoder)
                         if vocoder is not None else None)
         self.device = next(tts_model.parameters()).device
         self.max_frames = max_frames
         self.mode = mode
+        self.unroll = unroll
+        self.staged = staged
+        self.attn_window = (tuple(attn_window) if attn_window is not None
+                            else None)
 
     @torch.no_grad()
     def text_to_mel(self, texts: Sequence[str], seed: int = 0
@@ -61,7 +66,10 @@ class Synthesizer:
         memory = M.encode(self.tts, self.cfg.model, tokens, mask)
         mel, lengths, _ = decode_greedy(self.tts, self.cfg.model, memory, mask,
                                         max_frames=self.max_frames,
-                                        generator=gen, mode=self.mode)
+                                        generator=gen, mode=self.mode,
+                                        unroll=self.unroll,
+                                        staged=self.staged,
+                                        attn_window=self.attn_window)
         return mel.cpu().numpy(), lengths.cpu().numpy()
 
     def mel_to_audio(self, mel: np.ndarray, length: Optional[int] = None,

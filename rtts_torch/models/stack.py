@@ -1,7 +1,8 @@
 """Reformer stacks: attention and FFN sublayers wired as (f, g) residual pairs.
 
-Port of ``rtts/models/stack.py`` for self-attention kinds ``full`` and
-``lsh`` (per layer through ``attn_layers``; ``auto`` resolves by length).
+Port of ``rtts/models/stack.py`` for self-attention kinds ``full``, ``lsh``
+and ``local`` (per layer through ``attn_layers``; ``auto`` resolves by
+length).
 Encoder layer = one pair (f = self-attention, g = FFN); decoder layer = two
 pairs, (self-attention, FFN) then (cross-attention, FFN).  Parameter paths
 repeat the JAX pytree's, e.g. ``layers.0.f.attn.w_qk.w``.  All sublayers
@@ -35,6 +36,7 @@ from torch import nn
 
 from rtts_torch.attention.full import (Attention, cross_attention,
                                        shared_qk_self_attention)
+from rtts_torch.attention.local import local_self_attention
 from rtts_torch.attention.lsh import lsh_self_attention
 from rtts_torch.config import (ReformerStackConfig, resolve_attention_kind,
                                resolve_ffn_chunk, resolve_reversible)
@@ -99,14 +101,8 @@ def _check_supported(cfg: ReformerStackConfig, seq_len: int) -> List[str]:
     if cfg.seq_parallel_axis or cfg.pipeline_axis:
         raise NotImplementedError(
             "rtts_torch: sequence and pipeline parallelism are not ported yet")
-    kinds = [resolve_attention_kind(cfg.attention, seq_len) if k == "auto"
-             else k for k in _layer_kinds(cfg)]
-    for kind in kinds:
-        if kind not in ("full", "lsh"):
-            raise NotImplementedError(
-                f"rtts_torch: attention kind {kind!r} is not ported yet "
-                "(only 'full' and 'lsh')")
-    return kinds
+    return [resolve_attention_kind(cfg.attention, seq_len) if k == "auto"
+            else k for k in _layer_kinds(cfg)]
 
 
 def use_ffn_kernel(x: torch.Tensor) -> bool:
@@ -162,6 +158,10 @@ def make_stack_layer_fns(cfg: ReformerStackConfig, cross_attend: bool,
                     p.attn, h, aux["mask"], cfg.causal, a,
                     aux["hash_generator"], compute_dtype,
                     dropout_seed=aux["seed"], cache=cache)
+            elif k == "local":
+                out = local_self_attention(p.attn, h, aux["mask"], cfg.causal,
+                                           a, compute_dtype,
+                                           dropout_seed=aux["seed"])
             else:
                 out = shared_qk_self_attention(p.attn, h, mask=aux["mask"],
                                                causal=cfg.causal,

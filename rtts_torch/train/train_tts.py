@@ -11,13 +11,14 @@ Parameters and optimizer state are updated in place.
 ``train_tts`` runs the reference's loop: ``EpochBatcher``'s step -> batch
 map and a dropout generator seeded from (seed, step), so a resumed run
 replays the batches and dropout of an uninterrupted one; logging, eval
-(losses, MCD, stop-length error, and the Griffin-Lim render of the first
-val prediction as ``audio_step{N}.wav`` with its MR-STFT distance to the
-shortest val clip), periodic and final checkpoints, resume, and a graceful
-stop on SIGTERM/SIGINT.  Not ported, each refused or skipped with a
-message: a mesh of more than one device, the spectrogram and alignment
-images and the alignment scalars (they need ``rtts/infer/diagnostics.py``
-and matplotlib), TensorBoard and hosted trackers, ``debug_nans``.
+(losses, MCD, stop-length error, the alignment scalars ``attn_diagonality``
+and ``attn_focus`` of the first val batch's teacher-forced cross-attention,
+the predicted-vs-target mel and alignment images when matplotlib is there,
+and the Griffin-Lim render of the first val prediction as
+``audio_step{N}.wav`` with its MR-STFT distance to the shortest val clip),
+periodic and final checkpoints, resume, and a graceful stop on
+SIGTERM/SIGINT.  Not ported, each refused with a message: a mesh of more
+than one device, TensorBoard and hosted trackers, ``debug_nans``.
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ from rtts_torch.audio.wav import write_wav
 from rtts_torch.config import Config, save_config
 from rtts_torch.data import (EpochBatcher, Manifest, TextMelDataset,
                              split_manifest, to_device)
+from rtts_torch.infer.diagnostics import alignment_map
 from rtts_torch.models import reformer_tts as M
 from rtts_torch.text import frontend_vocab_size
 from rtts_torch.train.checkpoint import (AsyncCheckpointer, latest_checkpoint,
@@ -44,10 +46,12 @@ from rtts_torch.train.interrupt import GracefulStop
 from rtts_torch.train.losses import (guided_attention_loss, make_stop_target,
                                      tts_loss)
 from rtts_torch.train.optim import global_norm, lr_at_step, make_optimizer
-from rtts_torch.train.quality import (mel_cepstral_distortion,
+from rtts_torch.train.quality import (attention_diagonality,
+                                     mel_cepstral_distortion,
                                      multi_resolution_stft_distance,
                                      stop_length_mae)
 from rtts_torch.utils.metrics import make_logger
+from rtts_torch.utils.visualize import plot_attention, plot_spectrogram
 
 
 def step_generator(seed: int, step: int, device) -> torch.Generator:
@@ -161,8 +165,6 @@ def train_tts(cfg: Config, workdir: str, max_steps: Optional[int] = None,
     with stop_ctx as stopper:
         max_steps = max_steps if max_steps is not None else exp.max_steps
         save_config(cfg, work / "config.yaml")
-        print("rtts_torch: the eval's spectrogram and alignment images and "
-              "alignment scalars are not ported; skipped")
 
         man = Manifest.load(manifest_path or pathlib.Path(cfg.dataset.data_dir)
                             / cfg.dataset.manifest)
@@ -223,8 +225,8 @@ def train_tts(cfg: Config, workdir: str, max_steps: Optional[int] = None,
             saved = False
             if ((step + 1) % exp.logging.eval_every_steps == 0
                     or step + 1 == max_steps):
-                val_metrics = _run_eval(cfg, eval_step, model, val_ds, device,
-                                        work, step + 1)
+                val_metrics = _run_eval(cfg, model_cfg, eval_step, model,
+                                        val_ds, device, work, step + 1)
                 logger.log(step + 1, val_metrics, prefix="val/")
                 _save(step + 1, metric=float(val_metrics.get("loss", 0.0)))
                 saved = True
@@ -245,13 +247,18 @@ def train_tts(cfg: Config, workdir: str, max_steps: Optional[int] = None,
     return last_metrics
 
 
-def _run_eval(cfg: Config, eval_step, model, val_ds, device, work,
-              step: int) -> Dict[str, float]:
-    """Mean eval metrics over the first ``eval_batches`` val batches; then
-    the first prediction rendered by Griffin-Lim (8 iterations, on
-    ``device``) to ``audio_step{step}.wav``, with ``mr_stft_gl`` and
-    ``spectral_convergence_gl`` against the shortest val clip's audio.
-    A failing artifact is reported and never stops training."""
+def _run_eval(cfg: Config, model_cfg, eval_step, model, val_ds, device,
+              work, step: int) -> Dict[str, float]:
+    """Mean eval metrics over the first ``eval_batches`` val batches; the
+    alignment scalars ``attn_diagonality`` and ``attn_focus`` (means over
+    the first batch's rows of its head-averaged last cross-attention
+    layer, from the teacher-forced replay); the first prediction's mel
+    against its target and its alignment as ``mel_step{step}.png`` and
+    ``align_step{step}.png``; the first prediction rendered by Griffin-Lim
+    (8 iterations, on ``device``) to ``audio_step{step}.wav``, with
+    ``mr_stft_gl`` and ``spectral_convergence_gl`` against the shortest val
+    clip's audio.  A failing scalar or artifact (a missing matplotlib
+    included) is reported and never stops training."""
     agg: Dict[str, float] = {}
     n = 0
     post_example = batch_example = None
@@ -268,9 +275,39 @@ def _run_eval(cfg: Config, eval_step, model, val_ds, device, work,
     out = {k: v / max(n, 1) for k, v in agg.items()}
     if post_example is None:
         return out
+    align = None
     try:
-        art = pathlib.Path(work) / cfg.experiment.logging.artifacts_dir
-        t_len = int(batch_example["mel_mask"][0].sum())
+        b = to_device(batch_example, device)
+        align = alignment_map(model, model_cfg, b["tokens"], b["token_mask"],
+                              b["mel"], b["mel_mask"]).cpu().numpy()
+        r = max(model_cfg.reduction_factor, 1)
+        diags, focuses = [], []
+        for i in range(align.shape[0]):
+            # ceil division: a partial final group is a scored row
+            n_rows = -(-int(batch_example["mel_mask"][i].sum()) // r)
+            d, f = attention_diagonality(
+                align[i], n_rows, int(batch_example["token_mask"][i].sum()))
+            diags.append(d)
+            focuses.append(f)
+        out["attn_diagonality"] = float(np.mean(diags))
+        out["attn_focus"] = float(np.mean(focuses))
+    except Exception as e:  # scalars must never kill training
+        print(f"alignment quality scalars failed: {e!r}")
+    art = pathlib.Path(work) / cfg.experiment.logging.artifacts_dir
+    t_len = int(batch_example["mel_mask"][0].sum())
+    try:
+        plot_spectrogram(post_example[:t_len].float().cpu().numpy(),
+                         str(art / f"mel_step{step}.png"),
+                         title=f"predicted (step {step})",
+                         target=np.asarray(batch_example["mel"][0][:t_len]))
+        if align is not None:
+            n_tok = int(batch_example["token_mask"][0].sum())
+            plot_attention(align[0][:, :n_tok],
+                           str(art / f"align_step{step}.png"),
+                           title=f"cross-attention (step {step})")
+    except Exception as e:  # images must never kill training
+        print(f"eval images failed: {e!r}")
+    try:
         wav = mel_to_audio(post_example[:t_len].float(), cfg.dataset.audio,
                            n_iter=8).cpu().numpy()
         write_wav(art / f"audio_step{step}.wav", wav,

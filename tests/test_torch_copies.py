@@ -5,8 +5,9 @@ equal to the originals on the CPU.
 uses: the configuration tree (``rtts_torch/config.py``), the text frontend
 (``rtts_torch/text/``), the TTS and vocoder data pipeline
 (``rtts_torch/data.py``), the metric logger (``rtts_torch/utils/metrics.py``),
-wav IO and resampling (``rtts_torch/audio/``) and the host-side quality
-scalars (``rtts_torch/train/quality.py``).  Each must behave as its
+wav IO and resampling (``rtts_torch/audio/``), the host-side quality
+scalars (``rtts_torch/train/quality.py``) and the eval images
+(``rtts_torch/utils/visualize.py``).  Each must behave as its
 original: the same config from the same YAML, the same token ids, the same
 batches and crops, the same JSONL lines, files, samples and scalars.
 """
@@ -244,3 +245,29 @@ def test_attention_diagonality_alike():
     for args in ((40, 30), (25, 12), (1, 1), (0, 5), (40, 30, 0.3)):
         assert TQ.attention_diagonality(align, *args) == \
             JQ.attention_diagonality(align, *args)
+
+
+def test_visualize_copy_draws_alike(tmp_path):
+    """``rtts_torch/utils/visualize.py``: the original's code after its
+    docstring (matplotlib imported inside each function), and the same
+    pixels."""
+    import matplotlib.image as mpimg
+
+    from rtts.data import visualize as JV
+    from rtts_torch.utils import visualize as TV
+
+    def body(module):
+        text = pathlib.Path(module.__file__).read_text()
+        return text[text.index('"""', 3) + 3:]
+
+    assert body(TV) == body(JV)
+    rng = np.random.default_rng(3)
+    mel, target = rng.standard_normal((2, 40, 20))
+    attn = rng.random((12, 9))
+    for module, tag in ((JV, "jax"), (TV, "port")):
+        module.plot_spectrogram(mel, str(tmp_path / tag / "mel.png"),
+                                target=target)
+        module.plot_attention(attn, str(tmp_path / tag / "attn.png"))
+    for name in ("mel.png", "attn.png"):
+        np.testing.assert_array_equal(mpimg.imread(tmp_path / "jax" / name),
+                                      mpimg.imread(tmp_path / "port" / name))

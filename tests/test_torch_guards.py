@@ -7,8 +7,8 @@
     of the port and not ``chip_smoke.py`` names ``jax`` or ``rtts``; the
     sort probe runs its CPU check with both blocked.
 (b) ``chip_smoke.py``'s configs (dicts, so the card's machine needs no
-    PyYAML) equal ``configs/base.yaml``, ``configs/longform_8k.yaml`` and
-    ``configs/serving_fast.yaml``.
+    PyYAML) equal ``configs/base.yaml``, ``configs/longform_8k.yaml``,
+    ``configs/serving_fast.yaml`` and ``configs/parity_local.yaml``.
 (c) The decoder prenet's always-on dropout zeroes about ``rate`` of the
     units, scales the rest by 1/keep, and follows its generator.
 (d) The ctypes signatures the port loads its kernels with
@@ -247,6 +247,13 @@ def test_chip_smoke_serving_fast_config_equals_serving_fast_yaml():
 
     assert chip_smoke.SERVING_FAST_CONFIG == load_yaml(
         ROOT / "configs" / "serving_fast.yaml")
+
+
+def test_chip_smoke_parity_local_config_equals_parity_local_yaml():
+    import chip_smoke
+
+    assert chip_smoke.PARITY_LOCAL_CONFIG == load_yaml(
+        ROOT / "configs" / "parity_local.yaml")
 
 
 def test_chip_smoke_flagship_vocoder_settings_equal_flagship_yaml():

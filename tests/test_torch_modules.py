@@ -164,12 +164,23 @@ def test_stack_apply_encoder_and_decoder(model, data):
     close(got, want, STACK_TOL)
 
 
-def test_unported_attention_kinds_raise(model, data):
+def test_local_encoder_stack_matches_jax(model, data):
+    """kind: local (ported; its own tests are tests/test_torch_local.py):
+    the encoder stack against JAX's, padded to the chunk as the model
+    pads it."""
     cfg, jp, tm = model
     local = dataclasses.replace(cfg.encoder, attention=dataclasses.replace(
-        cfg.encoder.attention, kind="local"))
-    with pytest.raises(NotImplementedError, match="local"):
-        stack_apply(tm.encoder, local, tt(data["x"]), tt(data["mask"]))
+        cfg.encoder.attention, kind="local", chunk_length=8))
+    x = np.pad(data["x"], ((0, 0), (0, 3), (0, 0)))
+    mask = np.pad(data["mask"], ((0, 0), (0, 3)))
+    want = jax_stack_apply(jp["encoder"], local, x, mask)
+    with torch.no_grad():
+        got = stack_apply(tm.encoder, local, tt(x), tt(mask))
+    close(got, want, STACK_TOL)
+
+
+def test_unported_attention_kinds_raise(model, data):
+    cfg, jp, tm = model
     seq_parallel = dataclasses.replace(cfg.encoder, seq_parallel_axis="seq")
     with pytest.raises(NotImplementedError, match="parallel"):
         stack_apply(tm.encoder, seq_parallel, tt(data["x"]), tt(data["mask"]))

@@ -1,9 +1,11 @@
 """Repairs of the port's open faults against the reference, on the CPU.
 
 - ``kv_cache_dtype``: the reference stores the decode caches in e4m3 when
-  asked; the port does not yet, so ``decode_greedy`` and ``Synthesizer``
-  refuse any cache dtype other than the compute dtype instead of ignoring
-  it.
+  asked; the port once ignored the knob, then refused it.  It now stores
+  them in e4m3 or a 16-bit dtype as the reference does (parity in
+  ``tests/test_torch_decode_modes.py``), and ``decode_greedy`` and
+  ``Synthesizer`` still refuse e5m2, which the reference's ``_dtype`` has
+  no entry for.
 - ``param_dtype``: the reference builds its parameters in that dtype; the
   port builds float32 only, so both ``init`` functions refuse the rest.
 - K2's gradient: ``depthwise_conv1d`` is an ``autograd.Function`` whose
@@ -29,7 +31,7 @@ import torch
 
 from rtts.ops.depthwise_conv import depthwise_conv1d_pallas
 from rtts_torch.config import Config, ReformerTTSConfig, SqueezeWaveConfig
-from rtts_torch.infer.decode import check_kv_cache_dtype, decode_greedy
+from rtts_torch.infer.decode import _kv_dtype, decode_greedy
 from rtts_torch.infer.synthesize import Synthesizer
 from rtts_torch.models import reformer_tts as TM
 from rtts_torch.models import squeezewave as TS
@@ -45,20 +47,36 @@ TOL = 1e-5
 @pytest.mark.parametrize("name", ["float8_e4m3fn", "float8_e5m2",
                                   "bfloat16"])
 def test_decode_and_synthesizer_refuse_unported_kv_cache_dtypes(name):
-    cfg = Config()
-    model_cfg = dataclasses.replace(cfg.model, kv_cache_dtype=name)
+    """e4m3 and bf16 decode and serve; e5m2 raises in both."""
+    from rtts.config import to_dict
+    from rtts_torch.config import from_dict
+    from tests.test_model_m1 import tiny_cfg
+
+    model_cfg = from_dict(ReformerTTSConfig, dict(
+        to_dict(tiny_cfg(d=32)), kv_cache_dtype=name))
+    cfg = dataclasses.replace(Config(), model=model_cfg)
     memory = torch.zeros(1, 4, model_cfg.d_model)
-    with pytest.raises(NotImplementedError, match="kv_cache_dtype"):
-        decode_greedy(None, model_cfg, memory, torch.ones(1, 4, dtype=bool),
-                      max_frames=4)
-    with pytest.raises(NotImplementedError, match="kv_cache_dtype"):
-        Synthesizer(dataclasses.replace(cfg, model=model_cfg), None)
+    mask = torch.ones(1, 4, dtype=bool)
+    if name == "float8_e5m2":
+        with pytest.raises(KeyError, match="kv_cache_dtype"):
+            decode_greedy(None, model_cfg, memory, mask, max_frames=4)
+        with pytest.raises(KeyError, match="kv_cache_dtype"):
+            Synthesizer(cfg, None)
+        return
+    tm = TM.init(model_cfg, torch.Generator().manual_seed(0), "cpu")
+    out = decode_greedy(tm, model_cfg, memory, mask, max_frames=4,
+                        stop_threshold=2.0)
+    assert out.mel_post.shape == (1, 4, model_cfg.n_mels)
+    assert bool(torch.isfinite(out.mel_post).all())
+    assert Synthesizer(cfg, tm).tts is tm
 
 
 @pytest.mark.parametrize("name", ["compute", None, ""])
 def test_kv_cache_dtype_compute_is_accepted(name):
-    check_kv_cache_dtype(dataclasses.replace(ReformerTTSConfig(),
-                                             kv_cache_dtype=name))
+    for cdt in (torch.float32, torch.bfloat16):
+        assert _kv_dtype(dataclasses.replace(ReformerTTSConfig(),
+                                             kv_cache_dtype=name),
+                         cdt) is cdt
 
 
 @pytest.mark.parametrize("name", ["bfloat16", "float16"])

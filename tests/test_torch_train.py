@@ -513,9 +513,11 @@ def test_train_tts_runs_resumes_and_replays(prepared, tmp_path):
     assert any("train/loss_guided_attn" in l for l in lines)
     val = next(l for l in lines if "val/loss" in l)
     for key in ("val/mcd", "val/stop_len_mae", "val/loss_mel_post",
-                "val/mr_stft_gl", "val/spectral_convergence_gl"):
+                "val/mr_stft_gl", "val/spectral_convergence_gl",
+                "val/attn_diagonality", "val/attn_focus"):
         assert np.isfinite(val[key]), (key, val)
-    assert (work / "artifacts" / "audio_step4.wav").stat().st_size > 44
+    for name in ("audio_step4.wav", "mel_step4.png", "align_step4.png"):
+        assert (work / "artifacts" / name).stat().st_size > 44, name
     assert (work / "checkpoints" / "step_4").exists()
     m2 = train_tts(cfg, str(work), max_steps=6, device="cpu")
     m3 = train_tts(cfg, str(tmp_path / "b"), max_steps=6, device="cpu")
