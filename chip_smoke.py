@@ -17,7 +17,9 @@ frontend (Griffin-Lim, log-mel, denoiser), and serving in every decode
 cache at ``configs/longform_8k.yaml`` (kv_lsh_chunk),
 ``configs/serving_fast.yaml`` (e4m3 caches, staged) and
 ``configs/parity_local.yaml`` (local attention, kv_local; its training
-too), phase by phase; every phase raises on failure:
+too), and the serving surfaces (continuous batching, bucketed serve,
+streaming) at ``configs/base.yaml``, phase by phase; every phase raises on
+failure:
 
 1. device: the card's name and power limit;
 2. build: nvcc builds the CUDA kernels from ``rtts_torch/csrc``;
@@ -178,7 +180,24 @@ too), phase by phase; every phase raises on failure:
    staging and unroll 4 (serving_fast), kv_local with ``attn_window``
    (parity_local): three steps each under CUDA's sync debug mode "error",
    and a whole 64-group decode synchronizing exactly once per ``unroll``
-   steps (the stop check).
+   steps (the stop check);
+30. serving: ``base.yaml`` at full width (prenet dropout off, stop 2.0)
+   on ``rtts/bench.py``'s serving workloads: (a) ``Synthesizer.
+   serve_continuous(vocode="batched")`` on 32 requests of 128/256/512/1024
+   frames in ``bench_continuous``'s arrival order, 8 slots, segments of
+   64 (32 waveforms of their lengths, at most one host synchronization a
+   boundary beside one lengths read and one audio copy a class, K1 and
+   K2 launches); (b) ``ServingEngine`` on the same requests (frames/s,
+   p50/p95 completion latency, lengths equal and mel L1 against (a)); (c)
+   bucketed ``serve`` against pad-to-max ``text_to_mel`` at 1024 frames
+   (frames/s, mel L1); (d) ``StreamingSynthesizer`` at batch 1 x 512
+   frames in chunks of 32, 64, 128 (time to first audio, at most one
+   synchronization a segment and one for the tail, the decoded frames
+   equal to ``decode_greedy``'s step loop bit for bit); (f)
+   ``mel_to_audio(streaming_chunk=64)`` against one pass; K1 and K2 at the
+   path's shapes; (e) ``serve_batch`` f32 at 2 + 2 layers, card vs CPU;
+   (g) ``serve_pool`` at ``serving_fast.yaml`` as shipped (e4m3 rings,
+   K4/K7 at the encoder) on 8 x 256 frames.
 
 Prints a JSON line of per-kernel results, each entry at one shape (K1 at
 three: ``flash`` at serving, ``flash_train`` at base.yaml's decoder,
@@ -187,7 +206,9 @@ three: ``flash`` at serving, ``flash_train`` at base.yaml's decoder,
 ``bitonic_sort``, its column entry, at the probe's longform keys; K2 at
 two: ``depthwise`` at serving, ``depthwise_train`` in vocoder training;
 K4 and K5 also at parity_local's local layers, ``lsh_attend_local`` and
-``lsh_attend_bwd_local``, with the launches of phase 28's train steps):
+``lsh_attend_bwd_local``, with the launches of phase 28's train steps; K1
+and K2 again on the continuous path, ``flash_serve`` and
+``depthwise_serve``, with the launches of phase 30(a)):
 time by
 the events loop,
 device time from ``torch.profiler``'s kernel events, plain time, bound,
@@ -225,6 +246,8 @@ from rtts_torch.config import AttentionConfig, Config, from_dict
 from rtts_torch.infer import decode as TD
 from rtts_torch.infer.decode import decode_greedy
 from rtts_torch.infer.denoiser import Denoiser, denoise
+from rtts_torch.infer.serving import ServingEngine, serve_batch, serve_pool
+from rtts_torch.infer.streaming import StreamingSynthesizer
 from rtts_torch.infer.synthesize import Synthesizer
 from rtts_torch.models import reformer_tts as M
 from rtts_torch.models import squeezewave as SW
@@ -3414,6 +3437,363 @@ def phase_decode_syncs():
         del tts, dec
     torch.cuda.empty_cache()
 
+# -- phase 30: the serving surfaces -------------------------------------------
+
+# rtts/bench.py's serving workloads: bench_continuous's and bench_serving's
+# true lengths (pinned by their budgets at stop threshold 2.0), 8 requests
+# each, 8 slots, segments of 64 frames; bench_latency's streaming (batch 1,
+# 512 frames, three chunk sizes)
+SERVE_LENGTHS = (128, 256, 512, 1024)
+SERVE_PER_LENGTH, SERVE_SLOTS, SERVE_SEGMENT = 8, 8, 64
+FRAMES_PER_TOKEN = 8.0          # Synthesizer.predict_frames' default
+STREAM_FRAMES, STREAM_CHUNKS = 512, (32, 64, 128)
+# two bf16 serving surfaces on the same requests, mean |a - b| over mean
+# |b| of the mel: they compute the same function and differ in summation
+# order (ring capacity, admission step, batch), where one bf16 rounding
+# flip (2^-8 relative) feeds back through up to 1024 autoregressive steps;
+# the e4m3 cache, a larger perturbation (2^-4 relative a K/V entry), moved
+# serving_fast's mel by 9.3e-3 (phase 27); half of this is the bound
+SERVE_L1_TOL = 2e-2
+
+
+def _serving_texts(lengths, seed: int):
+    """A text per true length: random letters, one token each, so that
+    with the EOS ``predict_frames`` budgets the length exactly."""
+    g = np.random.default_rng(seed)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    return ["".join(g.choice(letters, int(n / FRAMES_PER_TOKEN) - 1))
+            for n in lengths]
+
+
+def _l1(got, want) -> float:
+    got, want = got.float(), want.float()
+    return ((got - want).abs().mean() / want.abs().mean()).item()
+
+
+def _timed_method(obj, name: str, log: dict):
+    """Shadow ``obj.name`` with a wrapper that keeps the last call's result
+    and host wall in ``log`` (``del obj.name`` restores the method).  The
+    methods wrapped end in a read of the device, so the wall needs no
+    synchronization of its own."""
+    method = getattr(obj, name)
+
+    def wrapped(*args, **kw):
+        t0 = time.perf_counter()
+        log["out"] = method(*args, **kw)
+        log["s"] = time.perf_counter() - t0
+        return log["out"]
+
+    setattr(obj, name, wrapped)
+
+
+def _serve_kernel_times(lens, dw_shape) -> dict:
+    """K1 at the admission encode's self-attention and K2 at the batched
+    vocode's largest class: the error against the plain version, times and
+    bounds, as phases 3 and 5 take them at the Synthesizer's shapes."""
+    bf = torch.bfloat16
+    b, lk = len(lens), max(lens)
+    args, kw = _flash_case(b, 8, lk, lk, bf, lens)
+    err = _abs_err(flash_attend(*args, **kw),
+                   flash_attend_reference(*args, **kw))
+    _require(_scaled_err(flash_attend(*args, **kw),
+                         flash_attend_reference(*args, **kw))
+             <= KERNEL_TOL[bf], "K1 disagrees at the admission shape")
+    fn = lambda: flash_attend(*args, **kw)  # noqa: E731
+    k_ms, plain_ms = _kernel_ms(fn, lambda: flash_attend_reference(*args,
+                                                                   **kw))
+    flash = dict(ms=k_ms, plain_ms=plain_ms, library_ms=None,
+                 device_ms=_device_ms(fn, 100, ("flash_fwd",)),
+                 max_abs_err=err,
+                 **_flash_bounds(b, 8, lk, lk, 64, bf, False, True)["fwd"])
+    x, w, bias = _dw_case(dw_shape, 3, bf, torch.float32)
+    got, want = depthwise_conv1d(x, w, bias), depthwise_conv1d_reference(
+        x, w, bias)
+    _require(_scaled_err(got, want) <= KERNEL_TOL[bf],
+             "K2 disagrees at the batched vocode's shape")
+    dw = dict(_dw_times(dw_shape), max_abs_err=_abs_err(got, want))
+    print(f"[serving] K1 at the admission encode b{b} h8 L{lk} bf16: "
+          f"{flash['ms']:.4f} ms (device {flash['device_ms']:.4f}), plain "
+          f"{flash['plain_ms']:.4f}, bound {flash['bound_ms']:.4f} ms; K2 at "
+          f"{dw_shape}: {dw['ms']:.4f} ms (device {dw['device_ms']:.4f})")
+    return {"flash_serve": flash, "depthwise_serve": dw}
+
+
+def _serve_continuous(syn, texts, workload, hop):
+    """(a): ``serve_continuous(vocode="batched")`` under sync debug mode
+    "warn", with K1/K2 launches and serve_batch's boundaries counted."""
+    log = {}
+    _timed_method(syn, "serve_continuous_to_mel", log)
+    _reset_decode_counts()
+    b0 = serve_batch.boundaries
+    wavs = []
+    t0 = time.perf_counter()
+    syncs = _sync_warnings(lambda: wavs.extend(syn.serve_continuous(
+        texts, frames_per_token=FRAMES_PER_TOKEN, slots=SERVE_SLOTS,
+        segment_frames=SERVE_SEGMENT, vocode="batched", escalate=False)))
+    wall = time.perf_counter() - t0
+    del syn.serve_continuous_to_mel
+    counts = _decode_counts()
+    boundaries = serve_batch.boundaries - b0
+    rows, lengths = log["out"]
+    n_cls = len(SERVE_LENGTHS)
+    _require(lengths == list(workload), f"lengths {lengths}")
+    _check_wavs(wavs, lengths, hop, len(workload))
+    # one a boundary; one read of every class's lengths; one copy of each
+    # class's audio
+    allowed = boundaries + 1 + n_cls
+    _require(syncs <= allowed, f"serve_continuous synchronized {syncs} "
+             f"times, more than {allowed}")
+    frames = sum(workload)
+    print(f"[serving] (a) serve_continuous(vocode='batched'), "
+          f"{len(workload)} requests of {SERVE_LENGTHS} frames in arrival "
+          f"order, {SERVE_SLOTS} slots, segments of {SERVE_SEGMENT}: wall "
+          f"{wall:.3f} s (serve_pool's decode {log['s']:.3f} s = "
+          f"{frames / log['s']:.1f} frames/s); {boundaries} boundaries, "
+          f"{syncs} host synchronizations (at most {allowed}); launches K1 "
+          f"{counts['flash']} K2 {counts['depthwise']}")
+    _require(counts["flash"] >= n_cls * 6
+             and counts["depthwise"] >= n_cls * 12 * 8,
+             f"serve_continuous launched {counts}")
+    return rows, counts, frames / log["s"]
+
+
+def phase_serving():
+    """base.yaml at full width (prenet dropout off, so that the surfaces
+    compute one function; stop threshold 2.0): (a) serve_continuous, (b)
+    ServingEngine, (c) bucketed serve against pad-to-max, (d) streaming,
+    (e) serve_batch f32 card vs CPU, (f) streaming vocoding, (g) serve_pool
+    at serving_fast.yaml as shipped."""
+    cfg = base_config(stop_threshold=2.0, dec_prenet_dropout=0.0)
+    mcfg, hop = cfg.model, cfg.vocoder.hop_length
+    tts, voc = build_models(cfg, "cuda")
+    syn = Synthesizer(cfg, tts, voc, max_frames=max(SERVE_LENGTHS))
+    workload = [n for n in SERVE_LENGTHS for _ in range(SERVE_PER_LENGTH)]
+    np.random.RandomState(0).shuffle(workload)   # bench_continuous's order
+    texts = _serving_texts(workload, SEED_DATA)
+    _require(syn.predict_frames(texts) == workload,
+             "the texts do not predict their lengths")
+    # bench_serving's 4 buckets x 8; pad-to-max timed before (a) and after
+    # (c), so that a drift of the host's speed shows
+    lens_c = [n for n in SERVE_LENGTHS for _ in range(SERVE_PER_LENGTH)]
+    texts_c = _serving_texts(lens_c, SEED_DATA + 1)
+    pad_s = [_pad_to_max(syn, texts_c)[2]]
+    rows, counts, pool_fps = _serve_continuous(syn, texts, workload, hop)
+
+    # (b) the engine on the same requests in arrival order
+    tokens, mask = syn._tokens(texts)
+    eng = ServingEngine(cfg, tts, slots=SERVE_SLOTS,
+                        capacity_frames=max(SERVE_LENGTHS),
+                        segment_frames=SERVE_SEGMENT,
+                        token_len=tokens.shape[1],
+                        suppress_dispatch_warning=True)
+    ids = [eng.submit_tokens(tokens[i:i + 1], mask[i:i + 1], n)
+           for i, n in enumerate(workload)]
+    done_at = {}
+
+    def drain():
+        while not eng.idle:
+            for rid in eng.step():
+                done_at[rid] = time.perf_counter() - t0
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng_syncs = _sync_warnings(drain)
+    eng_s = time.perf_counter() - t0
+    lat = np.asarray([done_at[i] for i in ids])
+    res = [eng.results[i] for i in ids]
+    _require([n for _, n in res] == workload, "engine lengths")
+    l1 = [_l1(row[:n], rows[i][:n]) for i, (row, n) in enumerate(res)]
+    print(f"[serving] (b) ServingEngine, the same {len(ids)} requests: wall "
+          f"{eng_s:.3f} s = {sum(workload) / eng_s:.1f} frames/s, {eng.t} "
+          f"global steps, completion latency p50 "
+          f"{np.percentile(lat, 50):.3f} s p95 {np.percentile(lat, 95):.3f} "
+          f"s, {eng_syncs} synchronizations flagged (its harvests wait on "
+          f"events); mel L1 against (a): max {max(l1):.3e}, mean "
+          f"{np.mean(l1):.3e} (tol {SERVE_L1_TOL:g})")
+    _require(max(l1) <= SERVE_L1_TOL, "the engine and serve_pool disagree")
+    del eng, res, rows
+
+    # (c) bucketed serve against pad-to-max
+    log = {}
+    _timed_method(syn, "serve_to_mel", log)
+    wavs = syn.serve(texts_c, frames_per_token=FRAMES_PER_TOKEN,
+                     escalate=False)
+    del syn.serve_to_mel
+    mels, lengths = log["out"]
+    _require(lengths == lens_c, f"bucketed lengths {lengths}")
+    _check_wavs(wavs, lengths, hop, len(texts_c))
+    pad_mel, _, wall = _pad_to_max(syn, texts_c)
+    pad_s.append(wall)
+    # the first n - pn_ctx frames: the postnet's reach of the cut differs
+    ctx = mcfg.postnet_layers * (mcfg.postnet_kernel - 1) // 2
+    l1 = max(_l1(torch.from_numpy(m[:n - ctx]),
+                 torch.from_numpy(pad_mel[i, :n - ctx]))
+             for i, (m, n) in enumerate(zip(mels, lengths)))
+    frames = sum(lens_c)
+    pad_fps = frames / np.mean(pad_s)
+    print(f"[serving] (c) bucketed serve, {len(texts_c)} requests in 4 "
+          f"buckets: decode {log['s']:.3f} s = {frames / log['s']:.1f} "
+          f"useful frames/s; pad-to-max text_to_mel b{len(texts_c)} x "
+          f"{max(SERVE_LENGTHS)}: {pad_s[0]:.3f} s before (a), {pad_s[1]:.3f} "
+          f"s after (c), {pad_fps:.1f} useful frames/s on their mean; "
+          f"against it bucketed {frames / log['s'] / pad_fps:.2f}x, "
+          f"serve_pool {pool_fps / pad_fps:.2f}x, the engine "
+          f"{sum(workload) / eng_s / pad_fps:.2f}x; mel L1 against "
+          f"pad-to-max max {l1:.3e} (tol {SERVE_L1_TOL:g})")
+    _require(l1 <= SERVE_L1_TOL, "bucketed serve and pad-to-max disagree")
+
+    # (d) streaming, batch 1
+    ss = StreamingSynthesizer(cfg, tts, voc, max_frames=STREAM_FRAMES)
+    text = texts_c[-1]
+    ref = _decode_frames(tts, mcfg, text, STREAM_FRAMES)
+    for chunk in STREAM_CHUNKS:
+        out, first = [], []
+
+        def stream():
+            for c in ss.stream([text], chunk_frames=chunk):
+                if not first:
+                    first.append(time.perf_counter() - t0)
+                out.append(c)
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        syncs = _sync_warnings(stream)
+        wall = time.perf_counter() - t0
+        audio = np.concatenate(out, axis=1)
+        segments = -(-STREAM_FRAMES // chunk)
+        print(f"[serving] (d) streaming b1 x {STREAM_FRAMES} frames, chunks "
+              f"of {chunk}: time to first audio {first[0]:.3f} s, wall "
+              f"{wall:.3f} s, {len(out)} chunks, {syncs} synchronizations "
+              f"({segments} segments)")
+        _require(audio.shape == (1, STREAM_FRAMES * hop)
+                 and bool(np.isfinite(audio).all()), f"audio {audio.shape}")
+        _require(syncs <= segments + 1, "streaming synchronized more than "
+                 "once a segment and once for the tail")
+        _require(torch.equal(ss.last_mel, ref), "streamed frames differ "
+                 "from decode_greedy's")
+
+    # (f) mel_to_audio in chunks of 64 against one pass, in f32: the claim
+    # is that the windows reproduce one pass (in bf16 the windows' other
+    # lengths change cuBLAS's summation order, and twelve flows amplify
+    # the flipped roundings)
+    mel = mels[lens_c.index(256)]
+    cfg32 = base_config("float32")
+    syn32 = Synthesizer(cfg32, *build_models(cfg32, "cuda"))
+    _reset_decode_counts()
+    chunked = syn32.mel_to_audio(mel, streaming_chunk=64)
+    n_dw = depthwise_conv1d.launches
+    whole = syn32.mel_to_audio(mel)
+    err = _scaled_err(torch.from_numpy(chunked), torch.from_numpy(whole))
+    print(f"[serving] (f) mel_to_audio f32, {mel.shape[0]} frames in chunks "
+          f"of 64 ({n_dw} K2 launches) against one pass: max err {err:.3e}, "
+          f"tol {KERNEL_TOL[torch.float32]:g}")
+    _require(err <= KERNEL_TOL[torch.float32] and n_dw > 0,
+             "streaming vocoding disagrees")
+    del syn32
+    times = _serve_kernel_times([tokens.shape[1]] * SERVE_SLOTS,
+                                (SERVE_SLOTS, max(SERVE_LENGTHS) * hop
+                                 // cfg.vocoder.n_group, 128))
+    del syn, ss, tts, voc
+    torch.cuda.empty_cache()
+    _serve_batch_card_vs_cpu()
+    _serve_pool_serving_fast()
+    return ({"flash_serve": counts["flash"],
+             "depthwise_serve": counts["depthwise"]}, times)
+
+
+def _pad_to_max(syn, texts):
+    """``text_to_mel`` of every request at ``max_frames`` -> (mel, lengths,
+    wall s); stop 2.0, so every row decodes to the end."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mel, lengths = syn.text_to_mel(texts)
+    wall = time.perf_counter() - t0
+    _require(bool((lengths == syn.max_frames).all()), "pad-to-max lengths")
+    return mel, lengths, wall
+
+
+def _decode_frames(tts, mcfg, text, frames):
+    """decode_greedy(kv_full, staged=False)'s frames before the postnet:
+    its step loop, with its stop check each step."""
+    tokens, mask = encode_batch([text], pad_to_multiple=64)
+    tokens = torch.as_tensor(tokens, device="cuda").long()
+    mask = torch.as_tensor(mask, device="cuda")
+    with torch.no_grad():
+        memory = M.encode(tts, mcfg, tokens, mask)
+        n = frames // mcfg.reduction_factor
+        dec = TD._Decoder(tts, mcfg, memory, mask, n, n, "kv_full",
+                          torch.Generator(device="cuda").manual_seed(0),
+                          mcfg.stop_threshold)
+        for t in range(n):
+            dec.step(t)
+            if bool(dec.done.all()):
+                break
+    return dec.mel
+
+
+def _serve_batch_card_vs_cpu():
+    """(e) serve_batch in f32 at 2 + 2 layers, the same weights on the card
+    (K1) and on the CPU (its plain version): 4 requests in 2 slots, so two
+    are admitted into recycled slots."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = train_config("float32", num_layers=2, dropout_off=True)
+    mcfg = dataclasses.replace(cfg.model, stop_threshold=2.0)
+    cpu = M.init(mcfg, torch.Generator().manual_seed(SEED_TTS), "cpu")
+    card = copy.deepcopy(cpu).cuda()
+    g = torch.Generator().manual_seed(SEED_DATA)
+    tokens = torch.randint(3, mcfg.vocab_size, (4, 64), generator=g)
+    mask = torch.arange(64)[None, :] < torch.tensor([64, 40, 17, 64])[:, None]
+    budgets = torch.tensor([64, 32, 64, 32])
+    kw = dict(capacity_frames=64, slots=2, segment_frames=32)
+    t0 = time.perf_counter()
+    mel_c, len_c = serve_batch(cpu, mcfg, tokens, mask, budgets, **kw)
+    cpu_s = time.perf_counter() - t0
+    _reset_decode_counts()
+    mel_g, len_g = serve_batch(card, mcfg, tokens.cuda(), mask.cuda(),
+                               budgets.cuda(), **kw)
+    n_flash = flash_attend.launches
+    err = _scaled_err(mel_g, mel_c)
+    same = bool((len_g.cpu() == len_c).all())
+    print(f"[serving] (e) serve_batch f32 at 2 + 2 layers, 4 requests in 2 "
+          f"slots: card (K1 {n_flash} launches) vs CPU (cpu {cpu_s:.1f} s): "
+          f"mel err {err:.3e}, lengths equal {same}; tol {SLICE_TOL:g}")
+    _require(same and err <= SLICE_TOL and n_flash >= 2,
+             "serve_batch card and CPU disagree")
+
+
+def _serve_pool_serving_fast():
+    """(g) serving_fast.yaml as shipped (e4m3 rings, LSH encoder, prenet
+    dropout on): serve_pool on 8 requests of 256 frames."""
+    cfg = serving_config(SERVING_FAST_CONFIG)
+    mcfg = cfg.model
+    _require(TD._kv_dtype(mcfg, torch.bfloat16) == torch.float8_e4m3fn,
+             "serving_fast does not resolve an e4m3 cache")
+    tts = TD._precast_weights(
+        M.init(mcfg, torch.Generator().manual_seed(SEED_TTS), "cuda"),
+        torch.bfloat16)
+    tokens, mask = _bench_inputs(cfg, 8, 256)
+    _reset_decode_counts()
+    t0 = time.perf_counter()
+    mels, lengths = serve_pool(tts, mcfg, tokens.cpu().numpy(),
+                               mask.cpu().numpy(), [256] * 8,
+                               stop_threshold=2.0)
+    wall = time.perf_counter() - t0
+    counts = _decode_counts()
+    stacked = torch.stack(mels)
+    print(f"[serving] (g) serve_pool at serving_fast.yaml (e4m3 rings), 8 x "
+          f"256 frames: {wall:.3f} s = {8 * 256 / wall:.1f} frames/s, "
+          f"lengths {lengths.tolist()}, launches {counts}")
+    n_enc = mcfg.encoder.num_layers
+    _require(tuple(stacked.shape) == (8, 256, mcfg.n_mels)
+             and bool(torch.isfinite(stacked).all())
+             and lengths.tolist() == [256] * 8
+             and counts["lsh_attend"] >= n_enc
+             and counts["sort_by_bucket"] >= n_enc,
+             "serve_pool at serving_fast")
+    del tts
+    torch.cuda.empty_cache()
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -3462,6 +3842,7 @@ def main() -> int:
     phase_serving_fast()
     local_launches, local_times, local_errs = phase_parity_local()
     phase_decode_syncs()
+    serve_launches, serve_times = phase_serving()
     _require(not any(m.split(".")[0] in ("jax", "rtts") for m in sys.modules
                      if sys.modules[m] is not None),
              "jax or the JAX package was imported")
@@ -3484,7 +3865,10 @@ def main() -> int:
     # steps, times and error at their (8, 128, 128) bf16 shape; K4 and K5
     # on parity_local's local layers ("lsh_attend_local",
     # "lsh_attend_bwd_local"): their launches in phase 28's three train
-    # steps, times and errors at that shape
+    # steps, times and errors at that shape; K1 and K2 on the continuous
+    # path ("flash_serve", "depthwise_serve"): their launches in phase
+    # 30(a)'s serve_continuous, times and errors at its admission encode
+    # and its largest class's batched vocode
     launches.update(train_launches)
     launches.update(lsh_launches)
     launches.update(ffn_launches)
@@ -3499,6 +3883,9 @@ def main() -> int:
     times.update(voc_times)
     times.update(local_times)
     errs.update(local_errs)
+    launches.update(serve_launches)
+    times.update(serve_times)
+    errs.update({k: v["max_abs_err"] for k, v in serve_times.items()})
     meta = {
         "flash": ("rtts_torch/csrc/flash_fwd.cu",
                   "rtts/ops/flash_attention.py:322"),
@@ -3530,6 +3917,10 @@ def main() -> int:
                              "rtts/ops/lsh_attention.py:60"),
         "lsh_attend_bwd_local": ("rtts_torch/csrc/lsh_attend_bwd.cu",
                                  "rtts/ops/lsh_attention.py:158"),
+        "flash_serve": ("rtts_torch/csrc/flash_fwd.cu",
+                        "rtts/ops/flash_attention.py:322"),
+        "depthwise_serve": ("rtts_torch/csrc/depthwise_conv.cu",
+                            "rtts/ops/depthwise_conv.py:29"),
     }
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": rep, "launches": launches[name],

@@ -3,9 +3,12 @@
 Port of ``rtts/infer/decode.py``.  The loop is a host loop over the decoder
 groups (``t`` a Python int) that checks once every ``unroll`` steps whether
 every row has fired its stop token; every cache is written in place.  The
-step replicates the two-stream residual stack (h1 += f(h2); h2 += g(h1);
-output = mean) with float32 streams and compute-dtype sublayers.
-Cross-attention K/V are projected once from the raw encoder memory.
+step walks the two-stream residual stack (h1 += f(h2); h2 += g(h1); output
+= mean) with float32 streams and compute-dtype sublayers in
+``_stack_substep``, which the serving engine's ring step
+(``rtts_torch.infer.serving``) shares; ``_Decoder`` is also the streaming
+synthesizer's decoder.  Cross-attention K/V are projected once from the
+raw encoder memory.
 
 Self-attention caches, per ``mode``:
 
@@ -289,6 +292,23 @@ def _cross_attn_step(p, h_t, mem_k, mem_v, memory_mask, num_heads, cdt,
     return out, torch.argmax(probs.mean(dim=1), dim=-1)
 
 
+def _stack_substep(model, cfg: ReformerTTSConfig, x_t, cdt, self_attn,
+                   cross) -> torch.Tensor:
+    """One frame (B, D) through the decoder's two-stream residual stack ->
+    the final LN's output.  The caches are the callbacks' business:
+    ``self_attn(i, attn, hh)`` and ``cross(i, attn, hh)`` get the layer's
+    index among its kind, its attention module and the LN'd stream, and
+    return the sublayer's output.  The streams ride float32, as the stack
+    does in training."""
+    h1 = h2 = x_t.float()
+    for li, lp in enumerate(model.decoder.layers):
+        hh = lp.f.ln(h2)
+        fn = cross if li % 2 else self_attn
+        h1 = h1 + fn(li // 2, lp.f.attn, hh)
+        h2 = h2 + _ffn_body(lp.g, h1, cfg.decoder.ffn_activation, cdt)
+    return model.decoder.final_ln((h1 + h2) * 0.5)
+
+
 def _init_mem_kv(model, cfg: ReformerTTSConfig, memory, cdt, kdt):
     """Cross-attention K/V per decoder cross layer in the cache dtype,
     projected from the RAW encoder memory (the cross layer's LN normalizes
@@ -484,23 +504,19 @@ class _Decoder:
     def _layers(self, x_t, t):
         """One frame (B, D) through the decoder stack -> (y, the last cross
         layer's attention peak or None)."""
-        cfg = self.cfg
-        num_heads = cfg.decoder.attention.num_heads
-        h1 = h2 = x_t.float()
-        peak = None
-        for li, lp in enumerate(self.model.decoder.layers):
-            hh = lp.f.ln(h2)
-            i = li // 2
-            if li % 2:
-                out, peak = _cross_attn_step(
-                    lp.f.attn, hh, self.mem_k[i], self.mem_v[i],
-                    self.memory_mask, num_heads, self.cdt, self.window,
-                    self.align_pos)
-            else:
-                out = self._self_attn(i, lp.f.attn, hh, t)
-            h1 = h1 + out
-            h2 = h2 + _ffn_body(lp.g, h1, cfg.decoder.ffn_activation, self.cdt)
-        return self.model.decoder.final_ln((h1 + h2) * 0.5), peak
+        peak = [None]
+
+        def cross(i, p, hh):
+            out, peak[0] = _cross_attn_step(
+                p, hh, self.mem_k[i], self.mem_v[i], self.memory_mask,
+                self.cfg.decoder.attention.num_heads, self.cdt, self.window,
+                self.align_pos)
+            return out
+
+        y = _stack_substep(self.model, self.cfg, x_t, self.cdt,
+                           lambda i, p, hh: self._self_attn(i, p, hh, t),
+                           cross)
+        return y, peak[0]
 
     def step(self, t: int, live: Optional[torch.Tensor] = None) -> None:
         """Decode group t.  ``live`` (a 0-dim bool, or None for True) gates

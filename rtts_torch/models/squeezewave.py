@@ -308,3 +308,47 @@ def infer(model: SqueezeWave, cfg: SqueezeWaveConfig, mel: torch.Tensor,
     z = torch.randn((b, l, cfg.n_group), generator=generator,
                     device=mel.device) * sigma
     return _infer_chunk(model, mel, z, cfg=cfg)
+
+
+# -- streaming inference (chunked, fused behind the AR decoder) ----------------
+
+
+def receptive_field_squeezed(cfg: SqueezeWaveConfig) -> int:
+    """One-sided receptive field of the flow stack in squeezed samples: only
+    the depthwise convs mix time (the 1x1s and the coupling are pointwise),
+    ``wn_layers`` of them per flow, ``n_flows`` flows in sequence.  Each
+    reaches k // 2 (SAME padding reaches (k-1)//2 left and k//2 right, in
+    K2 and its plain version alike, so k // 2 covers both sides)."""
+    return cfg.n_flows * cfg.wn_layers * (cfg.wn_kernel_size // 2)
+
+
+def infer_streaming(model: SqueezeWave, cfg: SqueezeWaveConfig,
+                    mel: torch.Tensor, sigma: Optional[float] = None,
+                    generator: Optional[torch.Generator] = None,
+                    chunk_frames: int = 64) -> torch.Tensor:
+    """Chunked mel -> audio, ``chunk_frames`` mel frames at a time, each
+    window widened by the receptive field so that the kept samples are the
+    single pass's.  z is drawn once for the whole utterance, by the same
+    single ``torch.randn`` call as ``infer``, so both see the same noise
+    from one generator state; each window goes through ``_infer_chunk``
+    (K2 on the card)."""
+    if sigma is None:
+        sigma = cfg.sigma
+    b, m, _ = mel.shape
+    per_frame = cfg.hop_length // cfg.n_group     # squeezed samples a frame
+    if per_frame < 1 or cfg.hop_length % cfg.n_group:
+        raise ValueError("hop_length must be a positive multiple of n_group")
+    if chunk_frames < 1:
+        raise ValueError(f"chunk_frames must be positive, got {chunk_frames}")
+    ctx = -(-receptive_field_squeezed(cfg) // per_frame)   # frames
+    z = torch.randn((b, m * per_frame, cfg.n_group), generator=generator,
+                    device=mel.device) * sigma
+    outs = []
+    for start in range(0, m, chunk_frames):
+        end = min(start + chunk_frames, m)
+        lo, hi = max(0, start - ctx), min(m, end + ctx)
+        audio = _infer_chunk(model, mel[:, lo:hi],
+                             z[:, lo * per_frame:hi * per_frame], cfg=cfg)
+        keep = (start - lo) * cfg.hop_length
+        outs.append(audio[:, keep:keep + (end - start) * cfg.hop_length])
+    return torch.cat(outs, dim=1)

@@ -2,7 +2,8 @@
 
 (a) The port imports neither JAX nor the JAX package ``rtts``: subprocesses
     that make ``import jax`` and ``import rtts`` fail import every module of
-    ``rtts_torch``, synthesize speech and take train steps (full and LSH
+    ``rtts_torch``, synthesize speech (also through ``serve_continuous``
+    and ``StreamingSynthesizer``) and take train steps (full and LSH
     attention, and the vocoder's) with a tiny model; and by their import statements, no module
     of the port and not ``chip_smoke.py`` names ``jax`` or ``rtts``; the
     sort probe runs its CPU check with both blocked.
@@ -59,6 +60,13 @@ syn = Synthesizer(cfg, M.init(cfg.model, g, "cpu"), SW.init(cfg.vocoder, g, "cpu
                   max_frames=16)
 wavs = syn(["hello world", "the port imports no jax"])
 assert [w.ndim for w in wavs] == [1, 1]
+assert all(len(w) > 0 and np.isfinite(w).all() for w in wavs)
+wavs += syn.serve_continuous(["serving", "without jax"], min_frames=16,
+                             slots=2, segment_frames=8)
+from rtts_torch.infer.streaming import StreamingSynthesizer
+chunks = list(StreamingSynthesizer(cfg, syn.tts, syn.vocoder, max_frames=16)
+              .stream(["streaming"], chunk_frames=8))
+wavs.append(np.concatenate(chunks, axis=1)[0])
 assert all(len(w) > 0 and np.isfinite(w).all() for w in wavs)
 assert not any(m.split(".")[0] in ("jax", "rtts") for m in sys.modules
                if sys.modules[m] is not None)
