@@ -17,9 +17,10 @@ frontend (Griffin-Lim, log-mel, denoiser), and serving in every decode
 cache at ``configs/longform_8k.yaml`` (kv_lsh_chunk),
 ``configs/serving_fast.yaml`` (e4m3 caches, staged) and
 ``configs/parity_local.yaml`` (local attention, kv_local; its training
-too), and the serving surfaces (continuous batching, bucketed serve,
-streaming) at ``configs/base.yaml``, phase by phase; every phase raises on
-failure:
+too), the serving surfaces (continuous batching, bucketed serve,
+streaming) at ``configs/base.yaml``, and the README's quick start through
+the command line (``rtts_torch.cli``) at ``configs/base.yaml``, phase by
+phase; every phase raises on failure:
 
 1. device: the card's name and power limit;
 2. build: nvcc builds the CUDA kernels from ``rtts_torch/csrc``;
@@ -197,7 +198,21 @@ failure:
    ``mel_to_audio(streaming_chunk=64)`` against one pass; K1 and K2 at the
    path's shapes; (e) ``serve_batch`` f32 at 2 + 2 layers, card vs CPU;
    (g) ``serve_pool`` at ``serving_fast.yaml`` as shipped (e4m3 rings,
-   K4/K7 at the encoder) on 8 x 256 frames.
+   K4/K7 at the encoder) on 8 x 256 frames;
+31. cli: ``configs/base.yaml`` read by ``load_yaml`` (no PyYAML) equal to
+   ``BASE_CONFIG``, then in a temporary directory, through
+   ``rtts_torch.cli.main`` on the card: ``generate-corpus -n 24``,
+   ``preprocess`` (three clips' log-mel held against the CPU's),
+   ``train-tts --max-steps 3`` (12 launches of K1 and of each K3 kernel in
+   every train step), ``train-tts --max-steps 1`` with
+   ``experiment.debug_nans`` on, ``train-vocoder --max-steps 3`` (96 K2
+   launches a step), ``predict`` with both checkpoints (two texts, 256
+   frames) inside ``rtts_torch.utils.profiling.trace``, whose Chrome trace
+   must name K1's and K2's kernels, and ``serve --strategy continuous``
+   (8 texts); each verb's wall and launches; then ``python -m
+   rtts_torch.cli ... predict`` in a subprocess with ``jax``, ``rtts``,
+   ``click`` and ``yaml`` unimportable, which must exit 0 and write finite
+   wavs.
 
 Prints a JSON line of per-kernel results, each entry at one shape (K1 at
 three: ``flash`` at serving, ``flash_train`` at base.yaml's decoder,
@@ -216,7 +231,8 @@ library time where one PyTorch call computes the same function, launches
 on the main path; and, last, the JSON result line.
 Exits non-zero, printing no result, without a CUDA GPU.  Imports only the
 port: no JAX and nothing of the JAX package (PyYAML is not needed either:
-the configs are the dicts below).
+the configs are the dicts below, and phase 31 reads ``configs/base.yaml``
+through the port's own YAML reader).
 """
 
 from __future__ import annotations
@@ -232,17 +248,21 @@ import shutil
 import struct
 import subprocess
 import sys
+import tempfile
 import time
+import wave
 import warnings
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from rtts_torch import cli as CLI
 from rtts_torch.attention import lsh as TL
 from rtts_torch.audio.griffin import _griffin_lim_from_angle
-from rtts_torch.audio.stft import log_mel_spectrogram
-from rtts_torch.config import AttentionConfig, Config, from_dict
+from rtts_torch.audio.stft import log_mel_spectrogram, make_mel_fn
+from rtts_torch.config import AttentionConfig, Config, from_dict, load_yaml
+from rtts_torch.data import read_clip
 from rtts_torch.infer import decode as TD
 from rtts_torch.infer.decode import decode_greedy
 from rtts_torch.infer.denoiser import Denoiser, denoise
@@ -278,8 +298,11 @@ from rtts_torch.probes import probe_vmem_sort as probe
 from rtts_torch.nn.layers import activation
 from rtts_torch.reversible.ffn import FFN, chunked_ffn
 from rtts_torch.text import encode_batch, frontend_vocab_size
+from rtts_torch.train import train_tts as TTS_TRAINER
+from rtts_torch.train import train_vocoder as VOC_TRAINER
 from rtts_torch.train.optim import make_optimizer
 from rtts_torch.train.train_tts import make_train_step, step_generator
+from rtts_torch.utils import profiling
 from rtts_torch.train.train_vocoder import make_eval_step as \
     make_vocoder_eval_step
 from rtts_torch.train.train_vocoder import make_train_step as \
@@ -3795,6 +3818,244 @@ def _serve_pool_serving_fast():
     torch.cuda.empty_cache()
 
 
+# -- phase 31: the command line ---------------------------------------------------
+
+ROOT = pathlib.Path(__file__).resolve().parent
+CLI_UTTERANCES = 24
+CLI_MEL_TOL = 1e-4      # log-mel, abs, on bins of >= 100 log floors' energy
+CLI_ENERGY_TOL = 1e-5   # mel energy, abs, relative to the clip's peak
+# ``python -m rtts_torch.cli`` with the JAX package, JAX, click and PyYAML
+# unimportable; the command line's arguments follow the script's
+CLI_BLOCKED = r"""
+import runpy
+import sys
+for name in ("jax", "rtts", "click", "yaml"):
+    sys.modules[name] = None
+sys.argv = ["rtts_torch.cli"] + sys.argv[1:]
+try:
+    runpy.run_module("rtts_torch.cli", run_name="__main__")
+except SystemExit as e:
+    if e.code:
+        raise
+assert not any(m.split(".")[0] in ("jax", "rtts", "click", "yaml")
+               for m in sys.modules if sys.modules[m] is not None)
+"""
+
+
+@contextlib.contextmanager
+def _step_launches(module, kernels):
+    """Wrap ``module.make_train_step`` so that every step it makes records
+    its launches of ``kernels`` (name -> counted function) in the list
+    yielded."""
+    made = module.make_train_step
+    steps = []
+
+    def make(*args, **kwargs):
+        step = made(*args, **kwargs)
+
+        def counted(*a, **kw):
+            before = {k: fn.launches for k, fn in kernels.items()}
+            out = step(*a, **kw)
+            steps.append({k: fn.launches - before[k]
+                          for k, fn in kernels.items()})
+            return out
+
+        return counted
+
+    module.make_train_step = make
+    try:
+        yield steps
+    finally:
+        module.make_train_step = made
+
+
+def _cli_mel_vs_cpu(manifest: pathlib.Path, acfg, n: int = 3) -> None:
+    """The log-mel that ``preprocess`` computed on the card for ``n`` clips
+    against the port's on the CPU from the clips' audio: within
+    CLI_MEL_TOL where the energy is at least 100 log floors (below, the log
+    magnifies float32 rounding), the energies within CLI_ENERGY_TOL of the
+    peak everywhere."""
+    with open(manifest) as f:
+        clips = json.load(f)["clips"][:n]
+    mel_fn = make_mel_fn(acfg)
+    for c in clips:
+        _, card, audio = read_clip(c["clip"])
+        with torch.no_grad():
+            cpu = mel_fn(torch.from_numpy(audio.copy())).numpy()[:len(card)]
+        loud = cpu >= np.log(100 * acfg.log_floor)
+        err = float(np.abs(card - cpu)[loud].max())
+        energy = float(np.abs(np.exp(card) - np.exp(cpu)).max()
+                       / np.exp(cpu).max())
+        print(f"[cli] preprocess {c['utt_id']}: {card.shape} log-mel, card "
+              f"vs CPU max {float(np.abs(card - cpu).max()):.3e} (at >= 100 "
+              f"floors {err:.3e}, tol {CLI_MEL_TOL:g}; {loud.mean():.0%} of "
+              f"the bins), energy {energy:.3e} of the peak (tol "
+              f"{CLI_ENERGY_TOL:g})")
+        _require(card.shape == cpu.shape and err <= CLI_MEL_TOL
+                 and energy <= CLI_ENERGY_TOL and loud.mean() > 0.3,
+                 f"preprocess's mel on the card and the CPU disagree "
+                 f"({c['utt_id']})")
+
+
+def _cli_wavs(folder: pathlib.Path, n: int) -> list:
+    """The ``sample_{i}.wav`` files a verb wrote: n, non-empty, not
+    silent; -> their lengths."""
+    lengths = []
+    for i in range(n):
+        with wave.open(str(folder / f"sample_{i}.wav")) as w:
+            pcm = np.frombuffer(w.readframes(w.getnframes()), "<i2")
+        _require(len(pcm) > 0 and bool(np.abs(pcm).max() > 0),
+                 f"{folder.name}/sample_{i}.wav is empty or silent")
+        lengths.append(len(pcm))
+    _require(not (folder / f"sample_{n}.wav").exists(),
+             f"{folder.name} holds more than {n} wavs")
+    return lengths
+
+
+def _trace_kernels(trace_file: str) -> dict:
+    """Kernel events of a Chrome trace -> {name: count}."""
+    with open(trace_file) as f:
+        events = json.load(f)["traceEvents"]
+    names = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            names[e["name"]] = names.get(e["name"], 0) + 1
+    return names
+
+
+def phase_cli():
+    """31: the README's quick start at base.yaml's full width through
+    ``rtts_torch.cli.main`` on the card, in a temporary directory removed
+    afterwards; then the command line in a subprocess that cannot import
+    the JAX package, JAX, click or PyYAML."""
+    base_yaml = ROOT / "configs" / "base.yaml"
+    _require(load_yaml(base_yaml) == BASE_CONFIG,
+             "load_yaml(configs/base.yaml) differs from BASE_CONFIG")
+    cfg = from_dict(Config, BASE_CONFIG)
+    work = pathlib.Path(tempfile.mkdtemp(prefix="rtts_cli_"))
+    top = ["-c", str(base_yaml), "-o", f"dataset.data_dir={work / 'data'}"]
+    walls, launches = {}, {}
+    kernels = {"flash": flash_attend, "flash_bwd_dkv": flash_bwd_dkv,
+               "flash_bwd_dq": flash_bwd_dq, "depthwise": depthwise_conv1d}
+
+    def run(name, args):
+        for fn in kernels.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        status = CLI.main(top + args)
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        launches[name] = {k: fn.launches for k, fn in kernels.items()}
+        print(f"[cli] {name}: exit {status}, wall {walls[name]:.2f} s, "
+              f"launches {launches[name]}")
+        _require(status == 0, f"rtts_torch.cli {name} exited {status}")
+
+    try:
+        run("generate-corpus", ["generate-corpus", "-n", str(CLI_UTTERANCES)])
+        run("preprocess", ["preprocess"])
+        manifest = work / "data" / "manifest.json"
+        with open(manifest) as f:
+            _require(len(json.load(f)["clips"]) == CLI_UTTERANCES,
+                     "preprocess wrote the wrong number of clips")
+        _cli_mel_vs_cpu(manifest, cfg.dataset.audio)
+
+        per_step = cfg.model.encoder.num_layers + cfg.model.decoder.num_layers
+        train = {k: kernels[k] for k in ("flash", "flash_bwd_dkv",
+                                         "flash_bwd_dq")}
+        for name, workdir, steps, extra in (
+                ("train-tts", "tts", 3, []),
+                ("train-tts debug_nans", "tts_debug_nans", 1,
+                 ["-o", "experiment.debug_nans=true"])):
+            with _step_launches(TTS_TRAINER, train) as counts:
+                run(name, extra + ["train-tts", "--workdir",
+                                   str(work / workdir), "--max-steps",
+                                   str(steps)])
+            print(f"[cli] {name}: launches a train step {counts}")
+            _require(len(counts) == steps and all(
+                c == {k: per_step for k in train} for c in counts),
+                f"{name}: expected {per_step} launches of K1 and of each K3 "
+                f"kernel a step, got {counts}")
+            _require((work / workdir / "checkpoints" / f"step_{steps}")
+                     .exists(), f"{name} wrote no checkpoint")
+        _require(not torch.is_anomaly_enabled(),
+                 "debug_nans left anomaly mode on")
+
+        voc = cfg.vocoder
+        with _step_launches(VOC_TRAINER,
+                                {"depthwise": depthwise_conv1d}) as counts:
+            run("train-vocoder", ["train-vocoder", "--workdir",
+                                  str(work / "voc"), "--max-steps", "3"])
+        print(f"[cli] train-vocoder: launches a train step {counts}")
+        _require(counts == [{"depthwise": voc.n_flows * voc.wn_layers}] * 3,
+                 f"train-vocoder: expected {voc.n_flows * voc.wn_layers} K2 "
+                 f"launches a step, got {counts}")
+        with open(work / "voc" / "metrics.jsonl") as f:
+            val = [json.loads(line) for line in f
+                   if "val/loss_vocoder" in line]
+        _require(len(val) == 1 and np.isfinite(val[0]["val/loss_vocoder"]),
+                 "train-vocoder logged no finite eval")
+
+        ckpts = ["--tts-ckpt", str(work / "tts" / "checkpoints"),
+                 "--vocoder-ckpt", str(work / "voc" / "checkpoints")]
+        found = {}
+        for attempt in range(1, 4):
+            # the profiler does not record every launch of the port's
+            # kernels (see _device_ms): take the trace again if it missed
+            with profiling.trace(str(work / "trace")) as prof:
+                run("predict", ["predict", "--text", SENTENCES[0], "--text",
+                                SENTENCES[1]] + ckpts + [
+                    "--max-frames", "256", "--out", str(work / "predict")])
+            names = _trace_kernels(prof.trace_file)
+            found = {tag: sum(n for k, n in names.items() if key in k)
+                     for tag, key in (("K1", "flash_fwd"),
+                                      ("K2", "depthwise_conv"))}
+            print(f"[cli] predict's trace (attempt {attempt} of 3): "
+                  f"{sum(names.values())} kernel events, K1 {found['K1']} "
+                  f"of {launches['predict']['flash']} launches, K2 "
+                  f"{found['K2']} of {launches['predict']['depthwise']}")
+            if all(found.values()):
+                break
+        _require(all(found.values()), f"predict's trace names no launch of "
+                 f"{[k for k, n in found.items() if not n]}")
+        _require(launches["predict"]["flash"] > 0
+                 and launches["predict"]["depthwise"] > 0,
+                 f"predict launched {launches['predict']}")
+        print(f"[cli] predict wrote wavs of {_cli_wavs(work / 'predict', 2)}"
+              " samples")
+
+        run("serve", ["serve", "--strategy", "continuous"] + [
+            arg for text in SENTENCES for arg in ("--text", text)] + ckpts
+            + ["--max-frames", "512", "--out", str(work / "serve")])
+        _require(launches["serve"]["flash"] > 0
+                 and launches["serve"]["depthwise"] > 0,
+                 f"serve launched {launches['serve']}")
+        print(f"[cli] serve wrote wavs of "
+              f"{_cli_wavs(work / 'serve', len(SENTENCES))} samples")
+
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", CLI_BLOCKED] + top + [
+                "predict", "--text", SENTENCES[2]] + ckpts + [
+                "--max-frames", "64", "--out", str(work / "blocked")],
+            cwd=ROOT, capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        print(f"[cli] python -m rtts_torch.cli ... predict with jax, rtts, "
+              f"click and yaml blocked: exit {proc.returncode} in {wall:.1f} "
+              f"s; {proc.stdout.strip().splitlines()[-1:]}")
+        _require(proc.returncode == 0,
+                 f"the blocked subprocess failed: {proc.stderr[-2000:]}")
+        _cli_wavs(work / "blocked", 1)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+    print(f"[cli] on {smi}: walls (s) " + ", ".join(
+        f"{k} {v:.2f}" for k, v in walls.items()) + "; launches "
+        + ", ".join(f"{k} {v}" for k, v in launches.items()))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -3843,9 +4104,10 @@ def main() -> int:
     local_launches, local_times, local_errs = phase_parity_local()
     phase_decode_syncs()
     serve_launches, serve_times = phase_serving()
-    _require(not any(m.split(".")[0] in ("jax", "rtts") for m in sys.modules
-                     if sys.modules[m] is not None),
-             "jax or the JAX package was imported")
+    phase_cli()
+    _require(not any(m.split(".")[0] in ("jax", "rtts", "click", "yaml")
+                     for m in sys.modules if sys.modules[m] is not None),
+             "jax, the JAX package, click or PyYAML was imported")
     # serving kernels: launches of one Synthesizer call, times at the
     # encoder's shape and the serving vocoder's (1, 1024, 128); base.yaml
     # training kernels ("flash_train" is K1 in the train step): launches of

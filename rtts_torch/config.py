@@ -2,9 +2,10 @@
 
 The frozen dataclass tree (dataset / model / vocoder / experiment), the
 strict ``from_dict``, ``to_dict``, dot-path ``apply_overrides``, YAML load
-and save (PyYAML imported inside ``load_yaml`` only; ``save_config`` writes
-the tree in YAML's flow style itself, so the trainers run without PyYAML)
-and the attention-kind resolver, with the same field
+and save with no PyYAML (``load_yaml`` reads the config files' subset of
+YAML through ``rtts_torch/yaml_subset.py``, as ``yaml.safe_load`` would;
+``save_config`` writes the tree in YAML's flow style) and the
+attention-kind resolver, with the same field
 names and defaults: a YAML file means the same model to both packages
 (``tests/test_torch_copies.py`` holds them equal).  What differs:
 ``resolve_reversible`` and ``resolve_ffn_chunk`` estimate memory with the
@@ -22,6 +23,7 @@ from dataclasses import dataclass, field
 from typing import Any, List, Optional, Tuple, Union
 
 from rtts_torch.ops.flash_attention import resolve_flash_impl
+from rtts_torch.yaml_subset import safe_load
 
 
 # ---------------------------------------------------------------------------
@@ -676,10 +678,10 @@ def _parse_scalar(text: str) -> Any:
 
 
 def load_yaml(path: Union[str, pathlib.Path]) -> dict:
-    import yaml  # PyYAML is baked into the image
-
-    with open(path) as f:
-        return yaml.safe_load(f) or {}
+    """The YAML file at ``path`` as ``yaml.safe_load`` reads it ({} when
+    empty); constructs outside the config files' subset raise ValueError
+    naming the line."""
+    return safe_load(pathlib.Path(path).read_text(), str(path)) or {}
 
 
 def apply_overrides(data: dict, overrides: List[str]) -> dict:

@@ -9,7 +9,9 @@ crops as the JAX package's (``tests/test_torch_copies.py``).  The JAX
 package's optional C++ prefetching loader is not part of the copy: the
 clips are read and collated in Python whatever ``num_workers`` says, which
 gives the same batches.  ``to_device`` turns a numpy batch into tensors on
-the training device.
+the training device.  ``read_clip`` and ``write_clip`` are the ``.rclip``
+reader and writer of ``rtts/data/native_loader.py``'s Python path, byte for
+byte.
 """
 
 from __future__ import annotations
@@ -24,6 +26,23 @@ import torch
 
 from rtts_torch.config import DatasetConfig
 from rtts_torch.text.symbols import PAD_ID
+
+
+def write_clip(path: str, tokens: np.ndarray, mel: np.ndarray,
+               audio: np.ndarray) -> None:
+    """One ``.rclip`` file: magic, five uint32 sizes (version 1, tokens,
+    frames, mels, samples), then int32 tokens, f32 mel frames and f32
+    samples."""
+    tokens = np.ascontiguousarray(tokens, np.int32)
+    mel = np.ascontiguousarray(mel, np.float32)
+    audio = np.ascontiguousarray(audio, np.float32)
+    with open(path, "wb") as f:
+        f.write(b"RCLP")
+        f.write(struct.pack("<5I", 1, len(tokens), mel.shape[0],
+                            mel.shape[1], len(audio)))
+        f.write(tokens.tobytes())
+        f.write(mel.tobytes())
+        f.write(audio.tobytes())
 
 
 def read_clip(path: str) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:

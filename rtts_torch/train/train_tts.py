@@ -17,8 +17,12 @@ the predicted-vs-target mel and alignment images when matplotlib is there,
 and the Griffin-Lim render of the first val prediction as
 ``audio_step{N}.wav`` with its MR-STFT distance to the shortest val clip),
 periodic and final checkpoints, resume, and a graceful stop on
-SIGTERM/SIGINT.  Not ported, each refused with a message: a mesh of more
-than one device, TensorBoard and hosted trackers, ``debug_nans``.
+SIGTERM/SIGINT.  Metrics go to JSONL, TensorBoard and a hosted tracker as
+configured (``rtts_torch/utils/metrics.py``), eval artifacts to the
+tracker too.  ``experiment.debug_nans`` runs the loop in autograd's anomaly
+mode and checks the loss and every gradient before each update
+(``rtts_torch.utils.profiling.check_finite``: FloatingPointError naming
+the first non-finite one).  A mesh of more than one device is refused.
 """
 
 from __future__ import annotations
@@ -34,7 +38,7 @@ import torch
 
 from rtts_torch.audio.griffin import mel_to_audio
 from rtts_torch.audio.wav import write_wav
-from rtts_torch.config import Config, save_config
+from rtts_torch.config import Config, save_config, to_dict
 from rtts_torch.data import (EpochBatcher, Manifest, TextMelDataset,
                              split_manifest, to_device)
 from rtts_torch.infer.diagnostics import alignment_map
@@ -50,7 +54,9 @@ from rtts_torch.train.quality import (attention_diagonality,
                                      mel_cepstral_distortion,
                                      multi_resolution_stft_distance,
                                      stop_length_mae)
-from rtts_torch.utils.metrics import make_logger
+from rtts_torch.utils.metrics import MetricLogger
+from rtts_torch.utils.profiling import check_finite, enable_nan_debugging
+from rtts_torch.utils.tracking import make_tracker
 from rtts_torch.utils.visualize import plot_attention, plot_spectrogram
 
 
@@ -70,12 +76,15 @@ def _guided_weight(weight: float, decay_steps: int, step: int) -> np.float32:
     return np.float32(w)
 
 
-def make_train_step(model_cfg, optimizer):
+def make_train_step(model_cfg, optimizer, debug_nans: bool = False):
     """-> train_step(model, opt_state, batch, generator, step=0,
     return_grads=False) -> metrics (0-dim tensors) [, grads].
 
     ``batch`` holds tensors on the model's device (``rtts_torch.data.
-    to_device``); ``generator`` (on that device) draws the dropout."""
+    to_device``); ``generator`` (on that device) draws the dropout.  With
+    ``debug_nans`` the loss and every gradient are checked before the
+    update (one host synchronization), and a NaN that autograd's anomaly
+    mode finds in the backward raises FloatingPointError too."""
     gal_w = model_cfg.guided_attention_weight
     gal_decay = model_cfg.guided_attention_decay_steps
 
@@ -98,7 +107,16 @@ def make_train_step(model_cfg, optimizer):
             metrics = dict(metrics, loss=total, loss_guided_attn=gal)
         # the last postnet layer's LN is never read (as in the reference,
         # whose gradient there is zero): materialize zeros for it
-        grads = torch.autograd.grad(total, params, materialize_grads=True)
+        try:
+            grads = torch.autograd.grad(total, params, materialize_grads=True)
+        except RuntimeError as e:   # anomaly mode found a NaN
+            if not debug_nans or "nan values" not in str(e):
+                raise
+            raise FloatingPointError(f"debug_nans: {e}") from e
+        if debug_nans:
+            check_finite([("loss", total)] + [
+                (f"the gradient of {name}", g) for (name, _), g in zip(
+                    model.named_parameters(), grads)])
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["grad_norm"] = global_norm(grads)
         optimizer.step(params, grads, opt_state)
@@ -140,12 +158,6 @@ def check_single_device(cfg: Config) -> None:
             "num_processes must be 1)")
 
 
-def _check_supported(cfg: Config) -> None:
-    check_single_device(cfg)
-    if cfg.experiment.debug_nans:
-        raise NotImplementedError("rtts_torch: debug_nans is not ported")
-
-
 def train_tts(cfg: Config, workdir: str, max_steps: Optional[int] = None,
               manifest_path: Optional[str] = None, stop: Optional[Any] = None,
               device="cuda") -> Dict[str, Any]:
@@ -155,14 +167,18 @@ def train_tts(cfg: Config, workdir: str, max_steps: Optional[int] = None,
     ``stop``: an object with a ``stop_requested`` property, polled at every
     step boundary; when None a :class:`GracefulStop` turns SIGTERM/SIGINT
     into a checkpoint-and-return."""
-    _check_supported(cfg)
+    check_single_device(cfg)
     exp = cfg.experiment
     work = pathlib.Path(workdir)
     work.mkdir(parents=True, exist_ok=True)
-    logger = make_logger(str(work / exp.logging.jsonl_path),
-                         exp.logging.tensorboard_dir, exp.logging.tracker)
+    logger = MetricLogger(
+        str(work / exp.logging.jsonl_path), exp.logging.tensorboard_dir,
+        tracker=make_tracker(exp.logging.tracker, exp.name,
+                             config=to_dict(cfg)))
     stop_ctx = GracefulStop() if stop is None else contextlib.nullcontext(stop)
-    with stop_ctx as stopper:
+    anomaly = (enable_nan_debugging() if exp.debug_nans
+               else contextlib.nullcontext())
+    with stop_ctx as stopper, anomaly:
         max_steps = max_steps if max_steps is not None else exp.max_steps
         save_config(cfg, work / "config.yaml")
 
@@ -193,7 +209,7 @@ def train_tts(cfg: Config, workdir: str, max_steps: Optional[int] = None,
                 step0 = restore_checkpoint(latest, model, opt_state)
                 print(f"resumed from {latest} at step {step0}")
 
-        train_step = make_train_step(model_cfg, optimizer)
+        train_step = make_train_step(model_cfg, optimizer, exp.debug_nans)
         eval_step = make_eval_step(model_cfg)
         saver = AsyncCheckpointer() if exp.checkpoint.async_save else None
 
@@ -226,7 +242,8 @@ def train_tts(cfg: Config, workdir: str, max_steps: Optional[int] = None,
             if ((step + 1) % exp.logging.eval_every_steps == 0
                     or step + 1 == max_steps):
                 val_metrics = _run_eval(cfg, model_cfg, eval_step, model,
-                                        val_ds, device, work, step + 1)
+                                        val_ds, device, work, step + 1,
+                                        logger)
                 logger.log(step + 1, val_metrics, prefix="val/")
                 _save(step + 1, metric=float(val_metrics.get("loss", 0.0)))
                 saved = True
@@ -248,7 +265,7 @@ def train_tts(cfg: Config, workdir: str, max_steps: Optional[int] = None,
 
 
 def _run_eval(cfg: Config, model_cfg, eval_step, model, val_ds, device,
-              work, step: int) -> Dict[str, float]:
+              work, step: int, logger=None) -> Dict[str, float]:
     """Mean eval metrics over the first ``eval_batches`` val batches; the
     alignment scalars ``attn_diagonality`` and ``attn_focus`` (means over
     the first batch's rows of its head-averaged last cross-attention
@@ -257,8 +274,9 @@ def _run_eval(cfg: Config, model_cfg, eval_step, model, val_ds, device,
     ``align_step{step}.png``; the first prediction rendered by Griffin-Lim
     (8 iterations, on ``device``) to ``audio_step{step}.wav``, with
     ``mr_stft_gl`` and ``spectral_convergence_gl`` against the shortest val
-    clip's audio.  A failing scalar or artifact (a missing matplotlib
-    included) is reported and never stops training."""
+    clip's audio; each artifact also goes to ``logger``'s tracker.  A
+    failing scalar or artifact (a missing matplotlib included) is reported
+    and never stops training."""
     agg: Dict[str, float] = {}
     n = 0
     post_example = batch_example = None
@@ -323,4 +341,9 @@ def _run_eval(cfg: Config, model_cfg, eval_step, model, val_ds, device,
         out["spectral_convergence_gl"] = wf["spectral_convergence"]
     except Exception as e:  # artifacts must never kill training
         print(f"eval artifact generation failed: {e!r}")
+    if logger is not None:  # hosted-tracker copies (additive)
+        for fname in (f"mel_step{step}.png", f"align_step{step}.png",
+                      f"audio_step{step}.wav"):
+            if (art / fname).exists():
+                logger.log_artifact(art / fname)
     return out

@@ -17,8 +17,9 @@ logging with ``steps_per_sec`` and ``lr``; at each eval the held-out flow
 NLL over ``eval_batches`` crops from a generator seeded 1234, the MR-STFT
 distance of one vocoded val batch to its ground truth and a
 ``vocoder_step{N}.wav`` artifact; periodic and top-k checkpoints (async
-when configured), resume, and a graceful stop on SIGTERM/SIGINT.  A mesh
-of more than one device, TensorBoard and hosted trackers raise.
+when configured), resume, and a graceful stop on SIGTERM/SIGINT.  Metrics
+go to JSONL, TensorBoard and a hosted tracker as configured.  A mesh of
+more than one device raises.
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ import numpy as np
 import torch
 
 from rtts_torch.audio.wav import write_wav
-from rtts_torch.config import Config, save_config
+from rtts_torch.config import Config, save_config, to_dict
 from rtts_torch.data import Manifest, MelAudioDataset, split_manifest
 from rtts_torch.models import squeezewave as SW
 from rtts_torch.train.checkpoint import (AsyncCheckpointer, latest_checkpoint,
@@ -42,7 +43,8 @@ from rtts_torch.train.optim import global_norm, lr_at_step, make_optimizer
 from rtts_torch.train.quality import multi_resolution_stft_distance
 from rtts_torch.train.train_tts import check_single_device
 from rtts_torch.train.vocoder_loss import squeezewave_loss
-from rtts_torch.utils.metrics import make_logger
+from rtts_torch.utils.metrics import MetricLogger
+from rtts_torch.utils.tracking import make_tracker
 
 
 def make_train_step(voc_cfg, optimizer):
@@ -100,8 +102,10 @@ def train_vocoder(cfg: Config, workdir: str, max_steps: Optional[int] = None,
     voc = cfg.vocoder
     work = pathlib.Path(workdir)
     work.mkdir(parents=True, exist_ok=True)
-    logger = make_logger(str(work / exp.logging.jsonl_path),
-                         exp.logging.tensorboard_dir, exp.logging.tracker)
+    logger = MetricLogger(
+        str(work / exp.logging.jsonl_path), exp.logging.tensorboard_dir,
+        tracker=make_tracker(exp.logging.tracker, exp.name,
+                             config=to_dict(cfg)))
     stop_ctx = GracefulStop() if stop is None else contextlib.nullcontext(stop)
     with stop_ctx as stopper:
         max_steps = max_steps if max_steps is not None else exp.max_steps

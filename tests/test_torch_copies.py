@@ -4,12 +4,19 @@ equal to the originals on the CPU.
 ``rtts_torch`` imports nothing of ``rtts``, so it keeps copies of what it
 uses: the configuration tree (``rtts_torch/config.py``), the text frontend
 (``rtts_torch/text/``), the TTS and vocoder data pipeline
-(``rtts_torch/data.py``), the metric logger (``rtts_torch/utils/metrics.py``),
-wav IO and resampling (``rtts_torch/audio/``), the host-side quality
-scalars (``rtts_torch/train/quality.py``) and the eval images
-(``rtts_torch/utils/visualize.py``).  Each must behave as its
-original: the same config from the same YAML, the same token ids, the same
-batches and crops, the same JSONL lines, files, samples and scalars.
+(``rtts_torch/data/dataset.py``), the metric logger
+(``rtts_torch/utils/metrics.py``), wav IO and resampling
+(``rtts_torch/audio/``), the host-side quality scalars
+(``rtts_torch/train/quality.py``), the eval images
+(``rtts_torch/utils/visualize.py``), the synthetic corpus
+(``rtts_torch/data/corpus.py``), the scraper's parsers
+(``rtts_torch/data/download.py``), artifact versioning
+(``rtts_torch/data/versioning.py``), the tracker adapters
+(``rtts_torch/utils/tracking.py``) and preprocessing's silence trim and
+transcript parser (``rtts_torch/data/preprocess.py``).  Each must behave as
+its original: the same config from the same YAML, the same token ids, the
+same batches and crops, the same JSONL lines, files, samples and scalars,
+the same corpus bytes, parsed pages, lock files and tracker calls.
 """
 
 import dataclasses
@@ -271,3 +278,172 @@ def test_visualize_copy_draws_alike(tmp_path):
     for name in ("mel.png", "attn.png"):
         np.testing.assert_array_equal(mpimg.imread(tmp_path / "jax" / name),
                                       mpimg.imread(tmp_path / "port" / name))
+
+
+def _tree_digest(root: pathlib.Path) -> dict:
+    import hashlib
+
+    return {str(p.relative_to(root)): hashlib.sha256(p.read_bytes())
+            .hexdigest() for p in sorted(root.rglob("*")) if p.is_file()}
+
+
+@pytest.mark.parametrize("long_recording", [False, True],
+                         ids=["corpus", "long_recording"])
+def test_corpus_bytes_alike(tmp_path, long_recording):
+    from rtts.data import corpus as JCo
+    from rtts_torch.data import corpus as TCo
+
+    for i in (0, 5, 23, 24, 25, 999, 20000):
+        assert TCo.sentence_for_index(i) == JCo.sentence_for_index(i)
+    text = TT.clean_text(TCo.sentence_for_index(30))
+    np.testing.assert_array_equal(TCo.synth_utterance(text, 16000),
+                                  JCo.synth_utterance(text, 16000))
+    for module, tag in ((JCo, "jax"), (TCo, "port")):
+        if long_recording:
+            module.generate_long_recording(tmp_path / tag, 3, 16000)
+        else:
+            module.generate_corpus(tmp_path / tag, 3, 16000)
+    digest = _tree_digest(tmp_path / "port")
+    assert digest == _tree_digest(tmp_path / "jax")
+    assert len(digest) == (2 if long_recording else 4)
+
+
+SCRAPE = ROOT / "tests" / "fixtures" / "scrape"
+SCRAPE_BASE = "https://transcripts.example.com/blog/transcripts?page=1"
+
+
+@pytest.mark.parametrize("page", sorted(p.name for p in SCRAPE.glob("*.html")))
+def test_scrape_parsers_alike(page, tmp_path):
+    from rtts.data import download as JDl
+    from rtts_torch.data import download as TDl
+
+    html = (SCRAPE / page).read_bytes()
+    for base in (SCRAPE_BASE, None):
+        assert TDl.parse_transcript_index(html, base) == \
+            JDl.parse_transcript_index(html, base)
+        assert TDl.parse_media_url(html, base) == \
+            JDl.parse_media_url(html, base)
+        got = TDl.parse_transcript_page(html, "doc000_", base)
+        want = JDl.parse_transcript_page(html, "doc000_", base)
+        assert [dataclasses.asdict(e) for e in got] == \
+            [dataclasses.asdict(e) for e in want]
+    TDl.write_transcripts(got, tmp_path / "port.txt")
+    JDl.write_transcripts(want, tmp_path / "jax.txt")
+    assert (tmp_path / "port.txt").read_text() == \
+        (tmp_path / "jax.txt").read_text()
+
+
+def test_versioning_alike(tmp_path):
+    from rtts.data import versioning as JV
+    from rtts_torch.data import versioning as TV
+
+    data = tmp_path / "data"
+    for name, text in (("a.txt", "alpha"), ("sub/b.txt", "beta"),
+                       ("sub/c.bin", "gamma" * 1000)):
+        (data / name).parent.mkdir(parents=True, exist_ok=True)
+        (data / name).write_text(text)
+    for module, tag in ((JV, "jax"), (TV, "port")):
+        module.snapshot([str(data), str(data / "a.txt")],
+                        str(tmp_path / f"{tag}.lock"))
+    assert (tmp_path / "port.lock").read_text() == \
+        (tmp_path / "jax.lock").read_text()
+    lock = str(tmp_path / "port.lock")
+    results = {}
+    for module, tag in ((JV, "jax"), (TV, "port")):
+        remote = tmp_path / f"remote_{tag}"
+        first = module.push(lock, str(remote))
+        again = module.push(lock, f"file://{remote}")
+        (data / "a.txt").write_text("ALPHA CHANGED")
+        (data / "sub" / "b.txt").unlink()
+        before = module.status(lock)
+        pulled = module.pull(lock, str(remote))
+        results[tag] = (first, again, before, pulled, module.status(lock),
+                        _tree_digest(remote))
+    assert results["port"] == results["jax"]
+    assert results["port"][3] == (2, [])
+    with pytest.raises(RuntimeError, match="no transport registered"):
+        TV.push(lock, "s3://bucket/x")
+
+
+class _FakeTracker:
+    def __init__(self, run_name, config=None):
+        self.calls = [("init", run_name, config)]
+
+    def log(self, step, metrics):
+        self.calls.append(("log", step, dict(metrics)))
+
+    def log_artifact(self, path, name=None):
+        self.calls.append(("log_artifact", path, name))
+
+    def finish(self):
+        self.calls.append(("finish",))
+
+
+def test_trackers_alike(tmp_path, monkeypatch):
+    import sys
+    import types
+    import warnings
+
+    from rtts.utils import tracking as JTr
+    from rtts_torch.utils import tracking as TTr
+
+    module = types.ModuleType("_rtts_torch_fake_tracker")
+    module.factory = _FakeTracker
+    monkeypatch.setitem(sys.modules, "_rtts_torch_fake_tracker", module)
+    monkeypatch.setattr("time.time", lambda: 99.0)
+    spec = "_rtts_torch_fake_tracker:factory"
+    calls = {}
+    for tracking, logger_cls, tag in ((JTr, JaxLogger, "jax"),
+                                      (TTr, PortLogger, "port")):
+        tracker = tracking.make_tracker(spec, "exp7",
+                                        config={"model": {"d_model": 64}})
+        logger = logger_cls(str(tmp_path / f"{tag}.jsonl"), echo=False,
+                            tracker=tracker)
+        logger.log(10, {"loss": np.float32(1.5), "note": "text"},
+                   prefix="train/")
+        logger.log_artifact(tmp_path / "mel.png", name="mel")
+        logger.close()
+        calls[tag] = tracker.calls
+        assert tracking.make_tracker(None, "r") is None
+        assert tracking.make_tracker("", "r") is None
+        with pytest.raises(ValueError, match="unknown tracker"):
+            tracking.make_tracker("mlflow", "r")
+        for sdk in ("neptune", "wandb"):   # their SDKs are not installed
+            with warnings.catch_warnings(record=True) as seen:
+                warnings.simplefilter("always")
+                assert tracking.make_tracker(sdk, "r") is None
+            assert any("unavailable" in str(w.message) for w in seen)
+    assert calls["port"] == calls["jax"]
+    assert calls["port"][1] == ("log", 10, {"train/loss": 1.5,
+                                            "train/note": "text"})
+    assert TTr._flatten({"a": {"b": 1, "c": {"d": 2}}, "e": 3}) == \
+        JTr._flatten({"a": {"b": 1, "c": {"d": 2}}, "e": 3})
+
+
+TRANSCRIPT_LINES = [
+    "utt0001|hello world", "utt0002|1.25|3.5|timed text",
+    "utt0003|media/talk.mp4|0.5|2|named source", "utt0004|a|b|c",
+    "utt0005|12|x|not timed", "u|src.wav|1|2|text | with | bars",
+    "u|2|3|text|with|bars",
+]
+
+
+def test_preprocess_helpers_alike():
+    from rtts.data import preprocess as JP
+    from rtts_torch.data import preprocess as TP
+
+    for line in TRANSCRIPT_LINES:
+        assert TP.parse_transcript_line(line) == \
+            JP.parse_transcript_line(line)
+    for bad in ("no separator", ""):
+        with pytest.raises(ValueError, match="malformed"):
+            TP.parse_transcript_line(bad)
+    rng = np.random.default_rng(4)
+    sr = 16000
+    quiet = np.zeros(sr // 4, np.float32)
+    loud = (0.3 * rng.standard_normal(sr)).astype(np.float32)
+    for audio in (np.concatenate([quiet, loud, quiet]), quiet, loud[:100],
+                  loud, np.concatenate([quiet, 1e-4 * loud, loud])):
+        for kw in ({}, {"threshold_db": -20.0, "frame_ms": 5.0}):
+            np.testing.assert_array_equal(TP.trim_silence(audio, sr, **kw),
+                                          JP.trim_silence(audio, sr, **kw))

@@ -5,8 +5,10 @@
     ``rtts_torch``, synthesize speech (also through ``serve_continuous``
     and ``StreamingSynthesizer``) and take train steps (full and LSH
     attention, and the vocoder's) with a tiny model; and by their import statements, no module
-    of the port and not ``chip_smoke.py`` names ``jax`` or ``rtts``; the
-    sort probe runs its CPU check with both blocked.
+    of the port and not ``chip_smoke.py`` names ``jax``, ``rtts``,
+    ``click`` or ``yaml``; the sort probe runs its CPU check with both
+    blocked; the command line answers ``--help`` and a config file loads
+    with ``jax``, ``rtts``, ``click`` and ``yaml`` all blocked.
 (b) ``chip_smoke.py``'s configs (dicts, so the card's machine needs no
     PyYAML) equal ``configs/base.yaml``, ``configs/longform_8k.yaml``,
     ``configs/serving_fast.yaml`` and ``configs/parity_local.yaml``.
@@ -211,6 +213,37 @@ def test_sort_probe_runs_without_jax():
     _run_without_jax(NO_JAX_PROBE)
 
 
+NO_DEPS_CLI = r"""
+import sys
+for name in ("jax", "rtts", "click", "yaml"):
+    sys.modules[name] = None       # any import of them now raises
+import contextlib
+import io
+import runpy
+said = io.StringIO()
+sys.argv = ["rtts_torch.cli", "--help"]
+with contextlib.redirect_stdout(said):
+    try:
+        runpy.run_module("rtts_torch.cli", run_name="__main__")
+    except SystemExit as e:
+        assert e.code == 0, e.code
+for verb in ("download", "generate-corpus", "preprocess", "train-tts",
+             "train-vocoder", "predict", "serve", "export", "bench"):
+    assert verb in said.getvalue(), verb
+from rtts_torch.config import load_config
+cfg = load_config("configs/tiny.yaml", ["model.d_model=48"])
+assert cfg.model.d_model == 48 and cfg.model.encoder.attention.kind == "full"
+assert cfg.experiment.optim.learning_rate == 1.0e-3
+assert not any(m.split(".")[0] in ("jax", "rtts", "click", "yaml")
+               for m in sys.modules if sys.modules[m] is not None)
+print("OK")
+"""
+
+
+def test_cli_and_config_need_no_jax_click_or_yaml():
+    _run_without_jax(NO_DEPS_CLI)
+
+
 def test_port_imports_cover_the_probes_and_name_no_script():
     """The import guard reads the probes too, and no module of the port
     imports the JAX package's scripts."""
@@ -232,10 +265,30 @@ def test_chip_smoke_imports_only_the_port():
 def test_port_imports_nothing_of_the_jax_package():
     files = sorted((ROOT / "rtts_torch").rglob("*.py"))
     assert len(files) > 25
+    for name in ("cli.py", "yaml_subset.py", "data/corpus.py",
+                 "data/preprocess.py", "data/download.py",
+                 "data/versioning.py", "utils/tracking.py",
+                 "utils/profiling.py"):
+        assert ROOT / "rtts_torch" / name in files, name
     for path in files + [ROOT / "chip_smoke.py"]:
         names = _imported_modules(path)
-        assert not _roots(names) & {"jax", "jaxlib", "rtts"}, (path,
-                                                               sorted(names))
+        assert not _roots(names) & {"jax", "jaxlib", "rtts", "click",
+                                    "yaml"}, (path, sorted(names))
+
+
+def test_chip_smoke_defines_each_top_level_name_once():
+    """A later phase's helper must not rebind an earlier phase's name."""
+    bound = []
+    for node in ast.parse((ROOT / "chip_smoke.py").read_text()).body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            bound.append(node.name)
+        elif isinstance(node, ast.Assign):
+            bound += [n.id for t in node.targets for n in ast.walk(t)
+                      if isinstance(n, ast.Name)]
+        elif isinstance(node, (ast.Import, ast.ImportFrom)):
+            bound += [(a.asname or a.name).split(".")[0] for a in node.names]
+    assert len(bound) > 100
+    assert sorted({n for n in bound if bound.count(n) > 1}) == []
 
 
 def test_chip_smoke_base_config_equals_base_yaml():

@@ -530,19 +530,27 @@ def test_train_tts_runs_resumes_and_replays(prepared, tmp_path):
             np.testing.assert_array_equal(a[k], b[k], err_msg=k)
 
 
-def test_trainer_refuses_what_is_not_ported(prepared, tmp_path):
+def test_trainer_refuses_what_is_not_ported(prepared, tmp_path, monkeypatch):
+    """A mesh raises; debug_nans and a TensorBoard directory, once refused,
+    run: a clean step under the NaN check, and an event file."""
+    import sys
+
     from rtts_torch.train.train_tts import train_tts
 
     cfg = _trainer_cfg(prepared)
     exp = cfg.experiment
-    for bad in (dataclasses.replace(exp, mesh=dataclasses.replace(
-                    exp.mesh, data_parallel=2)),
-                dataclasses.replace(exp, debug_nans=True),
-                dataclasses.replace(exp, logging=dataclasses.replace(
-                    exp.logging, tensorboard_dir=str(tmp_path / "tb")))):
-        with pytest.raises(NotImplementedError):
-            train_tts(dataclasses.replace(cfg, experiment=bad),
-                      str(tmp_path / "x"), max_steps=1, device="cpu")
+    with pytest.raises(NotImplementedError):
+        train_tts(dataclasses.replace(cfg, experiment=dataclasses.replace(
+            exp, mesh=dataclasses.replace(exp.mesh, data_parallel=2))),
+            str(tmp_path / "x"), max_steps=1, device="cpu")
+    # torch.utils.tensorboard imports TensorFlow where it is installed
+    monkeypatch.setitem(sys.modules, "tensorflow", None)
+    ported = dataclasses.replace(exp, debug_nans=True, logging=dataclasses.replace(
+        exp.logging, tensorboard_dir=str(tmp_path / "tb")))
+    metrics = train_tts(dataclasses.replace(cfg, experiment=ported),
+                        str(tmp_path / "x"), max_steps=1, device="cpu")
+    assert np.isfinite(metrics["loss"]) and not torch.is_anomaly_enabled()
+    assert list((tmp_path / "tb").glob("events.out.tfevents.*"))
     rev = dataclasses.replace(cfg.model, decoder=dataclasses.replace(
         cfg.model.decoder, reversible=True))
     with pytest.raises(ValueError, match="plain residuals"):
