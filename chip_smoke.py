@@ -212,7 +212,30 @@ phase; every phase raises on failure:
    (8 texts); each verb's wall and launches; then ``python -m
    rtts_torch.cli ... predict`` in a subprocess with ``jax``, ``rtts``,
    ``click`` and ``yaml`` unimportable, which must exit 0 and write finite
-   wavs.
+   wavs;
+32. parallel: two ranks on this card over gloo (the backend rule: nccl
+   only when every rank has a card of its own), started by ``python -m
+   torch.distributed.run --standalone --nproc-per-node 2 chip_smoke.py
+   --rank MODE`` (each rank prints its rank, world, backend and device):
+   (a) data parallel 2 with ZeRO-1 through ``rtts_torch.cli.main
+   train-tts --max-steps 3`` at base.yaml on phase 31's corpus, 12 K1 and
+   12 of each K3 kernel a step on each rank, its checkpoint (rank 0's, the
+   whole tree) leaf by leaf against phase 31's one-process run of the same
+   steps, the walls a step and each rank's peak memory beside one
+   process's; (b) tensor parallel 2 serving at base.yaml,
+   ``Synthesizer(mesh=...)`` on 8 texts x 512 frames kv_full (stop 2.0):
+   lengths equal to one process, the mel's relative L1, K1 at 4 heads a
+   rank, the vocoder (K2) whole on each rank; (c) a tensor-parallel 2
+   ``serving_fast.yaml`` + K6 train step: loss, gradient norm and the
+   gathered gradients against one process, K1, K3, K4, K5, K7 at 4 heads
+   and K6 at d_ff 1024 a rank; (d) a data-parallel 2 vocoder step at b8 x
+   16384 (b4 a rank), 96 K2 launches on each; (e) base.yaml with ``pos_
+   encoding: axial`` and with ``param_dtype: bfloat16`` at 2 + 2 layers:
+   one f32 train step and a b8 x 512 decode each, card against CPU; (f)
+   K1 and K3 with the dropout hash at batch offset 4 and head offset 4 of
+   8: the keep bits equal to the one-device mask's slice, and the kernels
+   against their plain versions; then each kernel at its per-rank shape
+   against its plain version, timed, with its bound.
 
 Prints a JSON line of per-kernel results, each entry at one shape (K1 at
 three: ``flash`` at serving, ``flash_train`` at base.yaml's decoder,
@@ -223,7 +246,13 @@ two: ``depthwise`` at serving, ``depthwise_train`` in vocoder training;
 K4 and K5 also at parity_local's local layers, ``lsh_attend_local`` and
 ``lsh_attend_bwd_local``, with the launches of phase 28's train steps; K1
 and K2 again on the continuous path, ``flash_serve`` and
-``depthwise_serve``, with the launches of phase 30(a)):
+``depthwise_serve``, with the launches of phase 30(a); and at the per-rank
+shapes of phase 32's mesh paths: ``flash_train_dp`` (b4 h8 L1024, a data
+rank of (a)), ``flash_train_tp``, ``flash_bwd_dkv_tp``, ``flash_bwd_dq_tp``
+(b8 h4, serving_fast's cross-attention), ``lsh_attend_tp``,
+``lsh_attend_bwd_tp``, ``sort_by_bucket_tp`` (h4), ``ffn_fused_tp`` (d_ff
+1024), with the launches on one model rank of (c), and
+``depthwise_train_dp`` (b4) with one data rank's of (d)):
 time by
 the events loop,
 device time from ``torch.profiler``'s kernel events, plain time, bound,
@@ -237,11 +266,13 @@ through the port's own YAML reader).
 
 from __future__ import annotations
 
+import ast
 import contextlib
 import copy
 import dataclasses
 import functools
 import json
+import os
 import pathlib
 import re
 import shutil
@@ -255,13 +286,15 @@ import warnings
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from rtts_torch import cli as CLI
 from rtts_torch.attention import lsh as TL
 from rtts_torch.audio.griffin import _griffin_lim_from_angle
 from rtts_torch.audio.stft import log_mel_spectrogram, make_mel_fn
-from rtts_torch.config import AttentionConfig, Config, from_dict, load_yaml
+from rtts_torch.config import (AttentionConfig, Config, MeshConfig, from_dict,
+                               load_yaml)
 from rtts_torch.data import read_clip
 from rtts_torch.infer import decode as TD
 from rtts_torch.infer.decode import decode_greedy
@@ -275,6 +308,8 @@ from rtts_torch.models import stack as TS
 from rtts_torch.ops import _build
 from rtts_torch.ops import bitonic_sort as BS
 from rtts_torch.ops import chunked_ffn as CF
+from rtts_torch.ops import depthwise_conv as DW
+from rtts_torch.ops import flash_attention as FA
 from rtts_torch.ops import lsh_attention as LA
 from rtts_torch.ops.bitonic_sort import (MAX_ROWS, bitonic_sort_cols,
                                          bitonic_sort_cols_reference,
@@ -294,6 +329,10 @@ from rtts_torch.ops.lsh_attention import (lsh_attend_bwd,
                                           lsh_attend_chunks_reference,
                                           lsh_attend_fwd)
 from rtts_torch.ops.row_gather import row_gather, row_gather_reference
+from rtts_torch.parallel.mesh import (backend_for, initialize_distributed,
+                                      make_mesh, rank_device)
+from rtts_torch.parallel.sharding import gather_param
+from rtts_torch.parallel.training import MeshTraining
 from rtts_torch.probes import probe_vmem_sort as probe
 from rtts_torch.nn.layers import activation
 from rtts_torch.reversible.ffn import FFN, chunked_ffn
@@ -3842,20 +3881,33 @@ assert not any(m.split(".")[0] in ("jax", "rtts", "click", "yaml")
 """
 
 
+class _StepLog(list):
+    """Per train step its launches (the list's items) and its wall in
+    seconds (``walls``)."""
+
+    def __init__(self):
+        super().__init__()
+        self.walls = []
+
+
 @contextlib.contextmanager
 def _step_launches(module, kernels):
     """Wrap ``module.make_train_step`` so that every step it makes records
     its launches of ``kernels`` (name -> counted function) in the list
-    yielded."""
+    yielded, and its wall (the card synchronized around it)."""
     made = module.make_train_step
-    steps = []
+    steps = _StepLog()
 
     def make(*args, **kwargs):
         step = made(*args, **kwargs)
 
         def counted(*a, **kw):
             before = {k: fn.launches for k, fn in kernels.items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
             out = step(*a, **kw)
+            torch.cuda.synchronize()
+            steps.walls.append(time.perf_counter() - t0)
             steps.append({k: fn.launches - before[k]
                           for k, fn in kernels.items()})
             return out
@@ -3925,9 +3977,11 @@ def _trace_kernels(trace_file: str) -> dict:
 
 def phase_cli():
     """31: the README's quick start at base.yaml's full width through
-    ``rtts_torch.cli.main`` on the card, in a temporary directory removed
-    afterwards; then the command line in a subprocess that cannot import
-    the JAX package, JAX, click or PyYAML."""
+    ``rtts_torch.cli.main`` on the card, in a temporary directory; then the
+    command line in a subprocess that cannot import the JAX package, JAX,
+    click or PyYAML.  Returns the directory (corpus and checkpoints, which
+    phase 32 reads and then removes) and train-tts's walls a step and peak
+    device memory."""
     base_yaml = ROOT / "configs" / "base.yaml"
     _require(load_yaml(base_yaml) == BASE_CONFIG,
              "load_yaml(configs/base.yaml) differs from BASE_CONFIG")
@@ -3962,14 +4016,19 @@ def phase_cli():
         per_step = cfg.model.encoder.num_layers + cfg.model.decoder.num_layers
         train = {k: kernels[k] for k in ("flash", "flash_bwd_dkv",
                                          "flash_bwd_dq")}
+        one_process = {}
         for name, workdir, steps, extra in (
                 ("train-tts", "tts", 3, []),
                 ("train-tts debug_nans", "tts_debug_nans", 1,
                  ["-o", "experiment.debug_nans=true"])):
+            torch.cuda.reset_peak_memory_stats()
             with _step_launches(TTS_TRAINER, train) as counts:
                 run(name, extra + ["train-tts", "--workdir",
                                    str(work / workdir), "--max-steps",
                                    str(steps)])
+            one_process.setdefault("walls", counts.walls)
+            one_process.setdefault(
+                "peak_gib", torch.cuda.max_memory_allocated() / 2**30)
             print(f"[cli] {name}: launches a train step {counts}")
             _require(len(counts) == steps and all(
                 c == {k: per_step for k in train} for c in counts),
@@ -4045,8 +4104,9 @@ def phase_cli():
         _require(proc.returncode == 0,
                  f"the blocked subprocess failed: {proc.stderr[-2000:]}")
         _cli_wavs(work / "blocked", 1)
-    finally:
+    except BaseException:
         shutil.rmtree(work, ignore_errors=True)
+        raise
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -4054,6 +4114,621 @@ def phase_cli():
     print(f"[cli] on {smi}: walls (s) " + ", ".join(
         f"{k} {v:.2f}" for k, v in walls.items()) + "; launches "
         + ", ".join(f"{k} {v}" for k, v in launches.items()))
+    return work, one_process
+
+
+# -- 32: parallel -------------------------------------------------------------
+
+# phase 32 runs its multi-rank parts as ``python -m torch.distributed.run
+# --standalone --nproc-per-node 2 chip_smoke.py --rank MODE WORKDIR ...``:
+# each rank runs ``_rank_cli`` (the command line, counted) or ``_rank_mesh``
+# and writes WORKDIR/MODE_rank{RANK}.json; the kernels are built in the
+# parent before any rank starts
+PAR_WORLD = 2
+PAR_SERVE_FRAMES = 512
+# (a) the DP + ZeRO-1 checkpoint against one process's: Noam's first
+# learning rates are 0, 5e-8 and 1e-7 (warmup 4000), so a parameter moves
+# by < 3e-7 in three steps; the Adam moments hold gradients summed from
+# bf16 products over a batch split two ways: 2e-2 of each leaf's largest
+PAR_PARAM_TOL = 1e-6
+PAR_MOMENT_TOL = 2e-2
+# (b) the TP = 2 bf16 decode against one process: the relative L1 of the
+# mel over 512 AR steps (the f32 sum of two bf16 partial products rounds
+# each step's row-sharded output differently)
+PAR_MEL_TOL = 5e-2
+# (c), (d): bf16 steps, the loss and gradient norm relative, each gathered
+# gradient relative to its leaf's largest entry
+PAR_LOSS_TOL = 1e-2
+PAR_GRAD_TOL = 5e-2
+# (e) f32 card vs CPU at 2 + 2 layers: phase 9's tolerances; with bf16
+# parameters the gradients and the parameters after the update are bf16,
+# each within 2 bf16 ulps of its leaf's largest entry (two roundings of
+# f32 values that differ in their last bits may land an ulp apart)
+KNOB_DECODE_TOL = 1e-3
+BF16_ULP = 2.0 ** -7
+# (f) the rank's batch rows and heads in the one-device mask
+OFFSETS = dict(b_offset=4, h_offset=4, h_total=8)
+# the kernels' per-rank shapes on the mesh paths (the kernels line's
+# ``*_dp`` and ``*_tp`` entries): base.yaml's decoder self-attention on a
+# data rank (b4 of 8), serving_fast.yaml's decoder cross-attention and
+# LSH layers on a model rank (4 of 8 heads), its FFN (d_ff 1024 of 2048),
+# the vocoder's depthwise stage on a data rank (b4 of 8)
+PAR_FLASH_CASES = {
+    "flash_train_dp": (4, 8, 1024, 1024, None, True, True, 1.0, 0),
+    "flash_train_tp": (8, 4, 1024, 256, ENCODER_LENS, False, False, 0.125,
+                       0),
+}
+PAR_LSH_CASE = (8, 4, 4, 1024, 64, True, 1, 0, TRAIN_FRAME_LENS)
+PAR_K6_CASE = (8 * 1024, 512, 1024, "gelu")
+PAR_SORT_SHAPE = (8, 4, 4, 1024)
+PAR_DW_SHAPE = (4, 128, 128)
+
+
+@contextlib.contextmanager
+def _arg_tally(module, name: str, key=lambda x, *a: tuple(x.shape)):
+    """``_shape_tally`` keyed by ``key(*args)`` (the first argument's shape
+    by default) as a string, for JSON; for a wrapper with no count of its
+    own too."""
+    fn = getattr(module, name)
+    tally = {}
+
+    def counted(*args, **kwargs):
+        k = str(key(*args))
+        tally[k] = tally.get(k, 0) + 1
+        return fn(*args, **kwargs)
+
+    if hasattr(fn, "launches"):
+        counted.launches = fn.launches
+    setattr(module, name, counted)
+    try:
+        yield tally
+    finally:
+        if hasattr(fn, "launches"):
+            fn.launches = counted.launches
+        setattr(module, name, fn)
+
+
+def _dims(key: str):
+    return ast.literal_eval(key)
+
+
+def _rank_cli(work: pathlib.Path, args) -> int:
+    """One rank of (a): ``rtts_torch.cli.main(args)``, each train step's
+    K1/K3 launches and wall, and the peak device memory."""
+    kernels = {"flash": flash_attend, "flash_bwd_dkv": flash_bwd_dkv,
+               "flash_bwd_dq": flash_bwd_dq}
+    torch.cuda.reset_peak_memory_stats()
+    with _step_launches(TTS_TRAINER, kernels) as steps:
+        status = CLI.main(args)
+    out = {"status": status, "launches": list(steps), "walls": steps.walls,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "device": str(torch.cuda.current_device())}
+    (work / f"cli_rank{dist.get_rank()}.json").write_text(json.dumps(out))
+    dist.destroy_process_group()
+    return status
+
+
+def _par_serve_config() -> Config:
+    return base_config(stop_threshold=2.0)
+
+
+def _par_train_config() -> Config:
+    return train_config(base=SERVING_FAST_CONFIG, stack_overrides=K6_ON)
+
+
+def _rank_mesh(work: pathlib.Path) -> int:
+    """One rank of (b), (c) and (d): TP = 2 serving at base.yaml, a TP = 2
+    serving_fast.yaml + K6 train step, a DP = 2 vocoder train step."""
+    initialize_distributed(MeshConfig(), "cuda")
+    device, rank = rank_device("cuda"), dist.get_rank()
+    out = {"device": str(device)}
+    tp = make_mesh(MeshConfig(model_parallel=PAR_WORLD))
+    print(f"[parallel rank {rank}] {tp.describe()}", flush=True)
+
+    cfg = _par_serve_config()
+    tts, voc = build_models(cfg, device)
+    flash_attend.launches = depthwise_conv1d.launches = 0
+    with _arg_tally(FA, "flash_fwd") as k1_shapes:
+        syn = Synthesizer(cfg, tts, voc, max_frames=PAR_SERVE_FRAMES,
+                          mode="kv_full", mesh=tp)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mel, lengths = syn.text_to_mel(SENTENCES)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        wavs = [syn.mel_to_audio(mel[i], int(lengths[i]))
+                for i in range(len(SENTENCES))]
+    np.save(work / f"serve_mel_rank{rank}.npy", mel)
+    out["serve"] = {"lengths": lengths.tolist(), "wall": wall,
+                    "k1": flash_attend.launches, "k1_shapes": k1_shapes,
+                    "k2": depthwise_conv1d.launches,
+                    "wav_samples": [len(w) for w in wavs],
+                    "finite": all(bool(np.isfinite(w).all()) for w in wavs)}
+    del syn, tts, voc
+    torch.cuda.empty_cache()
+
+    cfg = _par_train_config()
+    model = M.init(cfg.model, torch.Generator().manual_seed(SEED_TTS), device)
+    optimizer = make_optimizer(cfg.experiment.optim)
+    par = MeshTraining(model, tp, tensor_parallel=True)
+    state = par.init_state(optimizer, model)
+    step_fn = make_train_step(cfg.model, optimizer, mesh=par)
+    batch = train_batch(cfg, TRAIN_TOKEN_LENS, TRAIN_FRAME_LENS, device)
+    _reset_all_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with _arg_tally(LA, "lsh_attend_fwd") as k4_shapes, \
+            _arg_tally(BS, "sort_by_bucket") as k7_shapes, \
+            _arg_tally(CF, "ffn_fused", lambda x, *a: (*x.shape,
+                                                       a[2].shape[1])
+                       ) as k6_shapes, \
+            _arg_tally(FA, "flash_fwd") as k1_shapes:
+        metrics, grads = step_fn(model, state, batch,
+                                 step_generator(SEED_TRAIN, 0, device), 0,
+                                 return_grads=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    whole = [gather_param(g, d, None, tp).float().cpu().numpy()
+             for g, d in zip(grads, par.tp)]
+    if rank == 0:
+        np.savez(work / "train_tp_grads.npz", *whole)
+    out["train_tp"] = {
+        "metrics": {k: float(v) for k, v in metrics.items()}, "wall": wall,
+        "launches": _serving_fast_counts(),
+        "shapes": {"lsh_attend": k4_shapes, "sort_by_bucket": k7_shapes,
+                   "ffn_fused": k6_shapes, "flash": k1_shapes},
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    del model, state, grads, whole, batch
+    torch.cuda.empty_cache()
+
+    dp = make_mesh(MeshConfig(data_parallel=PAR_WORLD))
+    print(f"[parallel rank {rank}] {dp.describe()}", flush=True)
+    cfg = vocoder_config()
+    vmodel = SW.init(cfg.vocoder, torch.Generator().manual_seed(SEED_VOC),
+                     device)
+    optimizer = make_optimizer(cfg.experiment.optim)
+    par = MeshTraining(vmodel, dp, tensor_parallel=False)
+    state = par.init_state(optimizer, vmodel)
+    step_fn = make_vocoder_train_step(cfg.vocoder, optimizer, par)
+    local, _ = par.shard(vocoder_batch(cfg.vocoder, VOC_BATCH, device))
+    depthwise_conv1d.launches = 0
+    with _arg_tally(DW, "depthwise_conv1d_kernel") as k2_shapes:
+        metrics = step_fn(vmodel, state, local)
+    out["vocoder_dp"] = {
+        "metrics": {k: float(v) for k, v in metrics.items()},
+        "k2": depthwise_conv1d.launches, "k2_shapes": k2_shapes,
+        "rows": int(local["audio"].shape[0])}
+    (work / f"mesh_rank{rank}.json").write_text(json.dumps(out))
+    dist.destroy_process_group()
+    return 0
+
+
+def _torchrun(work: pathlib.Path, mode: str, args, timeout: int):
+    """``chip_smoke.py --rank MODE`` on 2 ranks of this card through
+    ``torch.distributed.run`` -> (each rank's JSON, the ranks' lines naming
+    their backend, world and device)."""
+    env = dict(os.environ, RTTS_MULTIHOST="1",
+               OMP_NUM_THREADS="1")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(PAR_WORLD), str(ROOT / "chip_smoke.py"),
+           "--rank", mode, str(work)] + list(args)
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=timeout)
+    wall = time.perf_counter() - t0
+    said = [line for line in proc.stdout.splitlines()
+            if "rtts_torch.parallel" in line or "[parallel rank" in line]
+    print(f"[parallel] torch.distributed.run --nproc-per-node {PAR_WORLD} "
+          f"chip_smoke.py --rank {mode}: exit {proc.returncode} in "
+          f"{wall:.1f} s")
+    for line in said:
+        print(f"[parallel]   {line.strip()}")
+    _require(proc.returncode == 0, f"the {mode} ranks failed:\n"
+             f"{proc.stdout[-3000:]}\n{proc.stderr[-6000:]}")
+    return [json.loads((work / f"{mode}_rank{r}.json").read_text())
+            for r in range(PAR_WORLD)], wall
+
+
+def _par_dp_zero(work: pathlib.Path, one_process: dict) -> dict:
+    """(a): base.yaml data-parallel with ZeRO-1 over two ranks of this card
+    through the command line, against phase 31's one-process run of the
+    same three steps on the same corpus and batches."""
+    base_yaml = ROOT / "configs" / "base.yaml"
+    args = ["-c", str(base_yaml), "-o", f"dataset.data_dir={work / 'data'}",
+            "-o", "experiment.mesh.zero_sharding=true", "train-tts",
+            "--workdir", str(work / "tts_dp"), "--max-steps", "3"]
+    ranks, wall = _torchrun(work, "cli", args, 600)
+    cfg = from_dict(Config, BASE_CONFIG)
+    per_step = cfg.model.encoder.num_layers + cfg.model.decoder.num_layers
+    want = [{k: per_step for k in ("flash", "flash_bwd_dkv",
+                                    "flash_bwd_dq")}] * 3
+    for r, out in enumerate(ranks):
+        print(f"[parallel] (a) rank {r} on cuda:{out['device']}: exit "
+              f"{out['status']}, launches a step {out['launches']}, walls a "
+              f"step {[round(w, 4) for w in out['walls']]} s, peak device "
+              f"memory {out['peak_gib']:.2f} GiB")
+        _require(out["status"] == 0 and out["launches"] == want,
+                 f"(a) rank {r}: expected {want}, got {out['launches']}")
+    print(f"[parallel] (a) one process (phase 31's train-tts): walls a step "
+          f"{[round(w, 4) for w in one_process['walls']]} s, peak device "
+          f"memory {one_process['peak_gib']:.2f} GiB")
+    step = "checkpoints/step_3/leaves.npz"
+    worst = {"params": (0.0, ""), "moments": (0.0, "")}
+    with np.load(work / "tts_dp" / step) as got, \
+            np.load(work / "tts" / step) as ref:
+        _require(sorted(got.files) == sorted(ref.files),
+                 "(a) the sharded checkpoint's leaves differ from one "
+                 "process's")
+        for k in ref.files:
+            a, b = got[k].astype(np.float64), ref[k].astype(np.float64)
+            if k.startswith("params/"):
+                err = float(np.abs(a - b).max()) if a.size else 0.0
+                worst["params"] = max(worst["params"], (err, k))
+            elif "/mu/" in k or "/nu/" in k:
+                err = float(np.abs(a - b).max() / max(np.abs(b).max(),
+                                                      1e-30))
+                worst["moments"] = max(worst["moments"], (err, k))
+            else:
+                _require(np.array_equal(a, b), f"(a) {k} differs")
+    print(f"[parallel] (a) checkpoint step 3 against one process, leaf by "
+          f"leaf: params max |diff| {worst['params'][0]:.3e} "
+          f"({worst['params'][1]}; tol {PAR_PARAM_TOL:g}), Adam moments "
+          f"{worst['moments'][0]:.3e} of their leaf's largest "
+          f"({worst['moments'][1]}; tol {PAR_MOMENT_TOL:g})")
+    _require(worst["params"][0] <= PAR_PARAM_TOL
+             and worst["moments"][0] <= PAR_MOMENT_TOL,
+             "(a) the DP + ZeRO-1 checkpoint differs from one process's")
+    return {"flash_train_dp": 3 * per_step, "wall": wall,
+            "rank_walls": [out["walls"] for out in ranks]}
+
+
+def _par_references(work: pathlib.Path) -> dict:
+    """One-process runs of (b), (c) and (d) in this process."""
+    ref = {}
+    cfg = _par_serve_config()
+    tts, voc = build_models(cfg, "cuda")
+    syn = Synthesizer(cfg, tts, voc, max_frames=PAR_SERVE_FRAMES,
+                      mode="kv_full")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref["mel"], ref["lengths"] = syn.text_to_mel(SENTENCES)
+    torch.cuda.synchronize()
+    ref["serve_wall"] = time.perf_counter() - t0
+    del syn, tts, voc
+    cfg = _par_train_config()
+    model, state, step_fn = _trainer(cfg, "cuda")
+    batch = train_batch(cfg, TRAIN_TOKEN_LENS, TRAIN_FRAME_LENS, "cuda")
+    metrics, grads = step_fn(model, state, batch,
+                             step_generator(SEED_TRAIN, 0, "cuda"), 0,
+                             return_grads=True)
+    ref["train"] = {k: float(v) for k, v in metrics.items()}
+    ref["grads"] = [g.float().cpu().numpy() for g in grads]
+    ref["names"] = [n for n, _ in model.named_parameters()]
+    del model, state, grads, batch
+    cfg = vocoder_config()
+    vmodel = SW.init(cfg.vocoder, torch.Generator().manual_seed(SEED_VOC),
+                     "cuda")
+    optimizer = make_optimizer(cfg.experiment.optim)
+    vstate = optimizer.init(list(vmodel.parameters()))
+    metrics = make_vocoder_train_step(cfg.vocoder, optimizer)(
+        vmodel, vstate, vocoder_batch(cfg.vocoder, VOC_BATCH, "cuda"))
+    ref["vocoder"] = {k: float(v) for k, v in metrics.items()}
+    del vmodel, vstate
+    torch.cuda.empty_cache()
+    return ref
+
+
+def _par_mesh(work: pathlib.Path) -> dict:
+    """(b), (c) and (d) on two ranks of this card, against one process."""
+    ref = _par_references(work)
+    ranks, wall = _torchrun(work, "mesh", [], 600)
+    sf = _par_train_config().model
+    heads = sf.decoder.attention.num_heads // PAR_WORLD
+    n_cross, n_lsh = sf.decoder.num_layers, (sf.encoder.num_layers
+                                            + sf.decoder.num_layers)
+    n_ffn = sf.encoder.num_layers + 2 * sf.decoder.num_layers
+    grads = np.load(work / "train_tp_grads.npz")
+    for r, out in enumerate(ranks):
+        s = out["serve"]
+        mel = np.load(work / f"serve_mel_rank{r}.npy")
+        l1 = float(np.abs(mel - ref["mel"]).mean()
+                   / max(np.abs(ref["mel"]).mean(), 1e-30))
+        print(f"[parallel] (b) rank {r} on {out['device']}: TP = 2 base.yaml "
+              f"Synthesizer, {len(SENTENCES)} texts x {PAR_SERVE_FRAMES} "
+              f"frames kv_full in {s['wall']:.2f} s (one process "
+              f"{ref['serve_wall']:.2f} s); lengths {s['lengths']} (one "
+              f"process {ref['lengths'].tolist()}); mel relative L1 {l1:.3e}"
+              f" (tol {PAR_MEL_TOL:g}); K1 {s['k1']} launches by (B, H, L, "
+              f"dh) {s['k1_shapes']}; K2 {s['k2']}; wavs {s['wav_samples']}")
+        _require(s["lengths"] == ref["lengths"].tolist() and l1 <= PAR_MEL_TOL
+                 and s["finite"] and s["k1"] > 0 and s["k2"] > 0
+                 and all(_dims(k)[1] == heads for k in s["k1_shapes"]),
+                 f"(b) rank {r}: TP serving differs from one process")
+        t = out["train_tp"]
+        m, want = t["metrics"], ref["train"]
+        errs = {k: abs(m[k] - want[k]) / max(abs(want[k]), 1e-30)
+                for k in ("loss", "grad_norm")}
+        per_step = {"flash_train": 2 * n_cross, "flash_bwd_dkv": n_cross,
+                    "flash_bwd_dq": n_cross, "lsh_attend": 2 * n_lsh,
+                    "lsh_attend_bwd": n_lsh, "sort_by_bucket": 2 * n_lsh,
+                    "ffn_fused": 2 * n_ffn}
+        print(f"[parallel] (c) rank {r}: TP = 2 serving_fast.yaml + K6 step "
+              f"in {t['wall']:.2f} s, peak {t['peak_gib']:.2f} GiB; loss "
+              f"{m['loss']:.6f} vs {want['loss']:.6f}, grad_norm "
+              f"{m['grad_norm']:.6f} vs {want['grad_norm']:.6f} (relative "
+              f"{errs}; tol {PAR_LOSS_TOL:g}); launches {t['launches']}; by "
+              f"shape {t['shapes']}")
+        _require(max(errs.values()) <= PAR_LOSS_TOL
+                 and t["launches"] == per_step
+                 and all(_dims(k)[1] == heads
+                         for kind in ("lsh_attend", "sort_by_bucket", "flash")
+                         for k in t["shapes"][kind])
+                 and all(_dims(k)[2] == sf.decoder.d_ff // PAR_WORLD
+                         for k in t["shapes"]["ffn_fused"]),
+                 f"(c) rank {r}: the TP step differs from one process or ran "
+                 "the kernels at other shapes")
+        v = out["vocoder_dp"]
+        verr = abs(v["metrics"]["loss_vocoder"]
+                   - ref["vocoder"]["loss_vocoder"]) / max(
+            abs(ref["vocoder"]["loss_vocoder"]), 1e-30)
+        voc = vocoder_config().vocoder
+        print(f"[parallel] (d) rank {r}: DP = 2 vocoder step on "
+              f"{v['rows']} of {VOC_BATCH} rows: loss "
+              f"{v['metrics']['loss_vocoder']:.6f} vs one process "
+              f"{ref['vocoder']['loss_vocoder']:.6f} (relative {verr:.3e}; "
+              f"tol {PAR_LOSS_TOL:g}); K2 {v['k2']} launches by (B, L, C) "
+              f"{v['k2_shapes']}")
+        _require(verr <= PAR_LOSS_TOL and v["rows"] == VOC_BATCH // PAR_WORLD
+                 and v["k2"] == voc.n_flows * voc.wn_layers,
+                 f"(d) rank {r}: the DP vocoder step differs from one process")
+    worst = max(((float(np.abs(grads[f"arr_{i}"] - g).max()
+                        / max(np.abs(g).max(), 1e-30)), n)
+                 for i, (g, n) in enumerate(zip(ref["grads"],
+                                                ref["names"]))))
+    print(f"[parallel] (c) gathered TP gradients against one process's: "
+          f"worst {worst[1]} {worst[0]:.3e} of its largest entry (tol "
+          f"{PAR_GRAD_TOL:g})")
+    _require(worst[0] <= PAR_GRAD_TOL,
+             "(c) the TP gradients differ from one process's")
+    t0 = ranks[0]["train_tp"]
+    return {"flash_train_tp": t0["launches"]["flash_train"],
+            "flash_bwd_dkv_tp": t0["launches"]["flash_bwd_dkv"],
+            "flash_bwd_dq_tp": t0["launches"]["flash_bwd_dq"],
+            "lsh_attend_tp": t0["launches"]["lsh_attend"],
+            "lsh_attend_bwd_tp": t0["launches"]["lsh_attend_bwd"],
+            "sort_by_bucket_tp": t0["launches"]["sort_by_bucket"],
+            "ffn_fused_tp": t0["launches"]["ffn_fused"],
+            "depthwise_train_dp": ranks[0]["vocoder_dp"]["k2"],
+            "wall": wall}
+
+
+def _par_knobs():
+    """(e): base.yaml with ``pos_encoding: axial`` and with ``param_dtype:
+    bfloat16`` at 2 + 2 layers, f32 compute, every dropout 0: one train step
+    and a b8 x 512 decode each, card against CPU."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    lens = ((256, 131, 77, 200), (512, 300, 160, 400))
+    for knob in ({"pos_encoding": "axial"}, {"param_dtype": "bfloat16"}):
+        cfg = train_config("float32", num_layers=2, dropout_off=True,
+                           schedule="constant")
+        cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, stop_threshold=2.0, **knob))
+        lr = cfg.experiment.optim.learning_rate
+        batch = train_batch(cfg, *lens, "cpu")
+        cpu, card = _f32_step(cfg, batch, "cpu"), _f32_step(cfg, batch,
+                                                            "cuda")
+        loss_err = abs(card[0]["loss"] - cpu[0]["loss"]) / max(
+            1.0, abs(cpu[0]["loss"]))
+        grad_err = max(((a.float() - b.float()).abs().max()
+                        / b.float().abs().max().clamp_min(1e-30)).item()
+                       for a, b in zip(card[1], cpu[1]))
+        bf16 = "param_dtype" in knob
+        grad_tol = 2 * BF16_ULP if bf16 else TRAIN_SLICE_TOL
+        param_tol = [2 * BF16_ULP * max(float(b.abs().max()), 1e-3)
+                     if bf16 else TRAIN_PARAM_TOL_LR * lr for b in cpu[2]]
+        param_ok = all((a.float() - b.float()).abs().max().item() <= tol
+                       for a, b, tol in zip(card[2], cpu[2], param_tol))
+        dtypes = {str(p.dtype) for p in card[2]}
+        mels = {}
+        for device in ("cpu", "cuda"):
+            tts = M.init(cfg.model, torch.Generator().manual_seed(SEED_TTS),
+                         device)
+            b = train_batch(cfg, TRAIN_TOKEN_LENS, TRAIN_FRAME_LENS, device)
+            with torch.no_grad():
+                memory = M.encode(tts, cfg.model, b["tokens"],
+                                  b["token_mask"])
+                mels[device] = decode_greedy(
+                    tts, cfg.model, memory, b["token_mask"], max_frames=512,
+                    mode="kv_full").mel_post.cpu()
+        dec_err = _scaled_err(mels["cuda"], mels["cpu"])
+        print(f"[parallel] (e) base.yaml {knob} 2 + 2 layers f32 compute, "
+              f"params {sorted(dtypes)}: train step loss err {loss_err:.3e},"
+              f" worst gradient {grad_err:.3e} (tol {grad_tol:g}), "
+              f"params after the update within "
+              f"{'2 bf16 ulps' if bf16 else f'{TRAIN_PARAM_TOL_LR:g} lr'}: "
+              f"{param_ok}; b8 x 512 decode card vs CPU {dec_err:.3e} (tol "
+              f"{KNOB_DECODE_TOL:g})")
+        _require(loss_err <= TRAIN_SLICE_TOL and grad_err <= grad_tol
+                 and param_ok and dec_err <= KNOB_DECODE_TOL
+                 and dtypes == {"torch.bfloat16" if bf16 else
+                                "torch.float32"},
+                 f"(e) {knob}: card and CPU disagree")
+
+
+def _par_offsets():
+    """(f): K1 and K3 with the dropout hash at batch offset 4 and head
+    offset 4 of 8, dropout 0.1, against their plain versions with the same
+    offsets: the keep bits bit-equal to ``dropout_keep_mask``'s, then the
+    outputs and gradients at base.yaml's decoder shape on a rank (b4 of 8,
+    h4 of 8) within the kernel tolerance, bf16."""
+    b, h, l, rate = 2, 4, 128, 0.1
+    zeros = torch.zeros(b, h, l, l, device="cuda")
+    eye = torch.eye(l, device="cuda").expand(b, h, l, l).contiguous()
+    args = (False, False, 1.0, 0, rate, DROP_SEED, *OFFSETS.values())
+    out, lse = flash_fwd(zeros, zeros, eye, None, *args)
+    _, dv = flash_bwd_dkv(zeros, zeros, eye, out, eye, lse, None, *args)
+    want = dropout_keep_mask(DROP_SEED, b * h, l, l, rate, 0, "cuda", h,
+                             **OFFSETS).reshape(b, h, l, l)
+    whole = dropout_keep_mask(DROP_SEED, 8 * 8, l, l, rate, 0,
+                              "cuda").reshape(8, 8, l, l)[4:4 + b, 4:4 + h]
+    same = (torch.equal((out > 0).float(), want)
+            and torch.equal((dv.transpose(-1, -2) > 0).float(), want)
+            and torch.equal(want, whole))
+    print(f"[parallel] (f) keep mask b{b} h{h} L{l} rate {rate} at {OFFSETS}"
+          f": K1 and K3 equal dropout_keep_mask with the offsets, and the "
+          f"one-device mask's slice, bit for bit: {same}")
+    _require(same, "(f) a kernel's keep mask at an offset differs")
+    (q, k, v, dout), mask, opts = _train_flash_case(
+        4, 4, 1024, 1024, None, True, True, 1.0, 0, torch.bfloat16)
+    kw = dict(zip(("causal", "self_mask", "sm_scale", "q_offset"), opts))
+    args = (*opts, rate, DROP_SEED, *OFFSETS.values())
+    out, lse = flash_fwd(q, k, v, mask, *args)
+    dk, dv = flash_bwd_dkv(q, k, v, out, dout, lse, mask, *args)
+    dq = flash_bwd_dq(q, k, v, out, dout, lse, mask, *args)
+    p_out, p_lse = flash_attend_reference(
+        q, k, v, mask, return_lse=True, dropout_rate=rate,
+        dropout_seed=DROP_SEED, **kw, **OFFSETS)
+    p_grads = flash_attend_bwd_reference(
+        q, k, v, out, dout, lse, mask, dropout_rate=rate,
+        dropout_seed=DROP_SEED, **kw, **OFFSETS)
+    errs = [_scaled_err(out, p_out), _scaled_err(lse, p_lse)] + [
+        _scaled_err(a, b) for a, b in zip((dq, dk, dv), p_grads)]
+    print(f"[parallel] (f) b4 h4 L1024 causal+self bf16, dropout {rate} at "
+          f"{OFFSETS}: K1 out/lse and K3 dq/dk/dv against the plain versions"
+          f" {[f'{e:.2e}' for e in errs]} (tol "
+          f"{KERNEL_TOL[torch.bfloat16]:g})")
+    _require(max(errs) <= KERNEL_TOL[torch.bfloat16],
+             "(f) K1/K3 with offsets differ from their plain versions")
+
+
+def _par_kernel_times(launches: dict) -> dict:
+    """Each kernel at its per-rank shape on the mesh paths, against its
+    plain version on the same inputs (within ``KERNEL_TOL``, scaled; the
+    line reports the max abs error), timed, with its bound, the library
+    call where one computes its function, and its launches on the mesh
+    path (``launches``)."""
+    bf = torch.bfloat16
+    times, checks = {}, {}
+
+    def record(kernel, fn, plain, pairs, bound, names, n, library=None):
+        ms = _kernel_ms(fn, plain, n)
+        checks[kernel] = max(_scaled_err(a, b) for a, b in pairs)
+        times[kernel] = dict(ms=ms[0], plain_ms=ms[1], library_ms=library,
+                             device_ms=_device_ms(fn, n, names),
+                             max_abs_err=max(_abs_err(a, b)
+                                             for a, b in pairs), **bound)
+
+    for name, case in PAR_FLASH_CASES.items():
+        (q, k, v, dout), mask, opts = _train_flash_case(*case, bf)
+        kw = dict(zip(("causal", "self_mask", "sm_scale", "q_offset"), opts))
+        args = (*opts, 0.0, 0)
+        out, lse = flash_fwd(q, k, v, mask, *args)
+        bounds = _flash_bounds(*case[:4], 64, bf, opts[0], mask is not None)
+        # SDPA computes K1's function for pad-only masks (no causal or
+        # self mask)
+        lib = (None if opts[0] or opts[1]
+               else _sdpa_fwd(q, k, v, mask, opts[2], 50)["ms"])
+        p_out = flash_attend_reference(q, k, v, mask, return_lse=True, **kw)
+        record(name, lambda: flash_fwd(q, k, v, mask, *args),
+               lambda: flash_attend_reference(q, k, v, mask, return_lse=True,
+                                              **kw),
+               [(out, p_out[0]), (lse, p_out[1])], bounds["fwd"],
+               ("flash_fwd",), 50, lib)
+        if name.endswith("_tp"):
+            dk, dv = flash_bwd_dkv(q, k, v, out, dout, lse, mask, *args)
+            dq = flash_bwd_dq(q, k, v, out, dout, lse, mask, *args)
+            pq, pk, pv = flash_attend_bwd_reference(q, k, v, out, dout, lse,
+                                                    mask, **kw)
+            p_bwd = lambda: flash_attend_bwd_reference(  # noqa: E731
+                q, k, v, out, dout, lse, mask, **kw)
+            record("flash_bwd_dkv_tp", lambda: flash_bwd_dkv(
+                q, k, v, out, dout, lse, mask, *args), p_bwd,
+                [(dk, pk), (dv, pv)], bounds["dkv"],
+                ("flash_bwd_di", "flash_bwd_dkv"), 50)
+            record("flash_bwd_dq_tp", lambda: flash_bwd_dq(
+                q, k, v, out, dout, lse, mask, *args), p_bwd, [(dq, pq)],
+                bounds["dq"], ("flash_bwd_dq",), 50)
+        del q, k, v, dout, out, lse
+    (q, k, v, dout), pos, valid, dlse, opts = _lsh_case(*PAR_LSH_CASE, bf)
+    bounds = _lsh_bounds(*PAR_LSH_CASE, bf)
+    record("lsh_attend_tp", lambda: lsh_attend_fwd(q, k, v, pos, valid, *opts),
+           lambda: lsh_attend_chunks_reference(q, k, v, pos, valid, *opts),
+           [(lsh_attend_fwd(q, k, v, pos, valid, *opts)[0],
+             lsh_attend_chunks_reference(q, k, v, pos, valid, *opts)[0])],
+           bounds["fwd"], ("lsh_attend_fwd_mma",), 20)
+    record("lsh_attend_bwd_tp",
+           lambda: lsh_attend_bwd(q, k, v, pos, valid, dout, dlse, *opts),
+           lambda: lsh_attend_bwd_reference(q, k, v, pos, valid, dout, dlse,
+                                            *opts),
+           list(zip(lsh_attend_bwd(q, k, v, pos, valid, dout, dlse, *opts),
+                    lsh_attend_bwd_reference(q, k, v, pos, valid, dout, dlse,
+                                             *opts))),
+           bounds["bwd"], ("lsh_bwd_dq", "lsh_bwd_dkv"), 20)
+    del q, k, v, dout, pos, valid, dlse
+    x, k6_params, act = _k6_case(*PAR_K6_CASE)
+    plain = lambda: ffn_fused_reference(x, *k6_params, act, bf)  # noqa: E731
+    record("ffn_fused_tp", lambda: ffn_fused(x, *k6_params, act, bf), plain,
+           [(ffn_fused(x, *k6_params, act, bf), plain())],
+           _k6_bound(*PAR_K6_CASE), ("ffn_fused_cast", "ffn_fused_mma"), 20)
+    buckets = _bucket_case(PAR_SORT_SHAPE, 1)
+    l, rows = PAR_SORT_SHAPE[-1], buckets.numel() // PAR_SORT_SHAPE[-1]
+    keys = buckets * l + torch.arange(l, device="cuda")
+    fns = (lambda: sort_by_bucket(buckets),
+           lambda: sort_by_bucket_reference(buckets),
+           lambda: torch.sort(keys, dim=-1))
+    exact = all(torch.equal(a, b) for a, b in zip(fns[0](), fns[1]()))
+    ms = _interleaved_ms(fns, 100)
+    work = probe.sort_bound(1 << (l - 1).bit_length(), rows)
+    checks["sort_by_bucket_tp"] = 0.0 if exact else float("inf")
+    times["sort_by_bucket_tp"] = dict(
+        ms=ms[0], plain_ms=ms[1], library_ms=ms[2],
+        max_abs_err=0.0 if exact else float("inf"),
+        device_ms=_device_ms(fns[0], 50, ("BucketIO",)),
+        **_bound(rows * l * 4 * 8, work["ops"], torch.float32))
+    x, w, b = _dw_case(PAR_DW_SHAPE, 3, bf, torch.float32)
+    got, want = depthwise_conv1d(x, w, b), depthwise_conv1d_reference(x, w, b)
+    times["depthwise_train_dp"] = dict(_dw_times(PAR_DW_SHAPE),
+                                       max_abs_err=_abs_err(got, want))
+    checks["depthwise_train_dp"] = _scaled_err(got, want)
+    for name, t in times.items():
+        t["launches"] = launches[name]
+        print(f"[parallel] {name}: {t['ms']:.4f} ms (device "
+              f"{t['device_ms']:.4f}), plain {t['plain_ms']:.4f} ms, bound "
+              f"{t['bound_ms']:.4f} ms ({t['bound_by']}), library "
+              f"{t['library_ms']}, max abs err {t['max_abs_err']:.3e} "
+              f"(scaled {checks[name]:.3e}), {t['launches']} launches on its "
+              f"mesh path")
+        _require(checks[name] <= KERNEL_TOL[bf],
+                 f"{name} differs from its plain version")
+    return times
+
+
+def phase_parallel(work: pathlib.Path, one_process: dict) -> dict:
+    """32: data and tensor parallelism on this card, two ranks over gloo
+    (the backend rule: nccl only when every rank has a card of its own)."""
+    t0 = time.perf_counter()
+    print(f"[parallel] backend rule: {PAR_WORLD} ranks on "
+          f"{torch.cuda.device_count()} card(s) -> "
+          f"{backend_for('cuda', PAR_WORLD)}")
+    try:
+        launches = _par_dp_zero(work, one_process)
+        launches.update(_par_mesh(work))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    _par_knobs()
+    _par_offsets()
+    times = _par_kernel_times(launches)
+    print(f"[parallel] phase 32 in {time.perf_counter() - t0:.1f} s")
+    return times
+
+
+def rank_main(mode: str, work: pathlib.Path, args) -> int:
+    """``chip_smoke.py --rank MODE WORKDIR ...``: one rank of phase 32."""
+    if mode == "cli":
+        return _rank_cli(work, args)
+    return _rank_mesh(work)
 
 
 def main() -> int:
@@ -4061,6 +4736,9 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
               "run needs an NVIDIA GPU", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--rank"]:   # one rank of phase 32
+        return rank_main(sys.argv[2], pathlib.Path(sys.argv[3]),
+                         sys.argv[4:])
     t_start = time.perf_counter()
     kind = phase_device()
     phase_build()
@@ -4104,7 +4782,8 @@ def main() -> int:
     local_launches, local_times, local_errs = phase_parity_local()
     phase_decode_syncs()
     serve_launches, serve_times = phase_serving()
-    phase_cli()
+    work, one_process = phase_cli()
+    par_times = phase_parallel(work, one_process)
     _require(not any(m.split(".")[0] in ("jax", "rtts", "click", "yaml")
                      for m in sys.modules if sys.modules[m] is not None),
              "jax, the JAX package, click or PyYAML was imported")
@@ -4148,6 +4827,13 @@ def main() -> int:
     launches.update(serve_launches)
     times.update(serve_times)
     errs.update({k: v["max_abs_err"] for k, v in serve_times.items()})
+    # the per-rank shapes of the mesh paths (phase 32): launches on one
+    # rank of (a) (K1 on a data rank), (c) (K1, K3, K4, K5, K7 and K6 on a
+    # model rank of the serving_fast + K6 step) and (d) (K2 on a data rank
+    # of the vocoder step), times and errors at those shapes
+    launches.update({k: v["launches"] for k, v in par_times.items()})
+    errs.update({k: v["max_abs_err"] for k, v in par_times.items()})
+    times.update(par_times)
     meta = {
         "flash": ("rtts_torch/csrc/flash_fwd.cu",
                   "rtts/ops/flash_attention.py:322"),
@@ -4183,6 +4869,24 @@ def main() -> int:
                         "rtts/ops/flash_attention.py:322"),
         "depthwise_serve": ("rtts_torch/csrc/depthwise_conv.cu",
                             "rtts/ops/depthwise_conv.py:29"),
+        "flash_train_dp": ("rtts_torch/csrc/flash_fwd.cu",
+                           "rtts/ops/flash_attention.py:322"),
+        "flash_train_tp": ("rtts_torch/csrc/flash_fwd.cu",
+                           "rtts/ops/flash_attention.py:322"),
+        "flash_bwd_dkv_tp": ("rtts_torch/csrc/flash_bwd.cu",
+                             "rtts/ops/flash_attention.py:509"),
+        "flash_bwd_dq_tp": ("rtts_torch/csrc/flash_bwd.cu",
+                            "rtts/ops/flash_attention.py:553"),
+        "lsh_attend_tp": ("rtts_torch/csrc/lsh_attend_fwd.cu",
+                          "rtts/ops/lsh_attention.py:60"),
+        "lsh_attend_bwd_tp": ("rtts_torch/csrc/lsh_attend_bwd.cu",
+                              "rtts/ops/lsh_attention.py:158"),
+        "sort_by_bucket_tp": ("rtts_torch/csrc/bitonic_sort.cu",
+                              "scripts/probe_vmem_sort.py:45"),
+        "ffn_fused_tp": ("rtts_torch/csrc/ffn_fused.cu",
+                         "rtts/ops/chunked_ffn.py:34"),
+        "depthwise_train_dp": ("rtts_torch/csrc/depthwise_conv.cu",
+                               "rtts/ops/depthwise_conv.py:29"),
     }
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": rep, "launches": launches[name],

@@ -17,6 +17,12 @@ from ``dropout_seed`` (uint32); the naive path draws it from ``generator``.
 A missing seed or generator means no dropout, as a missing key does in the
 reference.  ``probs_sink`` (a list) records the f32 pre-dropout
 probabilities and forces the naive path.
+
+Under tensor parallelism (``rtts_torch/parallel/sharding.py``) a block
+holds heads ``head_offset``.. of ``num_heads``: its projections are
+column and row shards, it attends its local heads (``local_heads``), and
+both dropouts key on the global (batch row, head), so a rank's mask is the
+one-device mask's slice.
 """
 
 from __future__ import annotations
@@ -28,14 +34,20 @@ from torch import nn
 
 from rtts_torch.nn.layers import Dense, dropout
 from rtts_torch.ops.flash_attention import flash_attend, masked_scores
+from rtts_torch.parallel.collectives import current_batch_shard
 
 
 class Attention(nn.Module):
-    """Projection weights of one attention block (``attention_init``)."""
+    """Projection weights of one attention block (``attention_init``);
+    ``num_heads`` and ``head_dim`` as built, ``head_offset`` the first head
+    a tensor-parallel shard holds (0 unsharded)."""
+
+    head_offset = 0
 
     def __init__(self, d_model: int, num_heads: int, head_dim: int,
                  shared_qk: bool, *, generator=None, device=None):
         super().__init__()
+        self.num_heads, self.head_dim = num_heads, head_dim
         d_inner = num_heads * head_dim
         kw = dict(use_bias=False, generator=generator, device=device)
         if shared_qk:
@@ -45,6 +57,16 @@ class Attention(nn.Module):
             self.w_k = Dense(d_model, d_inner, **kw)
         self.w_v = Dense(d_model, d_inner, **kw)
         self.w_o = Dense(d_inner, d_model, **kw)
+
+
+def local_heads(p: Attention) -> int:
+    """The heads block ``p`` holds: all of them, or its shard's."""
+    return p.w_v.w.shape[1] // p.head_dim
+
+
+def head_span(p: Attention) -> tuple:
+    """(offset, total) of ``p``'s heads among the block's."""
+    return p.head_offset, p.num_heads
 
 
 def _split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -64,15 +86,19 @@ def _len_norm(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
 
 
 def _attend(q, k, v, kv_mask, *, causal, self_mask, sm_scale, impl,
-            dropout_rate, dropout_seed, generator, probs_sink):
-    """One masked softmax attention on (B, H, L, d) heads, by ``impl``."""
+            dropout_rate, dropout_seed, generator, probs_sink, heads=None):
+    """One masked softmax attention on (B, H, L, d) heads, by ``impl``;
+    ``heads`` = (offset, total) places them among the block's."""
     if probs_sink is not None:
         impl = "naive"
     if impl == "flash":
         rate = dropout_rate if dropout_seed is not None else 0.0
+        b_off, _ = current_batch_shard(q.shape[0])
+        h_off, h_total = heads or (0, q.shape[1])
         return flash_attend(q, k, v, kv_mask, causal=causal,
                             self_mask=self_mask, sm_scale=sm_scale,
-                            dropout_rate=rate, dropout_seed=dropout_seed)
+                            dropout_rate=rate, dropout_seed=dropout_seed,
+                            b_offset=b_off, h_offset=h_off, h_total=h_total)
     if impl != "naive":
         raise ValueError(
             f"attention impl must be 'flash' or 'naive', got {impl!r}")
@@ -82,7 +108,7 @@ def _attend(q, k, v, kv_mask, *, causal, self_mask, sm_scale, impl,
     if probs_sink is not None:
         probs_sink.append(probs)
     if generator is not None:
-        probs = dropout(probs, dropout_rate, generator)
+        probs = dropout(probs, dropout_rate, generator, heads)
     return torch.einsum("bhqk,bhkd->bhqd", probs.to(v.dtype), v)
 
 
@@ -114,13 +140,15 @@ def cross_attention(p: Attention, x: torch.Tensor, memory: torch.Tensor,
                     probs_sink: Optional[list] = None) -> torch.Tensor:
     """Decoder -> encoder attention: x (B, Lq, D), memory (B, Lk, D).
     ``probs_sink`` collects the (B, H, Lq, Lk) f32 pre-dropout probs."""
-    q = _split_heads(p.w_q(x, compute_dtype), num_heads)
-    k = _split_heads(p.w_k(memory, compute_dtype), num_heads)
-    v = _split_heads(p.w_v(memory, compute_dtype), num_heads)
-    out = full_attention(q, k, v, kv_mask=memory_mask,
-                         dropout_rate=dropout_rate, dropout_seed=dropout_seed,
-                         generator=generator, impl=impl,
-                         probs_sink=probs_sink)
+    h = local_heads(p)
+    q = _split_heads(p.w_q(x, compute_dtype), h)
+    k = _split_heads(p.w_k(memory, compute_dtype), h)
+    v = _split_heads(p.w_v(memory, compute_dtype), h)
+    out = _attend(q, k, v, memory_mask, causal=False, self_mask=False,
+                  sm_scale=q.shape[-1] ** -0.5, impl=impl,
+                  dropout_rate=dropout_rate, dropout_seed=dropout_seed,
+                  generator=generator, probs_sink=probs_sink,
+                  heads=head_span(p))
     return p.w_o(_merge_heads(out), compute_dtype)
 
 
@@ -133,11 +161,12 @@ def shared_qk_self_attention(p: Attention, x: torch.Tensor,
                              impl: str = "naive") -> torch.Tensor:
     """Reformer full-softmax self-attention.  x: (B, L, D); mask: (B, L)
     bool validity."""
-    qk = _split_heads(p.w_qk(x, compute_dtype), num_heads)
-    v = _split_heads(p.w_v(x, compute_dtype), num_heads)
+    h = local_heads(p)
+    qk = _split_heads(p.w_qk(x, compute_dtype), h)
+    v = _split_heads(p.w_v(x, compute_dtype), h)
     k = _len_norm(qk) * (qk.shape[-1] ** -0.5)
     out = _attend(qk, k, v, mask, causal=causal, self_mask=True,
                   sm_scale=1.0, impl=impl, dropout_rate=dropout_rate,
                   dropout_seed=dropout_seed, generator=generator,
-                  probs_sink=None)
+                  probs_sink=None, heads=head_span(p))
     return p.w_o(_merge_heads(out), compute_dtype)

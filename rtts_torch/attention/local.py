@@ -24,8 +24,9 @@ from typing import Optional
 import torch
 
 from rtts_torch.attention.full import (Attention, _len_norm, _merge_heads,
-                                       _split_heads, shared_qk_self_attention)
-from rtts_torch.attention.lsh import _pick_attend_fn, plain_attend
+                                       _split_heads, head_span, local_heads,
+                                       shared_qk_self_attention)
+from rtts_torch.attention.lsh import _pick_attend_fn, lane_span, plain_attend
 from rtts_torch.config import AttentionConfig
 from rtts_torch.ops.flash_attention import resolve_flash_impl
 
@@ -33,20 +34,24 @@ from rtts_torch.ops.flash_attention import resolve_flash_impl
 def local_attention_core(qk: torch.Tensor, v: torch.Tensor,
                          cfg: AttentionConfig, mask: Optional[torch.Tensor],
                          causal: bool, attend_fn=None,
-                         dropout_seed: Optional[int] = None) -> torch.Tensor:
+                         dropout_seed: Optional[int] = None,
+                         heads=None) -> torch.Tensor:
     """Projected heads (B, H, L, d) -> out (B, H, L, d).  ``dropout_seed``
     (with cfg.attention_dropout > 0) turns on the attention-probs dropout
-    and forces the plain attend."""
+    and forces the plain attend; ``heads`` = (offset, total) gives a
+    tensor-parallel shard's dropout lanes."""
     b, h, l, d = qk.shape
     c = cfg.chunk_length
     if l % c != 0:
         raise ValueError(f"seq len {l} not a multiple of chunk {c}")
     nc = l // c
     if dropout_seed is not None and cfg.attention_dropout > 0.0:
+        span = lane_span(b, h, heads)
+
         def attend_fn(*args):
             return plain_attend(*args, dropout_rate=cfg.attention_dropout,
                                 dropout_seed=dropout_seed,
-                                chunks_per_round=nc)
+                                chunks_per_round=nc, lane_span=span)
     elif attend_fn is None:
         attend_fn = _pick_attend_fn(cfg)
     pos = torch.arange(l, dtype=torch.int32, device=qk.device).expand(b, h, l)
@@ -75,8 +80,9 @@ def local_self_attention(p: Attention, x: torch.Tensor,
             p, x, mask=mask, causal=causal, num_heads=cfg.num_heads,
             compute_dtype=compute_dtype, dropout_rate=cfg.attention_dropout,
             dropout_seed=dropout_seed, impl=resolve_flash_impl(cfg.flash))
-    qk = _split_heads(p.w_qk(x, compute_dtype), cfg.num_heads)
-    v = _split_heads(p.w_v(x, compute_dtype), cfg.num_heads)
+    h = local_heads(p)
+    qk = _split_heads(p.w_qk(x, compute_dtype), h)
+    v = _split_heads(p.w_v(x, compute_dtype), h)
     out = local_attention_core(qk, v, cfg, mask, causal,
-                               dropout_seed=dropout_seed)
+                               dropout_seed=dropout_seed, heads=head_span(p))
     return p.w_o(_merge_heads(out), compute_dtype)

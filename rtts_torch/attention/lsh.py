@@ -42,13 +42,23 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from rtts_torch.attention.full import (Attention, _len_norm, _merge_heads,
-                                       _split_heads, shared_qk_self_attention)
+                                       _split_heads, head_span, local_heads,
+                                       shared_qk_self_attention)
 from rtts_torch.config import AttentionConfig
 from rtts_torch.ops import bitonic_sort as BS
 from rtts_torch.ops.flash_attention import resolve_flash_impl
 from rtts_torch.ops.lsh_attention import (  # noqa: F401 (re-exported)
     dropout_lane, lsh_attend_chunks_kernel, lsh_attend_chunks_reference,
     positional_dropout)
+from rtts_torch.parallel.collectives import current_batch_shard
+
+
+def lane_span(b: int, h: int, heads=None) -> tuple:
+    """``dropout_lane``'s span of a (B, H) block: the batch shard's rows
+    and ``heads`` = (offset, total), or the whole."""
+    b_off, b_tot = current_batch_shard(b)
+    h_off, h_tot = heads or (0, h)
+    return b_off, b_tot, h_off, h_tot
 
 
 class LshCache(NamedTuple):
@@ -82,13 +92,16 @@ def draw_rotations(h: int, d: int, n_hashes: int, half: int,
 def hash_vectors(vecs: torch.Tensor, num_buckets, n_hashes: int,
                  generator: Optional[torch.Generator],
                  mask: Optional[torch.Tensor],
-                 rotations: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 rotations: Optional[torch.Tensor] = None,
+                 heads=None) -> torch.Tensor:
     """Random-rotation LSH of (B, H, L, d) vectors (detached) -> buckets
     (B, H, n_hashes, L) in [0, nb], nb the overflow bucket of padding.
 
     ``num_buckets`` a list of even factors: one rotation block of factor/2
     per factor, per-factor argmax buckets combined mixed-radix (b = b0 +
-    f0 b1 + f0 f1 b2 ...).  ``rotations`` overrides the draw."""
+    f0 b1 + f0 f1 b2 ...).  ``rotations`` overrides the draw; ``heads`` =
+    (offset, total) draws the rotations of all ``total`` heads and keeps
+    the H from ``offset`` (a tensor-parallel shard)."""
     b, h, l, d = vecs.shape
     factors = ([num_buckets] if isinstance(num_buckets, int)
                else list(num_buckets))
@@ -97,8 +110,9 @@ def hash_vectors(vecs: torch.Tensor, num_buckets, n_hashes: int,
             raise ValueError(f"bucket factors must be even, got {f}")
     rot_size = sum(factors)
     if rotations is None:
-        rotations = draw_rotations(h, d, n_hashes, rot_size // 2, generator,
-                                   vecs.device)
+        h_off, h_tot = heads or (0, h)
+        rotations = draw_rotations(h_tot, d, n_hashes, rot_size // 2,
+                                   generator, vecs.device)[h_off:h_off + h]
     x = vecs.detach().float()
     rotated = torch.einsum("bhld,hdnr->bhnlr", x, rotations.to(x.device))
     buckets, cur_sum, cur_product = None, 0, 1
@@ -212,20 +226,25 @@ def lsh_attention_core(qk: torch.Tensor, v: torch.Tensor,
                        cfg: AttentionConfig, mask: Optional[torch.Tensor],
                        causal: bool, generator: Optional[torch.Generator],
                        buckets: Optional[torch.Tensor] = None,
-                       attend_fn=None, dropout_seed: Optional[int] = None
+                       attend_fn=None, dropout_seed: Optional[int] = None,
+                       heads=None
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The LSH pipeline on projected heads (B, H, L, d) -> (out (B, H, L,
     d), buckets).  ``dropout_seed`` (with cfg.attention_dropout > 0) turns
     on attention-probs dropout, which the kernels do not have: it forces
-    the plain attend, as in the reference."""
+    the plain attend, as in the reference.  ``heads`` = (offset, total)
+    places a tensor-parallel shard's heads: the rotations and the dropout
+    lanes are those of its global heads (and batch rows)."""
     b, h, l, d = qk.shape
     c = cfg.chunk_length
     nh = cfg.num_hashes
     if dropout_seed is not None and cfg.attention_dropout > 0.0:
+        span = lane_span(b, h, heads)
+
         def attend_fn(*args):
             return plain_attend(*args, dropout_rate=cfg.attention_dropout,
                                 dropout_seed=dropout_seed,
-                                chunks_per_round=l // c)
+                                chunks_per_round=l // c, lane_span=span)
     elif attend_fn is None:
         attend_fn = _pick_attend_fn(cfg)
     if l % c != 0:
@@ -241,7 +260,8 @@ def lsh_attention_core(qk: torch.Tensor, v: torch.Tensor,
     mode = _sort_gather_mode(cfg, b * h, nh, l, qk.dtype)
 
     if buckets is None:
-        buckets = hash_vectors(qk, nb, nh, generator, mask)      # (B,H,nh,L)
+        buckets = hash_vectors(qk, nb, nh, generator, mask,
+                               heads=heads)                   # (B,H,nh,L)
     sorted_pos, undo_idx, sorted_buckets = _sort_by_bucket(buckets)
 
     # q/k and v ride one packed operand through one gather: (B,H,nh,L,2d);
@@ -339,10 +359,12 @@ def lsh_self_attention(p: Attention, x: torch.Tensor,
     buckets = None if cache is None else cache.buckets
     if buckets is None and cfg.hash_seed is not None:
         generator = torch.Generator(device=x.device).manual_seed(cfg.hash_seed)
-    qk = _split_heads(p.w_qk(x, compute_dtype), cfg.num_heads)
-    v = _split_heads(p.w_v(x, compute_dtype), cfg.num_heads)
+    h = local_heads(p)
+    qk = _split_heads(p.w_qk(x, compute_dtype), h)
+    v = _split_heads(p.w_v(x, compute_dtype), h)
     out, buckets = lsh_attention_core(qk, v, cfg, mask, causal, generator,
                                       buckets=buckets,
-                                      dropout_seed=dropout_seed)
+                                      dropout_seed=dropout_seed,
+                                      heads=head_span(p))
     out = p.w_o(_merge_heads(out), compute_dtype)
     return out, LshCache(buckets=buckets)

@@ -11,6 +11,14 @@ one difference is ``--device`` (default ``cuda``), which takes the place of
 ``cpu``.  ``export``, ``predict --from-export`` and ``bench`` are not
 ported yet and raise NotImplementedError.  A config needs no PyYAML
 (``rtts_torch.config.load_yaml``), and the command line needs no click.
+
+Every verb first runs ``initialize_distributed(cfg.experiment.mesh)``, as
+the reference's group does: a no-op in one process; over several
+(``RTTS_MULTIHOST=1 python -m torch.distributed.run --nproc-per-node N -m
+rtts_torch.cli ...``, or ``experiment.mesh.coordinator_address`` /
+``num_processes`` / ``process_id``) each rank runs the verb on its card,
+the trainers and ``predict``/``serve`` over ``experiment.mesh``'s layout,
+and rank 0 alone writes what the verb writes.
 """
 
 from __future__ import annotations
@@ -96,6 +104,13 @@ def _load_synthesizer(cfg: Config, tts_ckpt, vocoder_ckpt, max_frames, mode,
         model_cfg = dataclasses.replace(
             model_cfg,
             vocab_size=frontend_vocab_size(cfg.dataset.text.level))
+    from rtts_torch.parallel.mesh import make_mesh, rank_device
+
+    mesh = make_mesh(cfg.experiment.mesh)
+    if mesh.data_size * mesh.model_size == 1:
+        mesh = None
+    else:
+        device = rank_device(device)
     tts = M.init(model_cfg, torch.Generator().manual_seed(0), device)
     if tts_ckpt:
         path = latest_checkpoint(tts_ckpt) or tts_ckpt
@@ -110,12 +125,15 @@ def _load_synthesizer(cfg: Config, tts_ckpt, vocoder_ckpt, max_frames, mode,
         vocoder = SW.fold_weightnorm(vocoder)
         print(f"loaded vocoder step {step} from {path}")
     return Synthesizer(dataclasses.replace(cfg, model=model_cfg), tts,
-                       vocoder, max_frames=max_frames, mode=mode)
+                       vocoder, max_frames=max_frames, mode=mode, mesh=mesh)
 
 
 def _write_wavs(wavs, out_dir: str, sample_rate: int) -> None:
     from rtts_torch.audio.wav import write_wav
+    from rtts_torch.parallel.mesh import global_rank
 
+    if global_rank() != 0:   # every rank holds the batch; rank 0 writes
+        return
     out = pathlib.Path(out_dir)
     for i, w in enumerate(wavs):
         p = out / f"sample_{i}.wav"
@@ -292,9 +310,12 @@ def main(argv: Optional[List[str]] = None) -> int:
             print(f"Error: path {path!r} does not exist", file=sys.stderr)
             return 2
     cfg = load_config(args.config_path, args.overrides)
-    from rtts_torch.train.train_tts import check_single_device
+    from rtts_torch.parallel.mesh import initialize_distributed
 
-    check_single_device(cfg)
+    # multi-process init precedes the first use of the card; a no-op in
+    # one process
+    initialize_distributed(cfg.experiment.mesh, getattr(args, "device",
+                                                        "cpu"))
     return args.run(cfg, args) or 0
 
 

@@ -3,8 +3,10 @@
 The port's modules name their parameters after the JAX pytree paths and keep
 the JAX leaf layouts, so a tree fills a module by renaming alone:
 ``encoder/layers/0/f/attn/w_qk/w`` is ``encoder.layers.0.f.attn.w_qk.w``.
-No transposes.  Keys must match exactly in both directions, and shapes too;
-values are cast to each parameter's dtype.  Nothing here imports JAX: a live
+No transposes (the axial positions' ``ax1``/``ax2`` too).  Keys must match
+exactly in both directions, and shapes too; values are cast to each
+parameter's dtype (a bf16 ``param_dtype`` tree loads through f32 numpy
+exactly).  Nothing here imports JAX: a live
 pytree is handed over as nested dicts/lists of numpy arrays, and a checkpoint
 ``step_N/leaves.npz`` (``rtts/train/checkpoint.py``: one ``np.savez`` of
 path-keyed leaves) is read with numpy.

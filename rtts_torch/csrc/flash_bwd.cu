@@ -92,6 +92,7 @@ struct BwdArgs {
   uint32_t seed;
   int drop_thr;
   float drop_scale;
+  int drop_b0, drop_h0, drop_ht;  // the hashed (b, h) offsets and total heads
 };
 
 // Rows [r0, r0 + kB) of a (rows, DH) tensor into shared memory as f32 with a
@@ -165,7 +166,8 @@ __device__ __forceinline__ void score_grads(const float* qs, const float* ks, co
     const float x = mask_score(s[i] * a.sm_scale, ms[j], qpos, gk, a.causal, a.self_mask);
     const float p = row_in ? expf(x - row_lse) : 0.f;
     const float rs = a.drop_thr > 0
-                         ? drop_rscale(a.seed, bh, qpos, gk, a.drop_thr, a.drop_scale)
+                         ? drop_rscale(a.seed, drop_bh(bh, a), qpos,
+                                           gk, a.drop_thr, a.drop_scale)
                          : 1.f;
     float ds = p * (rs * dp[i] - di);
     if (a.self_mask && qpos == gk) ds = 0.f;
@@ -464,7 +466,8 @@ flash_bwd_dkv_mma_kernel(BwdArgs a, const float* __restrict__ di, float* __restr
                                    a.causal, a.self_mask);
         const float p = gq < a.lq ? expf(x - lse_t[c]) : 0.f;
         const float rs = a.drop_thr > 0
-                             ? drop_rscale(a.seed, bh, qpos, gk, a.drop_thr, a.drop_scale)
+                             ? drop_rscale(a.seed, drop_bh(bh, a), qpos,
+                                           gk, a.drop_thr, a.drop_scale)
                              : 1.f;
         float ds = p * (rs * dp[j][e] - di_t[c]);
         if (a.self_mask && qpos == gk) ds = 0.f;
@@ -666,7 +669,8 @@ __global__ void __launch_bounds__(kMmaThreads) flash_bwd_dq_mma_kernel(BwdArgs a
             mask_score(s[j][e] * a.sm_scale, ms_t[c], qpos, gk, a.causal, a.self_mask);
         const float p = gq < a.lq ? expf(x - lse_r[h]) : 0.f;
         const float rs = a.drop_thr > 0
-                             ? drop_rscale(a.seed, bh, qpos, gk, a.drop_thr, a.drop_scale)
+                             ? drop_rscale(a.seed, drop_bh(bh, a), qpos,
+                                           gk, a.drop_thr, a.drop_scale)
                              : 1.f;
         float ds = p * (rs * dp[j][e] - di_r[h]);
         if (a.self_mask && qpos == gk) ds = 0.f;
@@ -775,10 +779,12 @@ cudaError_t launch_dq(const BwdArgs& a, int bh, cudaStream_t stream) {
 BwdArgs make_args(const void* q, const void* k, const void* v, const void* o, const void* dout,
                   const void* lse, const void* kv_mask, void* dq, void* dk, void* dv, int heads,
                   int lq, int lk, float sm_scale, int causal, int self_mask, int q_offset,
-                  unsigned int seed, int drop_thr, float drop_scale) {
+                  unsigned int seed, int drop_thr, float drop_scale, int drop_b0, int drop_h0,
+                  int drop_ht) {
   return BwdArgs{q, k, v, o, dout, static_cast<const float*>(lse),
                  static_cast<const uint8_t*>(kv_mask), dq, dk, dv, heads, lq, lk, sm_scale,
-                 causal, self_mask, q_offset, seed, drop_thr, drop_scale};
+                 causal, self_mask, q_offset, seed, drop_thr, drop_scale, drop_b0, drop_h0,
+                 drop_ht};
 }
 
 }  // namespace
@@ -798,14 +804,15 @@ BwdArgs make_args(const void* q, const void* k, const void* v, const void* o, co
 #define RTTS_BWD_SCALARS                                                                     \
   int dtype, int bh, int heads, int lq, int lk, int dh, float sm_scale, int causal,          \
       int self_mask, int q_offset, unsigned int seed, int drop_thr, float drop_scale,        \
-      void *stream
+      int drop_b0, int drop_h0, int drop_ht, void *stream
 
 extern "C" int rtts_flash_bwd_dkv(RTTS_BWD_INPUTS, void* dk, void* dv, void* di, void* part,
                                   int n_split, RTTS_BWD_SCALARS) {
   if (bh == 0 || lk == 0) return (int)cudaSuccess;
   if (n_split < 1 || (dtype == 0 && n_split != 1)) return (int)cudaErrorInvalidValue;
   const BwdArgs a = make_args(q, k, v, o, dout, lse, kv_mask, nullptr, dk, dv, heads, lq, lk,
-                              sm_scale, causal, self_mask, q_offset, seed, drop_thr, drop_scale);
+                              sm_scale, causal, self_mask, q_offset, seed, drop_thr, drop_scale,
+                              drop_b0, drop_h0, drop_ht);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* di_f = static_cast<float*>(di);
   float* part_f = static_cast<float*>(part);
@@ -820,7 +827,7 @@ extern "C" int rtts_flash_bwd_dq(RTTS_BWD_INPUTS, void* dq, RTTS_BWD_SCALARS) {
   if (bh == 0 || lq == 0) return (int)cudaSuccess;
   const BwdArgs a = make_args(q, k, v, o, dout, lse, kv_mask, dq, nullptr, nullptr, heads, lq,
                               lk, sm_scale, causal, self_mask, q_offset, seed, drop_thr,
-                              drop_scale);
+                              drop_scale, drop_b0, drop_h0, drop_ht);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && dh == 64) return (int)launch_dq<float, 64>(a, bh, s);
   if (dtype == 0 && dh == 128) return (int)launch_dq<float, 128>(a, bh, s);

@@ -43,6 +43,21 @@ __device__ __forceinline__ bool keep(uint32_t seed, int bh, int row, int col, in
   return (int)(mix32(u) >> 8) < drop_thr;
 }
 
+// The hashed (batch*head) index of local block bh: a rank holding batch
+// rows drop_b0.. and heads drop_h0.. of drop_ht hashes the global (b, h),
+// so its mask is the slice of the one-device mask.  Identity at (0, 0,
+// heads).
+__device__ __forceinline__ int drop_bh(int bh, int heads, int drop_b0, int drop_h0,
+                                       int drop_ht) {
+  return (bh / heads + drop_b0) * drop_ht + bh % heads + drop_h0;
+}
+
+// drop_bh with the offsets of an argument struct (FwdArgs, BwdArgs)
+template <typename Args>
+__device__ __forceinline__ int drop_bh(int bh, const Args& a) {
+  return drop_bh(bh, a.heads, a.drop_b0, a.drop_h0, a.drop_ht);
+}
+
 // keep / keep_prob: the factor dropout puts on one probability
 __device__ __forceinline__ float drop_rscale(uint32_t seed, int bh, int row, int col,
                                              int drop_thr, float drop_scale) {

@@ -87,7 +87,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
                  const uint8_t* __restrict__ kv_mask, T* __restrict__ out,
                  float* __restrict__ lse, int heads, int lq, int lk, float sm_scale,
                  int causal, int self_mask, int q_offset, uint32_t seed, int drop_thr,
-                 float drop_scale) {
+                 float drop_scale, int drop_b0, int drop_h0, int drop_ht) {
   constexpr int KPT = kBK / kTPR;   // scores per thread per tile
   constexpr int CPT = DH / kTPR;    // output columns per thread
   extern __shared__ float smem[];
@@ -163,7 +163,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       const float p = expf(s[i] - m_new);
       psum += p;  // l sums the undropped probabilities
       ps[r * (kBK + 1) + j] =
-          drop_thr > 0 ? p * drop_rscale(seed, bh, qpos, k0 + j, drop_thr, drop_scale) : p;
+          drop_thr > 0 ? p * drop_rscale(seed, drop_bh(bh, heads, drop_b0, drop_h0, drop_ht), qpos,
+                                         k0 + j, drop_thr, drop_scale)
+                       : p;
     }
     psum += __shfl_xor_sync(0xffffffffu, psum, 1);
     psum += __shfl_xor_sync(0xffffffffu, psum, 2);
@@ -194,7 +196,7 @@ template <typename T, int DH>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* kv_mask, void* out,
                    void* lse, int bh, int heads, int lq, int lk, float sm_scale, int causal,
                    int self_mask, int q_offset, uint32_t seed, int drop_thr, float drop_scale,
-                   cudaStream_t stream) {
+                   int drop_b0, int drop_h0, int drop_ht, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<DH>();
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, DH>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -203,7 +205,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* kv_m
   flash_fwd_kernel<T, DH><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const uint8_t*>(kv_mask), static_cast<T*>(out), static_cast<float*>(lse),
-      heads, lq, lk, sm_scale, causal, self_mask, q_offset, seed, drop_thr, drop_scale);
+      heads, lq, lk, sm_scale, causal, self_mask, q_offset, seed, drop_thr, drop_scale, drop_b0,
+      drop_h0, drop_ht);
   return cudaGetLastError();
 }
 
@@ -230,6 +233,7 @@ struct FwdArgs {
   uint32_t seed;
   int drop_thr;
   float drop_scale;
+  int drop_b0, drop_h0, drop_ht;  // the hashed (b, h) offsets and total heads
 };
 
 template <int DH>
@@ -368,7 +372,7 @@ __global__ void __launch_bounds__(kMmaThreads, DH == 64 ? kMinBlocks64 : 1)
         const float p = exp_fast(s[j][e] - m[h]);
         l[h] += p;
         s[j][e] = a.drop_thr > 0
-                      ? p * drop_rscale(a.seed, bh, q_lo + qr + 8 * h,
+                      ? p * drop_rscale(a.seed, drop_bh(bh, a), q_lo + qr + 8 * h,
                                         k0 + 8 * j + 2 * t4 + (e & 1), a.drop_thr, a.drop_scale)
                       : p;
       }
@@ -414,23 +418,27 @@ cudaError_t launch_mma(const FwdArgs& a, int bh, cudaStream_t stream) {
 // boundaries).  q: (bh, lq, dh); k, v: (bh, lk, dh);
 // kv_mask: (bh / heads, lk) bytes or null; out like q; lse: (bh, lq) f32 or
 // null.  drop_thr: 24-bit keep threshold, 0 = no dropout; drop_scale =
-// 1 / keep_prob.  Returns the launch's cudaError_t (0 on success).
+// 1 / keep_prob; the mask hashes batch row drop_b0 + b and head drop_h0 + h
+// of drop_ht (0, 0, heads on one device).  Returns the launch's cudaError_t (0 on success).
 extern "C" int rtts_flash_fwd(const void* q, const void* k, const void* v, const void* kv_mask,
                               void* out, void* lse, int dtype, int bh, int heads, int lq, int lk,
                               int dh, float sm_scale, int causal, int self_mask, int q_offset,
-                              unsigned int seed, int drop_thr, float drop_scale, void* stream) {
+                              unsigned int seed, int drop_thr, float drop_scale, int drop_b0,
+                              int drop_h0, int drop_ht, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bh == 0 || lq == 0) return (int)cudaSuccess;
 #define RTTS_FWD(DH)                                                                           \
   return (int)launch<float, DH>(q, k, v, kv_mask, out, lse, bh, heads, lq, lk, sm_scale, causal, \
-                                self_mask, q_offset, seed, drop_thr, drop_scale, s)
+                                self_mask, q_offset, seed, drop_thr, drop_scale, drop_b0, drop_h0, \
+                                drop_ht, s)
   if (dtype == 0 && dh == 64) RTTS_FWD(64);
   if (dtype == 0 && dh == 128) RTTS_FWD(128);
 #undef RTTS_FWD
   const FwdArgs a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                   static_cast<const bf16*>(v), static_cast<const uint8_t*>(kv_mask),
                   static_cast<bf16*>(out), static_cast<float*>(lse), heads, lq, lk, sm_scale,
-                  causal, self_mask, q_offset, seed, drop_thr, drop_scale};
+                  causal, self_mask, q_offset, seed, drop_thr, drop_scale, drop_b0, drop_h0,
+                  drop_ht};
   if (dtype == 1 && dh == 64) return (int)launch_mma<64>(a, bh, s);
   if (dtype == 1 && dh == 128) return (int)launch_mma<128>(a, bh, s);
   return (int)cudaErrorInvalidValue;

@@ -40,6 +40,14 @@ Reads of the full caches cover the prefix only (the reference masks the
 rows after t to -1e9, which contribute exactly zero probability), so the
 staged buffers (``staged``) change no value here: they change only how
 much memory the early steps hold.
+
+On a tensor-parallel shard (``rtts_torch/parallel/serving.py``) every
+cache holds the rank's heads, the LSH modes keep their heads' rotations
+of the draw for all heads, and the row-sharded projections sum over the
+model group.  On a data-parallel shard (inside ``batch_shard``) the prenet
+dropout draws the whole batch's mask and keeps the rank's rows, and the
+loop stops when every row of the whole batch has stopped
+(``collectives.batch_all``), as one device would.
 """
 
 from __future__ import annotations
@@ -50,11 +58,13 @@ import numpy as np
 import torch
 
 from rtts_torch.attention import lsh as TL
-from rtts_torch.attention.full import _len_norm
+from rtts_torch.attention.full import _len_norm, head_span, local_heads
 from rtts_torch.config import ReformerTTSConfig, resolve_attention_kind
 from rtts_torch.models.reformer_tts import _dtype, decode_train, postnet_apply
 from rtts_torch.models.stack import _layer_kinds
+from rtts_torch.nn.posenc import pos_table
 from rtts_torch.ops.flash_attention import MASK_VALUE, SELF_MASK_VALUE
+from rtts_torch.parallel.collectives import batch_all, reduce_from_model
 from rtts_torch.reversible.ffn import _ffn_body
 
 MODES = ("kv_full", "kv_lsh", "kv_lsh_chunk", "kv_local")
@@ -139,8 +149,8 @@ def _project(p, h_t, num_heads, cdt, kdt):
     """-> (qk_t, v_t, k_t, q_s) of one frame, (B, H, d) each.  A cache in
     another dtype than the compute one stores the length-normalized key
     unscaled, and the query takes 1/sqrt(d); else the key is pre-scaled."""
-    qk_t = _proj_heads(p.w_qk, h_t, num_heads, cdt)
-    v_t = _proj_heads(p.w_v, h_t, num_heads, cdt)
+    qk_t = _proj_heads(p.w_qk, h_t, local_heads(p), cdt)
+    v_t = _proj_heads(p.w_v, h_t, local_heads(p), cdt)
     scale = qk_t.shape[-1] ** -0.5
     if kdt != qk_t.dtype:
         return qk_t, v_t, _len_norm(qk_t), qk_t * scale
@@ -273,7 +283,7 @@ def _cross_attn_step(p, h_t, mem_k, mem_v, memory_mask, num_heads, cdt,
     ``window=(w_back, w_fwd)`` keeps the tokens within [align_pos - w_back,
     align_pos + w_fwd] of the (B,) tracker ``align_pos`` -> (out, the
     head-averaged attention peak (B,), or None without a window)."""
-    q = _proj_heads(p.w_q, h_t, num_heads, cdt)
+    q = _proj_heads(p.w_q, h_t, local_heads(p), cdt)
     scores = torch.einsum("bhd,blhd->bhl", q, mem_k.to(cdt)).float() * (
         q.shape[-1] ** -0.5)
     if memory_mask is not None:
@@ -289,7 +299,12 @@ def _cross_attn_step(p, h_t, mem_k, mem_v, memory_mask, num_heads, cdt,
     out = p.w_o(out.reshape(out.shape[0], -1), cdt)
     if window is None:
         return out, None
-    return out, torch.argmax(probs.mean(dim=1), dim=-1)
+    # the mean over every head of the block: a tensor-parallel shard sums
+    # its heads' over the model group, so every rank tracks one peak
+    heads = probs.sum(dim=1)
+    if p.w_o.tp is not None:
+        heads = reduce_from_model(heads, p.w_o.tp[1])
+    return out, torch.argmax(heads / p.num_heads, dim=-1)
 
 
 def _stack_substep(model, cfg: ReformerTTSConfig, x_t, cdt, self_attn,
@@ -313,16 +328,14 @@ def _init_mem_kv(model, cfg: ReformerTTSConfig, memory, cdt, kdt):
     """Cross-attention K/V per decoder cross layer in the cache dtype,
     projected from the RAW encoder memory (the cross layer's LN normalizes
     the decoder stream, the query side, not the memory)."""
-    num_heads = cfg.decoder.attention.num_heads
     b, l, _ = memory.shape
     mem_k, mem_v = [], []
     layers = model.decoder.layers
     for i in range(1, len(layers), 2):       # [self, cross] * num_layers
         a = layers[i].f.attn
-        mem_k.append(_to_kv(a.w_k(memory, cdt).reshape(b, l, num_heads, -1),
-                            kdt))
-        mem_v.append(_to_kv(a.w_v(memory, cdt).reshape(b, l, num_heads, -1),
-                            kdt))
+        h = local_heads(a)
+        mem_k.append(_to_kv(a.w_k(memory, cdt).reshape(b, l, h, -1), kdt))
+        mem_v.append(_to_kv(a.w_v(memory, cdt).reshape(b, l, h, -1), kdt))
     return mem_k, mem_v
 
 
@@ -417,6 +430,7 @@ class _Decoder:
         kdt = _kv_dtype(cfg, cdt)
         dev = memory.device
         a = cfg.decoder.attention
+        heads = local_heads(model.decoder.layers[0].f.attn)
         b = memory.shape[0]
         r, n_mels = cfg.reduction_factor, cfg.n_mels
         self.memory_mask = memory_mask.bool()
@@ -430,11 +444,11 @@ class _Decoder:
                       for s in self.local_spec if s is not None}
         self.k_caches, self.v_caches, self.b_caches = [], [], []
         for spec in self.local_spec:
-            s = (b, first_groups if spec is None else spec[2], a.num_heads,
+            s = (b, first_groups if spec is None else spec[2], heads,
                  a.head_dim)
             self.k_caches.append(_zeros(s, kdt, dev))
             self.v_caches.append(_zeros(s, kdt, dev))
-            rings = (b, a.num_heads, a.num_hashes)
+            rings = (b, heads, a.num_hashes)
             if mode == "kv_lsh":
                 self.b_caches.append(torch.full(rings + (first_groups,), -1,
                                                 dtype=torch.int32, device=dev))
@@ -527,8 +541,8 @@ class _Decoder:
         r, n_mels = cfg.reduction_factor, cfg.n_mels
         h = model.dec_prenet(self.prev.to(cdt), cfg.dec_prenet_dropout,
                              self.generator, compute_dtype=cdt)
-        h = h + model.dec_pos.alpha.to(h.dtype) * model.dec_pos.table[t].to(
-            h.dtype)
+        table, alpha = pos_table(model.dec_pos)
+        h = h + alpha.to(h.dtype) * table[t].to(h.dtype)
         y, peak = self._layers(h, t)
         group = model.mel_head(y, cdt).float()
         stop_logit = model.stop_head(y, cdt)[..., 0].float()
@@ -646,6 +660,9 @@ def decode_greedy(model, cfg: ReformerTTSConfig, memory: torch.Tensor,
     if mode in ("kv_lsh", "kv_lsh_chunk"):
         rotations, nb = _decode_rotations(cfg, generator, max_frames,
                                           memory.device)
+        off, _ = head_span(model.decoder.layers[0].f.attn)
+        n = local_heads(model.decoder.layers[0].f.attn)
+        rotations = [r[off:off + n] for r in rotations]
     dec = _Decoder(model, cfg, memory, memory_mask, n_groups, sizes[0], mode,
                    generator, stop_threshold, rotations, nb, local_spec,
                    attn_window)
@@ -658,8 +675,8 @@ def decode_greedy(model, cfg: ReformerTTSConfig, memory: torch.Tensor,
                 dec.step(t, live)
                 t += 1
                 if unroll > 1:
-                    live = ~dec.done.all()
-            if bool(dec.done.all()):
+                    live = ~batch_all(dec.done)
+            if bool(batch_all(dec.done)):
                 return dec.finish()
     return dec.finish()
 

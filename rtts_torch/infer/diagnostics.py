@@ -18,11 +18,12 @@ from typing import List, Tuple
 import torch
 import torch.nn.functional as F
 
-from rtts_torch.attention.full import _merge_heads, _split_heads
+from rtts_torch.attention.full import _merge_heads, _split_heads, local_heads
 from rtts_torch.config import ReformerTTSConfig
 from rtts_torch.models import reformer_tts as M
 from rtts_torch.models.stack import _check_supported, make_stack_layer_fns
 from rtts_torch.ops.flash_attention import MASK_VALUE
+from rtts_torch.parallel.collectives import reduce_from_model
 
 
 def _cross_probs(p, x, memory, memory_mask, num_heads, cdt
@@ -30,9 +31,10 @@ def _cross_probs(p, x, memory, memory_mask, num_heads, cdt
     """The cross-attention sublayer ``p`` (ln + attn) with its softmax
     exposed -> (out (B, T, D), probs (B, H, T, L) f32)."""
     h = p.ln(x)
-    q = _split_heads(p.attn.w_q(h, cdt), num_heads)
-    k = _split_heads(p.attn.w_k(memory, cdt), num_heads)
-    v = _split_heads(p.attn.w_v(memory, cdt), num_heads)
+    heads = local_heads(p.attn)
+    q = _split_heads(p.attn.w_q(h, cdt), heads)
+    k = _split_heads(p.attn.w_k(memory, cdt), heads)
+    v = _split_heads(p.attn.w_v(memory, cdt), heads)
     logits = torch.einsum("bhqd,bhkd->bhqk", q, k).float() * (
         q.shape[-1] ** -0.5)
     if memory_mask is not None:
@@ -106,7 +108,13 @@ def _replay(model, cfg: ReformerTTSConfig, tokens, token_mask, mel_target,
 
 def alignment_map(model, cfg: ReformerTTSConfig, tokens, token_mask,
                   mel_target, mel_mask, layer: int = -1) -> torch.Tensor:
-    """Head-averaged cross-attention of one layer -> (B, T_groups, L)."""
+    """Head-averaged cross-attention of one layer -> (B, T_groups, L).  A
+    tensor-parallel shard averages over every head of the block (its
+    heads' sum, summed over the model group)."""
     probs = decoder_cross_attention(model, cfg, tokens, token_mask,
                                     mel_target, mel_mask)
-    return probs[layer].mean(dim=1)
+    attn = model.decoder.layers[1].f.attn
+    tp = attn.w_o.tp
+    if tp is None:
+        return probs[layer].mean(dim=1)
+    return reduce_from_model(probs[layer].sum(dim=1), tp[1]) / attn.num_heads

@@ -50,6 +50,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from rtts_torch.attention.full import local_heads
 from rtts_torch.config import Config, ReformerTTSConfig
 from rtts_torch.infer.decode import (_cross_attn_step, _init_mem_kv,
                                      _kv_dtype, _precast_weights, _project,
@@ -57,6 +58,7 @@ from rtts_torch.infer.decode import (_cross_attn_step, _init_mem_kv,
 from rtts_torch.models import reformer_tts as M
 from rtts_torch.models import squeezewave
 from rtts_torch.models.reformer_tts import _dtype, postnet_apply
+from rtts_torch.nn.posenc import pos_table
 from rtts_torch.ops.flash_attention import MASK_VALUE, SELF_MASK_VALUE
 
 
@@ -148,13 +150,14 @@ class _Slots:
     token mask."""
 
     def __init__(self, cfg: ReformerTTSConfig, slots: int, capacity: int,
-                 token_len: int, device):
+                 token_len: int, device, heads: Optional[int] = None):
         self.cdt = _dtype(cfg.compute_dtype)
         kdt = _kv_dtype(cfg, self.cdt)
         a = cfg.decoder.attention
         n = cfg.decoder.num_layers
-        ring = (slots, capacity, a.num_heads, a.head_dim)
-        mem = (slots, token_len, a.num_heads, a.head_dim)
+        heads = a.num_heads if heads is None else heads   # a TP shard's
+        ring = (slots, capacity, heads, a.head_dim)
+        mem = (slots, token_len, heads, a.head_dim)
         self.done = torch.ones(slots, dtype=torch.bool, device=device)
         self.offsets = torch.zeros(slots, dtype=torch.int64, device=device)
         self.budgets = torch.ones(slots, dtype=torch.int64, device=device)
@@ -192,9 +195,9 @@ class _Slots:
         h = model.dec_prenet(self.prev.to(cdt), cfg.dec_prenet_dropout,
                              generator, compute_dtype=cdt)
         p_rel = t - self.offsets
-        table = model.dec_pos.table
+        table, alpha = pos_table(model.dec_pos)
         pe = table[p_rel.clamp(0, table.shape[0] - 1)]
-        h = h + model.dec_pos.alpha.to(h.dtype) * pe.to(h.dtype)
+        h = h + alpha.to(h.dtype) * pe.to(h.dtype)
 
         def self_attn(i, p, hh):
             return _self_attn_step_ring(p, hh, self.k_caches[i],
@@ -284,8 +287,9 @@ class ServingEngine:
         mcfg = self.cfg.model
         r, dev = mcfg.reduction_factor, self.device
         self.generator = torch.Generator(device=dev).manual_seed(self.seed)
+        heads = local_heads(self.tts.decoder.layers[0].f.attn)
         self.state = _Slots(mcfg, self.slots, self.capacity, self.token_len,
-                            dev)
+                            dev, heads)
         self.t = 0
         self.lengths = torch.zeros(self.slots, dtype=torch.int32, device=dev)
         # slot-local frames; group `capacity` is the spare that done slots
@@ -478,7 +482,8 @@ def _decode_queue(model, cfg: ReformerTTSConfig, tokens: torch.Tensor,
     mem_k, mem_v = _init_mem_kv(model, cfg, memory.to(cdt), cdt,
                                 _kv_dtype(cfg, cdt))
     budgets_g = ((budgets.to(dev).long() + r - 1) // r).clamp(1, cap)
-    st = _Slots(cfg, n_slots, cap, tokens.shape[1], dev)
+    st = _Slots(cfg, n_slots, cap, tokens.shape[1], dev,
+                local_heads(model.decoder.layers[0].f.attn))
     # row n + s is slot s's spare: where a done slot writes
     spare = n + torch.arange(n_slots, device=dev)
     req = spare.clone()                       # the request each slot serves

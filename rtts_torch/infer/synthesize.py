@@ -7,12 +7,21 @@ with ``streaming_chunk``), or Griffin-Lim on the Synthesizer's device when
 no vocoder is given.  The serving surfaces: ``serve_to_mel``/``serve``
 bucket requests by predicted length and decode each bucket at its own
 budget; ``serve_continuous_to_mel``/``serve_continuous`` recycle decode
-slots through ``rtts_torch.infer.serving.serve_pool``.  Multi-device
-serving (``mesh``) is not ported yet and raises NotImplementedError.
+slots through ``rtts_torch.infer.serving.serve_pool``.
+
+``mesh`` (this rank's ``rtts_torch.parallel.mesh.Mesh``; every rank of it
+builds its Synthesizer and makes the same calls) serves over several
+ranks, as the reference's: the TTS weights tensor-parallel over the model
+group (``shard_for_serving``, unless ``tensor_parallel`` is false), the
+vocoder whole on each rank, and a decode's requests split over the data
+group, the batch padded to a multiple of the data-parallel size by
+repeating the last request; every rank returns the whole batch's mel and
+lengths, the padding trimmed.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Any, List, Optional, Sequence, Tuple
 
@@ -25,28 +34,37 @@ from rtts_torch.infer.decode import (_kv_dtype, _precast_weights,
                                      decode_greedy)
 from rtts_torch.models import reformer_tts as M
 from rtts_torch.models import squeezewave
+from rtts_torch.parallel.collectives import batch_shard
+from rtts_torch.parallel.serving import (data_parallel_size,
+                                         gather_request_batch,
+                                         replicate_for_serving,
+                                         shard_for_serving,
+                                         shard_request_batch)
 from rtts_torch.text import encode_batch, token_lengths
 
 
 class Synthesizer:
     def __init__(self, cfg: Config, tts_model: M.ReformerTTS, vocoder=None,
                  max_frames: int = 1024, mode: str = "auto", unroll: int = 1,
-                 staged="auto", mesh=None, attn_window=None):
+                 staged="auto", mesh=None, attn_window=None,
+                 tensor_parallel: bool = True):
         """``tts_model`` and ``vocoder`` are modules on the device to serve
         from.  The TTS weights are cast to the compute dtype once, in place;
         the vocoder is weight-norm folded at load (a copy if it is not
         folded yet).  ``mode``, ``unroll``, ``staged`` and ``attn_window``
         (w_back, w_fwd) go to ``decode_greedy``; an unknown
         ``kv_cache_dtype`` raises here."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "rtts_torch: mesh serving is not ported yet")
         cdt = M._dtype(cfg.model.compute_dtype)
         _kv_dtype(cfg.model, cdt)
         self.cfg = cfg
+        self.mesh = mesh
         self.tts = _precast_weights(tts_model, cdt)
         self.vocoder = (squeezewave.ensure_folded(vocoder)
                         if vocoder is not None else None)
+        if mesh is not None:
+            self.tts = shard_for_serving(self.tts, mesh, tensor_parallel)
+            if self.vocoder is not None:
+                self.vocoder = replicate_for_serving(self.vocoder, mesh)
         self.device = next(tts_model.parameters()).device
         self.max_frames = max_frames
         self.mode = mode
@@ -68,12 +86,25 @@ class Synthesizer:
         tokens = torch.as_tensor(tokens, device=self.device).long()
         mask = torch.as_tensor(mask, device=self.device).bool()
         gen = torch.Generator(device=self.device).manual_seed(seed)
-        memory = M.encode(self.tts, self.cfg.model, tokens, mask)
-        mel, lengths, _ = decode_greedy(self.tts, self.cfg.model, memory, mask,
-                                        max_frames=max_frames, generator=gen,
-                                        mode=self.mode, unroll=self.unroll,
-                                        staged=self.staged,
-                                        attn_window=self.attn_window)
+        n, shard = tokens.shape[0], contextlib.nullcontext()
+        if self.mesh is not None and data_parallel_size(self.mesh) > 1:
+            # pad by repeating the last request (all-pad rows would decode
+            # degenerately), then take this data rank's rows
+            extra = -n % data_parallel_size(self.mesh)
+            tokens = torch.cat([tokens, tokens[-1:].expand(extra, -1)])
+            mask = torch.cat([mask, mask[-1:].expand(extra, -1)])
+            (tokens, mask), off, total = shard_request_batch((tokens, mask),
+                                                             self.mesh)
+            shard = batch_shard(off, total, self.mesh.data_group)
+        with shard:
+            memory = M.encode(self.tts, self.cfg.model, tokens, mask)
+            mel, lengths, _ = decode_greedy(
+                self.tts, self.cfg.model, memory, mask, max_frames=max_frames,
+                generator=gen, mode=self.mode, unroll=self.unroll,
+                staged=self.staged, attn_window=self.attn_window)
+        if self.mesh is not None and data_parallel_size(self.mesh) > 1:
+            mel = gather_request_batch(mel, self.mesh)[:n]
+            lengths = gather_request_batch(lengths, self.mesh)[:n]
         return mel.cpu().numpy(), lengths.cpu().numpy()
 
     def text_to_mel(self, texts: Sequence[str], seed: int = 0

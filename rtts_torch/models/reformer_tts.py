@@ -25,7 +25,7 @@ from rtts_torch.models.stack import Stack, stack_apply
 from rtts_torch.nn.conv import Conv1d
 from rtts_torch.nn.layers import (Dense, Embedding, LayerNorm, PrenetMLP,
                                   dropout)
-from rtts_torch.nn.posenc import ScaledPosEnc
+from rtts_torch.nn.posenc import AxialPosEnc, ScaledPosEnc
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -33,13 +33,12 @@ def _dtype(name: str) -> torch.dtype:
             "float16": torch.float16}[name]
 
 
-def check_param_dtype(cfg) -> None:
-    """Raise on a ``param_dtype`` other than float32, which the port does
-    not build yet (the reference casts every parameter at init)."""
-    if cfg.param_dtype != "float32":
-        raise NotImplementedError(
-            f"rtts_torch: param_dtype {cfg.param_dtype!r} is not ported yet "
-            "(only 'float32')")
+def cast_params(model: nn.Module, param_dtype: str) -> nn.Module:
+    """Every floating parameter (and buffer) in ``param_dtype``, in place:
+    the reference builds each leaf in that dtype (the draws are f32, then
+    cast), and the compute casts at each use."""
+    dtype = _dtype(param_dtype)
+    return model if dtype == torch.float32 else model.to(dtype)
 
 
 class ConvLN(nn.Module):
@@ -61,20 +60,24 @@ class ReformerTTS(nn.Module):
         if cfg.vocab_size <= 0:
             raise ValueError("cfg.vocab_size must be set (use "
                              "rtts_torch.text.frontend_vocab_size())")
-        if cfg.pos_encoding != "scaled_sinusoidal":
-            raise NotImplementedError(
-                f"rtts_torch: pos_encoding {cfg.pos_encoding!r} is not ported")
         kw = dict(generator=generator, device=device)
         d = cfg.d_model
+
+        def posenc():
+            if cfg.pos_encoding == "axial":
+                return AxialPosEnc(cfg.axial_pos_shape, cfg.axial_pos_dims,
+                                   **kw)
+            return ScaledPosEnc(cfg.max_pos, d, device=device)
+
         self.embed = Embedding(cfg.vocab_size, d, **kw)
         self.enc_prenet = nn.ModuleList(
             ConvLN(d, d, cfg.enc_prenet_kernel, **kw)
             for _ in range(cfg.enc_prenet_layers))
-        self.enc_pos = ScaledPosEnc(cfg.max_pos, d, device=device)
+        self.enc_pos = posenc()
         self.encoder = Stack(cfg.encoder, cross_attend=False, **kw)
         self.dec_prenet = PrenetMLP(cfg.n_mels * cfg.reduction_factor,
                                     cfg.dec_prenet_hidden, d, **kw)
-        self.dec_pos = ScaledPosEnc(cfg.max_pos, d, device=device)
+        self.dec_pos = posenc()
         self.decoder = Stack(cfg.decoder, cross_attend=True, **kw)
         self.mel_head = Dense(d, cfg.n_mels * cfg.reduction_factor, **kw)
         self.stop_head = Dense(d, 1, **kw)
@@ -91,10 +94,9 @@ def init(cfg: ReformerTTSConfig, generator: Optional[torch.Generator] = None,
     """Random parameters with the reference's shapes and scales, drawn from
     ``generator`` (a CPU generator; seed it for reproducible weights), on
     ``device``: the card unless the caller asks for another (without a card
-    the default raises).  Parameters are float32: any other
-    ``param_dtype`` raises NotImplementedError."""
-    check_param_dtype(cfg)
-    return ReformerTTS(cfg, generator=generator, device=device)
+    the default raises), in ``cfg.param_dtype``."""
+    return cast_params(ReformerTTS(cfg, generator=generator, device=device),
+                       cfg.param_dtype)
 
 
 def _pad_multiple(cfg_stack) -> int:

@@ -29,7 +29,7 @@ import torch
 from torch import nn
 
 from rtts_torch.config import SqueezeWaveConfig
-from rtts_torch.models.reformer_tts import _dtype, check_param_dtype
+from rtts_torch.models.reformer_tts import _dtype, cast_params
 from rtts_torch.nn.conv import conv1d
 from rtts_torch.nn.layers import normal
 from rtts_torch.ops.depthwise_conv import depthwise_conv1d
@@ -129,10 +129,9 @@ def init(cfg: SqueezeWaveConfig, generator: Optional[torch.Generator] = None,
          device="cuda") -> SqueezeWave:
     """Random vocoder parameters (weight-norm form) drawn from ``generator``,
     on ``device``: the card unless the caller asks for another (without a
-    card the default raises).  Parameters are float32: any other
-    ``param_dtype`` raises NotImplementedError."""
-    check_param_dtype(cfg)
-    return SqueezeWave(cfg, generator=generator, device=device)
+    card the default raises), in ``cfg.param_dtype``."""
+    return cast_params(SqueezeWave(cfg, generator=generator, device=device),
+                       cfg.param_dtype)
 
 
 def fold_weightnorm(model: SqueezeWave) -> SqueezeWave:

@@ -6,9 +6,18 @@ Port of ``rtts/nn/layers.py``.  Leaf layouts are the JAX package's (dense
 explicit ``torch.Generator`` and then moved to ``device``, so one seed gives
 the same weights on every device.
 
-Dtype policy: parameters live in float32; ``compute_dtype`` casts the
+Dtype policy: parameters live in ``param_dtype`` (float32 unless the
+config says otherwise: ``init`` casts them); ``compute_dtype`` casts the
 weights and the input at each use, as the reference does (serving casts
 them once: ``rtts_torch/infer/decode.py::_precast_weights``).
+
+Tensor parallelism (``rtts_torch/parallel/sharding.py::shard_params``) marks
+a sharded ``Dense`` with ``tp``: a column-sharded one passes its input
+through ``copy_to_model`` (its gradient sums over the model group), a
+row-sharded one sums its product over the model group and adds its bias
+once, after the sum.  ``dropout`` inside ``collectives.batch_shard`` draws
+the global batch's mask and keeps this rank's rows, so a data-parallel step
+draws what one device does.
 """
 
 from __future__ import annotations
@@ -19,6 +28,10 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from rtts_torch.parallel.collectives import (copy_to_model,
+                                             current_batch_shard,
+                                             reduce_from_model)
 
 
 def normal(shape, generator: Optional[torch.Generator], device=None,
@@ -31,7 +44,10 @@ def normal(shape, generator: Optional[torch.Generator], device=None,
 
 
 class Dense(nn.Module):
-    """y = x @ w (+ b); LeCun-normal fan-in init."""
+    """y = x @ w (+ b); LeCun-normal fan-in init.  ``tp`` (None, or
+    ("col" | "row", model group)) marks a tensor-parallel shard."""
+
+    tp = None
 
     def __init__(self, d_in: int, d_out: int, use_bias: bool = True, *,
                  generator=None, device=None):
@@ -43,9 +59,14 @@ class Dense(nn.Module):
 
     def forward(self, x: torch.Tensor, compute_dtype=None) -> torch.Tensor:
         w = self.w
+        kind, group = self.tp or (None, None)
+        if kind == "col":
+            x = copy_to_model(x, group)
         if compute_dtype is not None:
             w, x = w.to(compute_dtype), x.to(compute_dtype)
         y = x @ w
+        if kind == "row":
+            y = reduce_from_model(y, group)
         if self.b is not None:
             y = y + self.b.to(y.dtype)
         return y
@@ -89,14 +110,26 @@ class Embedding(nn.Module):
 
 
 def dropout(x: torch.Tensor, rate: float,
-            generator: Optional[torch.Generator]) -> torch.Tensor:
+            generator: Optional[torch.Generator],
+            heads: Optional[tuple] = None) -> torch.Tensor:
     """Inverted dropout drawn from ``generator`` (which must live on x's
-    device); identity when rate == 0."""
+    device); identity when rate == 0.  A batch shard (``batch_shard``)
+    draws the whole batch's uniforms and keeps its rows; ``heads`` =
+    (offset, total) does the same for dim 1, a rank's heads of x (B, H,
+    ...).  So the generator advances as on one device, and the mask is
+    that device's slice."""
     if rate == 0.0:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
-    return torch.where(mask, x / keep, torch.zeros_like(x))
+    b_off, b_total = current_batch_shard(x.shape[0])
+    shape = (b_total,) + tuple(x.shape[1:])
+    if heads is not None:
+        shape = shape[:1] + (heads[1],) + shape[2:]
+    u = torch.rand(shape, generator=generator, device=x.device)
+    u = u[b_off:b_off + x.shape[0]]
+    if heads is not None:
+        u = u[:, heads[0]:heads[0] + x.shape[1]]
+    return torch.where(u < keep, x / keep, torch.zeros_like(x))
 
 
 # -- activations --------------------------------------------------------------

@@ -29,8 +29,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 # the flash kernels' trailing arguments: dtype, bh, heads, lq, lk, dh,
-# sm_scale, causal, self_mask, q_offset, seed, drop_thr, drop_scale, stream
-_FLASH_SCALARS = [_I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _U, _I, _F, _P]
+# sm_scale, causal, self_mask, q_offset, seed, drop_thr, drop_scale, the
+# dropout hash's batch offset, head offset and total heads, stream
+_FLASH_SCALARS = [_I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _U, _I, _F,
+                  _I, _I, _I, _P]
 # the LSH attend kernels' trailing arguments: dtype, n, nc, c, dh, causal,
 # before, after, mask_value, self_mask_value, stream
 _LSH_SCALARS = [_I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P]

@@ -27,7 +27,7 @@ import torch.nn.functional as F
 
 from rtts_torch.nn.layers import activation
 from rtts_torch.ops import _build
-from rtts_torch.reversible.ffn import _ffn_body
+from rtts_torch.parallel.collectives import copy_to_model, reduce_from_model
 
 EPS = 1e-5
 MAX_WIDTH = 1024
@@ -138,35 +138,61 @@ def _params(p):
     return (p.ln.scale, p.ln.bias, p.w_in.w, p.w_in.b, p.w_out.w, p.w_out.b)
 
 
+def _body_f32(x, ln_scale, ln_bias, w_in, b_in, w_out, b_out, act):
+    """The FFN body on explicit parameters in f32 with no compute dtype:
+    what the backward differentiates (the reference's ``_ffn_bwd``)."""
+    h = F.layer_norm(x, (x.shape[-1],), ln_scale.float(), ln_bias.float(),
+                     EPS)
+    h = activation(act)(h @ w_in.float() + b_in.float())
+    return h @ w_out.float() + b_out.float()
+
+
 class _FusedFFN(torch.autograd.Function):
     """K6 forward (its plain version on the CPU), backward by autograd of
-    the FFN body with no compute dtype on the saved input (the JAX
+    the FFN body in f32 with no compute dtype on the saved input (the JAX
     ``_ffn_with_vjp``).  The parameters are inputs, so autograd routes
-    their gradients; the backward takes them from the module ``p``."""
+    their gradients."""
 
     @staticmethod
-    def forward(ctx, p, act, mxu_dtype, x, *params):
+    def forward(ctx, act, mxu_dtype, x, *params):
         fn = ffn_fused_reference if x.device.type == "cpu" else ffn_fused
         out = fn(x.reshape(-1, x.shape[-1]), *params, act, mxu_dtype)
-        ctx.save_for_backward(x)
-        ctx.p, ctx.act = p, act
+        ctx.save_for_backward(x, *params)
+        ctx.act = act
         return out.reshape(x.shape)
 
     @staticmethod
     def backward(ctx, dout):
-        x = ctx.saved_tensors[0].detach().requires_grad_()
-        inputs = (x, *_params(ctx.p))
-        need = [t for t, n in zip(inputs, ctx.needs_input_grad[3:]) if n]
+        x, *params = ctx.saved_tensors
+        needs = ctx.needs_input_grad[2:]
+        inputs = [t.detach().requires_grad_(n) for t, n in zip(
+            [x, *params], needs)]
         with torch.enable_grad():
             # the f32 stream: the body's dtype is x's, as the reference pins
-            out = _ffn_body(ctx.p, x.float(), ctx.act).to(x.dtype)
+            out = _body_f32(inputs[0].float(), *inputs[1:],
+                            ctx.act).to(x.dtype)
+        need = [t for t, n in zip(inputs, needs) if n]
         got = iter(torch.autograd.grad(out, need, dout.to(out.dtype)))
-        return (None, None, None,
-                *(next(got) if n else None for n in ctx.needs_input_grad[3:]))
+        return (None, None, *(next(got) if n else None for n in needs))
 
 
 def chunked_ffn_fused(p, x: torch.Tensor, act: str, mxu_dtype) -> torch.Tensor:
     """The FFN sublayer ``p`` (an ``FFN``: {ln, w_in, w_out}) through K6:
     x (B, L, d) -> (B, L, d) in x's dtype, differentiable in x and the
-    parameters."""
-    return _FusedFFN.apply(p, act, mxu_dtype, x, *_params(p))
+    parameters.  A tensor-parallel shard (``p.w_out.tp``: its d_ff / mp
+    columns of W_in and rows of W_out) runs K6 without ``b_out``, sums the
+    partial outputs over the model group and adds ``b_out`` once.  The
+    kernel fuses the LayerNorm, so its replicated scale and bias, like x,
+    enter through ``copy_to_model``: each rank's gradient of them is its
+    d_ff share's, summed over the group in the backward."""
+    tp = p.w_out.tp
+    if tp is None:
+        return _FusedFFN.apply(act, mxu_dtype, x, *_params(p))
+    group = tp[1]
+    x, ln_scale, ln_bias = (copy_to_model(t, group)
+                            for t in (x, p.ln.scale, p.ln.bias))
+    params = (ln_scale, ln_bias) + _params(p)[2:-1] + (
+        torch.zeros_like(p.w_out.b),)
+    out = reduce_from_model(_FusedFFN.apply(act, mxu_dtype, x, *params),
+                            group)
+    return out + p.w_out.b.to(out.dtype)

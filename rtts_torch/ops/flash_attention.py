@@ -18,7 +18,10 @@ dropout is the JAX kernel's counter hash, bit for bit
 (``dropout_keep_mask``): the keep bit of (batch*head, global row, global
 col) is a function of a uint32 seed, so the forward and the backward
 regenerate the same mask and none is stored.  Dropout scales P.V only; the
-saved lse is that of the undropped softmax.
+saved lse is that of the undropped softmax.  A rank that holds batch rows
+``b_offset``.. and heads ``h_offset``.. of ``h_total`` (data and tensor
+parallelism, ``rtts_torch/parallel/``) hashes the global (b, h), so its
+mask is that slice of the one-device mask.
 """
 
 from __future__ import annotations
@@ -100,21 +103,39 @@ def keep_bits(seed: int, bh: torch.Tensor, rows: torch.Tensor,
 
 
 def dropout_keep_mask(seed: int, n_bh: int, l_q: int, l_k: int, rate: float,
-                      q_offset: int = 0, device=None) -> torch.Tensor:
+                      q_offset: int = 0, device=None,
+                      heads: Optional[int] = None, b_offset: int = 0,
+                      h_offset: int = 0,
+                      h_total: Optional[int] = None) -> torch.Tensor:
     """Dense (n_bh, l_q, l_k) f32 keep mask in {0, 1}: the exact mask the
     kernels regenerate tile by tile, equal bit for bit to JAX
-    ``dropout_keep_mask`` for the same uint32 seed."""
+    ``dropout_keep_mask`` for the same uint32 seed.  With ``heads`` (the
+    local heads a row of n_bh holds), row b * heads + h hashes the global
+    index (b_offset + b) * h_total + h_offset + h."""
     kw = dict(dtype=torch.int64, device=device)
-    return keep_bits(seed, torch.arange(n_bh, **kw)[:, None, None],
+    bh = torch.arange(n_bh, **kw)
+    if heads is not None:
+        bh = global_bh(bh, heads, b_offset, h_offset, h_total)
+    return keep_bits(seed, bh[:, None, None],
                      (torch.arange(l_q, **kw) + q_offset)[None, :, None],
                      torch.arange(l_k, **kw)[None, None, :], rate)
 
 
-def _drop_rscale(seed, b, h, l_q, l_k, rate, q_offset, device):
+def global_bh(bh, heads: int, b_offset: int = 0, h_offset: int = 0,
+              h_total: Optional[int] = None):
+    """The hashed index of local row bh = b * heads + h: (b_offset + b) *
+    h_total + h_offset + h (the kernels' ``drop_bh``)."""
+    h_total = heads if h_total is None else h_total
+    return (bh // heads + b_offset) * h_total + bh % heads + h_offset
+
+
+def _drop_rscale(seed, b, h, l_q, l_k, rate, q_offset, device, b_offset=0,
+                 h_offset=0, h_total=None):
     """keep / keep_prob as (B, H, Lq, Lk) f32, or None without dropout."""
     if not _drop_threshold(rate):
         return None
-    keep = dropout_keep_mask(seed, b * h, l_q, l_k, rate, q_offset, device)
+    keep = dropout_keep_mask(seed, b * h, l_q, l_k, rate, q_offset, device,
+                             h, b_offset, h_offset, h_total)
     return keep.reshape(b, h, l_q, l_k) * (1.0 / (1.0 - rate))
 
 
@@ -141,7 +162,8 @@ def masked_scores(q, k, kv_mask=None, *, causal=False, self_mask=False,
 def flash_attend_reference(q, k, v, kv_mask=None, *, causal=False,
                            self_mask=False, sm_scale=1.0, q_offset=0,
                            dropout_rate=0.0, dropout_seed=None,
-                           return_lse=False):
+                           return_lse=False, b_offset=0, h_offset=0,
+                           h_total=None):
     """Plain PyTorch version of K1: explicit (B, H, Lq, Lk) f32 scores, then
     softmax, the keep mask and P.V in f32; the output is cast to q's dtype,
     lse is (B*H, Lq) f32 of the undropped softmax."""
@@ -152,7 +174,7 @@ def flash_attend_reference(q, k, v, kv_mask=None, *, causal=False,
     # masked rows, whose lse = -1e9 + log(Lk) rounds back to -1e9 in f32
     p = torch.softmax(s, dim=-1)
     rscale = _drop_rscale(dropout_seed, b, h, l_q, k.shape[2], dropout_rate,
-                          q_offset, q.device)
+                          q_offset, q.device, b_offset, h_offset, h_total)
     if rscale is not None:
         p = p * rscale
     out = torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
@@ -164,7 +186,8 @@ def flash_attend_reference(q, k, v, kv_mask=None, *, causal=False,
 def flash_attend_bwd_reference(q, k, v, out, dout, lse, kv_mask=None, *,
                                causal=False, self_mask=False, sm_scale=1.0,
                                q_offset=0, dropout_rate=0.0,
-                               dropout_seed=None):
+                               dropout_seed=None, b_offset=0, h_offset=0,
+                               h_total=None):
     """Plain PyTorch version of K3: the kernels' equations written out
     densely in f32 -> (dq, dk, dv) in the dtypes of (q, k, v).
 
@@ -177,7 +200,7 @@ def flash_attend_bwd_reference(q, k, v, out, dout, lse, kv_mask=None, *,
                       sm_scale=sm_scale, q_offset=q_offset)
     p = torch.exp(s - lse.reshape(b, h, l_q, 1))
     rscale = _drop_rscale(dropout_seed, b, h, l_q, k.shape[2], dropout_rate,
-                          q_offset, q.device)
+                          q_offset, q.device, b_offset, h_offset, h_total)
     pr = p if rscale is None else p * rscale
     dv = torch.einsum("bhqk,bhqd->bhkd", pr, dof)
     dp = torch.einsum("bhqd,bhkd->bhqk", dof, vf)
@@ -229,14 +252,17 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _scalars(q, k, causal, self_mask, sm_scale, q_offset, rate, seed):
+def _scalars(q, k, causal, self_mask, sm_scale, q_offset, rate, seed,
+             b_offset=0, h_offset=0, h_total=None):
     """The C entry points' trailing arguments, dtype through stream."""
     b, h, l_q, dh = q.shape
     thr = _drop_threshold(rate)
     return (_DTYPES[q.dtype], b * h, h, l_q, k.shape[2], dh, float(sm_scale),
             int(bool(causal)), int(bool(self_mask)), int(q_offset),
             int(seed) & _M32 if thr else 0, thr,
-            1.0 / (1.0 - rate) if thr else 1.0, _build.stream(q.get_device()))
+            1.0 / (1.0 - rate) if thr else 1.0, int(b_offset), int(h_offset),
+            h if h_total is None else int(h_total),
+            _build.stream(q.get_device()))
 
 
 def _ptr(t):
@@ -244,7 +270,8 @@ def _ptr(t):
 
 
 def flash_fwd(q, k, v, kv_mask, causal, self_mask, sm_scale, q_offset,
-              dropout_rate, dropout_seed):
+              dropout_rate, dropout_seed, b_offset=0, h_offset=0,
+              h_total=None):
     """Launch K1 -> (out, lse (B*H, Lq) f32); counts in ``flash_attend.launches``."""
     q, k, v, kv_mask = _check_inputs("flash_attend", q, k, v, kv_mask)
     b, h, l_q, _ = q.shape
@@ -254,7 +281,7 @@ def flash_fwd(q, k, v, kv_mask, causal, self_mask, sm_scale, q_offset,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(kv_mask),
         out.data_ptr(), lse.data_ptr(),
         *_scalars(q, k, causal, self_mask, sm_scale, q_offset, dropout_rate,
-                  dropout_seed))
+                  dropout_seed, b_offset, h_offset, h_total))
     _build.check(err, "rtts_flash_fwd")
     flash_attend.launches += 1
     return out, lse
@@ -289,7 +316,8 @@ def _sm_count(device: torch.device) -> int:
 
 
 def flash_bwd_dkv(q, k, v, out, dout, lse, kv_mask, causal, self_mask,
-                  sm_scale, q_offset, dropout_rate, dropout_seed):
+                  sm_scale, q_offset, dropout_rate, dropout_seed, b_offset=0,
+                  h_offset=0, h_total=None):
     """Launch K3's dK/dV kernel -> (dk, dv); counts in
     ``flash_bwd_dkv.launches``.  In bf16 each key tile's query range is
     split over ``dkv_query_splits`` blocks whose f32 partials are summed in
@@ -312,14 +340,15 @@ def flash_bwd_dkv(q, k, v, out, dout, lse, kv_mask, causal, self_mask,
         dout.data_ptr(), lse.contiguous().data_ptr(), _ptr(kv_mask),
         dk.data_ptr(), dv.data_ptr(), _ptr(di), _ptr(part), n_split,
         *_scalars(q, k, causal, self_mask, sm_scale, q_offset, dropout_rate,
-                  dropout_seed))
+                  dropout_seed, b_offset, h_offset, h_total))
     _build.check(err, "rtts_flash_bwd_dkv")
     flash_bwd_dkv.launches += 1
     return dk, dv
 
 
 def flash_bwd_dq(q, k, v, out, dout, lse, kv_mask, causal, self_mask,
-                 sm_scale, q_offset, dropout_rate, dropout_seed):
+                 sm_scale, q_offset, dropout_rate, dropout_seed, b_offset=0,
+                 h_offset=0, h_total=None):
     """Launch K3's dQ kernel -> dq; counts in ``flash_bwd_dq.launches``."""
     q, k, v, kv_mask = _check_inputs("flash_bwd_dq", q, k, v, kv_mask)
     out, dout = _aligned(out), _aligned(dout.to(q.dtype))
@@ -329,7 +358,7 @@ def flash_bwd_dq(q, k, v, out, dout, lse, kv_mask, causal, self_mask,
         dout.data_ptr(), lse.contiguous().data_ptr(), _ptr(kv_mask),
         dq.data_ptr(),
         *_scalars(q, k, causal, self_mask, sm_scale, q_offset, dropout_rate,
-                  dropout_seed))
+                  dropout_seed, b_offset, h_offset, h_total))
     _build.check(err, "rtts_flash_bwd_dq")
     flash_bwd_dq.launches += 1
     return dq
@@ -345,13 +374,15 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, kv_mask, causal, self_mask, sm_scale, q_offset,
-                rate, seed):
-        opts = (causal, self_mask, sm_scale, q_offset, rate, seed)
+                rate, seed, b_offset, h_offset, h_total):
+        opts = (causal, self_mask, sm_scale, q_offset, rate, seed, b_offset,
+                h_offset, h_total)
         if q.device.type == "cpu":
             out, lse = flash_attend_reference(
                 q, k, v, kv_mask, causal=causal, self_mask=self_mask,
                 sm_scale=sm_scale, q_offset=q_offset, dropout_rate=rate,
-                dropout_seed=seed, return_lse=True)
+                dropout_seed=seed, return_lse=True, b_offset=b_offset,
+                h_offset=h_offset, h_total=h_total)
         else:
             out, lse = flash_fwd(q, k, v, kv_mask, *opts)
         ctx.save_for_backward(q, k, v, out, lse, kv_mask)
@@ -362,17 +393,19 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout, _dlse):
         q, k, v, out, lse, kv_mask = ctx.saved_tensors
-        causal, self_mask, sm_scale, q_offset, rate, seed = ctx.opts
+        (causal, self_mask, sm_scale, q_offset, rate, seed, b_offset,
+         h_offset, h_total) = ctx.opts
         if q.device.type == "cpu":
             dq, dk, dv = flash_attend_bwd_reference(
                 q, k, v, out, dout, lse, kv_mask, causal=causal,
                 self_mask=self_mask, sm_scale=sm_scale, q_offset=q_offset,
-                dropout_rate=rate, dropout_seed=seed)
+                dropout_rate=rate, dropout_seed=seed, b_offset=b_offset,
+                h_offset=h_offset, h_total=h_total)
         else:
             args = (q, k, v, out, dout, lse, kv_mask, *ctx.opts)
             dk, dv = flash_bwd_dkv(*args)
             dq = flash_bwd_dq(*args)
-        return dq, dk, dv, None, None, None, None, None, None, None
+        return (dq, dk, dv) + (None,) * 10
 
 
 def flash_attend(
@@ -388,6 +421,9 @@ def flash_attend(
     dropout_rate: float = 0.0,
     dropout_seed: Optional[int] = None,
     return_lse: bool = False,
+    b_offset: int = 0,
+    h_offset: int = 0,
+    h_total: Optional[int] = None,
 ):
     """Masked softmax attention without an L x L tensor in device memory,
     differentiable in q, k and v.
@@ -397,6 +433,8 @@ def flash_attend(
     ``flash_bwd_dq``), or they raise; on CPU tensors both run the plain
     versions.  ``dropout_rate`` > 0 needs a ``dropout_seed`` (uint32).
     ``return_lse`` also returns the per-row logsumexp as (B*H, Lq) f32.
+    ``b_offset``, ``h_offset`` and ``h_total`` place a rank's batch rows
+    and heads in the global batch for the dropout hash (None: H).
     """
     thr = _drop_threshold(dropout_rate)
     if thr and dropout_seed is None:
@@ -404,7 +442,9 @@ def flash_attend(
     seed = int(dropout_seed) & _M32 if thr else 0
     out, lse = _FlashAttention.apply(q, k, v, kv_mask, bool(causal),
                                      bool(self_mask), float(sm_scale),
-                                     int(q_offset), float(dropout_rate), seed)
+                                     int(q_offset), float(dropout_rate), seed,
+                                     int(b_offset), int(h_offset),
+                                     None if h_total is None else int(h_total))
     return (out, lse) if return_lse else out
 
 

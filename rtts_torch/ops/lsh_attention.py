@@ -89,13 +89,16 @@ def positional_dropout(probs: torch.Tensor, q_pos: torch.Tensor,
 
 
 def dropout_lane(b: int, h: int, chunk_idx: torch.Tensor,
-                 chunks_per_round: int) -> torch.Tensor:
+                 chunks_per_round: int, span=None) -> torch.Tensor:
     """(B, H, nc, 1, 1) lane ids for ``positional_dropout`` over a chunked
-    attend: lane = round * (B*H) + b*H + h."""
+    attend: lane = round * (B*H) + b*H + h.  ``span`` = (b_offset,
+    b_total, h_offset, h_total) places a rank's rows and heads in the
+    global batch, whose lanes they take."""
+    b_off, b_tot, h_off, h_tot = span or (0, b, 0, h)
     rounds = chunk_idx.long() // chunks_per_round
-    bh = (torch.arange(b, device=chunk_idx.device)[:, None] * h
-          + torch.arange(h, device=chunk_idx.device)[None, :])
-    lane = rounds[None, None, :] * (b * h) + bh[:, :, None]
+    bh = ((torch.arange(b, device=chunk_idx.device)[:, None] + b_off) * h_tot
+          + torch.arange(h, device=chunk_idx.device)[None, :] + h_off)
+    lane = rounds[None, None, :] * (b_tot * h_tot) + bh[:, :, None]
     return lane[..., None, None]
 
 
@@ -105,7 +108,8 @@ def lsh_attend_chunks_reference(q, k, v, pos, valid, causal, before, after,
                                 probs_from_lse: bool = False,
                                 dropout_rate: float = 0.0,
                                 dropout_seed: Optional[int] = None,
-                                chunks_per_round: Optional[int] = None
+                                chunks_per_round: Optional[int] = None,
+                                lane_span=None
                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of K4, and the plain attend.  q, k, v: (B, H,
     nc, c, d) sorted chunks (k already length-normalised and scaled); pos:
@@ -119,7 +123,8 @@ def lsh_attend_chunks_reference(q, k, v, pos, valid, causal, before, after,
     two differ only in f32 rounding at |lse| ~ 1e5: rows left with nothing
     but a self entry seen twice.  Given a ``dropout_seed`` (which K4 does
     not take), the probabilities get positional dropout keyed per (round,
-    q_pos, k_pos), with ``chunks_per_round`` = L / c."""
+    q_pos, k_pos), with ``chunks_per_round`` = L / c (``lane_span``:
+    ``dropout_lane``'s)."""
     s, _, k_pos = window_scores(q, k, pos, valid, causal, before, after,
                                 mask_value, self_mask_value)
     lse = torch.logsumexp(s, dim=-1)
@@ -128,7 +133,7 @@ def lsh_attend_chunks_reference(q, k, v, pos, valid, causal, before, after,
     if dropout_seed is not None and dropout_rate > 0.0:
         b, h, nc = q.shape[:3]
         lane = dropout_lane(b, h, torch.arange(nc, device=q.device),
-                            chunks_per_round or nc)
+                            chunks_per_round or nc, lane_span)
         p = positional_dropout(p, pos, k_pos, lane, dropout_seed,
                                dropout_rate)
     v_adj = look_adjacent(v, before, after).float()

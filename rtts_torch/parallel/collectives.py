@@ -1,0 +1,175 @@
+"""The collectives of data and tensor parallelism, written out.
+
+Port of what XLA inserts from the JAX package's shardings
+(``rtts/parallel/``): here every collective is a call a reader can see.
+
+- ``copy_to_model`` / ``reduce_from_model``: the Megatron pair that makes
+  tensor parallelism train.  The first is the identity forward and an
+  all-reduce of the gradient over the model group backward (the input of a
+  column-sharded projection); the second all-reduces forward (the output
+  of a row-sharded projection) and is the identity backward.
+- ``psum``: a sum over a group outside autograd (loss denominators, metric
+  and gradient reductions).
+- ``gather_dim``: a group's shards concatenated along one dim, written as
+  an all-reduce of zero-padded copies, because gloo reduces and broadcasts
+  CUDA tensors but gathers none.
+- ``batch_shard``: where this rank's batch rows sit in the global batch, so
+  that dropout draws the one-device mask and keeps its rows
+  (``rtts_torch.nn.layers.dropout``) and the flash kernels hash the global
+  row.
+
+Every function is the identity, or the plain value, for a group of None
+(one rank).
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Optional, Tuple
+
+import torch
+import torch.distributed as dist
+
+_BATCH_SHARD: Tuple[int, Optional[int]] = (0, None)
+_BATCH_GROUP = None
+
+
+@contextlib.contextmanager
+def batch_shard(offset: int, total: int, group=None):
+    """Within the block, a batch tensor of fewer than ``total`` rows holds
+    rows ``offset``.. of a global batch of ``total``, split over the data
+    group ``group``."""
+    global _BATCH_SHARD, _BATCH_GROUP
+    prev = _BATCH_SHARD, _BATCH_GROUP
+    _BATCH_SHARD, _BATCH_GROUP = (int(offset), int(total)), group
+    try:
+        yield
+    finally:
+        _BATCH_SHARD, _BATCH_GROUP = prev
+
+
+def current_batch_shard(rows: int) -> Tuple[int, int]:
+    """(offset, total) of a batch of ``rows`` rows: (0, rows) outside
+    ``batch_shard`` or when the batch is whole (replicated)."""
+    off, total = _BATCH_SHARD
+    if total is None or rows == total:
+        return 0, rows
+    return off, total
+
+
+def batch_all(flags: torch.Tensor) -> torch.Tensor:
+    """0-dim bool: every flag of the whole batch is set (the data group's
+    flags too, inside ``batch_shard``)."""
+    out = flags.all()
+    if _BATCH_GROUP is None:
+        return out
+    return _reduce(out.to(torch.int32), _BATCH_GROUP,
+                   dist.ReduceOp.MIN).bool()
+
+
+def _reduce(t: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """All-reduce ``t`` in place (f32 for floats narrower than f32, so a
+    gloo group takes bf16 too); returns it."""
+    if group is None:
+        return t
+    if t.is_floating_point() and t.dtype != torch.float32 \
+            and t.dtype != torch.float64:
+        wide = t.float()
+        dist.all_reduce(wide, op=op, group=group)
+        t.copy_(wide)
+        return t
+    dist.all_reduce(t, op=op, group=group)
+    return t
+
+
+@torch.no_grad()
+def psum(t: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """A new tensor: ``t`` reduced over ``group``, outside autograd."""
+    return _reduce(t.detach().clone(), group, op)
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce(g.contiguous().clone(), ctx.group), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _reduce(x.contiguous().clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_model(x: torch.Tensor, group) -> torch.Tensor:
+    """Identity forward; the gradient all-reduced over ``group``."""
+    if group is None or not torch.is_grad_enabled():
+        return x
+    return _CopyToModel.apply(x, group)
+
+
+def reduce_from_model(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` all-reduced over ``group``; the gradient passes unchanged."""
+    if group is None:
+        return x
+    if not torch.is_grad_enabled():
+        return _reduce(x.contiguous().clone(), group)
+    return _ReduceFromModel.apply(x, group)
+
+
+@torch.no_grad()
+def all_reduce_flat(tensors, group) -> None:
+    """Sum a list of tensors over ``group`` in place, as one f32 buffer
+    (one collective, whatever the count)."""
+    tensors = [t for t in tensors]
+    if group is None or not tensors:
+        return
+    flat = torch.cat([t.reshape(-1).float() for t in tensors])
+    dist.all_reduce(flat, group=group)
+    i = 0
+    for t in tensors:
+        n = t.numel()
+        t.copy_(flat[i:i + n].view_as(t))
+        i += n
+
+
+@torch.no_grad()
+def gather_dim(t: torch.Tensor, dim: int, group, index: int,
+               size: int) -> torch.Tensor:
+    """The ``size`` equal shards of ``group`` (this rank's is ``t``, at
+    ``index``) concatenated along ``dim``: each rank writes its shard into
+    zeros of the whole and the group sums them, exactly."""
+    if group is None or size == 1:
+        return t.detach().clone()
+    n = t.shape[dim]
+    shape = list(t.shape)
+    shape[dim] = n * size
+    dtype = t.dtype if t.dtype in (torch.float32, torch.float64,
+                                   torch.int32, torch.int64) \
+        else torch.float32
+    full = torch.zeros(shape, dtype=dtype, device=t.device)
+    full.narrow(dim, index * n, n).copy_(t)
+    dist.all_reduce(full, group=group)
+    return full.to(t.dtype)
+
+
+@torch.no_grad()
+def broadcast_(t: torch.Tensor, src: int, group) -> torch.Tensor:
+    """Overwrite ``t`` with global rank ``src``'s copy, in place."""
+    if group is None:
+        return t
+    narrow = t.is_floating_point() and t.dtype not in (torch.float32,
+                                                       torch.float64)
+    buf = t.float() if narrow else t.contiguous()
+    dist.broadcast(buf, src=src, group=group)
+    if buf.data_ptr() != t.data_ptr():
+        t.copy_(buf)
+    return t

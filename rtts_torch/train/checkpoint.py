@@ -42,6 +42,10 @@ def param_names(model: nn.Module) -> List[str]:
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
+    """A host copy; bfloat16 (which numpy lacks) as float32, exactly: a
+    restore casts it back to the parameter's dtype."""
+    if t.dtype == torch.bfloat16:
+        t = t.float()
     return t.detach().to("cpu", copy=True).numpy()
 
 
@@ -126,8 +130,14 @@ class AsyncCheckpointer:
 
     def save(self, directory, model: nn.Module, opt_state: Optional[Dict],
              step: int, metric: Optional[float] = None, keep: int = 3) -> None:
+        self.save_flat(directory, snapshot(model, opt_state), step, metric,
+                       keep)
+
+    def save_flat(self, directory, flat: Dict[str, np.ndarray], step: int,
+                  metric: Optional[float] = None, keep: int = 3) -> None:
+        """Write an already snapshotted tree (``snapshot``, or a sharded
+        run's gathered one) on the worker."""
         self.wait()
-        flat = snapshot(model, opt_state)
 
         def _write() -> None:
             try:

@@ -22,10 +22,17 @@ parameters as they are.  Clipping, Adam and the schedule see one update per
 cycle, so the schedule counts updates.
 
 The state is a plain dict: ``count`` (updates applied, an int) and, for
-adam/adamw, ``mu`` and ``nu`` (one f32 tensor per parameter, in parameter
-order); with accumulation also ``mini_step`` (micro-steps folded into the
-current cycle) and ``acc`` (the running mean gradient).  Checkpoints store
-it under the port's own keys (``rtts_torch/train/checkpoint.py``).
+adam/adamw, ``mu`` and ``nu`` (one tensor per parameter, in parameter
+order, in the parameter's dtype, as optax's ``scale_by_adam`` without
+``mu_dtype``: under a bf16 ``param_dtype`` the moments and the whole
+update are bf16 arithmetic, the clip's norm f32); with accumulation also
+``mini_step`` (micro-steps folded into the current cycle) and ``acc`` (the
+running mean gradient, in the parameter's dtype).  Checkpoints store it
+under the port's own keys (``rtts_torch/train/checkpoint.py``).
+
+``step`` takes ``norm_fn``, the global norm of a gradient list, for a
+data- or tensor-parallel step whose lists are a rank's shards
+(``rtts_torch/train/train_tts.py``).
 """
 
 from __future__ import annotations
@@ -99,7 +106,7 @@ class Optimizer:
 
     def init(self, params: List[torch.Tensor]) -> Dict:
         def zeros():
-            return [torch.zeros_like(p, dtype=torch.float32) for p in params]
+            return [torch.zeros_like(p) for p in params]
 
         state: Dict = {"count": 0}
         if self.cfg.optimizer != "sgd":
@@ -110,10 +117,10 @@ class Optimizer:
 
     @torch.no_grad()
     def step(self, params: List[torch.Tensor], grads: List[torch.Tensor],
-             state: Dict) -> None:
+             state: Dict, norm_fn=global_norm) -> None:
         """Fold ``grads`` into the cycle's mean and, at its end (every step
         without accumulation), params <- params + update(mean); ``state``
-        advances in place."""
+        advances in place.  ``norm_fn`` gives the clip its global norm."""
         k = self.cfg.accumulate_steps
         if k > 1:
             n = state["mini_step"]
@@ -126,13 +133,13 @@ class Optimizer:
             for acc in state["acc"]:
                 acc.zero_()
             state["mini_step"] = 0
-        self._update(params, grads, state)
+        self._update(params, grads, state, norm_fn)
 
     def _update(self, params: List[torch.Tensor], grads: List[torch.Tensor],
-                state: Dict) -> None:
+                state: Dict, norm_fn=global_norm) -> None:
         cfg = self.cfg
         if cfg.grad_clip_norm > 0:
-            norm = global_norm(grads)
+            norm = norm_fn(grads)
             clip = norm < cfg.grad_clip_norm
             grads = [torch.where(clip, g, g / norm * cfg.grad_clip_norm)
                      for g in grads]

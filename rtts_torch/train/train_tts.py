@@ -22,7 +22,19 @@ configured (``rtts_torch/utils/metrics.py``), eval artifacts to the
 tracker too.  ``experiment.debug_nans`` runs the loop in autograd's anomaly
 mode and checks the loss and every gradient before each update
 (``rtts_torch.utils.profiling.check_finite``: FloatingPointError naming
-the first non-finite one).  A mesh of more than one device is refused.
+the first non-finite one).
+
+Over several ranks (``experiment.mesh``: ``data_parallel``,
+``model_parallel``, ``dcn_parallel``, ``zero_sharding``, started by
+``initialize_distributed``) the loop runs the reference's mesh path
+through ``rtts_torch.parallel.training.MeshTraining``: the batch splits
+over the data group (whole on every rank when it does not divide), the
+losses keep the global batch's semantics, the gradients sum over the data
+group, tensor parallelism shards the attention and FFN projections, and
+ZeRO-1 splits the Adam moments.  Host IO (metrics, checkpoints, the
+tracker, eval artifacts) is rank 0's; eval runs on the first data rank's
+model group, the batch whole.  Checkpoints hold the whole tree under the
+one-device names, so any mesh resumes from any.
 """
 
 from __future__ import annotations
@@ -43,9 +55,14 @@ from rtts_torch.data import (EpochBatcher, Manifest, TextMelDataset,
                              split_manifest, to_device)
 from rtts_torch.infer.diagnostics import alignment_map
 from rtts_torch.models import reformer_tts as M
+from rtts_torch.parallel.collectives import batch_shard
+from rtts_torch.parallel.mesh import (initialize_distributed, make_mesh,
+                                      rank_device)
+from rtts_torch.parallel.training import MeshTraining
 from rtts_torch.text import frontend_vocab_size
 from rtts_torch.train.checkpoint import (AsyncCheckpointer, latest_checkpoint,
-                                         restore_checkpoint, save_checkpoint)
+                                         restore_checkpoint, snapshot,
+                                         write_checkpoint)
 from rtts_torch.train.interrupt import GracefulStop
 from rtts_torch.train.losses import (guided_attention_loss, make_stop_target,
                                      tts_loss)
@@ -76,7 +93,8 @@ def _guided_weight(weight: float, decay_steps: int, step: int) -> np.float32:
     return np.float32(w)
 
 
-def make_train_step(model_cfg, optimizer, debug_nans: bool = False):
+def make_train_step(model_cfg, optimizer, debug_nans: bool = False,
+                    mesh: Optional[MeshTraining] = None):
     """-> train_step(model, opt_state, batch, generator, step=0,
     return_grads=False) -> metrics (0-dim tensors) [, grads].
 
@@ -84,9 +102,15 @@ def make_train_step(model_cfg, optimizer, debug_nans: bool = False):
     to_device``); ``generator`` (on that device) draws the dropout.  With
     ``debug_nans`` the loss and every gradient are checked before the
     update (one host synchronization), and a NaN that autograd's anomaly
-    mode finds in the backward raises FloatingPointError too."""
+    mode finds in the backward raises FloatingPointError too.
+
+    With ``mesh`` (a ``MeshTraining``, whose construction sharded the
+    model) ``batch`` is this rank's rows, run inside its ``batch_shard``;
+    the metrics and the returned gradients are the global batch's (the
+    gradients of this rank's shards)."""
     gal_w = model_cfg.guided_attention_weight
     gal_decay = model_cfg.guided_attention_decay_steps
+    count = mesh.count if mesh is not None else (lambda t: t)
 
     def train_step(model, opt_state, batch, generator, step=0,
                    return_grads=False):
@@ -98,11 +122,16 @@ def make_train_step(model_cfg, optimizer, debug_nans: bool = False):
             attn_sink=sink)
         total, metrics = tts_loss(pre, post, stop, batch["mel"],
                                   make_stop_target(batch["mel_mask"]),
-                                  batch["mel_mask"], model_cfg.stop_pos_weight)
+                                  batch["mel_mask"], model_cfg.stop_pos_weight,
+                                  count)
         if sink is not None:
+            cross = model.decoder.layers[1].f.attn
+            heads = (None if cross.w_o.tp is None
+                     else (cross.num_heads, cross.w_o.tp[1]))
             gal = guided_attention_loss(
                 sink, batch["token_mask"], batch["mel_mask"],
-                model_cfg.reduction_factor, model_cfg.guided_attention_sigma)
+                model_cfg.reduction_factor, model_cfg.guided_attention_sigma,
+                count, heads)
             total = total + float(_guided_weight(gal_w, gal_decay, step)) * gal
             metrics = dict(metrics, loss=total, loss_guided_attn=gal)
         # the last postnet layer's LN is never read (as in the reference,
@@ -118,8 +147,14 @@ def make_train_step(model_cfg, optimizer, debug_nans: bool = False):
                 (f"the gradient of {name}", g) for (name, _), g in zip(
                     model.named_parameters(), grads)])
         metrics = {k: v.detach() for k, v in metrics.items()}
-        metrics["grad_norm"] = global_norm(grads)
-        optimizer.step(params, grads, opt_state)
+        if mesh is None:
+            metrics["grad_norm"] = global_norm(grads)
+            optimizer.step(params, grads, opt_state)
+        else:
+            mesh.reduce_grads(grads)
+            metrics = mesh.reduce_metrics(metrics)
+            metrics["grad_norm"] = mesh.norm(grads)
+            mesh.update(optimizer, params, grads, opt_state)
         return (metrics, grads) if return_grads else metrics
 
     return train_step
@@ -146,16 +181,18 @@ def make_eval_step(model_cfg):
     return eval_step
 
 
-def check_single_device(cfg: Config) -> None:
-    """Raise on a mesh of more than one device, which no trainer of the
-    port runs yet."""
-    mesh = cfg.experiment.mesh
-    if (mesh.data_parallel not in (-1, 1) or mesh.model_parallel != 1
-            or mesh.dcn_parallel != 1 or mesh.num_processes != 1):
-        raise NotImplementedError(
-            "rtts_torch: training on a mesh of more than one device is not "
-            "ported yet (data_parallel, model_parallel, dcn_parallel and "
-            "num_processes must be 1)")
+def setup_mesh(cfg: Config, device):
+    """Start the process group when the config or ``RTTS_MULTIHOST`` asks
+    (``initialize_distributed``) and build this rank's mesh -> (mesh,
+    device: the rank's card for "cuda").  A mesh larger than the world
+    raises the reference's ValueError."""
+    initialize_distributed(cfg.experiment.mesh, device)
+    mesh = make_mesh(cfg.experiment.mesh)
+    if mesh.data_size * mesh.model_size > 1:
+        device = rank_device(device)
+        print(f"rtts_torch.parallel: {mesh.describe()}, device {device}",
+              flush=True)
+    return mesh, device
 
 
 def train_tts(cfg: Config, workdir: str, max_steps: Optional[int] = None,
@@ -167,20 +204,22 @@ def train_tts(cfg: Config, workdir: str, max_steps: Optional[int] = None,
     ``stop``: an object with a ``stop_requested`` property, polled at every
     step boundary; when None a :class:`GracefulStop` turns SIGTERM/SIGINT
     into a checkpoint-and-return."""
-    check_single_device(cfg)
     exp = cfg.experiment
+    mesh, device = setup_mesh(cfg, device)
+    is_main = mesh.is_main
     work = pathlib.Path(workdir)
     work.mkdir(parents=True, exist_ok=True)
-    logger = MetricLogger(
+    logger = (MetricLogger(
         str(work / exp.logging.jsonl_path), exp.logging.tensorboard_dir,
         tracker=make_tracker(exp.logging.tracker, exp.name,
-                             config=to_dict(cfg)))
+                             config=to_dict(cfg))) if is_main else None)
     stop_ctx = GracefulStop() if stop is None else contextlib.nullcontext(stop)
     anomaly = (enable_nan_debugging() if exp.debug_nans
                else contextlib.nullcontext())
     with stop_ctx as stopper, anomaly:
         max_steps = max_steps if max_steps is not None else exp.max_steps
-        save_config(cfg, work / "config.yaml")
+        if is_main:
+            save_config(cfg, work / "config.yaml")
 
         man = Manifest.load(manifest_path or pathlib.Path(cfg.dataset.data_dir)
                             / cfg.dataset.manifest)
@@ -209,24 +248,43 @@ def train_tts(cfg: Config, workdir: str, max_steps: Optional[int] = None,
                 step0 = restore_checkpoint(latest, model, opt_state)
                 print(f"resumed from {latest} at step {step0}")
 
-        train_step = make_train_step(model_cfg, optimizer, exp.debug_nans)
+        par = None
+        if mesh.data_size * mesh.model_size > 1:
+            # the whole tree is restored first: any mesh reads any checkpoint
+            par = MeshTraining(model, mesh, zero=exp.mesh.zero_sharding,
+                               tensor_parallel=exp.mesh.model_parallel > 1)
+            opt_state = par.shard_state(opt_state)
+        train_step = make_train_step(model_cfg, optimizer, exp.debug_nans,
+                                     par)
         eval_step = make_eval_step(model_cfg)
         saver = AsyncCheckpointer() if exp.checkpoint.async_save else None
 
         def _save(step, metric):
+            # every rank gathers its shards; rank 0 writes
+            flat = (snapshot(model, opt_state) if par is None
+                    else par.snapshot(model, opt_state))
+            if not is_main:
+                return
             if saver is not None:
-                saver.save(ckpt_dir, model, opt_state, step, metric=metric,
-                           keep=exp.checkpoint.keep)
+                saver.save_flat(ckpt_dir, flat, step, metric=metric,
+                                keep=exp.checkpoint.keep)
             else:
-                save_checkpoint(ckpt_dir, model, opt_state, step,
-                                metric=metric, keep=exp.checkpoint.keep)
+                write_checkpoint(ckpt_dir, flat, step, metric=metric,
+                                 keep=exp.checkpoint.keep)
 
         last_metrics: Dict[str, Any] = {}
         t_last = time.time()
         for step in range(step0, max_steps):
-            batch = to_device(batcher.batch_at(step), device)
-            metrics = train_step(model, opt_state, batch,
-                                 step_generator(exp.seed, step, device), step)
+            batch = batcher.batch_at(step)
+            shard = contextlib.nullcontext()
+            if par is not None:
+                batch, (off, total) = par.shard(batch)
+                shard = batch_shard(off, total, mesh.data_group)
+            with shard:
+                metrics = train_step(model, opt_state,
+                                     to_device(batch, device),
+                                     step_generator(exp.seed, step, device),
+                                     step)
 
             if (step + 1) % exp.logging.log_every_steps == 0 or step == step0:
                 metrics = {k: float(v) for k, v in metrics.items()}
@@ -235,37 +293,57 @@ def train_tts(cfg: Config, workdir: str, max_steps: Optional[int] = None,
                     exp.logging.log_every_steps / max(now - t_last, 1e-6))
                 metrics["lr"] = lr_at_step(exp.optim, step)
                 t_last = now
-                logger.log(step + 1, metrics, prefix="train/")
+                if is_main:
+                    logger.log(step + 1, metrics, prefix="train/")
                 last_metrics = metrics
 
             saved = False
             if ((step + 1) % exp.logging.eval_every_steps == 0
                     or step + 1 == max_steps):
-                val_metrics = _run_eval(cfg, model_cfg, eval_step, model,
-                                        val_ds, device, work, step + 1,
-                                        logger)
-                logger.log(step + 1, val_metrics, prefix="val/")
+                val_metrics = {}
+                if mesh.data_index == 0:
+                    val_metrics = _run_eval(cfg, model_cfg, eval_step, model,
+                                            val_ds, device, work, step + 1,
+                                            logger, artifacts=is_main)
+                if is_main:
+                    logger.log(step + 1, val_metrics, prefix="val/")
                 _save(step + 1, metric=float(val_metrics.get("loss", 0.0)))
                 saved = True
             elif (step + 1) % exp.checkpoint.save_every_steps == 0:
                 _save(step + 1, metric=None)
                 saved = True
 
-            if getattr(stopper, "stop_requested", False):
+            if _stop_requested(stopper, par):
                 if not saved:
                     _save(step + 1, metric=None)
                 last_metrics["interrupted_at_step"] = step + 1
-                print(f"stop requested: checkpointed step {step + 1}, "
-                      "exiting cleanly (resume to continue)")
+                if is_main:
+                    print(f"stop requested: checkpointed step {step + 1}, "
+                          "exiting cleanly (resume to continue)")
                 break
         if saver is not None:
             saver.wait()   # flush before anyone reads the directory back
-        logger.close()
+        if is_main:
+            logger.close()
     return last_metrics
 
 
+def _stop_requested(stopper, par: Optional[MeshTraining]) -> bool:
+    """Whether any rank was asked to stop (every rank must stop at the same
+    step, or the others wait in the next collective)."""
+    flag = bool(getattr(stopper, "stop_requested", False))
+    if par is None:
+        return flag
+    t = torch.tensor([int(flag)], dtype=torch.int32)
+    if par.mesh.backend == "nccl":
+        t = t.cuda()
+    torch.distributed.all_reduce(t, op=torch.distributed.ReduceOp.MAX)
+    return bool(t.item())
+
+
 def _run_eval(cfg: Config, model_cfg, eval_step, model, val_ds, device,
-              work, step: int, logger=None) -> Dict[str, float]:
+              work, step: int, logger=None,
+              artifacts: bool = True) -> Dict[str, float]:
     """Mean eval metrics over the first ``eval_batches`` val batches; the
     alignment scalars ``attn_diagonality`` and ``attn_focus`` (means over
     the first batch's rows of its head-averaged last cross-attention
@@ -276,7 +354,8 @@ def _run_eval(cfg: Config, model_cfg, eval_step, model, val_ds, device,
     ``mr_stft_gl`` and ``spectral_convergence_gl`` against the shortest val
     clip's audio; each artifact also goes to ``logger``'s tracker.  A
     failing scalar or artifact (a missing matplotlib included) is reported
-    and never stops training."""
+    and never stops training.  Without ``artifacts`` (a tensor-parallel
+    rank other than the first) it computes the scalars only."""
     agg: Dict[str, float] = {}
     n = 0
     post_example = batch_example = None
@@ -311,6 +390,8 @@ def _run_eval(cfg: Config, model_cfg, eval_step, model, val_ds, device,
         out["attn_focus"] = float(np.mean(focuses))
     except Exception as e:  # scalars must never kill training
         print(f"alignment quality scalars failed: {e!r}")
+    if not artifacts:
+        return out
     art = pathlib.Path(work) / cfg.experiment.logging.artifacts_dir
     t_len = int(batch_example["mel_mask"][0].sum())
     try:

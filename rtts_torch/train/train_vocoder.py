@@ -18,8 +18,15 @@ NLL over ``eval_batches`` crops from a generator seeded 1234, the MR-STFT
 distance of one vocoded val batch to its ground truth and a
 ``vocoder_step{N}.wav`` artifact; periodic and top-k checkpoints (async
 when configured), resume, and a graceful stop on SIGTERM/SIGINT.  Metrics
-go to JSONL, TensorBoard and a hosted tracker as configured.  A mesh of
-more than one device raises.
+go to JSONL, TensorBoard and a hosted tracker as configured.
+
+Over several ranks (``experiment.mesh``) the step is the reference's mesh
+step: the parameters replicate (no conv matches a tensor-parallel rule),
+the crops split over the data group, the loss keeps the global batch's
+sample count, the gradients sum over the data group, and
+``zero_sharding`` splits the Adam moments (``rtts_torch.parallel.training.
+MeshTraining``).  Rank 0 evaluates, logs and writes the checkpoints (the
+whole tree).
 """
 
 from __future__ import annotations
@@ -36,31 +43,42 @@ from rtts_torch.audio.wav import write_wav
 from rtts_torch.config import Config, save_config, to_dict
 from rtts_torch.data import Manifest, MelAudioDataset, split_manifest
 from rtts_torch.models import squeezewave as SW
+from rtts_torch.parallel.training import MeshTraining
 from rtts_torch.train.checkpoint import (AsyncCheckpointer, latest_checkpoint,
-                                         restore_checkpoint, save_checkpoint)
+                                         restore_checkpoint, snapshot,
+                                         write_checkpoint)
 from rtts_torch.train.interrupt import GracefulStop
 from rtts_torch.train.optim import global_norm, lr_at_step, make_optimizer
 from rtts_torch.train.quality import multi_resolution_stft_distance
-from rtts_torch.train.train_tts import check_single_device
+from rtts_torch.train.train_tts import _stop_requested, setup_mesh
 from rtts_torch.train.vocoder_loss import squeezewave_loss
 from rtts_torch.utils.metrics import MetricLogger
 from rtts_torch.utils.tracking import make_tracker
 
 
-def make_train_step(voc_cfg, optimizer):
+def make_train_step(voc_cfg, optimizer, mesh: Optional[MeshTraining] = None):
     """-> train_step(model, opt_state, batch, return_grads=False) -> metrics
     (0-dim tensors) [, grads].  ``batch`` holds ``mel`` (B, M, n_mels) and
-    ``audio`` (B, M * hop) tensors on the model's device."""
+    ``audio`` (B, M * hop) tensors on the model's device: this rank's rows
+    under ``mesh``, whose metrics and gradients are the global batch's."""
 
     def train_step(model, opt_state, batch, return_grads=False):
         params = list(model.parameters())
         z, log_s, log_det = SW.forward(model, voc_cfg, batch["mel"],
                                        batch["audio"])
-        loss, metrics = squeezewave_loss(z, log_s, log_det, voc_cfg.sigma)
+        loss, metrics = squeezewave_loss(
+            z, log_s, log_det, voc_cfg.sigma,
+            None if mesh is None else mesh.count)
         grads = torch.autograd.grad(loss, params)
         metrics = {k: v.detach() for k, v in metrics.items()}
-        metrics["grad_norm"] = global_norm(grads)
-        optimizer.step(params, grads, opt_state)
+        if mesh is None:
+            metrics["grad_norm"] = global_norm(grads)
+            optimizer.step(params, grads, opt_state)
+        else:
+            mesh.reduce_grads(grads)
+            metrics = mesh.reduce_metrics(metrics, global_keys=("z_rms",))
+            metrics["grad_norm"] = mesh.norm(grads)
+            mesh.update(optimizer, params, grads, opt_state)
         return (metrics, grads) if return_grads else metrics
 
     return train_step
@@ -97,19 +115,21 @@ def train_vocoder(cfg: Config, workdir: str, max_steps: Optional[int] = None,
     metrics (with ``val_loss_vocoder`` after an eval).  Resumable from
     ``workdir``'s checkpoints.  ``stop`` as in
     :func:`rtts_torch.train.train_tts.train_tts`."""
-    check_single_device(cfg)
     exp = cfg.experiment
     voc = cfg.vocoder
+    mesh, device = setup_mesh(cfg, device)
+    is_main = mesh.is_main
     work = pathlib.Path(workdir)
     work.mkdir(parents=True, exist_ok=True)
-    logger = MetricLogger(
+    logger = (MetricLogger(
         str(work / exp.logging.jsonl_path), exp.logging.tensorboard_dir,
         tracker=make_tracker(exp.logging.tracker, exp.name,
-                             config=to_dict(cfg)))
+                             config=to_dict(cfg))) if is_main else None)
     stop_ctx = GracefulStop() if stop is None else contextlib.nullcontext(stop)
     with stop_ctx as stopper:
         max_steps = max_steps if max_steps is not None else exp.max_steps
-        save_config(cfg, work / "config.yaml")
+        if is_main:
+            save_config(cfg, work / "config.yaml")
 
         man = Manifest.load(manifest_path or pathlib.Path(cfg.dataset.data_dir)
                             / cfg.dataset.manifest)
@@ -129,17 +149,28 @@ def train_vocoder(cfg: Config, workdir: str, max_steps: Optional[int] = None,
                 step0 = restore_checkpoint(latest, model, opt_state)
                 print(f"resumed from {latest} at step {step0}")
 
-        train_step = make_train_step(voc, optimizer)
+        par = None
+        if mesh.data_size * mesh.model_size > 1:
+            # no conv matches a TP rule: the parameters replicate
+            par = MeshTraining(model, mesh, zero=exp.mesh.zero_sharding,
+                               tensor_parallel=False)
+            opt_state = par.shard_state(opt_state)
+        train_step = make_train_step(voc, optimizer, par)
         eval_step = make_eval_step(voc)
         saver = AsyncCheckpointer() if exp.checkpoint.async_save else None
 
         def _save(step, metric):
+            # every rank gathers its shards; rank 0 writes
+            flat = (snapshot(model, opt_state) if par is None
+                    else par.snapshot(model, opt_state))
+            if not is_main:
+                return
             if saver is not None:
-                saver.save(ckpt_dir, model, opt_state, step, metric=metric,
-                           keep=exp.checkpoint.keep)
+                saver.save_flat(ckpt_dir, flat, step, metric=metric,
+                                keep=exp.checkpoint.keep)
             else:
-                save_checkpoint(ckpt_dir, model, opt_state, step,
-                                metric=metric, keep=exp.checkpoint.keep)
+                write_checkpoint(ckpt_dir, flat, step, metric=metric,
+                                 keep=exp.checkpoint.keep)
 
         last: Dict[str, Any] = {}
         t_last = time.time()
@@ -148,8 +179,10 @@ def train_vocoder(cfg: Config, workdir: str, max_steps: Optional[int] = None,
             # crops drawn from a per-step generator: the data stream is a
             # function of the step counter alone, so resume replays it
             crop_rng = np.random.default_rng((cfg.dataset.shuffle_seed, step))
-            batch = _to_device(train_ds.sample(crop_rng, bsz), device)
-            metrics = train_step(model, opt_state, batch)
+            batch = train_ds.sample(crop_rng, bsz)
+            if par is not None:
+                batch, _ = par.shard(batch)
+            metrics = train_step(model, opt_state, _to_device(batch, device))
 
             if (step + 1) % exp.logging.log_every_steps == 0 or step == step0:
                 metrics = {k: float(v) for k, v in metrics.items()}
@@ -158,16 +191,19 @@ def train_vocoder(cfg: Config, workdir: str, max_steps: Optional[int] = None,
                     exp.logging.log_every_steps / max(now - t_last, 1e-6))
                 metrics["lr"] = lr_at_step(exp.optim, step)
                 t_last = now
-                logger.log(step + 1, metrics, prefix="train/")
+                if is_main:
+                    logger.log(step + 1, metrics, prefix="train/")
                 last = metrics
 
             saved = False
             if ((step + 1) % exp.logging.eval_every_steps == 0
                     or step + 1 == max_steps):
-                val_metrics = _run_eval(cfg, eval_step, model, val_ds, device,
-                                        work, step + 1)
-                last["val_loss_vocoder"] = val_metrics.get("loss_vocoder")
-                logger.log(step + 1, val_metrics, prefix="val/")
+                val_metrics = {}
+                if is_main:   # no collective in the eval: rank 0 alone
+                    val_metrics = _run_eval(cfg, eval_step, model, val_ds,
+                                            device, work, step + 1)
+                    last["val_loss_vocoder"] = val_metrics.get("loss_vocoder")
+                    logger.log(step + 1, val_metrics, prefix="val/")
                 _save(step + 1,
                       metric=float(val_metrics.get("loss_vocoder", 0.0)))
                 saved = True
@@ -175,16 +211,18 @@ def train_vocoder(cfg: Config, workdir: str, max_steps: Optional[int] = None,
                 _save(step + 1, metric=None)
                 saved = True
 
-            if getattr(stopper, "stop_requested", False):
+            if _stop_requested(stopper, par):
                 if not saved:
                     _save(step + 1, metric=None)
                 last["interrupted_at_step"] = step + 1
-                print(f"stop requested: checkpointed step {step + 1}, "
-                      "exiting cleanly (resume to continue)")
+                if is_main:
+                    print(f"stop requested: checkpointed step {step + 1}, "
+                          "exiting cleanly (resume to continue)")
                 break
         if saver is not None:
             saver.wait()   # flush before anyone reads the directory back
-        logger.close()
+        if is_main:
+            logger.close()
     return last
 
 

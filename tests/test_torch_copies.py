@@ -12,11 +12,15 @@ uses: the configuration tree (``rtts_torch/config.py``), the text frontend
 (``rtts_torch/data/corpus.py``), the scraper's parsers
 (``rtts_torch/data/download.py``), artifact versioning
 (``rtts_torch/data/versioning.py``), the tracker adapters
-(``rtts_torch/utils/tracking.py``) and preprocessing's silence trim and
-transcript parser (``rtts_torch/data/preprocess.py``).  Each must behave as
-its original: the same config from the same YAML, the same token ids, the
-same batches and crops, the same JSONL lines, files, samples and scalars,
-the same corpus bytes, parsed pages, lock files and tracker calls.
+(``rtts_torch/utils/tracking.py``), preprocessing's silence trim and
+transcript parser (``rtts_torch/data/preprocess.py``), and the
+framework-free rules of ``rtts/parallel/``: ``should_initialize``,
+``param_sharding_rules`` and ``_zero_extend`` (``rtts_torch/parallel/``,
+a tuple of dims or None where the original returns a PartitionSpec).
+Each must behave as its original: the same config from the same YAML, the
+same token ids, the same batches and crops, the same JSONL lines, files,
+samples and scalars, the same corpus bytes, parsed pages, lock files and
+tracker calls, the same shardings and the same decision to start.
 """
 
 import dataclasses
@@ -447,3 +451,58 @@ def test_preprocess_helpers_alike():
         for kw in ({}, {"threshold_db": -20.0, "frame_ms": 5.0}):
             np.testing.assert_array_equal(TP.trim_silence(audio, sr, **kw),
                                           JP.trim_silence(audio, sr, **kw))
+
+
+_PATHS = ["encoder/layers/0/f/attn/w_qk/w", "decoder/layers/1/f/attn/w_q/w",
+          "decoder/layers/1/f/attn/w_k/w", "decoder/layers/0/f/attn/w_v/w",
+          "encoder/layers/1/f/attn/w_o/w", "encoder/layers/0/g/w_in/w",
+          "encoder/layers/0/g/w_in/b", "decoder/layers/0/g/w_out/w",
+          "decoder/layers/0/g/w_out/b", "embed/table", "postnet/0/conv/w",
+          "mel_head/w", "block/ffn/w_in", "block/feed_forward/wo",
+          "x/qkv", "x/out_proj", "0/mu/decoder/layers/1/f/attn/w_o/w",
+          "flows/0/wn/in/v", "dec_prenet/fc1/w"]
+
+
+def _spec(spec):
+    """A PartitionSpec as the copies return it."""
+    return tuple(spec) or None
+
+
+@pytest.mark.parametrize("path", _PATHS)
+@pytest.mark.parametrize("ndim", [1, 2, 3])
+def test_param_sharding_rules_alike(path, ndim):
+    from rtts.parallel.sharding import param_sharding_rules as jax_rules
+    from rtts_torch.parallel.sharding import param_sharding_rules
+
+    for tp in (False, True):
+        assert param_sharding_rules(path, ndim, tp) == _spec(
+            jax_rules(path, ndim, tp)), (path, ndim, tp)
+
+
+@pytest.mark.parametrize("shape", [(32, 64), (3, 64), (5, 7), (8,), (2, 2, 6)])
+@pytest.mark.parametrize("dp", [2, 4])
+def test_zero_extend_alike(shape, dp):
+    from jax.sharding import PartitionSpec as P
+
+    from rtts.parallel.sharding import _zero_extend as jax_extend
+    from rtts_torch.parallel.sharding import _zero_extend
+
+    for spec in (P(), P(None, "model"), P("model", None)):
+        if len(spec) > len(shape):
+            continue
+        assert _zero_extend(_spec(spec), shape, dp) == tuple(
+            jax_extend(spec, shape, dp)), (spec, shape, dp)
+
+
+@pytest.mark.parametrize("env", [{}, {"RTTS_MULTIHOST": "1"},
+                                 {"RTTS_MULTIHOST": "0"}, {"WORLD_SIZE": "2"},
+                                 {"TPU_WORKER_HOSTNAMES": "a,b"}])
+def test_should_initialize_alike(env):
+    from rtts.parallel.mesh import should_initialize as jax_should
+    from rtts_torch.parallel.mesh import should_initialize
+
+    for cfg in (None, JC.MeshConfig(), JC.MeshConfig(num_processes=2),
+                JC.MeshConfig(coordinator_address="h:1234")):
+        port = None if cfg is None else TC.from_dict(
+            TC.MeshConfig, dataclasses.asdict(cfg))
+        assert should_initialize(port, env) == jax_should(cfg, env)

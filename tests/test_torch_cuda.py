@@ -211,6 +211,27 @@ def test_bf16_kernel_keep_masks_equal_dropout_keep_mask(dev, q_offset):
     assert torch.equal((dv.transpose(-1, -2) > 0).float(), want)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b_offset,h_offset", [(0, 0), (4, 4), (1, 5)])
+def test_rank_keep_masks_are_the_global_masks_slice(dev, dtype, b_offset,
+                                                    h_offset):
+    """A rank holding batch rows b_offset.. and heads h_offset.. of 8 hashes
+    the global (b, h): K1's and K3's keep bits (as above) equal the slice
+    of the one-device mask of 8 x 8 heads."""
+    b, h, l, rate, seed = 2, 3, 128, 0.1, 0xDEADBEEF
+    zeros = torch.zeros(b, h, l, l, device=dev, dtype=dtype)
+    eye = torch.eye(l, device=dev, dtype=dtype).expand(b, h, l, l)
+    eye = eye.contiguous()
+    args = (False, False, 1.0, 0, rate, seed, b_offset, h_offset, 8)
+    out, lse = flash_fwd(zeros, zeros, eye, None, *args)
+    _, dv = flash_bwd_dkv(zeros, zeros, eye, out, eye, lse, None, *args)
+    torch.cuda.synchronize()
+    want = dropout_keep_mask(seed, 8 * 8, l, l, rate, 0, dev).reshape(
+        8, 8, l, l)[b_offset:b_offset + b, h_offset:h_offset + h]
+    assert torch.equal((out > 0).float(), want)
+    assert torch.equal((dv.transpose(-1, -2) > 0).float(), want)
+
+
 @pytest.mark.parametrize("splits", [2, 3, 7])
 @pytest.mark.parametrize("name", ["decoder", "q_offset", "dh128_ragged",
                                   "cross"])

@@ -268,7 +268,9 @@ def test_port_imports_nothing_of_the_jax_package():
     for name in ("cli.py", "yaml_subset.py", "data/corpus.py",
                  "data/preprocess.py", "data/download.py",
                  "data/versioning.py", "utils/tracking.py",
-                 "utils/profiling.py"):
+                 "utils/profiling.py", "parallel/mesh.py",
+                 "parallel/sharding.py", "parallel/serving.py",
+                 "parallel/training.py", "parallel/collectives.py"):
         assert ROOT / "rtts_torch" / name in files, name
     for path in files + [ROOT / "chip_smoke.py"]:
         names = _imported_modules(path)
@@ -382,3 +384,39 @@ def test_every_c_entry_point_has_a_signature():
 @pytest.mark.parametrize("name", sorted(SIGNATURES))
 def test_signature_matches_the_c_prototype(name):
     assert _c_entry_points()[name] == SIGNATURES[name], name
+
+
+def test_rank_processes_run_without_jax(tmp_path):
+    """Two rank processes (gloo, a file:// store) of the parallel tests'
+    rank module, whose first act is to block ``jax`` and ``rtts``, train a
+    tiny model data- and tensor-parallel and report nothing of either
+    imported."""
+    from tests.test_torch_parallel import collect, spawn
+
+    cfg = {"vocab_size": 40, "d_model": 16, "n_mels": 8,
+           "dec_prenet_hidden": 8, "postnet_channels": 8, "max_pos": 64,
+           "compute_dtype": "float32"}
+    stack = {"num_layers": 1, "d_model": 16, "d_ff": 32,
+             "attention": {"kind": "full", "num_heads": 2, "head_dim": 8}}
+    cfg["encoder"], cfg["decoder"] = stack, dict(stack, causal=True)
+    from rtts_torch import config as TC
+    from rtts_torch.models import reformer_tts as TM
+
+    tcfg = TC.from_dict(TC.ReformerTTSConfig, cfg)
+    model = TM.init(tcfg, torch.Generator().manual_seed(0), "cpu")
+    inputs = {f"p/{k.replace('.', '/')}": v.numpy()
+              for k, v in model.state_dict().items()}
+    rng = np.random.default_rng(0)
+    inputs.update({"b/0/tokens": rng.integers(3, 40, (2, 8)).astype(np.int32),
+                   "b/0/token_mask": np.ones((2, 8), bool),
+                   "b/0/mel": rng.standard_normal((2, 12, 8)).astype(
+                       np.float32),
+                   "b/0/mel_mask": np.ones((2, 12), bool)})
+    cases = [{"kind": "train", "name": name, "model": TC.to_dict(tcfg),
+              "optim": {}, "params": "p", "batches": "b", "steps": 1,
+              **mesh} for name, mesh in (("dp", {"dp": 2}), ("tp", {"mp": 2}))]
+    outs = collect(tmp_path, spawn(tmp_path, 2, cases, inputs))
+    for out in outs:
+        assert bool(out["blocked"])
+        for name in ("dp", "tp"):
+            assert np.isfinite(out[f"{name}/metric/0/loss"])

@@ -180,10 +180,14 @@ def test_local_encoder_stack_matches_jax(model, data):
 
 
 def test_unported_attention_kinds_raise(model, data):
+    """Sequence and pipeline parallelism, the part of rtts/parallel/ not
+    ported yet, still raise."""
     cfg, jp, tm = model
-    seq_parallel = dataclasses.replace(cfg.encoder, seq_parallel_axis="seq")
-    with pytest.raises(NotImplementedError, match="parallel"):
-        stack_apply(tm.encoder, seq_parallel, tt(data["x"]), tt(data["mask"]))
+    for knob in ({"seq_parallel_axis": "seq"}, {"pipeline_axis": "model"}):
+        unported = dataclasses.replace(cfg.encoder, **knob)
+        with pytest.raises(NotImplementedError, match="parallel"):
+            stack_apply(tm.encoder, unported, tt(data["x"]),
+                        tt(data["mask"]))
 
 
 def test_encode(model, data):

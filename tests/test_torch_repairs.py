@@ -7,7 +7,10 @@
   ``Synthesizer`` still refuse e5m2, which the reference's ``_dtype`` has
   no entry for.
 - ``param_dtype``: the reference builds its parameters in that dtype; the
-  port builds float32 only, so both ``init`` functions refuse the rest.
+  port once built float32 only and refused the rest.  Both ``init``
+  functions now build every leaf in the dtype JAX's init gives it, with
+  the values of the float32 init cast (parity of a bf16 step in
+  ``tests/test_torch_knobs.py``).
 - K2's gradient: ``depthwise_conv1d`` is an ``autograd.Function`` whose
   backward is autograd of the plain f32 conv, as the reference's
   ``custom_vjp``; its CPU gradients are held against the JAX vjp of
@@ -81,12 +84,38 @@ def test_kv_cache_dtype_compute_is_accepted(name):
 
 @pytest.mark.parametrize("name", ["bfloat16", "float16"])
 def test_inits_refuse_unported_param_dtypes(name):
-    with pytest.raises(NotImplementedError, match="param_dtype"):
-        TM.init(ReformerTTSConfig(vocab_size=40, param_dtype=name),
-                torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(NotImplementedError, match="param_dtype"):
-        TS.init(SqueezeWaveConfig(param_dtype=name),
-                torch.Generator().manual_seed(0), "cpu")
+    """Every leaf in JAX's dtype for it, the values the f32 init's cast."""
+    import jax
+
+    from rtts import config as JC
+    from rtts.models import reformer_tts as JM
+    from rtts.models import squeezewave as JS
+
+    def leaves(tree):
+        return {"/".join(str(getattr(k, "key", getattr(k, "idx", k)))
+                         for k in path): leaf
+                for path, leaf in jax.tree_util.tree_flatten_with_path(
+                    tree)[0]}
+
+    small = dict(n_flows=2, n_early_every=2, wn_layers=2, wn_channels=8)
+    for t_init, j_init, t_cfg, j_cfg in (
+            (TM.init, JM.init, ReformerTTSConfig(vocab_size=40),
+             JC.ReformerTTSConfig(vocab_size=40)),
+            (TS.init, JS.init, SqueezeWaveConfig(**small),
+             JC.SqueezeWaveConfig(**small))):
+        got = t_init(dataclasses.replace(t_cfg, param_dtype=name),
+                     torch.Generator().manual_seed(0), "cpu")
+        f32 = t_init(t_cfg, torch.Generator().manual_seed(0), "cpu")
+        want = leaves(jax.eval_shape(lambda: j_init(
+            jax.random.PRNGKey(0),
+            dataclasses.replace(j_cfg, param_dtype=name))))
+        state = got.state_dict()
+        assert sorted(k.replace(".", "/") for k in state) == sorted(want)
+        for key, t in state.items():
+            assert str(t.dtype).split(".")[-1] == str(
+                want[key.replace(".", "/")].dtype), key
+            torch.testing.assert_close(
+                t, f32.state_dict()[key].to(t.dtype), atol=0, rtol=0)
 
 
 @pytest.mark.parametrize("taps", [3, 4])

@@ -531,15 +531,16 @@ def test_train_tts_runs_resumes_and_replays(prepared, tmp_path):
 
 
 def test_trainer_refuses_what_is_not_ported(prepared, tmp_path, monkeypatch):
-    """A mesh raises; debug_nans and a TensorBoard directory, once refused,
-    run: a clean step under the NaN check, and an event file."""
+    """A mesh larger than the world raises the reference's ValueError;
+    debug_nans and a TensorBoard directory, once refused, run: a clean
+    step under the NaN check, and an event file."""
     import sys
 
     from rtts_torch.train.train_tts import train_tts
 
     cfg = _trainer_cfg(prepared)
     exp = cfg.experiment
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="needs 2 devices, have 1"):
         train_tts(dataclasses.replace(cfg, experiment=dataclasses.replace(
             exp, mesh=dataclasses.replace(exp.mesh, data_parallel=2))),
             str(tmp_path / "x"), max_steps=1, device="cpu")
