@@ -733,45 +733,51 @@ def _kernel_ms(kernel, plain, n=200):
 
 def _device_ms(fn, n, names=None):
     """Device time per call of ``fn`` from torch.profiler's kernel events
-    over ``n`` calls (after a warm-up).  The profiler does not always record
-    every launch (it has recorded 1 of 10 and 62 of 100), so each kernel
+    over ``n`` calls (after a warm-up).  The profiler does not record every
+    launch, and records fewer the older the process is: on an H100 a fresh
+    process kept all 20 launches of a profile, one 38 s old lost 2 of 20,
+    and from about 270 s on every other profile kept none.  So each kernel
     counts as its mean time per recorded launch times its launches a call,
     ceil(recorded / n), and the call is the sum over its kernels.  With
-    ``names``, only the kernels whose name holds one of them: each name must
-    match, and each such kernel, launched once a call, must be recorded
-    between 1 and n times; a profile that recorded none of a name's
-    launches (it has happened once in 10 calls, and three times in a row
-    for K7's path entry at 64 x 8192), or without ``names`` no kernel at
-    all (once, for SDPA's forward at the longform cross), is taken again,
-    six times in all."""
+    ``names``, only the kernels whose name holds one of them: each such
+    kernel, launched once a call, must be recorded at most n times.  A
+    profile that recorded none of a name's launches, or without ``names``
+    no kernel at all, is taken again, six times in all; after six such
+    profiles the time per call is the CUDA events' instead (launch gaps
+    included), and a line says so."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
+    wanted = names or ("",)     # without names: any kernel at all
     for attempt in range(1, 7):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(n):
                 fn()
             torch.cuda.synchronize()
-        wanted = names or ("",)     # without names: any kernel at all
         device = [e for e in prof.key_averages()
                   if e.device_type == DeviceType.CUDA and e.count > 0
                   and any(s in e.key for s in wanted)]
         counts = {e.key[:60]: e.count for e in device}
+        if names is not None:
+            _require(all(c <= n for c in counts.values()),
+                     f"the profiler recorded {counts} launches of {names} "
+                     f"in {n} calls, more than {n} of one")
         if all(any(s in e.key for e in device) for s in wanted):
             break
         print(f"[profiler] profile {attempt} of 6 recorded {counts} "
               f"launches of {names or 'any kernel'} in {n} calls")
-    if names is not None:
-        _require(all(any(s in e.key for e in device) for s in names)
-                 and all(1 <= c <= n for c in counts.values()),
-                 f"the profiler recorded {counts} launches of {names} in "
-                 f"{n} calls, not 1 to {n} of each")
-        if any(c < n for c in counts.values()):
-            print(f"[profiler] recorded fewer than {n} launches: {counts}")
+    else:
+        ms = _events_ms(fn, n)
+        print(f"[profiler] device time of {names or 'any kernel'} not "
+              f"recorded in 6 profiles: {ms:.4f} ms a call by CUDA events "
+              f"instead")
+        return ms
+    if any(c < n for c in counts.values()):
+        print(f"[profiler] recorded fewer than {n} launches: {counts}")
     total = sum(e.self_device_time_total / e.count * -(-e.count // n)
                 for e in device)
     _require(total > 0, f"the profiler saw no device time of {names}")
@@ -952,17 +958,26 @@ def phase_profile(syn: Synthesizer, frames: int = 64, top: int = 6):
 
 
 def _profile_events(fn):
-    """Run ``fn`` (which ends in a synchronize) once under torch.profiler
-    -> (wall s, the profiler's ``key_averages()``).  The wall includes the
-    profiler's own host overhead."""
+    """Run ``fn`` (which ends in a synchronize) under torch.profiler, again
+    while the profile recorded no kernel, six times at most -> (wall s, the
+    profiler's ``key_averages()``).  The wall includes the profiler's own
+    host overhead."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        wall = time.perf_counter() - t0
-    return wall, prof.key_averages()
+    for attempt in range(1, 7):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            wall = time.perf_counter() - t0
+        events = prof.key_averages()
+        # an old process's profile may keep no kernel at all (see
+        # _device_ms): take it again
+        if any(e.device_type == DeviceType.CUDA for e in events):
+            break
+        print(f"[profiler] profile {attempt} of 6 recorded no kernel")
+    return wall, events
 
 
 def _profile_summary(events, top: int = 6):
