@@ -160,13 +160,14 @@ phase; every phase raises on failure:
 26. serving-longform: ``longform_8k.yaml`` as ``rtts/bench.py::
    bench_longform`` shapes it, b2 x 1024 random tokens x 8192 frames,
    mode "auto" (asserted to resolve kv_lsh_chunk), stop threshold 2.0:
-   the encoder's K4 and K7 launches (6 each), decode frames/s, a profile
+   the encoder's K4 and K7 launches (6 each), decode frames/s over the
+   first 512 frames in that mode, a profile
    of 64 steps at group 4096 (idle share), and the per-step time of
    kv_lsh_chunk against kv_full at groups 1024, 4096 and 8191 with caches
    filled from a seed, in turns;
 27. serving-fast: ``serving_fast.yaml`` as shipped (kv_full, e4m3,
    staged): the Synthesizer answers 8 sentences (K4, K7 at the encoder, K2
-   at the vocoder); then b8 x 256 tokens x 1024 frames with the e4m3 and
+   at the vocoder); then b8 x 256 tokens x 512 frames with the e4m3 and
    the compute-dtype cache, staged and not, in turns: frames/s, the
    relative mel L1 of e4m3 against compute, staged against not;
 28. parity-local: K4/K5 on ``parity_local.yaml``'s local layers (b8 h4,
@@ -184,9 +185,9 @@ phase; every phase raises on failure:
    steps (the stop check);
 30. serving: ``base.yaml`` at full width (prenet dropout off, stop 2.0)
    on ``rtts/bench.py``'s serving workloads: (a) ``Synthesizer.
-   serve_continuous(vocode="batched")`` on 32 requests of 128/256/512/1024
+   serve_continuous(vocode="batched")`` on 16 requests of 128/256/512/1024
    frames in ``bench_continuous``'s arrival order, 8 slots, segments of
-   64 (32 waveforms of their lengths, at most one host synchronization a
+   64 (16 waveforms of their lengths, at most one host synchronization a
    boundary beside one lengths read and one audio copy a class, K1 and
    K2 launches); (b) ``ServingEngine`` on the same requests (frames/s,
    p50/p95 completion latency, lengths equal and mel L1 against (a)); (c)
@@ -223,7 +224,7 @@ phase; every phase raises on failure:
    whole tree) leaf by leaf against phase 31's one-process run of the same
    steps, the walls a step and each rank's peak memory beside one
    process's; (b) tensor parallel 2 serving at base.yaml,
-   ``Synthesizer(mesh=...)`` on 8 texts x 512 frames kv_full (stop 2.0):
+   ``Synthesizer(mesh=...)`` on 4 texts x 128 frames kv_full (stop 2.0):
    lengths equal to one process, the mel's relative L1, K1 at 4 heads a
    rank, the vocoder (K2) whole on each rank; (c) a tensor-parallel 2
    ``serving_fast.yaml`` + K6 train step: loss, gradient norm and the
@@ -235,7 +236,25 @@ phase; every phase raises on failure:
    K1 and K3 with the dropout hash at batch offset 4 and head offset 4 of
    8: the keep bits equal to the one-device mask's slice, and the kernels
    against their plain versions; then each kernel at its per-rank shape
-   against its plain version, timed, with its bound.
+   against its plain version, timed, with its bound;
+33. seqpipe: sequence and pipeline parallelism, two ranks on this card
+   over gloo (``chip_smoke.py --rank seqpipe``), after one-process
+   references made first: (a) ``train-tts --max-steps 3`` at base.yaml on
+   phase 31's corpus with the decoder's sequence split over the 2 model
+   ranks (``seq_parallel_exchange`` allgather, then ring), 12 K1 and 12
+   of each K3 a step on each rank, the decoder's at (8, 8, L/2, 64)
+   against L keys at q_offset rank x L/2, each checkpoint against phase
+   31's one-process run; (b) the decoder pipelined, 4 microbatches,
+   ``pipeline_interleave`` 1 and 3, guided attention and the decoder's
+   dropout 0, each checkpoint against a one-process run with the same
+   settings; (c) one longform_8k.yaml b2 x 8192 step with both stacks'
+   sequences split (ring): loss, norm and gathered gradients against one
+   process, K7 at the gathered buckets (2, 8, 4, 8192); (d) the
+   Synthesizer with the encoder split, 4 texts x 256 frames kv_full:
+   lengths and mel against one process, the encoder's K1 at its rank's
+   q_offset; (e) K1 and K3 at q_offset 512 (b8 h8 Lq512 Lk1024, causal +
+   self + pad) and K7 at (2, 8, 4, 8192) against their plain versions,
+   timed, with their bounds.
 
 Prints a JSON line of per-kernel results, each entry at one shape (K1 at
 three: ``flash`` at serving, ``flash_train`` at base.yaml's decoder,
@@ -330,8 +349,9 @@ from rtts_torch.ops.lsh_attention import (lsh_attend_bwd,
                                           lsh_attend_fwd)
 from rtts_torch.ops.row_gather import row_gather, row_gather_reference
 from rtts_torch.parallel.mesh import (backend_for, initialize_distributed,
-                                      make_mesh, rank_device)
-from rtts_torch.parallel.sharding import gather_param
+                                      make_mesh, rank_device,
+                                      shutdown_distributed)
+from rtts_torch.parallel.sharding import gather_param, whole_stacks
 from rtts_torch.parallel.training import MeshTraining
 from rtts_torch.probes import probe_vmem_sort as probe
 from rtts_torch.nn.layers import activation
@@ -809,13 +829,16 @@ def _bound(n_bytes: float, n_ops: float, dtype) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def _flash_bounds(b, h, lq, lk, dh, dtype, causal, masked):
+def _flash_bounds(b, h, lq, lk, dh, dtype, causal, masked, q_offset=0):
     """Bounds of K1 (with lse) and of K3's two kernels at one shape.  The
-    score pairs are the causal triangle's where the kernels skip the rest."""
+    score pairs are the causal triangle's where the kernels skip the rest
+    (with ``q_offset``, query row i sees min(Lk, q_offset + i + 1) keys)."""
     es = torch.tensor([], dtype=dtype).element_size()
     rows_q, rows_k = b * h * lq * dh * es, b * h * lk * dh * es
     lse, mask = b * h * lq * 4, b * lk if masked else 0
-    pairs = b * h * (lq * (lq + 1) // 2 if causal else lq * lk)
+    seen = (sum(min(lk, q_offset + i + 1) for i in range(lq)) if q_offset
+            else lq * (lq + 1) // 2)
+    pairs = b * h * (seen if causal else lq * lk)
     product = 2 * pairs * dh
     return {
         # q, k, v in; out (and lse) out; S = QK^T and P.V
@@ -3199,11 +3222,17 @@ def _step_ms(dec, t: int, n: int = 20) -> float:
     return (time.perf_counter() - t0) / n * 1e3
 
 
+# phase 26 decodes the first LONGFORM_DECODE_FRAMES of the 8192 frames (at
+# which "auto" resolves kv_lsh_chunk), to keep the script in its time
+LONGFORM_DECODE_FRAMES = 512
+
+
 def phase_serving_longform():
     """configs/longform_8k.yaml served as ``rtts/bench.py::bench_longform``
     shapes it: b2 x 1024 random tokens, 8192 frames, mode "auto" (which
     must resolve kv_lsh_chunk), stop threshold 2.0; the encoder's K4 and
-    K7 launches; decode frames/s; the device's idle share over 64 steps at
+    K7 launches; decode frames/s over the first ``LONGFORM_DECODE_FRAMES``
+    in that mode; the device's idle share over 64 steps at
     group 4096; and the per-step time of kv_lsh_chunk against kv_full at
     groups 1024, 4096 and 8191 with caches filled from a seed, in turns
     (chunk, full, full, chunk)."""
@@ -3223,12 +3252,14 @@ def phase_serving_longform():
     n_enc = mcfg.encoder.num_layers
     _require(enc["lsh_attend"] == n_enc and enc["sort_by_bucket"] == n_enc,
              f"the LSH encoder launched {enc}, not {n_enc} K4 and K7")
-    wall, res = _timed_decode(tts, mcfg, memory, mask, frames, mode="auto")
+    n = LONGFORM_DECODE_FRAMES
+    wall, res = _timed_decode(tts, mcfg, memory, mask, n, mode=mode)
     print(f"[serving-longform] longform_8k.yaml b{b} x {n_tok} tokens x "
-          f"{frames} frames (bf16, auto -> {mode}, stop 2.0): encoder "
-          f"launches K4 {enc['lsh_attend']}, K7 {enc['sort_by_bucket']}; "
-          f"decode wall {wall:.3f} s = {b * frames / wall:.1f} frames/s, "
-          f"{wall / (frames // mcfg.reduction_factor) * 1e3:.3f} ms a step")
+          f"{n} of {frames} frames (bf16, auto at {frames} -> {mode}, stop "
+          f"2.0): encoder launches K4 {enc['lsh_attend']}, K7 "
+          f"{enc['sort_by_bucket']}; decode wall {wall:.3f} s = "
+          f"{b * n / wall:.1f} frames/s, "
+          f"{wall / (n // mcfg.reduction_factor) * 1e3:.3f} ms a step")
     del res
     dec = _filled_decoder(tts, mcfg, memory, mask, frames, mode, 4096)
     dec.step(4096)
@@ -3268,7 +3299,7 @@ def phase_serving_fast():
     """configs/serving_fast.yaml as shipped (kv_full, e4m3 caches, staged
     "auto" on at 1024 groups): the Synthesizer answers 8 sentences, with
     the encoder's K4/K7 and the vocoder's K2 launches; then b8 x 256
-    tokens x 1024 frames (stop 2.0) with the e4m3 and the compute-dtype
+    tokens x 512 frames (stop 2.0) with the e4m3 and the compute-dtype
     cache, each staged and not, in turns (A B C D D C B A): decode
     frames/s, and the relative mel L1 of e4m3 against compute."""
     cfg = serving_config(SERVING_FAST_CONFIG)
@@ -3299,7 +3330,7 @@ def phase_serving_fast():
     tokens, mask = _bench_inputs(cfg, 8, 256)
     with torch.no_grad():
         memory = M.encode(syn.tts, mcfg, tokens, mask)
-    frames = 1024
+    frames = 512
     variants = [(kv, staged) for kv in ("float8_e4m3fn", "compute")
                 for staged in (True, False)]
     walls = {v: [] for v in variants}
@@ -3517,11 +3548,11 @@ def phase_decode_syncs():
 # -- phase 30: the serving surfaces -------------------------------------------
 
 # rtts/bench.py's serving workloads: bench_continuous's and bench_serving's
-# true lengths (pinned by their budgets at stop threshold 2.0), 8 requests
+# true lengths (pinned by their budgets at stop threshold 2.0), 4 requests
 # each, 8 slots, segments of 64 frames; bench_latency's streaming (batch 1,
 # 512 frames, three chunk sizes)
 SERVE_LENGTHS = (128, 256, 512, 1024)
-SERVE_PER_LENGTH, SERVE_SLOTS, SERVE_SEGMENT = 8, 8, 64
+SERVE_PER_LENGTH, SERVE_SLOTS, SERVE_SEGMENT = 4, 8, 64
 FRAMES_PER_TOKEN = 8.0          # Synthesizer.predict_frames' default
 STREAM_FRAMES, STREAM_CHUNKS = 512, (32, 64, 128)
 # two bf16 serving surfaces on the same requests, mean |a - b| over mean
@@ -4140,7 +4171,9 @@ def phase_cli():
 # and writes WORKDIR/MODE_rank{RANK}.json; the kernels are built in the
 # parent before any rank starts
 PAR_WORLD = 2
-PAR_SERVE_FRAMES = 512
+# (b) TP serving: 4 texts x 128 frames
+PAR_SERVE_FRAMES = 128
+PAR_SERVE_TEXTS = 4
 # (a) the DP + ZeRO-1 checkpoint against one process's: Noam's first
 # learning rates are 0, 5e-8 and 1e-7 (warmup 4000), so a parameter moves
 # by < 3e-7 in three steps; the Adam moments hold gradients summed from
@@ -4214,12 +4247,11 @@ def _rank_cli(work: pathlib.Path, args) -> int:
                "flash_bwd_dq": flash_bwd_dq}
     torch.cuda.reset_peak_memory_stats()
     with _step_launches(TTS_TRAINER, kernels) as steps:
-        status = CLI.main(args)
+        status = CLI.main(args)     # starts and destroys the group
     out = {"status": status, "launches": list(steps), "walls": steps.walls,
            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
            "device": str(torch.cuda.current_device())}
-    (work / f"cli_rank{dist.get_rank()}.json").write_text(json.dumps(out))
-    dist.destroy_process_group()
+    (work / f"cli_rank{os.environ['RANK']}.json").write_text(json.dumps(out))
     return status
 
 
@@ -4235,6 +4267,13 @@ def _rank_mesh(work: pathlib.Path) -> int:
     """One rank of (b), (c) and (d): TP = 2 serving at base.yaml, a TP = 2
     serving_fast.yaml + K6 train step, a DP = 2 vocoder train step."""
     initialize_distributed(MeshConfig(), "cuda")
+    try:
+        return _rank_mesh_run(work)
+    finally:
+        shutdown_distributed()
+
+
+def _rank_mesh_run(work: pathlib.Path) -> int:
     device, rank = rank_device("cuda"), dist.get_rank()
     out = {"device": str(device)}
     tp = make_mesh(MeshConfig(model_parallel=PAR_WORLD))
@@ -4248,11 +4287,11 @@ def _rank_mesh(work: pathlib.Path) -> int:
                           mode="kv_full", mesh=tp)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        mel, lengths = syn.text_to_mel(SENTENCES)
+        mel, lengths = syn.text_to_mel(SENTENCES[:PAR_SERVE_TEXTS])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         wavs = [syn.mel_to_audio(mel[i], int(lengths[i]))
-                for i in range(len(SENTENCES))]
+                for i in range(PAR_SERVE_TEXTS)]
     np.save(work / f"serve_mel_rank{rank}.npy", mel)
     out["serve"] = {"lengths": lengths.tolist(), "wall": wall,
                     "k1": flash_attend.launches, "k1_shapes": k1_shapes,
@@ -4315,7 +4354,6 @@ def _rank_mesh(work: pathlib.Path) -> int:
         "k2": depthwise_conv1d.launches, "k2_shapes": k2_shapes,
         "rows": int(local["audio"].shape[0])}
     (work / f"mesh_rank{rank}.json").write_text(json.dumps(out))
-    dist.destroy_process_group()
     return 0
 
 
@@ -4368,13 +4406,22 @@ def _par_dp_zero(work: pathlib.Path, one_process: dict) -> dict:
     print(f"[parallel] (a) one process (phase 31's train-tts): walls a step "
           f"{[round(w, 4) for w in one_process['walls']]} s, peak device "
           f"memory {one_process['peak_gib']:.2f} GiB")
+    _require_same_checkpoint(work / "tts_dp", work / "tts",
+                             "[parallel] (a) the DP + ZeRO-1 checkpoint")
+    return {"flash_train_dp": 3 * per_step, "wall": wall,
+            "rank_walls": [out["walls"] for out in ranks]}
+
+
+def _require_same_checkpoint(got_dir: pathlib.Path, want_dir: pathlib.Path,
+                             what: str) -> None:
+    """Step 3's checkpoints leaf by leaf: parameters within
+    ``PAR_PARAM_TOL``, Adam moments within ``PAR_MOMENT_TOL`` of each
+    leaf's largest entry, everything else equal."""
     step = "checkpoints/step_3/leaves.npz"
     worst = {"params": (0.0, ""), "moments": (0.0, "")}
-    with np.load(work / "tts_dp" / step) as got, \
-            np.load(work / "tts" / step) as ref:
+    with np.load(got_dir / step) as got, np.load(want_dir / step) as ref:
         _require(sorted(got.files) == sorted(ref.files),
-                 "(a) the sharded checkpoint's leaves differ from one "
-                 "process's")
+                 f"{what}: its leaves differ from one process's")
         for k in ref.files:
             a, b = got[k].astype(np.float64), ref[k].astype(np.float64)
             if k.startswith("params/"):
@@ -4385,17 +4432,15 @@ def _par_dp_zero(work: pathlib.Path, one_process: dict) -> dict:
                                                       1e-30))
                 worst["moments"] = max(worst["moments"], (err, k))
             else:
-                _require(np.array_equal(a, b), f"(a) {k} differs")
-    print(f"[parallel] (a) checkpoint step 3 against one process, leaf by "
-          f"leaf: params max |diff| {worst['params'][0]:.3e} "
-          f"({worst['params'][1]}; tol {PAR_PARAM_TOL:g}), Adam moments "
-          f"{worst['moments'][0]:.3e} of their leaf's largest "
-          f"({worst['moments'][1]}; tol {PAR_MOMENT_TOL:g})")
+                _require(np.array_equal(a, b), f"{what}: {k} differs")
+    print(f"{what}, step 3 against one process, leaf by leaf: params max "
+          f"|diff| {worst['params'][0]:.3e} ({worst['params'][1]}; tol "
+          f"{PAR_PARAM_TOL:g}), Adam moments {worst['moments'][0]:.3e} of "
+          f"their leaf's largest ({worst['moments'][1]}; tol "
+          f"{PAR_MOMENT_TOL:g})")
     _require(worst["params"][0] <= PAR_PARAM_TOL
              and worst["moments"][0] <= PAR_MOMENT_TOL,
-             "(a) the DP + ZeRO-1 checkpoint differs from one process's")
-    return {"flash_train_dp": 3 * per_step, "wall": wall,
-            "rank_walls": [out["walls"] for out in ranks]}
+             f"{what} differs from one process's")
 
 
 def _par_references(work: pathlib.Path) -> dict:
@@ -4407,7 +4452,7 @@ def _par_references(work: pathlib.Path) -> dict:
                       mode="kv_full")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    ref["mel"], ref["lengths"] = syn.text_to_mel(SENTENCES)
+    ref["mel"], ref["lengths"] = syn.text_to_mel(SENTENCES[:PAR_SERVE_TEXTS])
     torch.cuda.synchronize()
     ref["serve_wall"] = time.perf_counter() - t0
     del syn, tts, voc
@@ -4450,7 +4495,7 @@ def _par_mesh(work: pathlib.Path) -> dict:
         l1 = float(np.abs(mel - ref["mel"]).mean()
                    / max(np.abs(ref["mel"]).mean(), 1e-30))
         print(f"[parallel] (b) rank {r} on {out['device']}: TP = 2 base.yaml "
-              f"Synthesizer, {len(SENTENCES)} texts x {PAR_SERVE_FRAMES} "
+              f"Synthesizer, {PAR_SERVE_TEXTS} texts x {PAR_SERVE_FRAMES} "
               f"frames kv_full in {s['wall']:.2f} s (one process "
               f"{ref['serve_wall']:.2f} s); lengths {s['lengths']} (one "
               f"process {ref['lengths'].tolist()}); mel relative L1 {l1:.3e}"
@@ -4618,6 +4663,35 @@ def _par_offsets():
              "(f) K1/K3 with offsets differ from their plain versions")
 
 
+def _timed_entry(fn, plain, pairs, bound, names, n, library=None):
+    """A kernels-line entry: ``fn`` and its plain version timed over ``n``
+    calls, its profiled device time, the max abs error over ``pairs``
+    (kernel, plain) and its bound -> (the entry, the scaled error)."""
+    ms = _kernel_ms(fn, plain, n)
+    entry = dict(ms=ms[0], plain_ms=ms[1], library_ms=library,
+                 device_ms=_device_ms(fn, n, names),
+                 max_abs_err=max(_abs_err(a, b) for a, b in pairs), **bound)
+    return entry, max(_scaled_err(a, b) for a, b in pairs)
+
+
+def _sort_entry(shape):
+    """K7's path entry at ``shape``'s buckets against its plain version
+    (exact) and ``torch.sort`` of the keys -> (the entry, 0 or inf)."""
+    buckets = _bucket_case(shape, 1)
+    l, rows = shape[-1], buckets.numel() // shape[-1]
+    keys = buckets * l + torch.arange(l, device="cuda")
+    fns = (lambda: sort_by_bucket(buckets),
+           lambda: sort_by_bucket_reference(buckets),
+           lambda: torch.sort(keys, dim=-1))
+    exact = all(torch.equal(a, b) for a, b in zip(fns[0](), fns[1]()))
+    ms = _interleaved_ms(fns, 100)
+    work = probe.sort_bound(1 << (l - 1).bit_length(), rows)
+    err = 0.0 if exact else float("inf")
+    return dict(ms=ms[0], plain_ms=ms[1], library_ms=ms[2], max_abs_err=err,
+                device_ms=_device_ms(fns[0], 50, ("BucketIO",)),
+                **_bound(rows * l * 4 * 8, work["ops"], torch.float32)), err
+
+
 def _par_kernel_times(launches: dict) -> dict:
     """Each kernel at its per-rank shape on the mesh paths, against its
     plain version on the same inputs (within ``KERNEL_TOL``, scaled; the
@@ -4627,13 +4701,8 @@ def _par_kernel_times(launches: dict) -> dict:
     bf = torch.bfloat16
     times, checks = {}, {}
 
-    def record(kernel, fn, plain, pairs, bound, names, n, library=None):
-        ms = _kernel_ms(fn, plain, n)
-        checks[kernel] = max(_scaled_err(a, b) for a, b in pairs)
-        times[kernel] = dict(ms=ms[0], plain_ms=ms[1], library_ms=library,
-                             device_ms=_device_ms(fn, n, names),
-                             max_abs_err=max(_abs_err(a, b)
-                                             for a, b in pairs), **bound)
+    def record(kernel, *args, **kw):
+        times[kernel], checks[kernel] = _timed_entry(*args, **kw)
 
     for name, case in PAR_FLASH_CASES.items():
         (q, k, v, dout), mask, opts = _train_flash_case(*case, bf)
@@ -4687,21 +4756,8 @@ def _par_kernel_times(launches: dict) -> dict:
     record("ffn_fused_tp", lambda: ffn_fused(x, *k6_params, act, bf), plain,
            [(ffn_fused(x, *k6_params, act, bf), plain())],
            _k6_bound(*PAR_K6_CASE), ("ffn_fused_cast", "ffn_fused_mma"), 20)
-    buckets = _bucket_case(PAR_SORT_SHAPE, 1)
-    l, rows = PAR_SORT_SHAPE[-1], buckets.numel() // PAR_SORT_SHAPE[-1]
-    keys = buckets * l + torch.arange(l, device="cuda")
-    fns = (lambda: sort_by_bucket(buckets),
-           lambda: sort_by_bucket_reference(buckets),
-           lambda: torch.sort(keys, dim=-1))
-    exact = all(torch.equal(a, b) for a, b in zip(fns[0](), fns[1]()))
-    ms = _interleaved_ms(fns, 100)
-    work = probe.sort_bound(1 << (l - 1).bit_length(), rows)
-    checks["sort_by_bucket_tp"] = 0.0 if exact else float("inf")
-    times["sort_by_bucket_tp"] = dict(
-        ms=ms[0], plain_ms=ms[1], library_ms=ms[2],
-        max_abs_err=0.0 if exact else float("inf"),
-        device_ms=_device_ms(fns[0], 50, ("BucketIO",)),
-        **_bound(rows * l * 4 * 8, work["ops"], torch.float32))
+    times["sort_by_bucket_tp"], checks["sort_by_bucket_tp"] = _sort_entry(
+        PAR_SORT_SHAPE)
     x, w, b = _dw_case(PAR_DW_SHAPE, 3, bf, torch.float32)
     got, want = depthwise_conv1d(x, w, b), depthwise_conv1d_reference(x, w, b)
     times["depthwise_train_dp"] = dict(_dw_times(PAR_DW_SHAPE),
@@ -4727,11 +4783,8 @@ def phase_parallel(work: pathlib.Path, one_process: dict) -> dict:
     print(f"[parallel] backend rule: {PAR_WORLD} ranks on "
           f"{torch.cuda.device_count()} card(s) -> "
           f"{backend_for('cuda', PAR_WORLD)}")
-    try:
-        launches = _par_dp_zero(work, one_process)
-        launches.update(_par_mesh(work))
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
+    launches = _par_dp_zero(work, one_process)   # phase 33 removes ``work``
+    launches.update(_par_mesh(work))
     _par_knobs()
     _par_offsets()
     times = _par_kernel_times(launches)
@@ -4739,11 +4792,413 @@ def phase_parallel(work: pathlib.Path, one_process: dict) -> dict:
     return times
 
 
+# -- 33: sequence and pipeline parallelism ------------------------------------
+
+# phase 33 runs ``chip_smoke.py --rank seqpipe WORKDIR RUNS`` on 2 ranks of
+# this card (gloo): the base.yaml train-tts runs of (a) and (b) through
+# ``rtts_torch.cli.main`` in one process group, then (c) and (d) in the same
+# ranks, against one-process runs made in this process first
+SP_MICRO = 4
+SP_INTERLEAVES = (1, 3)     # 6 decoder layers divide over 1 x 2 and 3 x 2
+# 4 validation utterances of CLI_UTTERANCES: the pipelined runs' eval batch
+# divides into SP_MICRO microbatches (the reference refuses it otherwise)
+SP_VAL_FRACTION = 0.17
+# (b) and its one-process run: guided attention off (the reference refuses
+# it under a pipeline), the decoder's dropout off (the microbatches draw
+# masks of their own)
+SP_PIPE_OVERRIDES = ("model.guided_attention_weight=0.0",
+                     "model.decoder.dropout=0.0",
+                     "model.decoder.attention.attention_dropout=0.0",
+                     f"dataset.val_fraction={SP_VAL_FRACTION}")
+SP_SERVE_TEXTS = 4
+SP_SERVE_FRAMES = 256
+# (e) K1/K3 where the sequence-parallel decoder's second rank runs them
+# (base.yaml: b8 h8, its 512 queries at q_offset 512 against 1024 keys,
+# causal + self + pad) and K7 at the longform decoder's gathered buckets
+SP_FLASH_CASE = (8, 8, 512, 1024, TRAIN_FRAME_LENS, True, True, 1.0, 512)
+# (c): share of each layer's bf16 buckets that agree with one process's
+# own hash.  Each stack's first layer hashes the same values; after it the
+# split stream differs in its last bf16 bits (sums over the rows run in
+# another order), which flips near-ties more often than phase 13's f32
+# check allows (BUCKET_SHARE_MIN)
+SP_BUCKET_SHARE_MIN = 0.99
+SP_SORT_SHAPE = (2, 8, 4, 8192)
+
+
+def _sp_runs(work: pathlib.Path) -> dict:
+    """name -> the command line of each two-rank train-tts run."""
+    top = ["-c", str(ROOT / "configs" / "base.yaml"), "-o",
+           f"dataset.data_dir={work / 'data'}", "-o",
+           f"experiment.mesh.model_parallel={PAR_WORLD}"]
+    runs = {}
+    for ex in ("allgather", "ring"):
+        runs[f"sp_{ex}"] = top + [
+            "-o", "model.decoder.seq_parallel_axis=model",
+            "-o", f"model.decoder.seq_parallel_exchange={ex}"]
+    for v in SP_INTERLEAVES:
+        runs[f"pp_v{v}"] = top + [
+            a for o in SP_PIPE_OVERRIDES + (
+                "model.decoder.pipeline_axis=model",
+                f"model.decoder.pipeline_microbatches={SP_MICRO}",
+                f"model.decoder.pipeline_interleave={v}") for a in ("-o", o)]
+    return {name: args + ["train-tts", "--workdir", str(work / name),
+                          "--max-steps", "3"]
+            for name, args in runs.items()}
+
+
+def _sp_longform_config(split: bool) -> Config:
+    """longform_8k.yaml for one train step; ``split``: both stacks split
+    their sequence over the model group, ring exchange."""
+    return train_config(base=LONGFORM_CONFIG, stack_overrides=(
+        {"seq_parallel_axis": "model", "seq_parallel_exchange": "ring"}
+        if split else None))
+
+
+def _sp_serve_config(split: bool) -> Config:
+    cfg = _par_serve_config()
+    enc = dataclasses.replace(cfg.model.encoder,
+                              seq_parallel_axis="model" if split else None)
+    return dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, encoder=enc))
+
+
+# the buckets each sort of (c) is given, in order (``_kept``)
+_SORTED = []
+
+
+def _kept(buckets):
+    """A tally key that keeps the buckets each sort is given."""
+    _SORTED.append(buckets.cpu().numpy())
+    return 0
+
+
+def _flash_key(q, k, v, mask, causal, self_mask, sm_scale, q_offset, *a):
+    return (*q.shape, k.shape[2], q_offset, bool(causal))
+
+
+def _flash_bwd_key(q, k, v, out, dout, lse, mask, causal, self_mask,
+                   sm_scale, q_offset, *a):
+    return (*q.shape, k.shape[2], q_offset, bool(causal))
+
+
+def _rank_seqpipe(work: pathlib.Path, args) -> int:
+    """One rank of phase 33: (a) and (b) through the command line in this
+    process group, then (c) and (d)."""
+    initialize_distributed(MeshConfig(), "cuda")
+    try:
+        return _rank_seqpipe_run(work, json.loads(args[0]))
+    finally:
+        shutdown_distributed()
+
+
+def _rank_seqpipe_run(work: pathlib.Path, runs: dict) -> int:
+    rank, device = dist.get_rank(), rank_device("cuda")
+    out = {"device": str(device)}
+    for name, args in runs.items():
+        with _arg_tally(FA, "flash_fwd", _flash_key) as k1, \
+                _arg_tally(FA, "flash_bwd_dq", _flash_bwd_key) as k3:
+            # K3's dQ wrapper counts into the tally's stand-in meanwhile
+            kernels = {"flash": flash_attend, "flash_bwd_dkv": flash_bwd_dkv,
+                       "flash_bwd_dq": FA.flash_bwd_dq}
+            with _step_launches(TTS_TRAINER, kernels) as steps:
+                status = CLI.main(args)   # the group is this function's
+        out[name] = {"status": status, "launches": list(steps),
+                     "walls": steps.walls, "k1": k1, "k3": k3}
+        torch.cuda.empty_cache()
+
+    # (c) one longform_8k.yaml step, both stacks split, ring exchange
+    cfg = _sp_longform_config(True)
+    mesh = make_mesh(MeshConfig(model_parallel=PAR_WORLD))
+    model = M.init(cfg.model, torch.Generator().manual_seed(SEED_TTS), device)
+    optimizer = make_optimizer(cfg.experiment.optim)
+    par = MeshTraining(model, mesh, tensor_parallel=True,
+                       whole=whole_stacks(cfg.model))
+    state = par.init_state(optimizer, model)
+    step_fn = make_train_step(cfg.model, optimizer, mesh=par)
+    batch = train_batch(cfg, LSH_TOKEN_LENS, LSH_FRAME_LENS, device)
+    _reset_all_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with _arg_tally(BS, "sort_by_bucket") as k7, \
+            _arg_tally(BS, "sort_by_bucket", _kept) as _:
+        metrics, grads = step_fn(model, state, batch,
+                                 step_generator(SEED_TRAIN, 0, device), 0,
+                                 return_grads=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    whole = [gather_param(g, d, None, mesh).float().cpu().numpy()
+             for g, d in zip(grads, par.tp)]
+    if rank == 0:
+        np.savez(work / "sp_longform_grads.npz", *whole)
+        np.savez(work / "sp_longform_buckets.npz", *_SORTED)
+    _SORTED.clear()
+    out["longform"] = {"metrics": {k: float(v) for k, v in metrics.items()},
+                       "wall": wall, "k7": k7,
+                       "k7_launches": sort_by_bucket.launches,
+                       "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    del model, state, grads, whole, batch, par
+    torch.cuda.empty_cache()
+
+    # (d) the Synthesizer, the encoder's sequence split
+    cfg = _sp_serve_config(True)
+    tts, _ = build_models(cfg, device)
+    flash_attend.launches = 0
+    with _arg_tally(FA, "flash_fwd", _flash_key) as k1:
+        syn = Synthesizer(cfg, tts, max_frames=SP_SERVE_FRAMES,
+                          mode="kv_full", mesh=mesh, tensor_parallel=False)
+        mel, lengths = syn.text_to_mel(SENTENCES[:SP_SERVE_TEXTS])
+    np.save(work / f"sp_serve_mel_rank{rank}.npy", mel)
+    out["serve"] = {"lengths": lengths.tolist(), "k1": k1,
+                    "k1_launches": flash_attend.launches}
+    (work / f"seqpipe_rank{rank}.json").write_text(json.dumps(out))
+    return 0
+
+
+def _sp_references(work: pathlib.Path) -> dict:
+    """The one-process runs (b), (c) and (d) are held against."""
+    ref = {}
+    top = ["-c", str(ROOT / "configs" / "base.yaml"), "-o",
+           f"dataset.data_dir={work / 'data'}"]
+    status = CLI.main(top + [a for o in SP_PIPE_OVERRIDES for a in ("-o", o)]
+                      + ["train-tts", "--workdir", str(work / "pp_one"),
+                         "--max-steps", "3"])
+    _require(status == 0, "(b) the one-process train-tts failed")
+    cfg = _sp_serve_config(False)
+    tts, _ = build_models(cfg, "cuda")
+    syn = Synthesizer(cfg, tts, max_frames=SP_SERVE_FRAMES, mode="kv_full")
+    ref["mel"], ref["lengths"] = syn.text_to_mel(SENTENCES[:SP_SERVE_TEXTS])
+    del syn, tts
+    torch.cuda.empty_cache()
+    return ref
+
+
+def _sp_longform_reference(work: pathlib.Path) -> dict:
+    """(c)'s step in one process.  It hashes for itself, to count the
+    buckets that agree with the ones the split run sorted, and then
+    attends with those, so that a near-tie flipped by a GEMM of another
+    shape does not move the comparison."""
+    with np.load(work / "sp_longform_buckets.npz") as z:
+        split = [torch.from_numpy(z[f"arr_{i}"]) for i in range(len(z.files))]
+    hash_vectors, agree = TL.hash_vectors, []
+
+    def hashed(*args, **kw):
+        own, theirs = hash_vectors(*args, **kw), split[len(agree)]
+        agree.append(((own.cpu() == theirs).sum().item(), own.numel()))
+        return theirs.to(own.device)
+
+    cfg = _sp_longform_config(False)
+    model, state, step_fn = _trainer(cfg, "cuda")
+    batch = train_batch(cfg, LSH_TOKEN_LENS, LSH_FRAME_LENS, "cuda")
+    try:
+        TL.hash_vectors = hashed
+        metrics, grads = step_fn(model, state, batch,
+                                 step_generator(SEED_TRAIN, 0, "cuda"), 0,
+                                 return_grads=True)
+    finally:
+        TL.hash_vectors = hash_vectors
+    ref = {"longform": {k: float(v) for k, v in metrics.items()},
+           "grads": [g.float().cpu().numpy() for g in grads],
+           "names": [n for n, _ in model.named_parameters()],
+           "shares": [e / n for e, n in agree]}
+    del model, state, grads, batch
+    torch.cuda.empty_cache()
+    return ref
+
+
+def _sp_check_runs(work: pathlib.Path, ranks) -> dict:
+    """(a) and (b): each run's checkpoint against one process's, the K1/K3
+    launches a step and their shapes -> (a)'s launches on rank 1."""
+    cfg = from_dict(Config, BASE_CONFIG)
+    n_enc, n_dec = cfg.model.encoder.num_layers, cfg.model.decoder.num_layers
+    for name in _sp_runs(work):
+        for r, out in enumerate(ranks):
+            run = out[name]
+            print(f"[seqpipe] ({'a' if name.startswith('sp') else 'b'}) "
+                  f"{name} rank {r}: exit {run['status']}, launches a step "
+                  f"{run['launches']}, walls a step "
+                  f"{[round(w, 3) for w in run['walls']]} s; K1 by (B, H, "
+                  f"Lq, dh, Lk, q_offset, causal) {run['k1']}; K3 dQ "
+                  f"{run['k3']}")
+            _require(run["status"] == 0 and len(run["launches"]) == 3,
+                     f"{name} rank {r} failed")
+            if name.startswith("sp"):
+                # 6 encoder layers whole, 6 decoder self-attentions on the
+                # rank's half of the frames (cross-attention takes the
+                # naive path: guided attention captures it)
+                dec = [_dims(k) for k in run["k1"] if _dims(k)[-1]]
+                _require(all(s == {"flash": n_enc + n_dec,
+                                   "flash_bwd_dkv": n_enc + n_dec,
+                                   "flash_bwd_dq": n_enc + n_dec}
+                             for s in run["launches"])
+                         and dec and all(d[4] == 2 * d[2]
+                                         and d[5] == r * d[2] for d in dec)
+                         and sum(run["k1"][str(d)] for d in dec)
+                         >= 3 * n_dec,
+                         f"(a) {name} rank {r}: K1/K3 did not run the "
+                         "rank's queries at its q_offset")
+            else:
+                _require(all(s["flash"] > 0 and s["flash_bwd_dq"] > 0
+                             for s in run["launches"]),
+                         f"(b) {name} rank {r}: K1/K3 did not run")
+        want = work / ("tts" if name.startswith("sp") else "pp_one")
+        _require_same_checkpoint(work / name, want, f"[seqpipe] {name}")
+    steps = ranks[1]["sp_allgather"]["launches"]
+    return {k: sum(s[k] for s in steps)
+            for k in ("flash", "flash_bwd_dkv", "flash_bwd_dq")}
+
+
+def _sp_check_mesh(work: pathlib.Path, ranks, ref: dict) -> int:
+    """(c) and (d) against one process -> (c)'s K7 launches on rank 0."""
+    lf = _sp_longform_config(True).model
+    grads = np.load(work / "sp_longform_grads.npz")
+    ref.update(_sp_longform_reference(work))
+    print(f"[seqpipe] (c) buckets equal to one process's own hash, layer by "
+          f"layer: {[round(s, 6) for s in ref['shares']]} (min "
+          f"{SP_BUCKET_SHARE_MIN}); the one process then attends with the "
+          "split run's")
+    _require(len(ref["shares"]) == lf.encoder.num_layers
+             + lf.decoder.num_layers
+             and min(ref["shares"]) >= SP_BUCKET_SHARE_MIN,
+             "(c) the split run's buckets differ from one process's")
+    for r, out in enumerate(ranks):
+        c = out["longform"]
+        errs = {k: abs(c["metrics"][k] - ref["longform"][k])
+                / max(abs(ref["longform"][k]), 1e-30)
+                for k in ("loss", "grad_norm")}
+        print(f"[seqpipe] (c) rank {r}: longform_8k.yaml b2 x 8192 step, "
+              f"both stacks split (ring), in {c['wall']:.2f} s, peak "
+              f"{c['peak_gib']:.2f} GiB; relative to one process {errs} "
+              f"(tol {PAR_LOSS_TOL:g}); K7 {c['k7_launches']} launches by "
+              f"shape {c['k7']}")
+        _require(max(errs.values()) <= PAR_LOSS_TOL
+                 and c["k7"].get(str(SP_SORT_SHAPE), 0)
+                 >= lf.decoder.num_layers
+                 and c["k7_launches"] == sum(c["k7"].values()),
+                 f"(c) rank {r}: the split longform step differs from one "
+                 "process, or K7 did not sort the gathered buckets")
+        s = out["serve"]
+        mel = np.load(work / f"sp_serve_mel_rank{r}.npy")
+        l1 = float(np.abs(mel - ref["mel"]).mean()
+                   / max(np.abs(ref["mel"]).mean(), 1e-30))
+        enc = [_dims(k) for k in s["k1"] if not _dims(k)[-1]
+               and _dims(k)[4] == 2 * _dims(k)[2]]
+        print(f"[seqpipe] (d) rank {r}: Synthesizer, the encoder split, "
+              f"{SP_SERVE_TEXTS} texts x {SP_SERVE_FRAMES} frames: lengths "
+              f"{s['lengths']} (one process {ref['lengths'].tolist()}), mel "
+              f"relative L1 {l1:.3e} (tol {PAR_MEL_TOL:g}); K1 "
+              f"{s['k1_launches']} by shape {s['k1']}")
+        _require(s["lengths"] == ref["lengths"].tolist() and l1 <= PAR_MEL_TOL
+                 and enc and all(d[5] == r * d[2] for d in enc),
+                 f"(d) rank {r}: the split encoder's serving differs")
+    worst = max(((float(np.abs(grads[f"arr_{i}"] - g).max()
+                        / max(np.abs(g).max(), 1e-30)), n)
+                 for i, (g, n) in enumerate(zip(ref["grads"],
+                                                ref["names"]))))
+    print(f"[seqpipe] (c) gathered gradients against one process's: worst "
+          f"{worst[1]} {worst[0]:.3e} of its largest entry (tol "
+          f"{PAR_GRAD_TOL:g})")
+    _require(worst[0] <= PAR_GRAD_TOL,
+             "(c) the split longform gradients differ from one process's")
+    return ranks[0]["longform"]["k7_launches"]
+
+
+def _sp_kernel_times(launches: dict) -> dict:
+    """(e): K1 and K3 at the split decoder's rank shape and q_offset, K7 at
+    the gathered buckets, against their plain versions, timed with their
+    bounds."""
+    bf = torch.bfloat16
+    times, checks = {}, {}
+    (q, k, v, dout), mask, opts = _train_flash_case(*SP_FLASH_CASE, bf)
+    kw = dict(zip(("causal", "self_mask", "sm_scale", "q_offset"), opts))
+    args = (*opts, 0.0, 0)
+    out, lse = flash_fwd(q, k, v, mask, *args)
+    dk, dv = flash_bwd_dkv(q, k, v, out, dout, lse, mask, *args)
+    dq = flash_bwd_dq(q, k, v, out, dout, lse, mask, *args)
+    p_out = flash_attend_reference(q, k, v, mask, return_lse=True, **kw)
+    pq, pk, pv = flash_attend_bwd_reference(q, k, v, out, dout, lse, mask,
+                                            **kw)
+    b, h, lq, lk = SP_FLASH_CASE[:4]
+    bounds = _flash_bounds(b, h, lq, lk, 64, bf, True, True,
+                           q_offset=SP_FLASH_CASE[-1])
+    p_bwd = lambda: flash_attend_bwd_reference(  # noqa: E731
+        q, k, v, out, dout, lse, mask, **kw)
+    cases = {
+        "flash_train_sp": (lambda: flash_fwd(q, k, v, mask, *args),
+                           lambda: flash_attend_reference(
+                               q, k, v, mask, return_lse=True, **kw),
+                           [(out, p_out[0]), (lse, p_out[1])], "fwd",
+                           ("flash_fwd",)),
+        "flash_bwd_dkv_sp": (lambda: flash_bwd_dkv(q, k, v, out, dout, lse,
+                                                   mask, *args), p_bwd,
+                             [(dk, pk), (dv, pv)], "dkv",
+                             ("flash_bwd_di", "flash_bwd_dkv")),
+        "flash_bwd_dq_sp": (lambda: flash_bwd_dq(q, k, v, out, dout, lse,
+                                                 mask, *args), p_bwd,
+                            [(dq, pq)], "dq", ("flash_bwd_dq",)),
+    }
+    for name, (fn, plain, pairs, which, names) in cases.items():
+        times[name], checks[name] = _timed_entry(fn, plain, pairs,
+                                                 bounds[which], names, 50)
+    del q, k, v, dout, out, lse, dk, dv, dq, p_out, pq, pk, pv
+    times["sort_by_bucket_sp"], checks["sort_by_bucket_sp"] = _sort_entry(
+        SP_SORT_SHAPE)
+    for name, t in times.items():
+        t["launches"] = launches[name]
+        print(f"[seqpipe] (e) {name}: {t['ms']:.4f} ms (device "
+              f"{t['device_ms']:.4f}), plain {t['plain_ms']:.4f} ms, bound "
+              f"{t['bound_ms']:.4f} ms ({t['bound_by']}), library "
+              f"{t['library_ms']}, max abs err {t['max_abs_err']:.3e} "
+              f"(scaled {checks[name]:.3e}), {t['launches']} launches on "
+              "its split path")
+        _require(checks[name] <= KERNEL_TOL[bf],
+                 f"{name} differs from its plain version")
+    return times
+
+
+def phase_seq_pipe(work: pathlib.Path) -> dict:
+    """33: sequence and pipeline parallelism on this card, two ranks over
+    gloo: base.yaml trained with the decoder's sequence split (both
+    exchanges) and its layers pipelined (interleave 1 and 3), a longform
+    step with both stacks split, the Synthesizer with the encoder split,
+    and K1/K3/K7 at the split path's shapes."""
+    t0 = time.perf_counter()
+    try:
+        ref = _sp_references(work)
+        runs = _sp_runs(work)
+        ranks, wall = _torchrun(work, "seqpipe", [json.dumps(runs)], 900)
+        k13 = _sp_check_runs(work, ranks)
+        k7 = _sp_check_mesh(work, ranks, ref)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    times = _sp_kernel_times({"flash_train_sp": k13["flash"],
+                              "flash_bwd_dkv_sp": k13["flash_bwd_dkv"],
+                              "flash_bwd_dq_sp": k13["flash_bwd_dq"],
+                              "sort_by_bucket_sp": k7})
+    print(f"[seqpipe] phase 33 in {time.perf_counter() - t0:.1f} s (the "
+          f"ranks {wall:.1f} s)")
+    return times
+
+
 def rank_main(mode: str, work: pathlib.Path, args) -> int:
-    """``chip_smoke.py --rank MODE WORKDIR ...``: one rank of phase 32."""
+    """``chip_smoke.py --rank MODE WORKDIR ...``: one rank of phase 32 or
+    33."""
     if mode == "cli":
         return _rank_cli(work, args)
+    if mode == "seqpipe":
+        return _rank_seqpipe(work, args)
     return _rank_mesh(work)
+
+
+def _timed_phase(name: str, fn):
+    """``fn`` printing its wall as ``[time] NAME S s`` when it returns."""
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        print(f"[time] {name} {time.perf_counter() - t0:.1f} s", flush=True)
+        return out
+
+    return timed
 
 
 def main() -> int:
@@ -4751,10 +5206,13 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
               "run needs an NVIDIA GPU", file=sys.stderr)
         return 1
-    if sys.argv[1:2] == ["--rank"]:   # one rank of phase 32
+    if sys.argv[1:2] == ["--rank"]:   # one rank of phase 32 or 33
         return rank_main(sys.argv[2], pathlib.Path(sys.argv[3]),
                          sys.argv[4:])
     t_start = time.perf_counter()
+    for name, fn in list(globals().items()):   # each phase prints its wall
+        if name.startswith("phase_") and callable(fn):
+            globals()[name] = _timed_phase(name, fn)
     kind = phase_device()
     phase_build()
     errs = phase_kernels()
@@ -4798,7 +5256,12 @@ def main() -> int:
     phase_decode_syncs()
     serve_launches, serve_times = phase_serving()
     work, one_process = phase_cli()
-    par_times = phase_parallel(work, one_process)
+    try:
+        par_times = phase_parallel(work, one_process)
+    except BaseException:
+        shutil.rmtree(work, ignore_errors=True)
+        raise
+    par_times.update(phase_seq_pipe(work))
     _require(not any(m.split(".")[0] in ("jax", "rtts", "click", "yaml")
                      for m in sys.modules if sys.modules[m] is not None),
              "jax, the JAX package, click or PyYAML was imported")
@@ -4902,6 +5365,14 @@ def main() -> int:
                          "rtts/ops/chunked_ffn.py:34"),
         "depthwise_train_dp": ("rtts_torch/csrc/depthwise_conv.cu",
                                "rtts/ops/depthwise_conv.py:29"),
+        "flash_train_sp": ("rtts_torch/csrc/flash_fwd.cu",
+                           "rtts/ops/flash_attention.py:322"),
+        "flash_bwd_dkv_sp": ("rtts_torch/csrc/flash_bwd.cu",
+                             "rtts/ops/flash_attention.py:509"),
+        "flash_bwd_dq_sp": ("rtts_torch/csrc/flash_bwd.cu",
+                            "rtts/ops/flash_attention.py:553"),
+        "sort_by_bucket_sp": ("rtts_torch/csrc/bitonic_sort.cu",
+                              "scripts/probe_vmem_sort.py:45"),
     }
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": rep, "launches": launches[name],

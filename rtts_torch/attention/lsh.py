@@ -227,14 +227,15 @@ def lsh_attention_core(qk: torch.Tensor, v: torch.Tensor,
                        causal: bool, generator: Optional[torch.Generator],
                        buckets: Optional[torch.Tensor] = None,
                        attend_fn=None, dropout_seed: Optional[int] = None,
-                       heads=None
+                       heads=None, rotations: Optional[torch.Tensor] = None
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The LSH pipeline on projected heads (B, H, L, d) -> (out (B, H, L,
     d), buckets).  ``dropout_seed`` (with cfg.attention_dropout > 0) turns
     on attention-probs dropout, which the kernels do not have: it forces
     the plain attend, as in the reference.  ``heads`` = (offset, total)
     places a tensor-parallel shard's heads: the rotations and the dropout
-    lanes are those of its global heads (and batch rows)."""
+    lanes are those of its global heads (and batch rows).  ``rotations``
+    (this block's heads) replaces the draw."""
     b, h, l, d = qk.shape
     c = cfg.chunk_length
     nh = cfg.num_hashes
@@ -261,7 +262,7 @@ def lsh_attention_core(qk: torch.Tensor, v: torch.Tensor,
 
     if buckets is None:
         buckets = hash_vectors(qk, nb, nh, generator, mask,
-                               heads=heads)                   # (B,H,nh,L)
+                               rotations=rotations, heads=heads)  # (B,H,nh,L)
     sorted_pos, undo_idx, sorted_buckets = _sort_by_bucket(buckets)
 
     # q/k and v ride one packed operand through one gather: (B,H,nh,L,2d);
@@ -338,7 +339,8 @@ def lsh_self_attention(p: Attention, x: torch.Tensor,
                        cfg: AttentionConfig,
                        generator: Optional[torch.Generator],
                        compute_dtype=None, dropout_seed: Optional[int] = None,
-                       cache: Optional[LshCache] = None
+                       cache: Optional[LshCache] = None,
+                       rotations: Optional[torch.Tensor] = None
                        ) -> Tuple[torch.Tensor, LshCache]:
     """Reformer LSH self-attention sublayer: x (B, L, D) -> (out, cache).
 
@@ -346,7 +348,8 @@ def lsh_self_attention(p: Attention, x: torch.Tensor,
     fresh generator with that seed); ``dropout_seed`` turns on the
     attention-probs dropout.  ``cache``, the cache of an earlier call on
     the same input (the reversible backward's recompute), supplies the
-    buckets: nothing is hashed and no rotation is drawn."""
+    buckets: nothing is hashed and no rotation is drawn.  ``rotations``
+    (all heads, drawn ahead: the pipelined stack) replace the draw."""
     l = x.shape[1]
     if l <= cfg.chunk_length:
         # the reference's fallback: full softmax attention for short inputs
@@ -357,14 +360,17 @@ def lsh_self_attention(p: Attention, x: torch.Tensor,
         return out, LshCache(buckets=torch.zeros((0,), dtype=torch.int64,
                                                  device=x.device))
     buckets = None if cache is None else cache.buckets
-    if buckets is None and cfg.hash_seed is not None:
+    if buckets is None and rotations is None and cfg.hash_seed is not None:
         generator = torch.Generator(device=x.device).manual_seed(cfg.hash_seed)
     h = local_heads(p)
+    if rotations is not None:
+        h_off, _ = head_span(p)
+        rotations = rotations[h_off:h_off + h]
     qk = _split_heads(p.w_qk(x, compute_dtype), h)
     v = _split_heads(p.w_v(x, compute_dtype), h)
     out, buckets = lsh_attention_core(qk, v, cfg, mask, causal, generator,
                                       buckets=buckets,
                                       dropout_seed=dropout_seed,
-                                      heads=head_span(p))
+                                      heads=head_span(p), rotations=rotations)
     out = p.w_o(_merge_heads(out), compute_dtype)
     return out, LshCache(buckets=buckets)

@@ -18,7 +18,8 @@ the reference's group does: a no-op in one process; over several
 rtts_torch.cli ...``, or ``experiment.mesh.coordinator_address`` /
 ``num_processes`` / ``process_id``) each rank runs the verb on its card,
 the trainers and ``predict``/``serve`` over ``experiment.mesh``'s layout,
-and rank 0 alone writes what the verb writes.
+and rank 0 alone writes what the verb writes.  ``main`` destroys the
+process group it started when the verb returns or raises.
 """
 
 from __future__ import annotations
@@ -106,9 +107,11 @@ def _load_synthesizer(cfg: Config, tts_ckpt, vocoder_ckpt, max_frames, mode,
             vocab_size=frontend_vocab_size(cfg.dataset.text.level))
     from rtts_torch.parallel.mesh import make_mesh, rank_device
 
+    from rtts_torch.parallel.sharding import whole_stacks
+
     mesh = make_mesh(cfg.experiment.mesh)
-    if mesh.data_size * mesh.model_size == 1:
-        mesh = None
+    if mesh.data_size * mesh.model_size == 1 and not whole_stacks(cfg.model):
+        mesh = None   # (a stack split over the model group needs one)
     else:
         device = rank_device(device)
     tts = M.init(model_cfg, torch.Generator().manual_seed(0), device)
@@ -310,13 +313,24 @@ def main(argv: Optional[List[str]] = None) -> int:
             print(f"Error: path {path!r} does not exist", file=sys.stderr)
             return 2
     cfg = load_config(args.config_path, args.overrides)
-    from rtts_torch.parallel.mesh import initialize_distributed
+    import torch.distributed as dist
+
+    from rtts_torch.parallel.mesh import (initialize_distributed,
+                                          shutdown_distributed)
 
     # multi-process init precedes the first use of the card; a no-op in
-    # one process
+    # one process.  The group this call starts is destroyed after the
+    # verb, on success and on error, with no barrier (a rank that failed
+    # would never reach it): a rank must not exit with the backend's
+    # threads still running.
+    started = not dist.is_initialized()
     initialize_distributed(cfg.experiment.mesh, getattr(args, "device",
                                                         "cpu"))
-    return args.run(cfg, args) or 0
+    try:
+        return args.run(cfg, args) or 0
+    finally:
+        if started:
+            shutdown_distributed()
 
 
 if __name__ == "__main__":

@@ -84,7 +84,7 @@ def _replay(model, cfg: ReformerTTSConfig, tokens, token_mask, mel_target,
 
     # two-stream replay of the decoder stack, cross probs captured
     dcfg = cfg.decoder
-    kinds = _check_supported(dcfg, h.shape[1])
+    kinds = _check_supported(dcfg, h.shape[1], capture=True)
     layer_fns = make_stack_layer_fns(dcfg, True, cdt)
     hash_gen = (torch.Generator(device=dev).manual_seed(0)
                 if "lsh" in kinds else None)

@@ -16,7 +16,11 @@ group (``shard_for_serving``, unless ``tensor_parallel`` is false), the
 vocoder whole on each rank, and a decode's requests split over the data
 group, the batch padded to a multiple of the data-parallel size by
 repeating the last request; every rank returns the whole batch's mel and
-lengths, the padding trimmed.
+lengths, the padding trimmed.  A stack with ``seq_parallel_axis`` or
+``pipeline_axis`` keeps its weights whole; an encoder that splits its
+sequence over the model group pads the tokens to a multiple of the rank
+count (masked, so the attention and the memory the decoder reads are
+unchanged) rather than raising the reference's ValueError.
 """
 
 from __future__ import annotations
@@ -35,11 +39,13 @@ from rtts_torch.infer.decode import (_kv_dtype, _precast_weights,
 from rtts_torch.models import reformer_tts as M
 from rtts_torch.models import squeezewave
 from rtts_torch.parallel.collectives import batch_shard
+from rtts_torch.parallel.mesh import current_mesh
 from rtts_torch.parallel.serving import (data_parallel_size,
                                          gather_request_batch,
                                          replicate_for_serving,
                                          shard_for_serving,
                                          shard_request_batch)
+from rtts_torch.parallel.sharding import whole_stacks
 from rtts_torch.text import encode_batch, token_lengths
 
 
@@ -62,7 +68,8 @@ class Synthesizer:
         self.vocoder = (squeezewave.ensure_folded(vocoder)
                         if vocoder is not None else None)
         if mesh is not None:
-            self.tts = shard_for_serving(self.tts, mesh, tensor_parallel)
+            self.tts = shard_for_serving(self.tts, mesh, tensor_parallel,
+                                         whole_stacks(cfg.model))
             if self.vocoder is not None:
                 self.vocoder = replicate_for_serving(self.vocoder, mesh)
         self.device = next(tts_model.parameters()).device
@@ -96,8 +103,9 @@ class Synthesizer:
             (tokens, mask), off, total = shard_request_batch((tokens, mask),
                                                              self.mesh)
             shard = batch_shard(off, total, self.mesh.data_group)
-        with shard:
-            memory = M.encode(self.tts, self.cfg.model, tokens, mask)
+        with shard, (self.mesh or contextlib.nullcontext()):
+            memory = M.encode(self.tts, self.cfg.model, tokens, mask,
+                              multiple=self._seq_multiple())
             mel, lengths, _ = decode_greedy(
                 self.tts, self.cfg.model, memory, mask, max_frames=max_frames,
                 generator=gen, mode=self.mode, unroll=self.unroll,
@@ -106,6 +114,14 @@ class Synthesizer:
             mel = gather_request_batch(mel, self.mesh)[:n]
             lengths = gather_request_batch(lengths, self.mesh)[:n]
         return mel.cpu().numpy(), lengths.cpu().numpy()
+
+    def _seq_multiple(self) -> int:
+        """The rank count a sequence-parallel encoder splits the tokens
+        over (the encoder pads them to a multiple of it), else 1."""
+        if not self.cfg.model.encoder.seq_parallel_axis:
+            return 1
+        mesh = self.mesh or current_mesh()
+        return mesh.model_size if mesh is not None else 1
 
     def text_to_mel(self, texts: Sequence[str], seed: int = 0
                     ) -> Tuple[np.ndarray, np.ndarray]:

@@ -169,12 +169,16 @@ def postnet_apply(layers, mel: torch.Tensor, compute_dtype,
 
 def encode(model: ReformerTTS, cfg: ReformerTTSConfig, tokens: torch.Tensor,
            token_mask: torch.Tensor,
-           generator: Optional[torch.Generator] = None) -> torch.Tensor:
+           generator: Optional[torch.Generator] = None,
+           multiple: int = 1) -> torch.Tensor:
     """tokens (B, L) int -> encoder memory (B, L, D), float32.
-    Differentiable; serving calls it under ``torch.no_grad()``."""
+    Differentiable; serving calls it under ``torch.no_grad()``.
+    ``multiple`` also pads the tokens to a multiple of it (a
+    sequence-parallel encoder's rank count, in serving)."""
     cdt = _dtype(cfg.compute_dtype)
     tokens, token_mask, orig_len = _autopad(
-        tokens[..., None], token_mask.bool(), _pad_multiple(cfg.encoder))
+        tokens[..., None], token_mask.bool(),
+        math.lcm(_pad_multiple(cfg.encoder), multiple))
     h = model.embed(tokens[..., 0], compute_dtype=cdt)
     h = encoder_prenet(model.enc_prenet, h, cdt, mask=token_mask,
                        rate=cfg.enc_prenet_dropout, generator=generator)

@@ -1,6 +1,6 @@
 """Reformer stacks: attention and FFN sublayers wired as (f, g) residual pairs.
 
-Port of ``rtts/models/stack.py`` for self-attention kinds ``full``, ``lsh``
+Port of ``rtts/models/stack.py``: self-attention kinds ``full``, ``lsh``
 and ``local`` (per layer through ``attn_layers``; ``auto`` resolves by
 length).
 Encoder layer = one pair (f = self-attention, g = FFN); decoder layer = two
@@ -25,6 +25,14 @@ Residuals per ``resolve_reversible``: reversible (``rtts_torch/reversible/
 rev.py``, activation memory constant in depth) or plain; the FFN chunked
 per ``resolve_ffn_chunk``, or fused into K6 when ``cfg.use_pallas_ffn`` is
 set and the stream is on the card.
+
+Over the model group of the ambient mesh (``with mesh:``), as the
+reference dispatches: ``seq_parallel_axis`` sends full and LSH
+self-attention longer than one chunk to ``rtts_torch/parallel/
+seq_parallel.py`` (each rank attends its rows, the stream stays whole on
+every rank); ``pipeline_axis`` runs the layers as a pipeline
+(``rtts_torch/parallel/pipeline.py``), then the final LayerNorm, and
+refuses the guided-attention capture.
 """
 
 from __future__ import annotations
@@ -43,6 +51,10 @@ from rtts_torch.config import (ReformerStackConfig, resolve_attention_kind,
 from rtts_torch.nn.layers import LayerNorm, dropout
 from rtts_torch.ops.chunked_ffn import chunked_ffn_fused
 from rtts_torch.ops.flash_attention import resolve_flash_impl
+from rtts_torch.parallel.mesh import current_mesh
+from rtts_torch.parallel.pipeline import pipeline_stack_apply
+from rtts_torch.parallel.seq_parallel import (
+    full_self_attention_seq_parallel, lsh_self_attention_seq_parallel)
 from rtts_torch.reversible.ffn import FFN, chunked_ffn
 from rtts_torch.reversible.rev import reversible_sequence
 
@@ -95,12 +107,16 @@ def _layer_kinds(cfg: ReformerStackConfig) -> List[str]:
     return list(cfg.attn_layers)
 
 
-def _check_supported(cfg: ReformerStackConfig, seq_len: int) -> List[str]:
-    """-> the layers' kinds with ``auto`` resolved at ``seq_len``; raises on
-    what is not ported."""
-    if cfg.seq_parallel_axis or cfg.pipeline_axis:
-        raise NotImplementedError(
-            "rtts_torch: sequence and pipeline parallelism are not ported yet")
+def _check_supported(cfg: ReformerStackConfig, seq_len: int,
+                     capture: bool = False) -> List[str]:
+    """-> the layers' kinds with ``auto`` resolved at ``seq_len``.
+    ``capture`` (cross-attention probabilities wanted) raises the
+    reference's ValueError under a pipeline."""
+    if capture and cfg.pipeline_axis:
+        raise ValueError(
+            "guided attention (attn_sink) cannot capture cross-attention "
+            "probabilities through the pipeline scan; disable "
+            "pipeline_axis or guided_attention_weight for this stack")
     return [resolve_attention_kind(cfg.attention, seq_len) if k == "auto"
             else k for k in _layer_kinds(cfg)]
 
@@ -114,8 +130,8 @@ def use_ffn_kernel(x: torch.Tensor) -> bool:
 def make_stack_layer_fns(cfg: ReformerStackConfig, cross_attend: bool,
                          compute_dtype) -> List[Tuple[Any, Any]]:
     """The (f, g) callables of one stack; aux per pair is dict(mask,
-    memory_mask, generator, hash_generator, seed, gen_states[,
-    attn_sink]).  ``generator`` None means no dropout; ``hash_generator``
+    memory_mask, generator, hash_generator, seed, gen_states[, mesh,
+    rotations, attn_sink]).  ``generator`` None means no dropout; ``hash_generator``
     draws the LSH rotations; ``seed`` (None: no attention dropout) is the
     pair's kernel seed; ``gen_states`` ([None] * 3) receives the
     generator's state before the naive attention dropout and f's and g's
@@ -153,11 +169,26 @@ def make_stack_layer_fns(cfg: ReformerStackConfig, cross_attend: bool,
         def f_self(p, x, memory, aux, cache):
             h = p.ln(x)
             k = resolve_attention_kind(a, x.shape[1]) if kind == "auto" else kind
-            if k == "lsh":
+            seq = cfg.seq_parallel_axis and x.shape[1] > a.chunk_length
+            if k == "full" and seq:
+                out = full_self_attention_seq_parallel(
+                    p.attn, h, aux["mask"], cfg.causal, a, compute_dtype,
+                    aux.get("mesh"), axis=cfg.seq_parallel_axis,
+                    dropout_rate=a.attention_dropout,
+                    dropout_seed=aux["seed"])
+            elif k == "lsh" and seq:
+                out, cache = lsh_self_attention_seq_parallel(
+                    p.attn, h, aux["mask"], cfg.causal, a,
+                    aux["hash_generator"], compute_dtype, aux.get("mesh"),
+                    axis=cfg.seq_parallel_axis,
+                    exchange=cfg.seq_parallel_exchange,
+                    dropout_seed=aux["seed"], cache=cache)
+            elif k == "lsh":
                 out, cache = lsh_self_attention(
                     p.attn, h, aux["mask"], cfg.causal, a,
                     aux["hash_generator"], compute_dtype,
-                    dropout_seed=aux["seed"], cache=cache)
+                    dropout_seed=aux["seed"], cache=cache,
+                    rotations=aux.get("rotations"))
             elif k == "local":
                 out = local_self_attention(p.attn, h, aux["mask"], cfg.causal,
                                            a, compute_dtype,
@@ -224,7 +255,11 @@ def stack_apply(stack: Stack, cfg: ReformerStackConfig, x: torch.Tensor,
     LSH rotations.
     ``attn_sink``: a list that collects each cross-attention layer's f32
     probabilities (B, H, L, Lm), for the guided-attention loss."""
-    kinds = _check_supported(cfg, x.shape[1])
+    kinds = _check_supported(cfg, x.shape[1], attn_sink is not None)
+    if cfg.pipeline_axis:
+        y = pipeline_stack_apply(stack, cfg, x, mask, memory, memory_mask,
+                                 compute_dtype, generator)
+        return stack.final_ln(y)
     rev = _resolve_residuals(cfg, x, memory, attn_sink)
     layer_fns = make_stack_layer_fns(cfg, memory is not None, compute_dtype)
     n = len(layer_fns)
@@ -235,9 +270,12 @@ def stack_apply(stack: Stack, cfg: ReformerStackConfig, x: torch.Tensor,
     hash_generator = generator
     if hash_generator is None and "lsh" in kinds:
         hash_generator = torch.Generator(device=x.device).manual_seed(0)
+    # the ambient mesh at the forward: the reversible backward's recompute
+    # may run after the caller left it
+    mesh = current_mesh()
     aux_list = [{"mask": mask, "memory_mask": memory_mask,
                  "generator": generator, "hash_generator": hash_generator,
-                 "seed": seed, "gen_states": [None] * 3,
+                 "seed": seed, "gen_states": [None] * 3, "mesh": mesh,
                  **({"attn_sink": attn_sink} if attn_sink is not None
                     else {})}
                 for seed in seeds]

@@ -18,6 +18,30 @@ Port of what XLA inserts from the JAX package's shardings
   (``rtts_torch.nn.layers.dropout``) and the flash kernels hash the global
   row.
 
+The collectives of sequence and pipeline parallelism, which autograd
+passes through (``rtts_torch/parallel/seq_parallel.py``, ``pipeline.py``);
+each takes an ``Axis`` (``mesh.mesh_axis``):
+
+- ``seq_enter``: a rank's rows of a replicated tensor, with the weights its
+  rows go through; backward, the rows' cotangents gathered over the group
+  and the weights' summed (each rank computed a part of them), in one
+  all-reduce.
+- ``gather_seq``: the shards concatenated; backward, the cotangent summed
+  over the group, then this rank's rows (keys and values gathered for
+  rank-local queries get a different cotangent on each rank).
+- ``gather_rows``: the shards concatenated; backward, this rank's rows of
+  the cotangent alone (every rank goes on to compute the same thing from
+  the whole tensor, so the cotangents are equal).
+- ``hop``: the reference's neighbour ``ppermute``: each rank receives the
+  tensor of the rank ``shift`` before it; backward, the reverse hop.
+
+Backends: a gather is an all-reduce of zero-padded copies on either
+backend.  A hop under nccl is ``dist.batch_isend_irecv``, one send and one
+receive.  gloo sends no CUDA tensor, so under gloo a hop is an all-reduce
+of a (size, ...) buffer in which each rank fills its own slot: every rank
+then holds every rank's tensor, so the ring's memory bound (one
+neighbour's shard in flight) is lost, while the result stays the same.
+
 Every function is the identity, or the plain value, for a group of None
 (one rank).
 """
@@ -173,3 +197,127 @@ def broadcast_(t: torch.Tensor, src: int, group) -> torch.Tensor:
     if buf.data_ptr() != t.data_ptr():
         t.copy_(buf)
     return t
+
+
+# -- sequence and pipeline parallelism -----------------------------------------
+
+
+def _wide(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in a dtype every backend reduces (f32 for narrow floats)."""
+    if t.dtype in (torch.float32, torch.float64, torch.int32, torch.int64):
+        return t.contiguous()
+    return t.float() if t.is_floating_point() else t.long()
+
+
+def _rows(t: torch.Tensor, dim: int, ax) -> torch.Tensor:
+    n = t.shape[dim] // ax.size
+    return t.narrow(dim, ax.index * n, n).contiguous()
+
+
+class _SeqEnter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, ax, *weights):
+        ctx.dim, ctx.ax = dim, ax
+        ctx.wmeta = [(w.shape, w.dtype) for w in weights]
+        return (_rows(x, dim, ax),) + tuple(w.view_as(w) for w in weights)
+
+    @staticmethod
+    def backward(ctx, g, *gw):
+        ax, dim = ctx.ax, ctx.dim
+        n = g.shape[dim]
+        shape = list(g.shape)
+        shape[dim] = n * ax.size
+        full = torch.zeros(shape, dtype=torch.float32, device=g.device)
+        full.narrow(dim, ax.index * n, n).copy_(g)
+        gw = [torch.zeros(shape, dtype=dt, device=g.device) if t is None
+              else t for t, (shape, dt) in zip(gw, ctx.wmeta)]
+        flat = torch.cat([full.reshape(-1)] + [t.reshape(-1).float()
+                                               for t in gw])
+        dist.all_reduce(flat, group=ax.group)
+        dx = flat[:full.numel()].view(shape).to(g.dtype)
+        out, i = [], full.numel()
+        for t in gw:
+            out.append(flat[i:i + t.numel()].view_as(t).to(t.dtype))
+            i += t.numel()
+        return (dx, None, None) + tuple(out)
+
+
+def seq_enter(x: torch.Tensor, weights, dim: int, ax):
+    """-> (this rank's rows of ``x`` along ``dim``, *weights): the rows'
+    gradient is gathered over the group and the weights' summed, in one
+    all-reduce."""
+    if ax.group is None:
+        return (x,) + tuple(weights)
+    return _SeqEnter.apply(x, dim, ax, *weights)
+
+
+class _GatherSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, ax, summed):
+        ctx.dim, ctx.ax, ctx.summed = dim, ax, summed
+        return gather_dim(x, dim, ax.group, ax.index, ax.size)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.summed:
+            g = _reduce(g.contiguous().clone(), ctx.ax.group)
+        return _rows(g, ctx.dim, ctx.ax), None, None, None
+
+
+def gather_seq(x: torch.Tensor, dim: int, ax) -> torch.Tensor:
+    """The group's shards of ``x`` concatenated along ``dim``; backward,
+    the cotangent summed over the group, then this rank's rows."""
+    if ax.group is None:
+        return x
+    return _GatherSeq.apply(x, dim, ax, True)
+
+
+def gather_rows(x: torch.Tensor, dim: int, ax) -> torch.Tensor:
+    """The group's shards of ``x`` concatenated along ``dim``; backward,
+    this rank's rows of the (replicated) cotangent."""
+    if ax.group is None:
+        return x
+    return _GatherSeq.apply(x, dim, ax, False)
+
+
+def _hop(t: torch.Tensor, ax, shift: int) -> torch.Tensor:
+    """The ``t`` of rank (index - shift) mod size, outside autograd."""
+    size = ax.size
+    src, dst = (ax.index - shift) % size, (ax.index + shift) % size
+    if ax.backend == "nccl":
+        out = torch.empty_like(t)
+        reqs = dist.batch_isend_irecv([
+            dist.P2POp(dist.isend, t.contiguous(), ax.ranks[dst], ax.group),
+            dist.P2POp(dist.irecv, out, ax.ranks[src], ax.group)])
+        for r in reqs:
+            r.wait()
+        return out
+    wide = _wide(t)
+    buf = torch.zeros((size,) + tuple(t.shape), dtype=wide.dtype,
+                      device=t.device)
+    buf[ax.index].copy_(wide)
+    dist.all_reduce(buf, group=ax.group)
+    return buf[src].to(t.dtype)
+
+
+class _Hop(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ax, shift):
+        ctx.ax, ctx.shift = ax, shift
+        return _hop(x, ax, shift)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _hop(g, ctx.ax, -ctx.shift), None, None
+
+
+def hop(x: torch.Tensor, ax, shift: int = 1) -> torch.Tensor:
+    """Each rank receives the ``x`` of the rank ``shift`` before it on the
+    ring (``ppermute`` with perm [(j, j + shift)]); backward, the reverse
+    hop.  Outside autograd (no_grad, or ``x`` needing no gradient) it is
+    the plain hop."""
+    if ax.group is None or ax.size == 1:
+        return x
+    if not (torch.is_grad_enabled() and x.requires_grad):
+        return _hop(x, ax, shift)
+    return _Hop.apply(x, ax, shift)

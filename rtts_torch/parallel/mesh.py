@@ -12,15 +12,23 @@ sizes and this rank's coordinates.
 Backend rule, printed at init and never caught: ``nccl`` when every rank
 of a host has a card of its own, ``gloo`` otherwise (ranks that share one
 card included) and on the CPU.  gloo's CUDA collectives are all-reduce and
-broadcast, so the port uses only those two
+broadcast, so under gloo the port uses only those two
 (``rtts_torch/parallel/collectives.py``).
+
+The ambient mesh: the reference's sequence-parallel and pipelined stacks
+read the mesh the caller entered (``with mesh:``, ``current_mesh``).  A
+port ``Mesh`` is a context manager too: ``with mesh:`` makes it the one
+``current_mesh()`` returns, which ``MeshTraining``'s step, the trainers and
+``Synthesizer(mesh=...)`` enter; ``mesh_axis`` raises the reference's
+ValueError when no mesh with the axis is active.  ``shutdown_distributed``
+destroys the process group ``initialize_distributed`` started.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import List, Optional
+from typing import List, NamedTuple, Optional
 
 import torch
 import torch.distributed as dist
@@ -119,6 +127,15 @@ def initialize_distributed(cfg: Optional[MeshConfig] = None,
     _initialized = True
 
 
+def shutdown_distributed() -> None:
+    """Destroy the process group, if one is up (no barrier: a rank that
+    failed never reaches one, and its peers would wait on it)."""
+    global _initialized
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    _initialized = False
+
+
 def world_size() -> int:
     return dist.get_world_size() if dist.is_initialized() else 1
 
@@ -170,6 +187,13 @@ class Mesh:
     @property
     def is_main(self) -> bool:
         return self.rank == 0
+
+    def __enter__(self) -> "Mesh":
+        _ACTIVE.append(self)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        _ACTIVE.pop()
 
     def describe(self) -> str:
         return (f"mesh {'x'.join(str(v) for v in self.shape.values())} "
@@ -223,3 +247,41 @@ def make_mesh(cfg: Optional[MeshConfig] = None) -> Mesh:
                 model_ranks=model_ranks, data_group=data_group,
                 model_group=model_group, backend=backend)
 
+
+
+_ACTIVE: List[Mesh] = []
+
+
+def current_mesh() -> Optional[Mesh]:
+    """The innermost mesh entered with ``with mesh:``, or None."""
+    return _ACTIVE[-1] if _ACTIVE else None
+
+
+class Axis(NamedTuple):
+    """One mesh axis as a rank sees it: its process group (None for one
+    rank), this rank's index, the size, the global ranks in index order
+    and the backend."""
+
+    group: object
+    index: int
+    size: int
+    ranks: List[int]
+    backend: str
+
+
+def mesh_axis(mesh: Optional[Mesh], axis: str, what: str) -> Axis:
+    """``axis`` of ``mesh`` (the ambient one when None) for ``what``; the
+    reference's ValueError when no mesh with the axis is active.  A stack
+    splits its sequence or its layers over the model group only: the data
+    axes hold different batch rows on each rank."""
+    mesh = mesh if mesh is not None else current_mesh()
+    if mesh is None or axis not in mesh.shape:
+        raise ValueError(
+            f"{what} needs a Mesh with axis {axis!r}; enter one (`with "
+            "mesh:`) or pass mesh= explicitly")
+    if axis != MODEL_AXIS:
+        raise NotImplementedError(
+            f"rtts_torch: {what} over the {axis!r} axis; the port splits a "
+            f"stack over the {MODEL_AXIS!r} axis only")
+    return Axis(mesh.model_group, mesh.model_index, mesh.model_size,
+                list(mesh.model_ranks), mesh.backend)

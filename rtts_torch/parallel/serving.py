@@ -14,7 +14,7 @@ every data rank back together.
 
 from __future__ import annotations
 
-from typing import Any, Tuple
+from typing import Any, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -25,10 +25,11 @@ from rtts_torch.parallel.sharding import shard_params
 
 
 def shard_for_serving(model: nn.Module, mesh: Mesh,
-                      tensor_parallel: bool = True) -> nn.Module:
-    """Shard ``model`` in place with the TP rules (everything else stays
-    whole on every rank); returns it."""
-    shard_params(model, mesh, tensor_parallel)
+                      tensor_parallel: bool = True,
+                      whole: Sequence[str] = ()) -> nn.Module:
+    """Shard ``model`` in place with the TP rules (everything else, and
+    the stacks under ``whole``, stays whole on every rank); returns it."""
+    shard_params(model, mesh, tensor_parallel, whole)
     return model
 
 

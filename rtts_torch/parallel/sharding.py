@@ -21,12 +21,20 @@ leaves it whole and XLA partitions its product from the out-projection's
 sharding; the port shards its columns and its bias explicitly
 (``tp_dim``), the Megatron pairing that gives each rank d_ff / mp of the
 hidden.  The arithmetic is the same either way.
+
+A stack with ``seq_parallel_axis`` or ``pipeline_axis`` set
+(``whole_stacks``) keeps its parameters whole on every rank of the model
+group: the JAX trainer shards them by the rule above and XLA reshards them
+for the stack's shard_map; here the stack computes its rows or its stage's
+layers from whole parameters and sums their gradients over the model group
+itself (``seq_parallel.py``, ``pipeline.py``).  The rest of the model keeps
+the tensor-parallel rule.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -91,6 +99,14 @@ def tp_dim(name: str, ndim: int, tensor_parallel: bool) -> Optional[int]:
                      MODEL_AXIS)
 
 
+def whole_stacks(model_cfg) -> Tuple[str, ...]:
+    """The parameter-name prefixes of the stacks that split their sequence
+    or their layers over the model group (kept whole by ``shard_params``)."""
+    return tuple(f"{name}." for name in ("encoder", "decoder")
+                 if getattr(model_cfg, name).seq_parallel_axis
+                 or getattr(model_cfg, name).pipeline_axis)
+
+
 def _slice(t: torch.Tensor, dim: Optional[int], index: int,
            size: int) -> torch.Tensor:
     if dim is None or size == 1:
@@ -103,22 +119,24 @@ def _slice(t: torch.Tensor, dim: Optional[int], index: int,
 
 
 @torch.no_grad()
-def shard_params(model: nn.Module, mesh: Mesh,
-                 tensor_parallel: bool = True) -> Dict[str, Optional[int]]:
+def shard_params(model: nn.Module, mesh: Mesh, tensor_parallel: bool = True,
+                 whole: Sequence[str] = ()) -> Dict[str, Optional[int]]:
     """Keep this rank's slice of every model-sharded parameter, in place,
     and wire the projections to the model group: column-sharded ``Dense``
     layers take ``copy_to_model`` on their input, row-sharded ones
     ``reduce_from_model`` on their output (their bias added once, after
-    it), and each attention block learns its heads' offset.  Returns the
-    plan {parameter name: sharded dim or None}, also kept as
-    ``model.tp_plan``.  A model sharded already is left as it is."""
+    it), and each attention block learns its heads' offset.  Parameters
+    under a prefix of ``whole`` stay whole.  Returns the plan {parameter
+    name: sharded dim or None}, also kept as ``model.tp_plan``.  A model
+    sharded already is left as it is."""
     from rtts_torch.attention.full import Attention
     from rtts_torch.nn.layers import Dense
 
     if getattr(model, "tp_plan", None) is not None:
         return model.tp_plan
     tp = tensor_parallel and mesh.model_size > 1
-    plan = {name: tp_dim(name, p.ndim, tp)
+    plan = {name: (None if name.startswith(tuple(whole))
+                   else tp_dim(name, p.ndim, tp))
             for name, p in model.named_parameters()}
     if tp:
         for name, p in model.named_parameters():
@@ -130,7 +148,8 @@ def shard_params(model: nn.Module, mesh: Mesh,
             if isinstance(m, Dense) and plan.get(f"{mname}.w") is not None:
                 m.tp = ("col" if plan[f"{mname}.w"] == 1 else "row",
                         mesh.model_group)
-            elif isinstance(m, Attention):
+            elif isinstance(m, Attention) and not f"{mname}.".startswith(
+                    tuple(whole)):
                 if m.num_heads % mesh.model_size:
                     raise ValueError(
                         f"{m.num_heads} heads do not split over "

@@ -13,7 +13,11 @@ one rank, around the one-device step:
 - the gradient norm (the metric and the clip): each leaf's squares summed
   over the ranks that hold different parts of it, once over those that
   hold copies;
-- tensor parallelism: ``shard_params`` (``sharding.py``);
+- tensor parallelism: ``shard_params`` (``sharding.py``), but for the
+  stacks that split their sequence or layers over the model group
+  (``whole``), which hold their parameters whole and sum their gradients
+  over that group themselves; the step runs inside ``with mesh:`` so that
+  those stacks find it;
 - ZeRO-1: each data rank updates the ``zero_dims`` slice of every leaf
   with its own moments, then broadcasts it;
 - checkpoints: the whole tree, under the one-device leaf names, gathered
@@ -23,7 +27,7 @@ one rank, around the one-device step:
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -43,12 +47,13 @@ _PER_PARAM = ("mu", "nu", "acc")
 class MeshTraining:
     """One rank's share of a training run over ``mesh``.  Construction
     shards ``model`` in place (tensor parallelism when the mesh has a model
-    group and ``tensor_parallel``)."""
+    group and ``tensor_parallel``; the stacks under the prefixes ``whole``
+    stay whole: ``sharding.whole_stacks``)."""
 
     def __init__(self, model: nn.Module, mesh: Mesh, zero: bool = False,
-                 tensor_parallel: bool = True):
+                 tensor_parallel: bool = True, whole: Sequence[str] = ()):
         self.mesh = mesh
-        self.plan = shard_params(model, mesh, tensor_parallel)
+        self.plan = shard_params(model, mesh, tensor_parallel, whole)
         names = [name for name, _ in model.named_parameters()]
         self.tp = [self.plan[n] for n in names]
         self.zero = zero and mesh.data_size > 1

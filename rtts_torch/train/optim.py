@@ -25,7 +25,8 @@ The state is a plain dict: ``count`` (updates applied, an int) and, for
 adam/adamw, ``mu`` and ``nu`` (one tensor per parameter, in parameter
 order, in the parameter's dtype, as optax's ``scale_by_adam`` without
 ``mu_dtype``: under a bf16 ``param_dtype`` the moments and the whole
-update are bf16 arithmetic, the clip's norm f32); with accumulation also
+update are bf16 arithmetic, the clip's norm bf16 as optax sums it:
+``global_norm``); with accumulation also
 ``mini_step`` (micro-steps folded into the current cycle) and ``acc`` (the
 running mean gradient, in the parameter's dtype).  Checkpoints store it
 under the port's own keys (``rtts_torch/train/checkpoint.py``).
@@ -87,8 +88,18 @@ def lr_at_step(cfg: OptimConfig, step: int) -> float:
 
 
 def global_norm(tensors) -> torch.Tensor:
-    """sqrt of the sum of squares of every element, f32 (optax.global_norm)."""
-    return torch.sqrt(sum((t.float() ** 2).sum() for t in tensors))
+    """``optax.global_norm``: sqrt of the sum of squares, summed per leaf in
+    the leaf's dtype, then over the leaves in order (the promoted dtype).
+    A leaf's sum is the one XLA's CPU reduction gives: the squares exact,
+    accumulated in f32, rounded once to the leaf's dtype (bf16 leaves: one
+    bf16 value each, added in bf16)."""
+    total = torch.zeros((), dtype=torch.float32)
+    first = True
+    for t in tensors:
+        s = (t.float() ** 2).sum().to(t.dtype)
+        total = s if first else total + s
+        first = False
+    return torch.sqrt(total)
 
 
 class Optimizer:

@@ -58,6 +58,7 @@ from rtts_torch.models import reformer_tts as M
 from rtts_torch.parallel.collectives import batch_shard
 from rtts_torch.parallel.mesh import (initialize_distributed, make_mesh,
                                       rank_device)
+from rtts_torch.parallel.sharding import whole_stacks
 from rtts_torch.parallel.training import MeshTraining
 from rtts_torch.text import frontend_vocab_size
 from rtts_torch.train.checkpoint import (AsyncCheckpointer, latest_checkpoint,
@@ -107,13 +108,19 @@ def make_train_step(model_cfg, optimizer, debug_nans: bool = False,
     With ``mesh`` (a ``MeshTraining``, whose construction sharded the
     model) ``batch`` is this rank's rows, run inside its ``batch_shard``;
     the metrics and the returned gradients are the global batch's (the
-    gradients of this rank's shards)."""
+    gradients of this rank's shards).  The step runs inside ``with
+    mesh.mesh:``."""
     gal_w = model_cfg.guided_attention_weight
     gal_decay = model_cfg.guided_attention_decay_steps
     count = mesh.count if mesh is not None else (lambda t: t)
 
     def train_step(model, opt_state, batch, generator, step=0,
                    return_grads=False):
+        with (mesh.mesh if mesh is not None else contextlib.nullcontext()):
+            return _step(model, opt_state, batch, generator, step,
+                         return_grads)
+
+    def _step(model, opt_state, batch, generator, step, return_grads):
         params = list(model.parameters())
         sink = [] if gal_w > 0.0 else None
         pre, post, stop = M.forward(
@@ -216,7 +223,9 @@ def train_tts(cfg: Config, workdir: str, max_steps: Optional[int] = None,
     stop_ctx = GracefulStop() if stop is None else contextlib.nullcontext(stop)
     anomaly = (enable_nan_debugging() if exp.debug_nans
                else contextlib.nullcontext())
-    with stop_ctx as stopper, anomaly:
+    # the mesh is the ambient one of the whole loop: a stack that splits
+    # its sequence or layers over the model group finds it (eval included)
+    with stop_ctx as stopper, anomaly, mesh:
         max_steps = max_steps if max_steps is not None else exp.max_steps
         if is_main:
             save_config(cfg, work / "config.yaml")
@@ -252,7 +261,8 @@ def train_tts(cfg: Config, workdir: str, max_steps: Optional[int] = None,
         if mesh.data_size * mesh.model_size > 1:
             # the whole tree is restored first: any mesh reads any checkpoint
             par = MeshTraining(model, mesh, zero=exp.mesh.zero_sharding,
-                               tensor_parallel=exp.mesh.model_parallel > 1)
+                               tensor_parallel=exp.mesh.model_parallel > 1,
+                               whole=whole_stacks(model_cfg))
             opt_state = par.shard_state(opt_state)
         train_step = make_train_step(model_cfg, optimizer, exp.debug_nans,
                                      par)

@@ -270,12 +270,37 @@ def test_port_imports_nothing_of_the_jax_package():
                  "data/versioning.py", "utils/tracking.py",
                  "utils/profiling.py", "parallel/mesh.py",
                  "parallel/sharding.py", "parallel/serving.py",
-                 "parallel/training.py", "parallel/collectives.py"):
+                 "parallel/training.py", "parallel/collectives.py",
+                 "parallel/seq_parallel.py", "parallel/pipeline.py"):
         assert ROOT / "rtts_torch" / name in files, name
     for path in files + [ROOT / "chip_smoke.py"]:
         names = _imported_modules(path)
         assert not _roots(names) & {"jax", "jaxlib", "rtts", "click",
                                     "yaml"}, (path, sorted(names))
+
+
+def test_port_reads_every_stack_config_field():
+    """Every ``ReformerStackConfig`` field is read by the port: as
+    ``cfg.<field>`` or by name outside ``rtts_torch/config.py``, or, for
+    the knobs that config.py's own resolvers read (``resolve_reversible``'s
+    budget), as an attribute there (the dataclass declares its fields
+    without one).  The sequence- and pipeline-parallel knobs included."""
+    import dataclasses
+
+    from rtts_torch.config import ReformerStackConfig
+
+    config_py = ROOT / "rtts_torch" / "config.py"
+    text = "\n".join(p.read_text()
+                     for p in sorted((ROOT / "rtts_torch").rglob("*.py"))
+                     if p != config_py)
+    fields = [f.name for f in dataclasses.fields(ReformerStackConfig)]
+    assert {"seq_parallel_axis", "seq_parallel_exchange", "pipeline_axis",
+            "pipeline_microbatches", "pipeline_remat",
+            "pipeline_interleave"} <= set(fields)
+    unread = [f for f in fields
+              if not re.search(rf"\.{f}\b|[\"']{f}[\"']", text)]
+    assert unread == ["auto_plain_budget_mb"], unread
+    assert re.search(r"\.auto_plain_budget_mb\b", config_py.read_text())
 
 
 def test_chip_smoke_defines_each_top_level_name_once():

@@ -17,11 +17,12 @@ f32, exactly), then:
   moments in bf16 as optax keeps them) against JAX + optax: the loss at
   1e-3 relative (f32 compute from the same bf16 leaves); every gradient
   (bf16) within two bf16 ulps of its leaf's largest; the gradient norm,
-  which the port sums in f32, at 1e-2 relative to the f32 norm of JAX's
-  bf16 gradients (``optax.global_norm`` sums bf16 squares in bf16, 2% off
-  here); every parameter after the update within two bf16 ulps of its
-  magnitude (the update is bf16 arithmetic on both sides, rounded in a
-  different order).
+  which the port sums as ``optax.global_norm`` does (per leaf in bf16,
+  the squares accumulated in f32 as XLA's CPU reduction does, then the
+  leaves added in bf16), within one bf16 ulp of JAX's (equal at seed 1,
+  one ulp apart at seed 0); every parameter after the update within two
+  bf16 ulps of its magnitude (the update is bf16 arithmetic on both sides,
+  rounded in a different order).
 """
 
 from __future__ import annotations
@@ -186,10 +187,12 @@ def test_bf16_param_step_matches_jax_and_optax(seed):
         np.testing.assert_allclose(g.float().numpy(), w.numpy(), rtol=0,
                                    atol=2 * ulp * max(float(w.abs().max()),
                                                       1e-6), err_msg=name)
-    j_norm = np.sqrt(sum(float(np.sum(np.square(x, dtype=np.float64)))
-                         for x in jax.tree.leaves(_f32_tree(j_grads))))
-    np.testing.assert_allclose(float(metrics["grad_norm"]), j_norm,
-                               rtol=1e-2)
+    # optax's bf16 norm, summed as the port sums it: within one bf16 ulp of
+    # JAX's (the gradients themselves differ in their last bits)
+    j_norm = float(j_metrics["grad_norm"])
+    assert metrics["grad_norm"].dtype == torch.bfloat16
+    assert abs(float(metrics["grad_norm"]) - j_norm) <= 2.0 ** (
+        np.floor(np.log2(j_norm)) - 7)
     want = dict(from_numpy_tree(TM.init(tcfg, device="cpu"),
                                 _f32_tree(jp)).named_parameters())
     for name, p in tm.named_parameters():

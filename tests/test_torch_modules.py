@@ -180,14 +180,29 @@ def test_local_encoder_stack_matches_jax(model, data):
 
 
 def test_unported_attention_kinds_raise(model, data):
-    """Sequence and pipeline parallelism, the part of rtts/parallel/ not
-    ported yet, still raise."""
+    """Sequence and pipeline parallelism raise the reference's ValueError
+    without a mesh that has their axis, as JAX's stack does; over a mesh
+    of one rank they are the plain stack."""
+    from rtts_torch.parallel.mesh import make_mesh
+
     cfg, jp, tm = model
+    # chunks of 8: the sequence-parallel path engages past one chunk
+    short = dataclasses.replace(cfg.encoder.attention, chunk_length=8)
+    want = jax_stack_apply(jp["encoder"], cfg.encoder, data["x"],
+                           data["mask"])
     for knob in ({"seq_parallel_axis": "seq"}, {"pipeline_axis": "model"}):
-        unported = dataclasses.replace(cfg.encoder, **knob)
-        with pytest.raises(NotImplementedError, match="parallel"):
-            stack_apply(tm.encoder, unported, tt(data["x"]),
-                        tt(data["mask"]))
+        split = dataclasses.replace(cfg.encoder, attention=short, **knob)
+        with pytest.raises(ValueError, match="needs a Mesh") as got:
+            stack_apply(tm.encoder, split, tt(data["x"]), tt(data["mask"]))
+        with pytest.raises(ValueError, match="needs a Mesh"):
+            jax_stack_apply(jp["encoder"], split, data["x"], data["mask"])
+        assert repr(knob[next(iter(knob))]) in str(got.value)
+    for knob in ({"seq_parallel_axis": "model"}, {"pipeline_axis": "model"}):
+        split = dataclasses.replace(cfg.encoder, attention=short, **knob)
+        with torch.no_grad(), make_mesh():
+            got = stack_apply(tm.encoder, split, tt(data["x"]),
+                              tt(data["mask"]))
+        close(got, want, STACK_TOL)
 
 
 def test_encode(model, data):

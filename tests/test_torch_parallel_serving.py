@@ -6,7 +6,11 @@ package blocked, gloo) run, in one group: ``decode_greedy`` on
 tensor-parallel weights (model parallel 2: one head a rank) in kv_full and
 kv_lsh_chunk, ``serve_batch`` on tensor-parallel weights, and
 ``Synthesizer(mesh=...)`` over data parallel 2 with 3 texts (the batch
-padded by repeating the last request, then trimmed).  The JAX side runs the
+padded by repeating the last request, then trimmed), and over model
+parallel 2 with the encoder's sequence split (``seq_parallel_axis``,
+chunks of 4 so that the split engages; the tokens unpadded, so that the
+encoder pads them to a multiple of the 2 ranks) and the decoder
+tensor-parallel.  The JAX side runs the
 one-device reference while the ranks run; its own tests hold its sharded
 runs equal to it.  The model is ``tests/test_torch_decode_modes.py``'s
 (d 32, 2 + 2 layers, 2 heads x 16, n_mels 20, f32, every dropout 0; the
@@ -19,6 +23,8 @@ equal; stops pinned by ``stop_threshold`` 2.0 where the run takes one.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -38,6 +44,7 @@ from tests.test_torch_serving import full_cfg
 TOL = 1e-4
 MAX_FRAMES = 32
 TEXTS = ["hello world", "a second line", "third"]
+SP_TEXTS = ["hello world", "a second line.", "third"]   # 15 tokens
 
 
 def _params(prefix, jp):
@@ -96,17 +103,28 @@ def runs(tmp_path_factory):
                   "config": JC.to_dict(jcfg), "params": "synth/p", "dp": 2,
                   "texts": TEXTS, "max_frames": MAX_FRAMES})
 
+    jcfg1, _ = full_cfg(jax_cfg("full"), pad_to_multiple=1)
+    enc = dataclasses.replace(
+        jcfg1.model.encoder, seq_parallel_axis="model",
+        attention=dataclasses.replace(jcfg1.model.encoder.attention,
+                                      chunk_length=4))
+    split = dataclasses.replace(jcfg1, model=dataclasses.replace(
+        jcfg1.model, encoder=enc))
+    cases.append({"kind": "synth", "name": "synth_sp",
+                  "config": JC.to_dict(split), "params": "synth/p", "mp": 2,
+                  "texts": SP_TEXTS, "max_frames": MAX_FRAMES})
+
     work = tmp_path_factory.mktemp("torch_parallel_serving")
     procs = spawn(work, 2, cases, inputs)
     try:   # the JAX side while the ranks run
         return _references(want, jp, cfg, tokens, mask, budgets, jcfg,
-                           sp), collect(work, procs)
+                           sp, jcfg1), collect(work, procs)
     except BaseException:
         collect(work, procs)
         raise
 
 
-def _references(want, jp, cfg, tokens, mask, budgets, jcfg, sp):
+def _references(want, jp, cfg, tokens, mask, budgets, jcfg, sp, jcfg1):
     ref = {}
     for name, (c, p, memory, m, mode) in want.items():
         ref[name] = JD.decode_greedy(p, c, memory, m, MAX_FRAMES,
@@ -118,6 +136,8 @@ def _references(want, jp, cfg, tokens, mask, budgets, jcfg, sp):
                                   stop_threshold=2.0,
                                   rng=jax.random.PRNGKey(0))
     ref["synth"] = JSynth(jcfg, sp, max_frames=MAX_FRAMES).text_to_mel(TEXTS)
+    ref["synth_sp"] = JSynth(jcfg1, sp,
+                             max_frames=MAX_FRAMES).text_to_mel(SP_TEXTS)
     return ref
 
 
@@ -152,3 +172,18 @@ def test_synthesizer_dp_pads_and_matches_jax(runs):
         assert out["synth/mel"].shape == want_mel.shape  # padding trimmed
         np.testing.assert_array_equal(out["synth/lengths"], want_len)
         assert scaled_err(out["synth/mel"], want_mel) < TOL
+
+
+def test_synthesizer_seq_parallel_encoder_pads_and_matches_jax(runs):
+    """The encoder's sequence split over 2 model ranks, the tokens of an
+    odd length padded to an even one: mel and lengths equal JAX's
+    one-device Synthesizer's (masked padding changes no value)."""
+    from rtts.text import encode_batch
+
+    ref, outs = runs
+    want_mel, want_len = ref["synth_sp"]
+    tokens, _ = encode_batch(SP_TEXTS, pad_to_multiple=1)
+    assert tokens.shape[1] % 2 == 1   # the encoder had to pad
+    for out in outs:
+        np.testing.assert_array_equal(out["synth_sp/lengths"], want_len)
+        assert scaled_err(out["synth_sp/mel"], want_mel) < TOL

@@ -17,7 +17,16 @@ WORKDIR over gloo, run every case in order, and each writes
 - ``decode``: ``decode_greedy`` of given encoder memory on tensor-parallel
   weights, with given LSH rotations for every head;
 - ``synth``: ``Synthesizer(mesh=...).text_to_mel``;
-- ``serve_batch``: ``serve_batch`` on tensor-parallel weights.
+- ``serve_batch``: ``serve_batch`` on tensor-parallel weights;
+- ``seq_attn``: sequence-parallel attention on the model group, the full
+  sublayer (its output and the gradients of x and the projections) or the
+  LSH core on the rank's rows (its rows of the output and of the
+  gradients of qk and v), for the loss sum(out * wt);
+- ``stack``: ``stack_apply`` of a stack with ``seq_parallel_axis`` or
+  ``pipeline_axis`` over a (data, model) mesh, a data rank on its batch
+  rows: its rows of the output and of the gradients of x and the memory,
+  and every parameter's gradient summed over the data group, for the loss
+  sum(y * wt).  LSH layers hash with the given rotations.
 """
 
 from __future__ import annotations
@@ -42,10 +51,16 @@ from rtts_torch.infer.decode import decode_greedy  # noqa: E402
 from rtts_torch.infer.serving import serve_batch  # noqa: E402
 from rtts_torch.infer.synthesize import Synthesizer  # noqa: E402
 from rtts_torch.models import reformer_tts as TM  # noqa: E402
-from rtts_torch.parallel.collectives import batch_shard  # noqa: E402
+from rtts_torch.attention.full import Attention  # noqa: E402
+from rtts_torch.models.stack import Stack, stack_apply  # noqa: E402
+from rtts_torch.parallel.collectives import (all_reduce_flat,  # noqa: E402
+                                             batch_shard)
+from rtts_torch.parallel.seq_parallel import (  # noqa: E402
+    full_self_attention_seq_parallel, lsh_attention_seq_parallel)
 from rtts_torch.parallel.mesh import (initialize_distributed,  # noqa: E402
                                       make_mesh)
 from rtts_torch.parallel.serving import shard_for_serving  # noqa: E402
+from rtts_torch.parallel.sharding import whole_stacks  # noqa: E402
 from rtts_torch.parallel.training import MeshTraining  # noqa: E402
 from rtts_torch.train.checkpoint import write_checkpoint  # noqa: E402
 from rtts_torch.train.optim import make_optimizer  # noqa: E402
@@ -81,8 +96,11 @@ def run_train(case, inputs, work, rank):
             for name in ("encoder", "decoder")})
     mesh = _mesh(case)
     optimizer = make_optimizer(TC.from_dict(TC.OptimConfig, case["optim"]))
+    if f"{case['name']}/rot" in inputs:
+        _inject_rotations(inputs[f"{case['name']}/rot"])
     par = MeshTraining(model, mesh, zero=case.get("zero", False),
-                       tensor_parallel=mesh.model_size > 1)
+                       tensor_parallel=mesh.model_size > 1,
+                       whole=whole_stacks(cfg))
     state = par.init_state(optimizer, model)
     step_fn = make_train_step(cfg, optimizer, mesh=par)
     out = {}
@@ -154,8 +172,87 @@ def run_serve_batch(case, inputs, work, rank):
     return {f"{n}/mel": mel.numpy(), f"{n}/lengths": lengths.numpy()}
 
 
+def _inject_rotations(rot: np.ndarray) -> None:
+    """Every LSH draw returns ``rot`` (JAX's rotations of the hash seed)."""
+    TL.draw_rotations = (lambda h, d, n_hashes, half, generator, device:
+                         torch.from_numpy(rot).to(device))
+
+
+def _leaves(inputs, prefix):
+    return {k[len(prefix):].replace("/", "."): v for k, v in inputs.items()
+            if k.startswith(prefix)}
+
+
+def run_seq_attn(case, inputs, work, rank):
+    n = case["name"]
+    mesh = _mesh(case)
+    acfg = TC.from_dict(TC.AttentionConfig, case["attention"])
+    t = {k[len(n) + 1:]: torch.from_numpy(np.array(v))
+         for k, v in inputs.items() if k.startswith(n + "/")}
+    mask = t["mask"]
+    if acfg.kind == "full":
+        d_model = t["x"].shape[-1]
+        attn = Attention(d_model, acfg.num_heads, acfg.head_dim, True,
+                         device="cpu")
+        load_flat(attn, _leaves(inputs, f"{n}/p/"))
+        x = t["x"].requires_grad_()
+        with mesh:
+            out = full_self_attention_seq_parallel(
+                attn, x, mask, case["causal"], acfg,
+                dropout_rate=acfg.attention_dropout,
+                dropout_seed=case.get("seed"))
+        (out * t["wt"]).sum().backward()
+        res = {"out": out, "g/x": x.grad}
+        res.update({f"g/{k}/w": getattr(attn, k).w.grad
+                    for k in ("w_qk", "w_v", "w_o")})
+    else:
+        shard = t["qk"].shape[2] // mesh.model_size
+        rows = slice(mesh.model_index * shard, (mesh.model_index + 1) * shard)
+        qk = t["qk"][:, :, rows].clone().requires_grad_()
+        v = t["v"][:, :, rows].clone().requires_grad_()
+        with mesh:
+            out = lsh_attention_seq_parallel(
+                qk, v, acfg, mask, case["causal"], t["rot"],
+                exchange=case["exchange"])
+        (out * t["wt"][:, :, rows]).sum().backward()
+        res = {"out": out, "g/qk": qk.grad, "g/v": v.grad}
+    return {f"{n}/{k}": v.detach().numpy() for k, v in res.items()}
+
+
+def run_stack(case, inputs, work, rank):
+    n = case["name"]
+    mesh = _mesh(case)
+    cfg = TC.from_dict(TC.ReformerStackConfig, case["stack"])
+    cross = f"{n}/memory" in inputs
+    stack = load_flat(Stack(cfg, cross, device="cpu"),
+                      _leaves(inputs, f"{n}/p/"))
+    if f"{n}/rot" in inputs:
+        _inject_rotations(inputs[f"{n}/rot"])
+    t = {k: torch.from_numpy(np.array(inputs[f"{n}/{k}"]))
+         for k in ("x", "mask", "wt", "memory", "memory_mask")
+         if f"{n}/{k}" in inputs}
+    total = t["x"].shape[0]
+    b = total // mesh.data_size
+    off = mesh.data_index * b
+    t = {k: v[off:off + b] for k, v in t.items()}
+    x = t["x"].requires_grad_()
+    mem = t["memory"].requires_grad_() if cross else None
+    with mesh, batch_shard(off, total, mesh.data_group):
+        y = stack_apply(stack, cfg, x, t["mask"], mem, t.get("memory_mask"))
+    (y * t["wt"]).sum().backward()
+    grads = [p.grad for p in stack.parameters()]
+    all_reduce_flat(grads, mesh.data_group)
+    res = {f"{n}/y": y, f"{n}/g/x": x.grad}
+    if cross:
+        res[f"{n}/g/memory"] = mem.grad
+    for (name, _), g in zip(stack.named_parameters(), grads):
+        res[f"{n}/g/p/{name.replace('.', '/')}"] = g
+    return {k: v.detach().numpy() for k, v in res.items()}
+
+
 CASES = {"train": run_train, "decode": run_decode, "synth": run_synth,
-         "serve_batch": run_serve_batch}
+         "serve_batch": run_serve_batch, "seq_attn": run_seq_attn,
+         "stack": run_stack}
 
 
 def main(work: pathlib.Path, rank: int, world: int) -> None:

@@ -9,15 +9,21 @@ directory it writes a 24-utterance synthetic corpus and runs, through the
 command line (``rtts_torch.cli``), ``train-tts --max-steps 3`` at
 base.yaml's full width in one process, then over CARDS ranks with
 ``RTTS_MULTIHOST=1 python -m torch.distributed.run --standalone
---nproc-per-node CARDS``: data parallel with ZeRO-1 over every rank, and
-data parallel x tensor parallel 2 when CARDS is even.  Each run's
-checkpoint (rank 0's, the whole tree) is compared leaf by leaf with the
-one process's: parameters within 1e-6 (Noam's first learning rates are at
-most 1e-7), Adam moments within 2e-2 of each leaf's largest entry (the
-gradients sum bf16 products over a batch split another way), the counts
-equal.  Prints each run's wall, the ranks' backend lines, the worst
-differences, the card's name and power limit, and one JSON line; exits
-non-zero when a run fails or differs.
+--nproc-per-node CARDS``: data parallel with ZeRO-1 over every rank, and,
+when CARDS is even, data parallel x a model group of 2 three ways: tensor
+parallel, the decoder's sequence split (``seq_parallel_axis``, allgather
+and ring), and the decoder pipelined (``pipeline_axis``, 4 microbatches,
+interleave 1 and 3; its hops nccl's point-to-point sends).  The pipelined
+runs and their one-process run set guided attention and the decoder's
+dropout to 0 and keep 8 validation utterances (the eval batch, whole on
+the first data rank's model group, must divide into data x microbatches,
+as the reference requires).  Each run's checkpoint (rank 0's, the whole tree)
+is compared leaf by leaf with its one process's: parameters within 1e-6
+(Noam's first learning rates are at most 1e-7), Adam moments within 2e-2
+of each leaf's largest entry (the gradients sum bf16 products over a
+batch split another way), the counts equal.  Prints each run's wall, the
+ranks' backend lines, the worst differences, the card's name and power
+limit, and one JSON line; exits non-zero when a run fails or differs.
 """
 
 from __future__ import annotations
@@ -37,6 +43,13 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PARAM_TOL = 1e-6
 MOMENT_TOL = 2e-2
+PIPE = ["model.guided_attention_weight=0.0", "model.decoder.dropout=0.0",
+        "model.decoder.attention.attention_dropout=0.0",
+        "dataset.val_fraction=0.34"]
+
+
+def _o(overrides):
+    return [a for o in overrides for a in ("-o", o)]
 
 
 def _run(cmd, env=None) -> float:
@@ -89,30 +102,41 @@ def main() -> int:
     try:
         _run(top + ["generate-corpus", "-n", "24"])
         _run(top + ["preprocess"])
-        print("one process:")
-        runs["one"] = {"wall": _run(top + ["train-tts", "--workdir",
-                                           str(work / "one"),
-                                           "--max-steps", "3"])}
-        meshes = {f"dp{cards}_zero": ["-o",
-                                      "experiment.mesh.zero_sharding=true"]}
+        for one, extra in (("one", []), ("one_pipe", PIPE)):
+            print(f"{one}:")
+            runs[one] = {"wall": _run(top + _o(extra) + [
+                "train-tts", "--workdir", str(work / one),
+                "--max-steps", "3"])}
+        # name -> (overrides, the one-process run it equals)
+        meshes = {f"dp{cards}_zero": (["experiment.mesh.zero_sharding=true"],
+                                      "one")}
         if cards % 2 == 0:
-            meshes[f"dp{cards // 2}xtp2"] = [
-                "-o", "experiment.mesh.model_parallel=2"]
+            dp, mp2 = cards // 2, ["experiment.mesh.model_parallel=2"]
+            meshes[f"dp{dp}xtp2"] = (mp2, "one")
+            for ex in ("allgather", "ring"):
+                meshes[f"dp{dp}xsp2_{ex}"] = (mp2 + [
+                    "model.decoder.seq_parallel_axis=model",
+                    f"model.decoder.seq_parallel_exchange={ex}"], "one")
+            for v in (1, 3):
+                meshes[f"dp{dp}xpp2_v{v}"] = (mp2 + PIPE + [
+                    "model.decoder.pipeline_axis=model",
+                    "model.decoder.pipeline_microbatches=4",
+                    f"model.decoder.pipeline_interleave={v}"], "one_pipe")
         env = dict(os.environ, RTTS_MULTIHOST="1", OMP_NUM_THREADS="1")
-        for name, extra in meshes.items():
+        for name, (extra, one) in meshes.items():
             print(f"{name}:")
             wall = _run([sys.executable, "-m", "torch.distributed.run",
                          "--standalone", "--nproc-per-node", str(cards)]
-                        + top[1:] + extra + ["train-tts", "--workdir",
-                                             str(work / name),
-                                             "--max-steps", "3"], env)
-            worst = _compare(work / name, work / "one")
+                        + top[1:] + _o(extra) + ["train-tts", "--workdir",
+                                                 str(work / name),
+                                                 "--max-steps", "3"], env)
+            worst = _compare(work / name, work / one)
             good = (worst["params"] <= PARAM_TOL
                     and worst["moments"] <= MOMENT_TOL)
             ok = ok and good
             runs[name] = {"wall": wall, **worst, "ok": good}
             print(f"  {name}: {wall:.1f} s (one process "
-                  f"{runs['one']['wall']:.1f} s); params max |diff| "
+                  f"{runs[one]['wall']:.1f} s); params max |diff| "
                   f"{worst['params']:.3e} (tol {PARAM_TOL:g}), moments "
                   f"{worst['moments']:.3e} of their leaf's largest (tol "
                   f"{MOMENT_TOL:g}): {'equal' if good else 'DIFFER'}")
