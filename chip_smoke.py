@@ -163,11 +163,11 @@ phase; every phase raises on failure:
    the encoder's K4 and K7 launches (6 each), decode frames/s over the
    first 512 frames in that mode, a profile
    of 64 steps at group 4096 (idle share), and the per-step time of
-   kv_lsh_chunk against kv_full at groups 1024, 4096 and 8191 with caches
+   kv_lsh_chunk against kv_full at groups 1024 and 8191 with caches
    filled from a seed, in turns;
 27. serving-fast: ``serving_fast.yaml`` as shipped (kv_full, e4m3,
    staged): the Synthesizer answers 8 sentences (K4, K7 at the encoder, K2
-   at the vocoder); then b8 x 256 tokens x 512 frames with the e4m3 and
+   at the vocoder); then b8 x 256 tokens x 256 frames with the e4m3 and
    the compute-dtype cache, staged and not, in turns: frames/s, the
    relative mel L1 of e4m3 against compute, staged against not;
 28. parity-local: K4/K5 on ``parity_local.yaml``'s local layers (b8 h4,
@@ -185,12 +185,14 @@ phase; every phase raises on failure:
    steps (the stop check);
 30. serving: ``base.yaml`` at full width (prenet dropout off, stop 2.0)
    on ``rtts/bench.py``'s serving workloads: (a) ``Synthesizer.
-   serve_continuous(vocode="batched")`` on 16 requests of 128/256/512/1024
-   frames in ``bench_continuous``'s arrival order, 8 slots, segments of
-   64 (16 waveforms of their lengths, at most one host synchronization a
+   serve_continuous(vocode="batched")`` on 8 requests of 128/256/512/1024
+   frames in ``bench_continuous``'s arrival order, 4 slots, segments of
+   64 (8 waveforms of their lengths, at most one host synchronization a
    boundary beside one lengths read and one audio copy a class, K1 and
-   K2 launches); (b) ``ServingEngine`` on the same requests (frames/s,
-   p50/p95 completion latency, lengths equal and mel L1 against (a)); (c)
+   K2 launches); (b) ``ServingEngine`` on the same requests, more than
+   its slots, so that freed slots are refilled from the queue (at least
+   one refill; frames/s, p50/p95 completion latency, lengths equal and
+   mel L1 against (a)); (c)
    bucketed ``serve`` against pad-to-max ``text_to_mel`` at 1024 frames
    (frames/s, mel L1); (d) ``StreamingSynthesizer`` at batch 1 x 512
    frames in chunks of 32, 64, 128 (time to first audio, at most one
@@ -210,7 +212,7 @@ phase; every phase raises on failure:
    launches a step), ``predict`` with both checkpoints (two texts, 256
    frames) inside ``rtts_torch.utils.profiling.trace``, whose Chrome trace
    must name K1's and K2's kernels, and ``serve --strategy continuous``
-   (8 texts); each verb's wall and launches; then ``python -m
+   (8 texts, 256 frames); each verb's wall and launches; then ``python -m
    rtts_torch.cli ... predict`` in a subprocess with ``jax``, ``rtts``,
    ``click`` and ``yaml`` unimportable, which must exit 0 and write finite
    wavs;
@@ -254,7 +256,24 @@ phase; every phase raises on failure:
    lengths and mel against one process, the encoder's K1 at its rank's
    q_offset; (e) K1 and K3 at q_offset 512 (b8 h8 Lq512 Lk1024, causal +
    self + pad) and K7 at (2, 8, 4, 8192) against their plain versions,
-   timed, with their bounds.
+   timed, with their bounds;
+34. export (run after 31, on its checkpoints, before 32): (a) ``python -m
+   rtts_torch.cli export`` of base.yaml at b8, 128 tokens, 128 frames,
+   kv_full (``torch.export`` programs, ``rtts_torch/infer/export.py``);
+   ``ExportedSynthesizer`` on the 8 sentences against the live
+   Synthesizer on the same checkpoints and seed (lengths equal, mel within
+   1e-2, K1 6 launches in the encode, as live); the vocoder artifact
+   against ``squeezewave.infer`` on the same padded mels with z from a
+   generator seeded 0; ``predict --from-export`` of the 8 sentences in a
+   process that cannot import the model code, the decode, the live
+   Synthesizer, the trainers or JAX (K1 6, K2 96, wavs of length x hop);
+   (b) ``serving_fast.yaml`` with ``use_pallas_ffn`` on both stacks, 8
+   sentences x 64 frames: the artifact's encode launches K4, K6 and K7 as
+   often as the live one's (6 each), lengths equal, mel within 1e-2; (c) the host cost of a call through
+   the ``rtts::`` operator against the launcher directly, K1 at b8 h8 L256
+   and K2 at (8, 2048, 128); each artifact-launched kernel at the
+   artifact's shape through its operator against its plain version, timed,
+   with its bound.
 
 Prints a JSON line of per-kernel results, each entry at one shape (K1 at
 three: ``flash`` at serving, ``flash_train`` at base.yaml's decoder,
@@ -271,7 +290,10 @@ rank of (a)), ``flash_train_tp``, ``flash_bwd_dkv_tp``, ``flash_bwd_dq_tp``
 (b8 h4, serving_fast's cross-attention), ``lsh_attend_tp``,
 ``lsh_attend_bwd_tp``, ``sort_by_bucket_tp`` (h4), ``ffn_fused_tp`` (d_ff
 1024), with the launches on one model rank of (c), and
-``depthwise_train_dp`` (b4) with one data rank's of (d)):
+``depthwise_train_dp`` (b4) with one data rank's of (d); phase 33's
+``*_sp``; and phase 34's ``flash_export``, ``depthwise_export``,
+``lsh_attend_export``, ``ffn_fused_export``, ``sort_by_bucket_export``,
+each with its launches from an artifact):
 time by
 the events loop,
 device time from ``torch.profiler``'s kernel events, plain time, bound,
@@ -318,6 +340,7 @@ from rtts_torch.data import read_clip
 from rtts_torch.infer import decode as TD
 from rtts_torch.infer.decode import decode_greedy
 from rtts_torch.infer.denoiser import Denoiser, denoise
+from rtts_torch.infer.export import ExportedSynthesizer, export_synthesizer
 from rtts_torch.infer.serving import ServingEngine, serve_batch, serve_pool
 from rtts_torch.infer.streaming import StreamingSynthesizer
 from rtts_torch.infer.synthesize import Synthesizer
@@ -3129,7 +3152,7 @@ LOCAL_CASE = (8, 4, 1, 256, 32, True, 1, 0,
 _DECODE_KERNELS = (flash_attend, lsh_attend_fwd, sort_by_bucket,
                    depthwise_conv1d)
 # the kv_lsh_chunk / kv_full crossover: per-step time at these groups
-CROSSOVER_STEPS = (1024, 4096, 8191)
+CROSSOVER_STEPS = (1024, 8191)
 
 
 def serving_config(base, **model_overrides) -> Config:
@@ -3234,7 +3257,7 @@ def phase_serving_longform():
     K7 launches; decode frames/s over the first ``LONGFORM_DECODE_FRAMES``
     in that mode; the device's idle share over 64 steps at
     group 4096; and the per-step time of kv_lsh_chunk against kv_full at
-    groups 1024, 4096 and 8191 with caches filled from a seed, in turns
+    groups 1024 and 8191 with caches filled from a seed, in turns
     (chunk, full, full, chunk)."""
     cfg = serving_config(LONGFORM_CONFIG)
     mcfg = cfg.model
@@ -3299,9 +3322,10 @@ def phase_serving_fast():
     """configs/serving_fast.yaml as shipped (kv_full, e4m3 caches, staged
     "auto" on at 1024 groups): the Synthesizer answers 8 sentences, with
     the encoder's K4/K7 and the vocoder's K2 launches; then b8 x 256
-    tokens x 512 frames (stop 2.0) with the e4m3 and the compute-dtype
-    cache, each staged and not, in turns (A B C D D C B A): decode
-    frames/s, and the relative mel L1 of e4m3 against compute."""
+    tokens x 256 frames (stop 2.0; staged from 256 groups) with the e4m3
+    and the compute-dtype cache, each staged and not, in turns (A B C D D
+    C B A): decode frames/s, and the relative mel L1 of e4m3 against
+    compute."""
     cfg = serving_config(SERVING_FAST_CONFIG)
     mcfg = cfg.model
     _require(TD._auto_mode(mcfg, 1024) == "kv_full"
@@ -3312,11 +3336,12 @@ def phase_serving_fast():
     syn = Synthesizer(cfg, tts, voc, max_frames=1024)
     _reset_decode_counts()
     t0 = time.perf_counter()
-    wavs = syn(SENTENCES)
+    # what syn(SENTENCES) runs, with the lengths kept
+    mel, lengths = syn.text_to_mel(SENTENCES)
+    wavs = [syn.mel_to_audio(m, int(n)) for m, n in zip(mel, lengths)]
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts = _decode_counts()
-    _, lengths = syn.text_to_mel(SENTENCES)
     _check_wavs(wavs, lengths, cfg.vocoder.hop_length, len(SENTENCES))
     n_enc = mcfg.encoder.num_layers
     _require(counts["lsh_attend"] >= n_enc
@@ -3330,7 +3355,7 @@ def phase_serving_fast():
     tokens, mask = _bench_inputs(cfg, 8, 256)
     with torch.no_grad():
         memory = M.encode(syn.tts, mcfg, tokens, mask)
-    frames = 512
+    frames = 256
     variants = [(kv, staged) for kv in ("float8_e4m3fn", "compute")
                 for staged in (True, False)]
     walls = {v: [] for v in variants}
@@ -3548,11 +3573,14 @@ def phase_decode_syncs():
 # -- phase 30: the serving surfaces -------------------------------------------
 
 # rtts/bench.py's serving workloads: bench_continuous's and bench_serving's
-# true lengths (pinned by their budgets at stop threshold 2.0), 4 requests
-# each, 8 slots, segments of 64 frames; bench_latency's streaming (batch 1,
-# 512 frames, three chunk sizes)
+# true lengths (pinned by their budgets at stop threshold 2.0), 2 requests
+# each, 4 slots (fewer than the requests: the engine refills freed slots),
+# segments of 64 frames; bench_latency's streaming (batch 1, 512 frames,
+# three chunk sizes).  K1 and K2 are timed at 8 rows, the admission encode
+# and batched vocode of 8 slots, as in every PR since the phase began.
 SERVE_LENGTHS = (128, 256, 512, 1024)
-SERVE_PER_LENGTH, SERVE_SLOTS, SERVE_SEGMENT = 4, 8, 64
+SERVE_PER_LENGTH, SERVE_SLOTS, SERVE_SEGMENT = 2, 4, 64
+SERVE_TIMED_ROWS = 8
 FRAMES_PER_TOKEN = 8.0          # Synthesizer.predict_frames' default
 STREAM_FRAMES, STREAM_CHUNKS = 512, (32, 64, 128)
 # two bf16 serving surfaces on the same requests, mean |a - b| over mean
@@ -3696,7 +3724,16 @@ def phase_serving():
                         suppress_dispatch_warning=True)
     ids = [eng.submit_tokens(tokens[i:i + 1], mask[i:i + 1], n)
            for i, n in enumerate(workload)]
-    done_at = {}
+    done_at, fills = {}, []
+    fill_slots = eng._fill_slots
+
+    def counted_fill():
+        queued = len(eng.queue)
+        fill_slots()
+        if len(eng.queue) < queued:
+            fills.append(queued - len(eng.queue))
+
+    eng._fill_slots = counted_fill
 
     def drain():
         while not eng.idle:
@@ -3711,14 +3748,18 @@ def phase_serving():
     res = [eng.results[i] for i in ids]
     _require([n for _, n in res] == workload, "engine lengths")
     l1 = [_l1(row[:n], rows[i][:n]) for i, (row, n) in enumerate(res)]
-    print(f"[serving] (b) ServingEngine, the same {len(ids)} requests: wall "
-          f"{eng_s:.3f} s = {sum(workload) / eng_s:.1f} frames/s, {eng.t} "
-          f"global steps, completion latency p50 "
+    print(f"[serving] (b) ServingEngine, the same {len(ids)} requests in "
+          f"{SERVE_SLOTS} slots: wall {eng_s:.3f} s = "
+          f"{sum(workload) / eng_s:.1f} frames/s, {eng.t} global steps, "
+          f"admissions {fills} (the first fills every slot, the rest "
+          f"refill freed ones), completion latency p50 "
           f"{np.percentile(lat, 50):.3f} s p95 {np.percentile(lat, 95):.3f} "
           f"s, {eng_syncs} synchronizations flagged (its harvests wait on "
           f"events); mel L1 against (a): max {max(l1):.3e}, mean "
           f"{np.mean(l1):.3e} (tol {SERVE_L1_TOL:g})")
     _require(max(l1) <= SERVE_L1_TOL, "the engine and serve_pool disagree")
+    _require(len(fills) > 1 and sum(fills) == len(ids),
+             f"the engine admitted {fills}: no freed slot was refilled")
     del eng, res, rows
 
     # (c) bucketed serve against pad-to-max
@@ -3798,8 +3839,8 @@ def phase_serving():
     _require(err <= KERNEL_TOL[torch.float32] and n_dw > 0,
              "streaming vocoding disagrees")
     del syn32
-    times = _serve_kernel_times([tokens.shape[1]] * SERVE_SLOTS,
-                                (SERVE_SLOTS, max(SERVE_LENGTHS) * hop
+    times = _serve_kernel_times([tokens.shape[1]] * SERVE_TIMED_ROWS,
+                                (SERVE_TIMED_ROWS, max(SERVE_LENGTHS) * hop
                                  // cfg.vocoder.n_group, 128))
     del syn, ss, tts, voc
     torch.cuda.empty_cache()
@@ -4130,7 +4171,7 @@ def phase_cli():
 
         run("serve", ["serve", "--strategy", "continuous"] + [
             arg for text in SENTENCES for arg in ("--text", text)] + ckpts
-            + ["--max-frames", "512", "--out", str(work / "serve")])
+            + ["--max-frames", "256", "--out", str(work / "serve")])
         _require(launches["serve"]["flash"] > 0
                  and launches["serve"]["depthwise"] > 0,
                  f"serve launched {launches['serve']}")
@@ -4161,6 +4202,335 @@ def phase_cli():
         f"{k} {v:.2f}" for k, v in walls.items()) + "; launches "
         + ", ".join(f"{k} {v}" for k, v in launches.items()))
     return work, one_process
+
+
+# -- 34: deployment export --------------------------------------------------------
+
+# (a) base.yaml's artifact: b8 (the 8 sentences, one chunk), tokens padded
+# to 128 (what the live Synthesizer pads them to), 128 frames, kv_full;
+# (b) serving_fast.yaml with K6 on both stacks, 64 frames
+EXPORT_BATCH = 8
+EXPORT_TOKENS = 128
+EXPORT_FRAMES = 128
+EXPORT_FAST_FRAMES = 64
+# the artifact's mel against the live Synthesizer's, max abs: the same
+# kernels on the same inputs in the same order, so equal bits are expected
+EXPORT_MEL_TOL = 1e-2
+# ``python -m rtts_torch.cli predict --from-export`` in a process that
+# cannot import the model code, the decode, the live Synthesizer, the
+# trainers, JAX or the JAX package; argv: the output .json, then the
+# command line's.  It counts K1 and K2 over the verb
+EXPORT_BLOCKED = r"""
+import json
+import sys
+for name in ("jax", "rtts", "rtts_torch.models", "rtts_torch.infer.decode",
+             "rtts_torch.infer.synthesize", "rtts_torch.train"):
+    sys.modules[name] = None
+from rtts_torch import cli
+from rtts_torch.ops.depthwise_conv import depthwise_conv1d
+from rtts_torch.ops.flash_attention import flash_attend
+status = cli.main(sys.argv[2:])
+with open(sys.argv[1], "w") as f:
+    json.dump({"status": status, "k1": flash_attend.launches,
+               "k2": depthwise_conv1d.launches}, f)
+"""
+
+
+def _export_counts():
+    return {"flash": flash_attend.launches,
+            "lsh_attend": lsh_attend_fwd.launches,
+            "sort_by_bucket": sort_by_bucket.launches,
+            "ffn_fused": ffn_fused.launches,
+            "depthwise": depthwise_conv1d.launches}
+
+
+def _reset_export_counts():
+    for fn in (flash_attend, lsh_attend_fwd, sort_by_bucket, ffn_fused,
+               depthwise_conv1d):
+        fn.launches = 0
+
+
+def _export_base(work: pathlib.Path) -> dict:
+    """(a): ``export`` of phase 31's checkpoints; the artifact against the
+    live Synthesizer (mel, lengths, K1) and its vocoder against
+    ``squeezewave.infer``; ``predict --from-export`` of the 8 sentences in
+    a process that cannot import the model code (K1, K2, the wavs).  ->
+    the launches an artifact made."""
+    base_yaml = ROOT / "configs" / "base.yaml"
+    out = work / "export"
+    top = ["-c", str(base_yaml), "-o", f"dataset.data_dir={work / 'data'}"]
+    ckpts = ["--tts-ckpt", str(work / "tts" / "checkpoints"),
+             "--vocoder-ckpt", str(work / "voc" / "checkpoints")]
+    t0 = time.perf_counter()
+    status = CLI.main(top + ["export"] + ckpts + [
+        "--out", str(out), "--batch-sizes", str(EXPORT_BATCH),
+        "--token-len", str(EXPORT_TOKENS), "--max-frames", str(EXPORT_FRAMES),
+        "--mode", "kv_full"])
+    export_s = time.perf_counter() - t0
+    _require(status == 0, f"rtts_torch.cli export exited {status}")
+    with open(out / "manifest.json") as f:
+        manifest = json.load(f)
+    sizes = {p.name: p.stat().st_size / 2**20 for p in out.glob("*.pt2")}
+    print(f"[export] (a) base.yaml export in {export_s:.1f} s: device "
+          f"{manifest['device']}, torch {manifest['torch_version']}, "
+          f"artifacts (MiB) " + ", ".join(f"{k} {v:.1f}"
+                                         for k, v in sorted(sizes.items())))
+    _require(manifest["device"] == "cuda" and sorted(manifest["artifacts"])
+             == [f"{k}_b{EXPORT_BATCH}" for k in ("encoder", "finish",
+                                                  "step", "vocoder")],
+             f"the export wrote {sorted(manifest['artifacts'])} for "
+             f"{manifest['device']}")
+
+    cfg = from_dict(Config, BASE_CONFIG)
+    n_enc, voc = cfg.model.encoder.num_layers, cfg.vocoder
+    syn = CLI._load_synthesizer(cfg, str(work / "tts" / "checkpoints"),
+                                str(work / "voc" / "checkpoints"),
+                                EXPORT_FRAMES, "kv_full", "cuda")
+    syn.staged = False          # the artifact's caches are unstaged
+    _reset_export_counts()
+    t0 = time.perf_counter()
+    mel, lengths = syn.text_to_mel(SENTENCES, seed=0)
+    live_s = time.perf_counter() - t0
+    live = _export_counts()
+    exp = ExportedSynthesizer(str(out))
+    walls = []
+    for _ in range(2):          # the first call loads the programs
+        _reset_export_counts()
+        t0 = time.perf_counter()
+        got, got_len = exp.text_to_mel(SENTENCES, seed=0)
+        walls.append(time.perf_counter() - t0)
+    art = _export_counts()
+    err = float(np.abs(got - mel).max())
+    print(f"[export] (a) text_to_mel b{EXPORT_BATCH} x {EXPORT_FRAMES} "
+          f"frames (every row to its stop): live {live_s:.3f} s (after "
+          f"phase 31's warm-up), the artifact {walls[0]:.3f} s with its "
+          f"load, {walls[1]:.3f} s loaded; lengths {got_len.tolist()}, live "
+          f"{lengths.tolist()}; mel max abs difference {err:.3e} (tol "
+          f"{EXPORT_MEL_TOL:g}); K1 {art['flash']} in the encode (live "
+          f"{live['flash']})")
+    _require(np.array_equal(got_len, lengths) and err <= EXPORT_MEL_TOL,
+             "the artifact's mel is not the live Synthesizer's")
+    _require(art["flash"] == n_enc == live["flash"],
+             f"the artifact launched K1 {art['flash']} times, want {n_enc}")
+
+    padded = np.stack([np.pad(m[:n], ((0, EXPORT_FRAMES - n), (0, 0)))
+                       for m, n in zip(mel, lengths)])
+    wavs = exp.vocode(list(mel), [int(n) for n in lengths])
+    with torch.no_grad():
+        ref = SW.infer(syn.vocoder, voc, torch.as_tensor(padded,
+                                                         device="cuda"),
+                       generator=torch.Generator("cuda").manual_seed(0))
+    ref = ref.float().cpu().numpy()
+    voc_err = max(float(np.abs(w - r[:int(n) * voc.hop_length]).max())
+                  for w, r, n in zip(wavs, ref, lengths))
+    print(f"[export] (a) the vocoder artifact against squeezewave.infer on "
+          f"the same padded mels, z from a generator seeded 0: max abs "
+          f"{voc_err:.3e}")
+    _require(voc_err <= KERNEL_TOL[torch.bfloat16],
+             "the vocoder artifact is not squeezewave.infer")
+    del syn, exp
+    torch.cuda.empty_cache()
+
+    # predict --from-export with the model code unimportable: the 8
+    # sentences, one encode and one batched vocoder pass
+    counts = work / "export_counts.json"
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", EXPORT_BLOCKED, str(counts)] + top + [
+            "predict", "--from-export", str(out), "--out",
+            str(work / "predict_export")] + [
+            arg for text in SENTENCES for arg in ("--text", text)],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    run_s = time.perf_counter() - t0
+    _require(proc.returncode == 0, f"predict --from-export's process "
+             f"failed: {proc.stderr[-3000:]}")
+    with open(counts) as f:
+        run = json.load(f)
+    samples = _cli_wavs(work / "predict_export", len(SENTENCES))
+    print(f"[export] (a) python -m rtts_torch.cli predict --from-export, "
+          f"{len(SENTENCES)} texts, the model code unimportable: exit "
+          f"{run['status']} in {run_s:.1f} s with the process's start; K1 "
+          f"{run['k1']}, K2 {run['k2']}; wavs of {samples} samples")
+    _require(run["status"] == 0 and run["k1"] == n_enc
+             and run["k2"] == voc.n_flows * voc.wn_layers,
+             f"predict --from-export launched K1 {run['k1']} and K2 "
+             f"{run['k2']} times, want {n_enc} and "
+             f"{voc.n_flows * voc.wn_layers}")
+    _require(samples == [int(n) * voc.hop_length for n in lengths],
+             "predict --from-export's wavs are not length x hop")
+    return {"flash_export": run["k1"], "depthwise_export": run["k2"]}
+
+
+def _export_serving_fast(work: pathlib.Path) -> dict:
+    """(b): serving_fast.yaml with K6 on both stacks, random weights: the
+    artifact's encode launches K4, K6 and K7 as often as the live one."""
+    data = copy.deepcopy(SERVING_FAST_CONFIG)
+    for stack in ("encoder", "decoder"):
+        data["model"][stack].update(K6_ON)
+    cfg = serving_config(data, stop_threshold=2.0)
+    tts = M.init(cfg.model, torch.Generator().manual_seed(SEED_TTS), "cuda")
+    syn = Synthesizer(cfg, tts, max_frames=EXPORT_FAST_FRAMES, staged=False)
+    tokens = syn._tokens(SENTENCES)[0].shape[1]
+    out = work / "export_fast"
+    t0 = time.perf_counter()
+    export_synthesizer(syn, str(out), batch_sizes=(EXPORT_BATCH,),
+                       token_len=tokens)
+    export_s = time.perf_counter() - t0
+    _reset_export_counts()
+    mel, lengths = syn.text_to_mel(SENTENCES, seed=0)
+    live = _export_counts()
+    exp = ExportedSynthesizer(str(out))
+    _reset_export_counts()
+    got, got_len = exp.text_to_mel(SENTENCES, seed=0)
+    art = _export_counts()
+    err = float(np.abs(got - mel).max())
+    n_enc = cfg.model.encoder.num_layers
+    print(f"[export] (b) serving_fast.yaml + use_pallas_ffn, b{EXPORT_BATCH}"
+          f" x {tokens} tokens x {EXPORT_FAST_FRAMES} frames: export "
+          f"{export_s:.1f} s; launches live {live}, artifact {art}; mel max "
+          f"abs difference {err:.3e} (tol {EXPORT_MEL_TOL:g})")
+    _require(art == live and all(art[k] == n_enc for k in (
+        "lsh_attend", "sort_by_bucket", "ffn_fused")),
+        f"the artifact launched {art}, the live encoder {live}; want "
+        f"{n_enc} each of K4, K6 and K7")
+    _require(np.array_equal(got_len, lengths)
+             and bool(np.isfinite(got).all()) and err <= EXPORT_MEL_TOL,
+             f"the serving_fast artifact's lengths or mel are off (mel max "
+             f"abs {err:.3e}, tol {EXPORT_MEL_TOL:g})")
+    del syn, tts, exp
+    torch.cuda.empty_cache()
+    return {"lsh_attend_export": art["lsh_attend"],
+            "sort_by_bucket_export": art["sort_by_bucket"],
+            "ffn_fused_export": art["ffn_fused"]}
+
+
+def _op_route_cost() -> None:
+    """(c): the host cost of a kernel call through its operator against a
+    direct launcher call, by CUDA events over back-to-back calls (where the
+    host is slower than the device, the events time the host)."""
+    bf = torch.bfloat16
+    (q, k, v, _), kw = _flash_case(8, 8, 256, 256, bf)
+    args = (q, k, v, None, False, True, 1.0, 0, 0.0, 0, 0, 0, None)
+    x, w, b = _dw_case((8, 2048, 128), 3, bf, torch.float32)
+    for name, op, direct in (
+            ("K1 flash b8 h8 L256", lambda: torch.ops.rtts.flash_fwd(*args),
+             lambda: flash_fwd(*args)),
+            ("K2 depthwise (8, 2048, 128)",
+             lambda: torch.ops.rtts.depthwise_conv1d(x, w, b),
+             lambda: DW.depthwise_conv1d_kernel(x, w, b))):
+        op_ms, direct_ms = _interleaved_ms((op, direct), 200)
+        print(f"[export] (c) {name}: through the operator {op_ms:.4f} ms a "
+              f"call, the launcher directly {direct_ms:.4f} ms; the "
+              f"operator's cost {1e3 * (op_ms - direct_ms):.1f} us a call")
+
+
+def _export_kernel_times(launches: dict) -> dict:
+    """Each kernel an artifact launched, at the shape the artifact gives
+    it, through its operator: its error against its plain version, times
+    and bound."""
+    bf = torch.bfloat16
+    times = {}
+    lens = [int(n) for n in encode_batch(SENTENCES, cleaner="english",
+                                         pad_to_multiple=EXPORT_TOKENS,
+                                         max_len=512)[1].sum(1)]
+    (q, k, v, mask), kw = _flash_case(EXPORT_BATCH, 8, EXPORT_TOKENS,
+                                      EXPORT_TOKENS, bf, lens)
+    args = (q, k, v, mask, False, True, 1.0, 0, 0.0, 0, 0, 0, None)
+    op = lambda: torch.ops.rtts.flash_fwd(*args)  # noqa: E731
+    plain = lambda: flash_attend_reference(q, k, v, mask, **kw)  # noqa: E731
+    _require(_scaled_err(op()[0], plain()) <= KERNEL_TOL[bf],
+             "K1 disagrees at the artifact's shape")
+    ms, plain_ms = _kernel_ms(op, plain)
+    times["flash_export"] = dict(
+        ms=ms, plain_ms=plain_ms, library_ms=None,
+        device_ms=_device_ms(op, 100, ("flash_fwd",)),
+        max_abs_err=_abs_err(op()[0], plain()),
+        **_flash_bounds(EXPORT_BATCH, 8, EXPORT_TOKENS, EXPORT_TOKENS, 64,
+                        bf, False, True)["fwd"])
+    voc = from_dict(Config, BASE_CONFIG).vocoder
+    shape = (EXPORT_BATCH, EXPORT_FRAMES * voc.hop_length // voc.n_group,
+             voc.wn_channels)
+    x, w, b = _dw_case(shape, 3, bf, torch.float32)
+    got, want = depthwise_conv1d(x, w, b), depthwise_conv1d_reference(x, w, b)
+    _require(_scaled_err(got, want) <= KERNEL_TOL[bf],
+             "K2 disagrees at the vocoder artifact's shape")
+    times["depthwise_export"] = dict(_dw_times(shape),
+                                     max_abs_err=_abs_err(got, want))
+
+    a = SERVING_FAST_CONFIG["model"]["encoder"]["attention"]
+    case = (EXPORT_BATCH, a["num_heads"], a["num_hashes"], EXPORT_TOKENS,
+            a["chunk_length"], False, 1, 0, lens)
+    (q, k, v, _), pos, valid, _, opts = _lsh_case(*case, bf)
+    op = lambda: torch.ops.rtts.lsh_attend_fwd(  # noqa: E731
+        q, k, v, pos, valid, *opts, FA.MASK_VALUE, FA.SELF_MASK_VALUE)
+    plain = lambda: lsh_attend_chunks_reference(  # noqa: E731
+        q, k, v, pos, valid, *opts)
+    _require(_scaled_err(op()[0], plain()[0]) <= KERNEL_TOL[bf],
+             "K4 disagrees at the artifact's shape")
+    ms, plain_ms = _kernel_ms(op, plain, 100)
+    times["lsh_attend_export"] = dict(
+        ms=ms, plain_ms=plain_ms, library_ms=None,
+        device_ms=_device_ms(op, 50, ("lsh_attend_fwd",)),
+        max_abs_err=_abs_err(op()[0], plain()[0]),
+        **_lsh_bounds(*case, bf)["fwd"])
+
+    d, f = SERVING_FAST_CONFIG["model"]["d_model"], _SERVING_FAST_STACK[
+        "d_ff"]
+    x, k6_params, act = _k6_case(EXPORT_BATCH * EXPORT_TOKENS, d, f, "gelu")
+    op = lambda: torch.ops.rtts.ffn_fused(x, *k6_params, act, bf)  # noqa
+    plain = lambda: ffn_fused_reference(x, *k6_params, act, bf)  # noqa: E731
+    _require(_scaled_err(op(), plain()) <= KERNEL_TOL[bf],
+             "K6 disagrees at the artifact's shape")
+    ms, plain_ms = _kernel_ms(op, plain, 50)
+    times["ffn_fused_export"] = dict(
+        ms=ms, plain_ms=plain_ms, library_ms=None,
+        device_ms=_device_ms(op, 50, ("ffn_fused_cast", "ffn_fused_mma")),
+        max_abs_err=_abs_err(op(), plain()),
+        **_k6_bound(EXPORT_BATCH * EXPORT_TOKENS, d, f, "gelu"))
+
+    shape = (EXPORT_BATCH, a["num_heads"], a["num_hashes"], EXPORT_TOKENS)
+    buckets = _bucket_case(shape)
+    l, rows = shape[-1], buckets.numel() // shape[-1]
+    keys = buckets * l + torch.arange(l, device="cuda")
+    got = sort_by_bucket(buckets)
+    want = sort_by_bucket_reference(buckets)
+    _require(all(torch.equal(g, w) for g, w in zip(got, want)),
+             "K7 disagrees at the artifact's shape")
+    fns = (lambda: torch.ops.rtts.sort_by_bucket(buckets),
+           lambda: sort_by_bucket_reference(buckets),
+           lambda: torch.sort(keys, dim=-1))
+    ms = _interleaved_ms(fns, 100)
+    sort_work = probe.sort_bound(1 << (l - 1).bit_length(), rows)
+    times["sort_by_bucket_export"] = dict(
+        ms=ms[0], plain_ms=ms[1], library_ms=ms[2],
+        device_ms=_device_ms(fns[0], 50, ("BucketIO",)), max_abs_err=0.0,
+        **_bound(rows * l * 4 * 8, sort_work["ops"], torch.float32))
+    for name, t in times.items():
+        t["launches"] = launches[name]
+        print(f"[export] {name}: {t['ms']:.4f} ms through its operator "
+              f"(device {t['device_ms']:.4f}), plain {t['plain_ms']:.4f}, "
+              f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}), library "
+              f"{t['library_ms']}, max abs error {t['max_abs_err']:.3e}, "
+              f"{t['launches']} launches from the artifact")
+    return times
+
+
+def phase_export(work: pathlib.Path) -> dict:
+    """34: deployment export (``rtts_torch/infer/export.py``) on the card,
+    on phase 31's checkpoints: (a) base.yaml at full width, (b)
+    serving_fast.yaml with K6, (c) the operators' host cost.  Returns each
+    artifact-launched kernel's entry of the kernels line."""
+    t0 = time.perf_counter()
+    launches = _export_base(work)
+    launches.update(_export_serving_fast(work))
+    _op_route_cost()
+    times = _export_kernel_times(launches)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+    print(f"[export] phase 34 in {time.perf_counter() - t0:.1f} s on {smi}")
+    return times
 
 
 # -- 32: parallel -------------------------------------------------------------
@@ -5257,6 +5627,7 @@ def main() -> int:
     serve_launches, serve_times = phase_serving()
     work, one_process = phase_cli()
     try:
+        export_times = phase_export(work)
         par_times = phase_parallel(work, one_process)
     except BaseException:
         shutil.rmtree(work, ignore_errors=True)
@@ -5312,6 +5683,13 @@ def main() -> int:
     launches.update({k: v["launches"] for k, v in par_times.items()})
     errs.update({k: v["max_abs_err"] for k, v in par_times.items()})
     times.update(par_times)
+    # each kernel an artifact launched (phase 34): its launches from the
+    # artifact (K1 in the base.yaml encode, K2 in one batched vocoder pass,
+    # K4, K6 and K7 in the serving_fast encode), times and errors through
+    # its operator at the shape the artifact gives it
+    launches.update({k: v["launches"] for k, v in export_times.items()})
+    errs.update({k: v["max_abs_err"] for k, v in export_times.items()})
+    times.update(export_times)
     meta = {
         "flash": ("rtts_torch/csrc/flash_fwd.cu",
                   "rtts/ops/flash_attention.py:322"),
@@ -5373,6 +5751,16 @@ def main() -> int:
                             "rtts/ops/flash_attention.py:553"),
         "sort_by_bucket_sp": ("rtts_torch/csrc/bitonic_sort.cu",
                               "scripts/probe_vmem_sort.py:45"),
+        "flash_export": ("rtts_torch/csrc/flash_fwd.cu",
+                         "rtts/ops/flash_attention.py:322"),
+        "depthwise_export": ("rtts_torch/csrc/depthwise_conv.cu",
+                             "rtts/ops/depthwise_conv.py:29"),
+        "lsh_attend_export": ("rtts_torch/csrc/lsh_attend_fwd.cu",
+                              "rtts/ops/lsh_attention.py:60"),
+        "ffn_fused_export": ("rtts_torch/csrc/ffn_fused.cu",
+                             "rtts/ops/chunked_ffn.py:34"),
+        "sort_by_bucket_export": ("rtts_torch/csrc/bitonic_sort.cu",
+                                  "scripts/probe_vmem_sort.py:45"),
     }
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": rep, "launches": launches[name],

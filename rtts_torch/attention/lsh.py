@@ -29,15 +29,20 @@ Port of ``rtts/attention/lsh.py``, with its semantics:
 Random rotations come from ``draw_rotations`` and a ``torch.Generator``:
 the stack's training generator, else one device generator seeded 0 that
 the stack's layers consume in turn, or, with ``cfg.hash_seed`` set, a fresh
-generator with that seed for every layer.  JAX's Threefry draws cannot be
-reproduced, so the parity tests inject JAX's rotations through
-``draw_rotations``.
+generator with that seed for every layer.  The draw itself is
+``rtts_torch.infer.draws.draw_rotations``, which the decode's rotations
+take too.  JAX's Threefry draws cannot be reproduced, so the parity tests
+inject JAX's rotations there (encoder and decode) or through this
+module's ``draw_rotations`` (the encoder alone).  An exported encoder bakes its rotations in:
+``rotation_tape`` records the draws of an eager run and hands them out
+again, in order, while ``torch.export`` traces the same call.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
-from typing import NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -45,6 +50,7 @@ from rtts_torch.attention.full import (Attention, _len_norm, _merge_heads,
                                        _split_heads, head_span, local_heads,
                                        shared_qk_self_attention)
 from rtts_torch.config import AttentionConfig
+from rtts_torch.infer import draws
 from rtts_torch.ops import bitonic_sort as BS
 from rtts_torch.ops.flash_attention import resolve_flash_impl
 from rtts_torch.ops.lsh_attention import (  # noqa: F401 (re-exported)
@@ -81,12 +87,44 @@ def total_buckets(num_buckets) -> int:
     return out
 
 
+_TAPE: Optional[Tuple[List[torch.Tensor], bool]] = None
+
+
+@contextlib.contextmanager
+def rotation_tape(replay: Optional[List[torch.Tensor]] = None):
+    """Within the block, ``draw_rotations`` appends every draw to the
+    yielded list, or, given ``replay`` (an earlier block's list), returns
+    its tensors in order instead of drawing; a replay that does not use
+    up the list, or runs past it, raises."""
+    global _TAPE
+    tape = (list(replay) if replay is not None else [], replay is not None)
+    _TAPE = tape
+    try:
+        yield tape[0]
+    finally:
+        _TAPE = None
+    if tape[1] and tape[0]:
+        raise RuntimeError(f"rotation_tape: {len(tape[0])} recorded draws "
+                           "were not replayed")
+
+
 def draw_rotations(h: int, d: int, n_hashes: int, half: int,
                    generator: Optional[torch.Generator], device
                    ) -> torch.Tensor:
-    """(h, d, n_hashes, half) f32 standard normal rotations."""
-    return torch.randn((h, d, n_hashes, half), generator=generator,
-                       device=device, dtype=torch.float32)
+    """(h, d, n_hashes, half) f32 standard normal rotations (inside a
+    ``rotation_tape``, recorded or replayed)."""
+    if _TAPE is not None and _TAPE[1]:
+        if not _TAPE[0]:
+            raise RuntimeError("rotation_tape: more draws than recorded")
+        rot = _TAPE[0].pop(0)
+        if rot.shape != (h, d, n_hashes, half):
+            raise RuntimeError(f"rotation_tape: recorded {tuple(rot.shape)}"
+                               f", drawing {(h, d, n_hashes, half)}")
+        return rot
+    rot = draws.draw_rotations(h, d, n_hashes, half, generator, device)
+    if _TAPE is not None:
+        _TAPE[0].append(rot)
+    return rot
 
 
 def hash_vectors(vecs: torch.Tensor, num_buckets, n_hashes: int,

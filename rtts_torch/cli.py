@@ -8,8 +8,10 @@ Verbs, options, defaults and choices are the JAX package's:
 ``train-vocoder``, ``predict``, ``serve``, ``export`` and ``bench``.  The
 one difference is ``--device`` (default ``cuda``), which takes the place of
 ``--platform``: every verb that computes runs on the card unless it says
-``cpu``.  ``export``, ``predict --from-export`` and ``bench`` are not
-ported yet and raise NotImplementedError.  A config needs no PyYAML
+``cpu``.  ``export`` writes ``torch.export`` artifacts on that device
+(``rtts_torch/infer/export.py``) and ``predict --from-export`` serves from
+them on the device they were made for; ``bench`` is not ported yet and
+raises NotImplementedError.  A config needs no PyYAML
 (``rtts_torch.config.load_yaml``), and the command line needs no click.
 
 Every verb first runs ``initialize_distributed(cfg.experiment.mesh)``, as
@@ -152,15 +154,30 @@ def _not_ported(what: str, item: int, name: str):
 
 def _predict(cfg: Config, args) -> None:
     if args.export_dir:
-        _not_ported("predict --from-export", 4, "export")
-    syn = _load_synthesizer(cfg, args.tts_ckpt, args.vocoder_ckpt,
-                            args.max_frames, args.mode, args.device)
+        from rtts_torch.infer.export import ExportedSynthesizer
+
+        syn = ExportedSynthesizer(args.export_dir)
+        sample_rate = syn.manifest["audio"]["sample_rate"]
+    else:
+        syn = _load_synthesizer(cfg, args.tts_ckpt, args.vocoder_ckpt,
+                                args.max_frames, args.mode, args.device)
+        sample_rate = cfg.dataset.audio.sample_rate
     wavs = syn(list(args.text), seed=args.seed)
-    _write_wavs(wavs, args.out_dir, cfg.dataset.audio.sample_rate)
+    _write_wavs(wavs, args.out_dir, sample_rate)
 
 
 def _export(cfg: Config, args) -> None:
-    _not_ported("export", 4, "export")
+    from rtts_torch.infer.export import export_synthesizer
+
+    syn = _load_synthesizer(cfg, args.tts_ckpt, args.vocoder_ckpt,
+                            args.max_frames, args.mode, args.device)
+    sizes = tuple(int(b) for b in str(args.batch_sizes).split(",") if b)
+    manifest = export_synthesizer(syn, args.out_dir, batch_sizes=sizes,
+                                  token_len=args.token_len)
+    print(f"wrote {len(manifest['artifacts'])} artifacts + manifest to "
+          f"{args.out_dir} (batch sizes {manifest['batch_sizes']}, "
+          f"token_len {manifest['token_len']}, max_frames "
+          f"{manifest['max_frames']}, device {manifest['device']})")
 
 
 def _serve(cfg: Config, args) -> Optional[int]:
@@ -250,7 +267,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="text to synthesize (repeatable)")
     _checkpoint_options(p)
     p.add_argument("--from-export", dest="export_dir", default=None,
-                   help="serve from an export directory (not ported yet)")
+                   help="serve from an `export` directory instead of "
+                        "checkpoints (no model code / config needed)")
     p.add_argument("--out", dest="out_dir", default="synth_out")
     p.add_argument("--max-frames", type=int, default=1024)
     p.add_argument("--seed", type=int, default=0)
@@ -258,7 +276,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="AR decode cache strategy")
 
     p = verb("export", _export,
-             "Serialize the serving graphs (not ported yet).")
+             "Serialize the serving graphs to torch.export artifacts "
+             "(.pt2, weights inside) on --device.")
     _checkpoint_options(p)
     p.add_argument("--out", dest="out_dir", default="export_out")
     p.add_argument("--max-frames", type=int, default=1024)

@@ -28,7 +28,9 @@ Self-attention caches, per ``mode``:
   equals ``kv_lsh`` while no bucket overflows.
 
 The LSH modes hash each new key with per-layer rotations drawn once per
-decode (``_decode_rotations``).  The caches are stored in
+decode (``_decode_rotations``); they and the prenet's always-on dropout
+are drawn through ``rtts_torch/infer/draws.py``, which an exported
+artifact's runner shares.  The caches are stored in
 ``cfg.kv_cache_dtype``; when that differs from the compute dtype the keys
 are stored length-normalized but unscaled and 1/sqrt(d) goes to the query
 (the reference's layout for e4m3, which it also takes for a bf16 cache
@@ -36,10 +38,13 @@ under f32 compute), and e4m3 is clipped to +-448 before the cast.  In
 eager PyTorch the read of a narrower cache materialises a compute-dtype
 copy of it every step.
 
-Reads of the full caches cover the prefix only (the reference masks the
-rows after t to -1e9, which contribute exactly zero probability), so the
-staged buffers (``staged``) change no value here: they change only how
-much memory the early steps hold.
+The step is one function of the step index ``t`` (a Python int, or the
+symbolic int of an exported step, ``rtts_torch/infer/export.py``): no
+shape depends on it.  It writes position t with ``select``/``narrow``
+and reads every full cache whole, with the positions after t masked to
+-1e9 (the reference's mask; they contribute exactly zero probability) and
+t itself to -1e5.  The staged buffers (``staged``) change no value: they
+change only how much memory the early steps hold and read.
 
 On a tensor-parallel shard (``rtts_torch/parallel/serving.py``) every
 cache holds the rank's heads, the LSH modes keep their heads' rotations
@@ -54,25 +59,23 @@ from __future__ import annotations
 
 from typing import List, NamedTuple, Optional, Tuple
 
-import numpy as np
 import torch
 
 from rtts_torch.attention import lsh as TL
 from rtts_torch.attention.full import _len_norm, head_span, local_heads
 from rtts_torch.config import ReformerTTSConfig, resolve_attention_kind
+from rtts_torch.infer import draws
 from rtts_torch.models.reformer_tts import _dtype, decode_train, postnet_apply
 from rtts_torch.models.stack import _layer_kinds
 from rtts_torch.nn.posenc import pos_table
 from rtts_torch.ops.flash_attention import MASK_VALUE, SELF_MASK_VALUE
-from rtts_torch.parallel.collectives import batch_all, reduce_from_model
+from rtts_torch.parallel.collectives import (batch_all, current_batch_shard,
+                                             reduce_from_model)
 from rtts_torch.reversible.ffn import _ffn_body
 
 MODES = ("kv_full", "kv_lsh", "kv_lsh_chunk", "kv_local")
 # the largest finite e4m3fn magnitude; past it the cast gives NaN
 E4M3_MAX = 448.0
-# the rotation draw's seed namespace, apart from the prenet dropout's
-# generator (the reference's fold-in constant)
-_ROT_KEY = 0x7FFFFFFF
 
 
 @torch.no_grad()
@@ -139,6 +142,29 @@ def _take_rows(cache: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
     return torch.gather(cache, 1, idx)
 
 
+def _write_row(cache: torch.Tensor, t, x: torch.Tensor) -> None:
+    """cache[:, t] = x (in the cache's dtype already)."""
+    cache.select(1, t).copy_(x)
+
+
+def _prefix_masks(positions: torch.Tensor, t):
+    """(keep, fill) of step t over a whole cache's ``positions`` (T,):
+    keep the positions before t; fill t itself with SELF_MASK_VALUE (no
+    self-attend) and the positions after it, not written yet, with
+    MASK_VALUE.  A step makes them once for all its layers."""
+    fill = torch.where(positions == t, SELF_MASK_VALUE, MASK_VALUE)
+    return positions < t, fill
+
+
+def _prefix_scores(scores: torch.Tensor, t, prefix=None) -> torch.Tensor:
+    """Scores (..., T) over a whole cache, masked by ``prefix`` (made here
+    when not given)."""
+    if prefix is None:
+        prefix = _prefix_masks(torch.arange(scores.shape[-1],
+                                            device=scores.device), t)
+    return torch.where(prefix[0], scores, prefix[1])
+
+
 def _proj_heads(dense, x, num_heads, cdt):
     """(B, D) -> (B, H, d)"""
     y = dense(x, cdt)
@@ -157,18 +183,17 @@ def _project(p, h_t, num_heads, cdt, kdt):
     return qk_t, v_t, _len_norm(qk_t) * scale, qk_t
 
 
-def _self_attn_step(p, h_t, k_cache, v_cache, t, num_heads, cdt):
+def _self_attn_step(p, h_t, k_cache, v_cache, t, num_heads, cdt,
+                    prefix=None):
     """One-frame shared-QK causal self-attention over the cached prefix;
-    writes position t of the caches.  h_t: (B, D) LN'd frame."""
+    writes position t of the caches.  h_t: (B, D) LN'd frame; ``prefix``
+    the step's ``_prefix_masks``."""
     _, v_t, k_t, q_s = _project(p, h_t, num_heads, cdt, k_cache.dtype)
-    k_cache[:, t] = _to_kv(k_t, k_cache.dtype)
-    v_cache[:, t] = _to_kv(v_t, v_cache.dtype)
-    scores = torch.einsum("bhd,bthd->bht", q_s,
-                          k_cache[:, :t + 1].to(cdt)).float()
-    scores[..., t] = SELF_MASK_VALUE          # no self-attend
-    probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bht,bthd->bhd", probs.to(cdt),
-                       v_cache[:, :t + 1].to(cdt))
+    _write_row(k_cache, t, _to_kv(k_t, k_cache.dtype))
+    _write_row(v_cache, t, _to_kv(v_t, v_cache.dtype))
+    scores = torch.einsum("bhd,bthd->bht", q_s, k_cache.to(cdt)).float()
+    probs = torch.softmax(_prefix_scores(scores, t, prefix), dim=-1)
+    out = torch.einsum("bht,bthd->bhd", probs.to(cdt), v_cache.to(cdt))
     return p.w_o(out.reshape(out.shape[0], -1), cdt)
 
 
@@ -179,11 +204,11 @@ def _self_attn_step_local(p, h_t, k_cache, v_cache, t, num_heads, cdt,
     whose position lies before the window (``_local_outside``)."""
     _, v_t, k_t, q_s = _project(p, h_t, num_heads, cdt, k_cache.dtype)
     slot = t % k_cache.shape[1]
-    k_cache[:, slot] = _to_kv(k_t, k_cache.dtype)
-    v_cache[:, slot] = _to_kv(v_t, v_cache.dtype)
+    _write_row(k_cache, slot, _to_kv(k_t, k_cache.dtype))
+    _write_row(v_cache, slot, _to_kv(v_t, v_cache.dtype))
     scores = torch.einsum("bhd,bwhd->bhw", q_s, k_cache.to(cdt)).float()
     scores = scores.masked_fill(outside, MASK_VALUE)
-    scores[..., slot] = SELF_MASK_VALUE
+    scores.select(-1, slot).fill_(SELF_MASK_VALUE)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhw,bwhd->bhd", probs.to(cdt), v_cache.to(cdt))
     return p.w_o(out.reshape(out.shape[0], -1), cdt)
@@ -196,7 +221,7 @@ def _local_outside(slots: torch.Tensor, t: int, chunk: int,
     lies before the window start max(0, (t//chunk - before) chunk)."""
     w_cap = slots.shape[0]
     pos = t - torch.remainder(t - slots, w_cap)
-    return pos < max(0, (t // chunk - before) * chunk)
+    return pos < torch.sym_max(0, (t // chunk - before) * chunk)
 
 
 def _hash_token(qk_t: torch.Tensor, rotations: torch.Tensor) -> torch.Tensor:
@@ -213,25 +238,24 @@ def _combine_rounds(lse, out_r):
 
 
 def _self_attn_step_lsh(p, h_t, k_cache, v_cache, b_cache, rotations, t,
-                        num_heads, cdt):
+                        num_heads, cdt, prefix=None):
     """LSH self-attention over the cached prefix with a per-round
     bucket-equality mask; b_cache (B, H, nh, T) holds each key's buckets
     (-1 before it is written).  The query's own entry always matches its
     bucket, so no round is ever fully masked."""
     qk_t, v_t, k_t, q_s = _project(p, h_t, num_heads, cdt, k_cache.dtype)
     bucket_t = _hash_token(qk_t, rotations)
-    k_cache[:, t] = _to_kv(k_t, k_cache.dtype)
-    v_cache[:, t] = _to_kv(v_t, v_cache.dtype)
-    b_cache[..., t] = bucket_t
-    scores = torch.einsum("bhd,bthd->bht", q_s,
-                          k_cache[:, :t + 1].to(cdt)).float()
-    scores[..., t] = SELF_MASK_VALUE
-    same = b_cache[..., :t + 1] == bucket_t[..., None]        # (B,H,nh,t+1)
+    _write_row(k_cache, t, _to_kv(k_t, k_cache.dtype))
+    _write_row(v_cache, t, _to_kv(v_t, v_cache.dtype))
+    b_cache.select(-1, t).copy_(bucket_t)
+    scores = torch.einsum("bhd,bthd->bht", q_s, k_cache.to(cdt)).float()
+    scores = _prefix_scores(scores, t, prefix)
+    # positions after t hold bucket -1, which no query's bucket equals
+    same = b_cache == bucket_t[..., None]                     # (B,H,nh,T)
     scores_r = torch.where(same, scores[:, :, None, :], MASK_VALUE)
     lse = torch.logsumexp(scores_r, dim=-1)                   # (B,H,nh)
     probs = torch.exp(scores_r - lse[..., None])
-    out_r = torch.einsum("bhnt,bthd->bhnd", probs.to(cdt),
-                         v_cache[:, :t + 1].to(cdt))
+    out_r = torch.einsum("bhnt,bthd->bhnd", probs.to(cdt), v_cache.to(cdt))
     out = _combine_rounds(lse, out_r)
     return p.w_o(out.reshape(out.shape[0], -1), cdt)
 
@@ -245,8 +269,8 @@ def _self_attn_step_lsh_chunk(p, h_t, k_cache, v_cache, ring, rotations, t,
     cache dtype's round trip (as kv_lsh reads it back)."""
     qk_t, v_t, k_t, q_s = _project(p, h_t, num_heads, cdt, k_cache.dtype)
     bucket_t = _hash_token(qk_t, rotations)                   # (B,H,nh)
-    k_cache[:, t] = _to_kv(k_t, k_cache.dtype)
-    v_cache[:, t] = _to_kv(v_t, v_cache.dtype)
+    _write_row(k_cache, t, _to_kv(k_t, k_cache.dtype))
+    _write_row(v_cache, t, _to_kv(v_t, v_cache.dtype))
     idx, cnt = ring
     b, h, nh, nb, cap = idx.shape
     d = qk_t.shape[-1]
@@ -272,7 +296,8 @@ def _self_attn_step_lsh_chunk(p, h_t, k_cache, v_cache, ring, rotations, t,
     # insert self at slot cnt mod C of its bucket (the oldest on overflow)
     bucket = bucket_t[..., None]
     slot = bucket * cap + torch.gather(cnt, 3, bucket) % cap
-    idx.view(b, h, nh, nb * cap).scatter_(3, slot, t)
+    idx.view(b, h, nh, nb * cap).scatter_(3, slot, torch.full_like(
+        slot, t, dtype=idx.dtype))
     cnt.scatter_add_(3, bucket, torch.ones_like(bucket, dtype=cnt.dtype))
     return p.w_o(out.reshape(out.shape[0], -1), cdt)
 
@@ -387,14 +412,6 @@ def _auto_staged(n_groups: int) -> bool:
     return n_groups >= 256
 
 
-def _rotation_seed(generator: Optional[torch.Generator]) -> int:
-    """The rotations' seed, derived from the prenet generator's seed so
-    that drawing them consumes nothing of its stream."""
-    seed = 0 if generator is None else generator.initial_seed()
-    return int(np.random.SeedSequence([seed, _ROT_KEY]).generate_state(
-        1, np.uint64)[0])
-
-
 def _decode_rotations(cfg: ReformerTTSConfig,
                       generator: Optional[torch.Generator], max_frames: int,
                       device) -> Tuple[List[torch.Tensor], int]:
@@ -406,12 +423,10 @@ def _decode_rotations(cfg: ReformerTTSConfig,
     n_groups = max_frames // cfg.reduction_factor
     nb = TL.total_buckets(a.num_buckets
                           or TL.auto_num_buckets(n_groups, a.chunk_length))
-    seed = a.hash_seed if a.hash_seed is not None else _rotation_seed(
-        generator)
-    gen = torch.Generator(device=device).manual_seed(seed)
-    return [TL.draw_rotations(a.num_heads, a.head_dim, a.num_hashes, nb // 2,
-                              gen, device)
-            for _ in range(cfg.decoder.num_layers)], nb
+    seed = a.hash_seed if a.hash_seed is not None else draws.rotation_seed(
+        0 if generator is None else generator.initial_seed())
+    return draws.decode_rotations(seed, cfg.decoder.num_layers, a.num_heads,
+                                  a.head_dim, a.num_hashes, nb, device), nb
 
 
 class _Decoder:
@@ -442,6 +457,7 @@ class _Decoder:
         self.local_spec = local_spec or (None,) * cfg.decoder.num_layers
         self.slots = {s[2]: torch.arange(s[2], device=dev)
                       for s in self.local_spec if s is not None}
+        self._positions = {}      # full caches' position indices by length
         self.k_caches, self.v_caches, self.b_caches = [], [], []
         for spec in self.local_spec:
             s = (b, first_groups if spec is None else spec[2], heads,
@@ -498,6 +514,16 @@ class _Decoder:
                 self.b_caches[i] = torch.cat([bc, bc.new_full(
                     bc.shape[:3] + (n_groups - bc.shape[3],), -1)], 3)
 
+    def _prefix(self, t, length: int):
+        """The step's ``_prefix_masks`` over a full cache of ``length``
+        positions, made at its first layer."""
+        if length not in self._masks:
+            if length not in self._positions:
+                self._positions[length] = torch.arange(
+                    length, device=self.done.device)
+            self._masks[length] = _prefix_masks(self._positions[length], t)
+        return self._masks[length]
+
     def _self_attn(self, i, p, hh, t):
         num_heads = self.cfg.decoder.attention.num_heads
         k, v, bc = self.k_caches[i], self.v_caches[i], self.b_caches[i]
@@ -510,10 +536,11 @@ class _Decoder:
             return _self_attn_step_lsh_chunk(p, hh, k, v, bc,
                                              self.rotations[i], t, num_heads,
                                              self.cdt)
+        prefix = self._prefix(t, k.shape[1])
         if self.mode == "kv_lsh":
             return _self_attn_step_lsh(p, hh, k, v, bc, self.rotations[i], t,
-                                       num_heads, self.cdt)
-        return _self_attn_step(p, hh, k, v, t, num_heads, self.cdt)
+                                       num_heads, self.cdt, prefix)
+        return _self_attn_step(p, hh, k, v, t, num_heads, self.cdt, prefix)
 
     def _layers(self, x_t, t):
         """One frame (B, D) through the decoder stack -> (y, the last cross
@@ -532,29 +559,47 @@ class _Decoder:
                            cross)
         return y, peak[0]
 
-    def step(self, t: int, live: Optional[torch.Tensor] = None) -> None:
+    def prenet_uniforms(self) -> List[torch.Tensor]:
+        """This step's prenet dropout uniforms from the decode's generator
+        (``draws.prenet_uniforms``): the whole batch's under a batch shard,
+        this rank's rows kept."""
+        pre = self.model.dec_prenet
+        b = self.prev.shape[0]
+        b_off, b_total = current_batch_shard(b)
+        u = draws.prenet_uniforms(
+            self.generator, b_total, (pre.fc1.w.shape[1], pre.fc2.w.shape[1]),
+            self.cfg.dec_prenet_dropout, self.prev.device)
+        return [x[b_off:b_off + b] for x in u]
+
+    def step(self, t: int, live: Optional[torch.Tensor] = None,
+             uniforms: Optional[List[torch.Tensor]] = None) -> None:
         """Decode group t.  ``live`` (a 0-dim bool, or None for True) gates
         the observable writes: a step that runs after every row stopped,
         inside a block of ``unroll`` steps, leaves mel, stop logits, lengths
-        and the tracker as an earlier exit would."""
+        and the tracker as an earlier exit would.  ``uniforms`` (an exported
+        step's input) replaces this step's draw of ``prenet_uniforms``."""
         model, cfg, cdt = self.model, self.cfg, self.cdt
         r, n_mels = cfg.reduction_factor, cfg.n_mels
-        h = model.dec_prenet(self.prev.to(cdt), cfg.dec_prenet_dropout,
-                             self.generator, compute_dtype=cdt)
+        self._masks = {}
+        if uniforms is None:
+            uniforms = self.prenet_uniforms()
+        h = model.dec_prenet(self.prev.to(cdt), cfg.dec_prenet_dropout, None,
+                             compute_dtype=cdt, uniforms=uniforms)
         table, alpha = pos_table(model.dec_pos)
-        h = h + alpha.to(h.dtype) * table[t].to(h.dtype)
+        h = h + alpha.to(h.dtype) * table.select(0, t).to(h.dtype)
         y, peak = self._layers(h, t)
         group = model.mel_head(y, cdt).float()
         stop_logit = model.stop_head(y, cdt)[..., 0].float()
         b = group.shape[0]
         frames = group.reshape(b, r, n_mels)
         stops = stop_logit[:, None].expand(b, r)
-        rows = slice(t * r, (t + 1) * r)
+        mel_rows = self.mel.narrow(1, t * r, r)
+        stop_rows = self.stop_logits.narrow(1, t * r, r)
         if live is not None:
-            frames = torch.where(live, frames, self.mel[:, rows])
-            stops = torch.where(live, stops, self.stop_logits[:, rows])
-        self.mel[:, rows] = frames
-        self.stop_logits[:, rows] = stops
+            frames = torch.where(live, frames, mel_rows)
+            stops = torch.where(live, stops, stop_rows)
+        mel_rows.copy_(frames)
+        stop_rows.copy_(stops)
         if self.window is not None:
             # the monotonic tracker never retreats; frozen once a row stops
             frozen = self.done if live is None else self.done | ~live
@@ -572,52 +617,92 @@ class _Decoder:
     def finish(self) -> DecodeResult:
         """Postnet over the whole buffer, then the frames past each row's
         length zeroed."""
-        cdt = self.cdt
-        residual = postnet_apply(self.model.postnet, self.mel.to(cdt),
-                                 cdt).float()
-        t_max = self.mel.shape[1]
-        frame_mask = (torch.arange(t_max, device=self.mel.device)[None, :]
-                      < self.lengths[:, None])
-        return DecodeResult((self.mel + residual) * frame_mask[..., None],
+        return DecodeResult(finish_mel(self.model, self.cfg, self.mel,
+                                       self.lengths),
                             self.lengths, self.stop_logits)
 
+    # -- the state as flat tensors (an exported step's inputs) ---------------
 
-@torch.no_grad()
-def decode_greedy(model, cfg: ReformerTTSConfig, memory: torch.Tensor,
-                  memory_mask: torch.Tensor, max_frames: int,
-                  generator: Optional[torch.Generator] = None,
-                  stop_threshold: Optional[float] = None,
-                  mode: str = "kv_full", unroll: int = 1, staged="auto",
-                  stage_min: int = 128,
-                  attn_window: Optional[Tuple[int, int]] = None
-                  ) -> DecodeResult:
-    """Greedy AR decode -> DecodeResult(mel_post (B, T_max, n_mels), lengths
-    (B,), stop_logits (B, T_max)).
+    def carried(self) -> List[torch.Tensor]:
+        """The tensors a step replaces: prev, done, lengths (and the
+        tracker with a window)."""
+        out = [self.prev, self.done, self.lengths]
+        return out + ([self.align_pos] if self.window is not None else [])
 
-    ``generator`` (on memory's device) draws the decoder prenet's always-on
-    dropout.  ``mode``: "kv_full", "kv_local", "kv_lsh", "kv_lsh_chunk" (see
-    the module docstring) or "auto" (``_auto_mode``).
+    def flat_state(self) -> List[torch.Tensor]:
+        """``carried()``, then the tensors a step writes in place: mel,
+        stop logits and every layer's caches (keys, values, then kv_lsh's
+        buckets or kv_lsh_chunk's ring and counters)."""
+        caches = []
+        for k, v, bc in zip(self.k_caches, self.v_caches, self.b_caches):
+            caches += [k, v] + ([] if bc is None else
+                                [bc] if isinstance(bc, torch.Tensor)
+                                else list(bc))
+        return self.carried() + [self.mel, self.stop_logits] + caches
 
-    ``unroll`` k: the host checks whether every row has stopped once every
-    k steps; k snaps down to the largest divisor of the first stage's group
-    count.  The port runs the k steps as a plain replay in every mode, with
-    the steps after the last stop writing nothing observable, so its
-    outputs equal unroll=1's; the reference's kv_full block decoding
-    (deferred cache writes, for XLA's buffer aliasing) differs from its
-    eager step in f32 softmax reduction length only.
+    @classmethod
+    def restore(cls, model, cfg: ReformerTTSConfig, mode: str,
+                stop_threshold: float, memory_mask, mem_k, mem_v, flat,
+                rotations=None, local_spec=None, window=None) -> "_Decoder":
+        """A decoder over given tensors, none allocated: ``memory_mask``,
+        the cross-attention K/V (``_init_mem_kv``) and the ``flat_state()``
+        of a decoder of the same config and mode (an exported step's
+        inputs, ``rtts_torch/infer/export.py``)."""
+        dec = cls.__new__(cls)
+        dec.model, dec.cfg, dec.mode = model, cfg, mode
+        dec.cdt = _dtype(cfg.compute_dtype)
+        dec.memory_mask, dec.mem_k, dec.mem_v = (memory_mask, list(mem_k),
+                                                 list(mem_v))
+        dec.generator, dec.stop_threshold = None, stop_threshold
+        dec.rotations, dec.window, dec.teacher = rotations, window, None
+        dec.local_spec = local_spec or (None,) * cfg.decoder.num_layers
+        dec.slots = {s[2]: torch.arange(s[2], device=memory_mask.device)
+                     for s in dec.local_spec if s is not None}
+        dec._positions = {}
+        flat = list(flat)
+        n = 3 + (window is not None)
+        dec.prev, dec.done, dec.lengths = flat[:3]
+        dec.align_pos = flat[3] if window is not None else None
+        dec.mel, dec.stop_logits = flat[n:n + 2]
+        rest = flat[n + 2:]
+        width = {"kv_lsh": 1, "kv_lsh_chunk": 2}.get(mode, 0)
+        dec.k_caches, dec.v_caches, dec.b_caches = [], [], []
+        for _ in range(cfg.decoder.num_layers):
+            dec.k_caches.append(rest[0])
+            dec.v_caches.append(rest[1])
+            dec.b_caches.append(None if width == 0 else rest[2] if width == 1
+                                else tuple(rest[2:4]))
+            rest = rest[2 + width:]
+        return dec
 
-    ``staged`` (True, False or "auto": from 256 groups) allocates the
-    full-prefix caches for ``stage_min`` x 2^k groups and doubles them as
-    the decode reaches them; outputs do not change (module docstring).
 
-    ``attn_window=(w_back, w_fwd)`` (tokens): each step the cross-attention
-    keeps the tokens within [peak - w_back, peak + w_fwd] of a per-row
-    tracker that follows the last cross layer's head-averaged attention
-    peak and never retreats (monotonic windowing against looping and
-    skipping).  It cannot be combined with unroll > 1, as in the
-    reference."""
-    if stop_threshold is None:
-        stop_threshold = cfg.stop_threshold
+def finish_mel(model, cfg: ReformerTTSConfig, mel: torch.Tensor,
+               lengths: torch.Tensor) -> torch.Tensor:
+    """mel (B, T, n_mels) f32 -> mel + postnet residual, the frames past
+    each row's length zeroed (``_Decoder.finish``)."""
+    cdt = _dtype(cfg.compute_dtype)
+    residual = postnet_apply(model.postnet, mel.to(cdt), cdt).float()
+    frame_mask = (torch.arange(mel.shape[1], device=mel.device)[None, :]
+                  < lengths[:, None])
+    return (mel + residual) * frame_mask[..., None]
+
+
+class DecodePlan(NamedTuple):
+    """What ``decode_greedy`` resolves before its loop."""
+
+    mode: str                   # "auto" resolved
+    n_groups: int
+    sizes: Tuple[int, ...]      # the caches' stages (one: unstaged)
+    unroll: int                 # snapped to a divisor of sizes[0]
+    local_spec: Optional[tuple]  # kv_local's rings (``_local_spec``)
+    window: Optional[Tuple[int, int]]
+
+
+def decode_plan(cfg: ReformerTTSConfig, max_frames: int, mode: str = "auto",
+                unroll: int = 1, staged="auto", stage_min: int = 128,
+                attn_window=None) -> DecodePlan:
+    """Check ``decode_greedy``'s options against the config and resolve
+    them (the exported decode shares it)."""
     if mode == "auto":
         mode = _auto_mode(cfg, max_frames)
     r = cfg.reduction_factor
@@ -656,6 +741,48 @@ def decode_greedy(model, cfg: ReformerTTSConfig, memory: torch.Tensor,
     unroll = max(1, min(int(unroll), sizes[0]))
     while sizes[0] % unroll:       # the largest divisor <= requested
         unroll -= 1
+    return DecodePlan(mode, n_groups, sizes, unroll, local_spec, attn_window)
+
+
+@torch.no_grad()
+def decode_greedy(model, cfg: ReformerTTSConfig, memory: torch.Tensor,
+                  memory_mask: torch.Tensor, max_frames: int,
+                  generator: Optional[torch.Generator] = None,
+                  stop_threshold: Optional[float] = None,
+                  mode: str = "kv_full", unroll: int = 1, staged="auto",
+                  stage_min: int = 128,
+                  attn_window: Optional[Tuple[int, int]] = None
+                  ) -> DecodeResult:
+    """Greedy AR decode -> DecodeResult(mel_post (B, T_max, n_mels), lengths
+    (B,), stop_logits (B, T_max)).
+
+    ``generator`` (on memory's device) draws the decoder prenet's always-on
+    dropout.  ``mode``: "kv_full", "kv_local", "kv_lsh", "kv_lsh_chunk" (see
+    the module docstring) or "auto" (``_auto_mode``).
+
+    ``unroll`` k: the host checks whether every row has stopped once every
+    k steps; k snaps down to the largest divisor of the first stage's group
+    count.  The port runs the k steps as a plain replay in every mode, with
+    the steps after the last stop writing nothing observable, so its
+    outputs equal unroll=1's; the reference's kv_full block decoding
+    (deferred cache writes, for XLA's buffer aliasing) differs from its
+    eager step in f32 softmax reduction length only.
+
+    ``staged`` (True, False or "auto": from 256 groups) allocates the
+    full-prefix caches for ``stage_min`` x 2^k groups and doubles them as
+    the decode reaches them; outputs do not change (module docstring).
+
+    ``attn_window=(w_back, w_fwd)`` (tokens): each step the cross-attention
+    keeps the tokens within [peak - w_back, peak + w_fwd] of a per-row
+    tracker that follows the last cross layer's head-averaged attention
+    peak and never retreats (monotonic windowing against looping and
+    skipping).  It cannot be combined with unroll > 1, as in the
+    reference."""
+    if stop_threshold is None:
+        stop_threshold = cfg.stop_threshold
+    plan = decode_plan(cfg, max_frames, mode, unroll, staged, stage_min,
+                       attn_window)
+    mode, n_groups, sizes, unroll, local_spec, attn_window = plan
     rotations, nb = None, 0
     if mode in ("kv_lsh", "kv_lsh_chunk"):
         rotations, nb = _decode_rotations(cfg, generator, max_frames,

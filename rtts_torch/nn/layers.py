@@ -120,7 +120,6 @@ def dropout(x: torch.Tensor, rate: float,
     that device's slice."""
     if rate == 0.0:
         return x
-    keep = 1.0 - rate
     b_off, b_total = current_batch_shard(x.shape[0])
     shape = (b_total,) + tuple(x.shape[1:])
     if heads is not None:
@@ -129,6 +128,14 @@ def dropout(x: torch.Tensor, rate: float,
     u = u[b_off:b_off + x.shape[0]]
     if heads is not None:
         u = u[:, heads[0]:heads[0] + x.shape[1]]
+    return apply_dropout(x, rate, u)
+
+
+def apply_dropout(x: torch.Tensor, rate: float,
+                  u: torch.Tensor) -> torch.Tensor:
+    """Inverted dropout of x with given uniforms ``u`` (x's shape): kept
+    where u < 1 - rate, scaled by 1 / (1 - rate)."""
+    keep = 1.0 - rate
     return torch.where(u < keep, x / keep, torch.zeros_like(x))
 
 
@@ -163,9 +170,18 @@ class PrenetMLP(nn.Module):
 
     def forward(self, x: torch.Tensor, rate: float,
                 generator: Optional[torch.Generator],
-                compute_dtype=None) -> torch.Tensor:
+                compute_dtype=None,
+                uniforms: Optional[list] = None) -> torch.Tensor:
         """Transformer-TTS decoder prenet: a 2-layer ReLU MLP whose dropout
-        stays on at inference (the AR stability trick of the lineage)."""
-        h = dropout(F.relu(self.fc1(x, compute_dtype)), rate, generator)
-        return dropout(F.relu(self.fc2(h, compute_dtype)), rate, generator)
+        stays on at inference (the AR stability trick of the lineage).
+        ``uniforms`` (one tensor per layer, or [] at rate 0) replaces the
+        draws from ``generator``: the decode step takes them as an input
+        (``rtts_torch/infer/draws.py``)."""
+        def drop(h, i):
+            if uniforms is None:
+                return dropout(h, rate, generator)
+            return apply_dropout(h, rate, uniforms[i]) if rate else h
+
+        h = drop(F.relu(self.fc1(x, compute_dtype)), 0)
+        return drop(F.relu(self.fc2(h, compute_dtype)), 1)
 

@@ -172,20 +172,12 @@ def sort_route(rows: int, l: int, sms: int) -> Optional[Tuple[int, int]]:
     return cluster, block
 
 
-def sort_by_bucket(buckets: torch.Tensor
-                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """buckets (..., L) int64 (as ``hash_vectors`` gives them), each row's
-    (bucket + 1) * L below 2^31 -> (sorted_pos, undo_idx, sorted_buckets),
-    (..., L) int64, as ``sort_by_bucket_reference``.
-
-    On a CUDA tensor this launches K7's path entry once (counted in
-    ``sort_by_bucket.launches``) on the route of ``sort_route``, or raises;
-    on a CPU tensor it runs ``sort_by_bucket_reference``."""
-    if buckets.dim() == 0 or buckets.dtype != torch.int64:
-        raise ValueError(f"sort_by_bucket: want (..., L) int64, got "
-                         f"{tuple(buckets.shape)} {buckets.dtype}")
-    if buckets.device.type == "cpu":
-        return sort_by_bucket_reference(buckets)
+def sort_by_bucket_packed(buckets: torch.Tensor) -> torch.Tensor:
+    """Launch K7's path entry on CUDA buckets (..., L) int64 ->
+    (sorted_pos, undo_idx, sorted_buckets) stacked as (3, ..., L) int64,
+    one allocation; counts in ``sort_by_bucket.launches``.  Rows that
+    ``sort_route`` gives no route (nothing to sort, or L past
+    ``MAX_ROWS``) take the plain version."""
     if buckets.device.type != "cuda":
         raise ValueError(f"sort_by_bucket: unsupported device "
                          f"{buckets.device}")
@@ -194,9 +186,8 @@ def sort_by_bucket(buckets: torch.Tensor
     index = buckets.get_device()
     route = sort_route(rows, l, _sm_count(index))
     if route is None:
-        return sort_by_bucket_reference(buckets)
+        return torch.stack(sort_by_bucket_reference(buckets))
     b = buckets.contiguous()
-    # the three outputs in one allocation, addressed by offset
     out = torch.empty((3, *b.shape), dtype=torch.int64, device=b.device)
     ptr, step = out.data_ptr(), b.numel() * 8
     err = _build.function("rtts_sort_by_bucket")(
@@ -204,7 +195,29 @@ def sort_by_bucket(buckets: torch.Tensor
         _build.stream(index))
     _build.check(err, "rtts_sort_by_bucket")
     sort_by_bucket.launches += 1
-    return out.unbind(0)
+    return out
+
+
+def sort_by_bucket(buckets: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """buckets (..., L) int64 (as ``hash_vectors`` gives them), each row's
+    (bucket + 1) * L below 2^31 -> (sorted_pos, undo_idx, sorted_buckets),
+    (..., L) int64, as ``sort_by_bucket_reference``.
+
+    Through the operator ``rtts::sort_by_bucket``
+    (``rtts_torch/ops/registry.py``): on a CUDA tensor it launches K7's path
+    entry once (``sort_by_bucket_packed``, counted in
+    ``sort_by_bucket.launches``) on the route of ``sort_route``, or raises;
+    on a CPU tensor it runs ``sort_by_bucket_reference``."""
+    if buckets.dim() == 0 or buckets.dtype != torch.int64:
+        raise ValueError(f"sort_by_bucket: want (..., L) int64, got "
+                         f"{tuple(buckets.shape)} {buckets.dtype}")
+    if buckets.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"sort_by_bucket: unsupported device "
+                         f"{buckets.device}")
+    return torch.ops.rtts.sort_by_bucket(buckets).unbind(0)
 
 
 sort_by_bucket.launches = 0
+
+from rtts_torch.ops import registry  # noqa: E402,F401  (defines rtts::*)

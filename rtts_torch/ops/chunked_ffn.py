@@ -187,12 +187,25 @@ def chunked_ffn_fused(p, x: torch.Tensor, act: str, mxu_dtype) -> torch.Tensor:
     d_ff share's, summed over the group in the backward."""
     tp = p.w_out.tp
     if tp is None:
-        return _FusedFFN.apply(act, mxu_dtype, x, *_params(p))
+        return _fused(act, mxu_dtype, x, *_params(p))
     group = tp[1]
     x, ln_scale, ln_bias = (copy_to_model(t, group)
                             for t in (x, p.ln.scale, p.ln.bias))
     params = (ln_scale, ln_bias) + _params(p)[2:-1] + (
         torch.zeros_like(p.w_out.b),)
-    out = reduce_from_model(_FusedFFN.apply(act, mxu_dtype, x, *params),
-                            group)
+    out = reduce_from_model(_fused(act, mxu_dtype, x, *params), group)
     return out + p.w_out.b.to(out.dtype)
+
+
+def _fused(act, mxu_dtype, x, *params):
+    """K6 through its ``autograd.Function`` where a gradient can be asked
+    for, else through the operator ``rtts::ffn_fused``
+    (``rtts_torch/ops/registry.py``) on the rows of x."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, *params)):
+        return _FusedFFN.apply(act, mxu_dtype, x, *params)
+    out = torch.ops.rtts.ffn_fused(x.reshape(-1, x.shape[-1]), *params, act,
+                                   mxu_dtype)
+    return out.reshape(x.shape)
+
+
+from rtts_torch.ops import registry  # noqa: E402,F401  (defines rtts::*)

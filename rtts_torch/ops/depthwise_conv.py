@@ -141,12 +141,16 @@ def depthwise_conv1d(x: torch.Tensor, w: torch.Tensor,
     ``depthwise_conv1d_reference``.  w and b may be float32 with a bfloat16
     x: they are rounded to x's dtype inside.  When no gradient can be asked
     for (grad mode off, as in serving, or no input requiring one) the
-    forward runs without the ``autograd.Function``, whose bookkeeping
-    would record nothing and costs more host time than the launch."""
+    forward is the operator ``rtts::depthwise_conv1d``
+    (``rtts_torch/ops/registry.py``: the same dispatch by device), without
+    the ``autograd.Function``, whose bookkeeping would record nothing and
+    costs more host time than the launch."""
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad
                                     or b.requires_grad):
         return _DepthwiseConv.apply(x, w, b)
-    return _forward(x, w, b)
+    return torch.ops.rtts.depthwise_conv1d(x, w, b)
 
 
 depthwise_conv1d.launches = 0
+
+from rtts_torch.ops import registry  # noqa: E402,F401  (defines rtts::*)

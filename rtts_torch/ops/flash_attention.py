@@ -431,7 +431,9 @@ def flash_attend(
     On CUDA tensors the forward launches K1 (counted in
     ``flash_attend.launches``) and the backward K3 (``flash_bwd_dkv`` and
     ``flash_bwd_dq``), or they raise; on CPU tensors both run the plain
-    versions.  ``dropout_rate`` > 0 needs a ``dropout_seed`` (uint32).
+    versions.  When no gradient can be asked for (grad mode off, or no
+    input requiring one) the forward is the operator ``rtts::flash_fwd``
+    (``rtts_torch/ops/registry.py``), which ``torch.export`` records.  ``dropout_rate`` > 0 needs a ``dropout_seed`` (uint32).
     ``return_lse`` also returns the per-row logsumexp as (B*H, Lq) f32.
     ``b_offset``, ``h_offset`` and ``h_total`` place a rank's batch rows
     and heads in the global batch for the dropout hash (None: H).
@@ -440,12 +442,17 @@ def flash_attend(
     if thr and dropout_seed is None:
         raise ValueError("flash_attend: dropout_rate > 0 needs dropout_seed")
     seed = int(dropout_seed) & _M32 if thr else 0
-    out, lse = _FlashAttention.apply(q, k, v, kv_mask, bool(causal),
-                                     bool(self_mask), float(sm_scale),
-                                     int(q_offset), float(dropout_rate), seed,
-                                     int(b_offset), int(h_offset),
-                                     None if h_total is None else int(h_total))
+    args = (q, k, v, kv_mask, bool(causal), bool(self_mask), float(sm_scale),
+            int(q_offset), float(dropout_rate), seed, int(b_offset),
+            int(h_offset), None if h_total is None else int(h_total))
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        out, lse = _FlashAttention.apply(*args)
+    else:   # serving: the registered operator (``registry``)
+        out, lse = torch.ops.rtts.flash_fwd(*args)
     return (out, lse) if return_lse else out
 
 
 flash_attend.launches = 0
+
+from rtts_torch.ops import registry  # noqa: E402,F401  (defines rtts::*)

@@ -325,7 +325,15 @@ def lsh_attend_chunks_kernel(q_c, k_c, v_c, pos_c, val_c, causal, before,
     """The chunk attend through K4/K5 (the port of
     ``lsh_attend_chunks_pallas``), differentiable in q, k and v: (out (B,
     H, nc, c, d), lse (B, H, nc, c) f32).  Any chunk count: there is no
-    fallback to the plain attend on the card."""
-    return _LshAttend.apply(q_c, k_c, v_c, pos_c, val_c, bool(causal),
-                            int(before), int(after), float(mask_value),
-                            float(self_mask_value))
+    fallback to the plain attend on the card.  When no gradient can be
+    asked for, the forward is the operator ``rtts::lsh_attend_fwd``
+    (``rtts_torch/ops/registry.py``)."""
+    args = (q_c, k_c, v_c, pos_c, val_c, bool(causal), int(before),
+            int(after), float(mask_value), float(self_mask_value))
+    if torch.is_grad_enabled() and (q_c.requires_grad or k_c.requires_grad
+                                    or v_c.requires_grad):
+        return _LshAttend.apply(*args)
+    return torch.ops.rtts.lsh_attend_fwd(*args)
+
+
+from rtts_torch.ops import registry  # noqa: E402,F401  (defines rtts::*)

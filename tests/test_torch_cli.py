@@ -12,9 +12,10 @@ package's (``rtts/cli.py``) on the CPU.
     the port's ``_load_synthesizer`` to the parameters the JAX package's
     restores, bit for bit (the folded vocoder within f32 rounding).
 (d) Overrides, a misspelled key, a malformed override, a missing path and
-    an empty ``serve`` fail as the JAX package's do; the verbs that are not
-    ported raise naming their ROADMAP item; ``download`` without network
-    names ``generate_corpus``.
+    an empty ``serve`` fail as the JAX package's do; ``export`` and
+    ``predict --from-export`` round-trip to live ``predict``'s wavs;
+    ``bench``, not ported, raises naming its ROADMAP item; ``download``
+    without network names ``generate_corpus``.
 """
 
 import argparse
@@ -229,13 +230,32 @@ def test_overrides_and_errors_as_the_jax_cli(tmp_path, monkeypatch):
 
 def test_unported_verbs_raise_and_download_names_the_corpus(tmp_path,
                                                             monkeypatch):
+    """``export`` then ``predict --from-export`` (tiny.yaml, random
+    weights seeded 0, no vocoder: Griffin-Lim) write the wavs that live
+    ``predict`` writes; ``bench`` still raises naming its ROADMAP item;
+    ``download`` without network names ``generate_corpus``."""
+    import json
     import urllib.error
 
-    for args, item in ((["export"], "item 4"), (["bench"], "item 3"),
-                       (["predict", "--text", "x", "--from-export",
-                         str(tmp_path)], "item 4")):
-        with pytest.raises(NotImplementedError, match=f"Queue 1 {item}"):
-            TCLI.main(["--device", "cpu"] + args)
+    top = ["-c", TINY, "--device", "cpu"]
+    exp = tmp_path / "export"
+    assert TCLI.main(top + ["export", "--out", str(exp), "--max-frames",
+                            "16", "--batch-sizes", "2", "--mode",
+                            "kv_full"]) == 0
+    manifest = json.loads((exp / "manifest.json").read_text())
+    assert (manifest["batch_sizes"], manifest["device"]) == ([2], "cpu")
+    texts = ["--text", "hello world", "--text", "a second one"]
+    for name, how in (("live", ["--max-frames", "16", "--mode", "kv_full"]),
+                      ("exported", ["--from-export", str(exp)])):
+        assert TCLI.main(top + ["predict"] + texts + how + [
+            "--out", str(tmp_path / name)]) == 0
+    for i in range(2):
+        live = _wav_samples(tmp_path / "live" / f"sample_{i}.wav")
+        got = _wav_samples(tmp_path / "exported" / f"sample_{i}.wav")
+        assert len(got) == len(live) > 0
+        np.testing.assert_allclose(got, live, atol=1)   # int16 steps
+    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+        TCLI.main(["--device", "cpu", "bench"])
 
     def offline(url, timeout=None):
         raise urllib.error.URLError("no network")

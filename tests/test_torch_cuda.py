@@ -757,3 +757,71 @@ def test_row_gather_wrapper_raises_on_what_the_kernel_does_not_take(dev):
         row_gather(x, torch.zeros(8, dtype=torch.int64, device=dev))
     with pytest.raises(ValueError, match="idx on"):
         row_gather(x, torch.zeros(8, dtype=torch.int32))
+
+
+# -- the registered operators (rtts_torch/ops/registry.py) --------------------
+
+
+def _op_case(name, dev):
+    """(operator arguments, plain version, launch-counted wrapper) at a
+    small shape, bf16 where the kernel multiplies on tensor cores."""
+    g = torch.Generator().manual_seed(9)
+    r = lambda *s: torch.randn(s, generator=g).to(dev)  # noqa: E731
+    bf = torch.bfloat16
+    if name == "flash_fwd":
+        q, k, v = (r(2, 64, 4, 64).to(bf).transpose(1, 2) for _ in range(3))
+        mask = torch.arange(64, device=dev)[None, :] < torch.tensor(
+            [[64], [40]], device=dev)
+        args = (q, k, v, mask, False, True, 1.0, 0, 0.0, 0, 0, 0, None)
+        return args, lambda: flash_attend_reference(
+            q, k, v, mask, self_mask=True, return_lse=True), flash_attend
+    if name == "depthwise_conv1d":
+        x, w, b = r(2, 96, 128).to(bf), r(3, 1, 128), r(128)
+        return (x, w, b), lambda: depthwise_conv1d_reference(x, w, b), \
+            depthwise_conv1d
+    if name == "lsh_attend_fwd":
+        q, k, v = (r(1, 2, 4, 16, 64).to(bf) for _ in range(3))
+        pos = torch.stack([torch.randperm(64, generator=g)
+                           for _ in range(2)]).reshape(1, 2, 4, 16).to(dev)
+        valid = torch.ones(1, 2, 4, 16, dtype=torch.bool, device=dev)
+        args = (q, k, v, pos, valid, False, 1, 0, FA.MASK_VALUE,
+                FA.SELF_MASK_VALUE)
+        return args, lambda: lsh_attend_chunks_reference(*args), \
+            lsh_attend_fwd
+    if name == "ffn_fused":
+        args = (r(96, 64), 1 + r(64), r(64), r(64, 128) / 8, r(128),
+                r(128, 64) / 11, r(64), "gelu", bf)
+        return args, lambda: ffn_fused_reference(*args), ffn_fused
+    buckets = torch.randint(0, 8, (2, 4, 2, 128), generator=g).to(dev)
+    return (buckets,), lambda: torch.stack(
+        sort_by_bucket_reference(buckets)), sort_by_bucket
+
+
+@pytest.mark.parametrize("name", ["flash_fwd", "depthwise_conv1d",
+                                  "lsh_attend_fwd", "ffn_fused",
+                                  "sort_by_bucket"])
+def test_registered_op_launches_its_kernel(dev, name):
+    """On the card an ``rtts::`` operator is its kernel's launcher: one
+    launch counted, the plain version's values, and the fake
+    implementation's shapes, dtypes and strides."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    args, plain, counted = _op_case(name, dev)
+    op = getattr(torch.ops.rtts, name).default
+    before = counted.launches
+    got = op(*args)
+    torch.cuda.synchronize()
+    assert counted.launches == before + 1
+    want = plain()
+    got_t = got if isinstance(got, tuple) else (got,)
+    want_t = want if isinstance(want, tuple) else (want,)
+    for g, w in zip(got_t, want_t):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        assert _err(g, w) <= TOL[torch.bfloat16]
+    with FakeTensorMode() as mode:
+        fake = op(*(mode.from_tensor(a) if isinstance(a, torch.Tensor)
+                    else a for a in args))
+    fake_t = fake if isinstance(fake, tuple) else (fake,)
+    for f, g in zip(fake_t, got_t):
+        assert (f.shape, f.dtype, f.stride()) == (g.shape, g.dtype,
+                                                  g.stride())

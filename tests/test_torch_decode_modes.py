@@ -9,8 +9,8 @@ One parameter tree made by the JAX package's init is loaded into the port;
 both decoders read the same encoder memory (the JAX encoder's; the
 Synthesizer case encodes on each side).  Every dropout rate is 0 (JAX's
 Threefry bits cannot be matched); the LSH decoders set ``hash_seed``, and
-JAX's rotations (``_decode_rotations``) are injected through the port's
-``draw_rotations``.  Everything is float32, the JAX side at "highest"
+JAX's rotations (``_decode_rotations``) are injected through
+``rtts_torch.infer.draws.draw_rotations``.  Everything is float32, the JAX side at "highest"
 matmul precision (tests/conftest.py).
 
 Tolerances, max |port - JAX| / max(1, |JAX|) on mel and stop logits, with
@@ -44,6 +44,7 @@ from rtts_torch.attention import lsh as TL
 from rtts_torch.convert import from_numpy_tree
 from rtts_torch.infer import decode as TD
 from rtts_torch.infer import diagnostics as TDG
+from rtts_torch.infer import draws
 from rtts_torch.models import reformer_tts as TM
 from rtts_torch.train.quality import attention_diagonality
 
@@ -165,7 +166,7 @@ def inject_rotations(monkeypatch):
             calls.append((h, d, n_hashes, half))
             return tt(rots[(len(calls) - 1) % len(rots)]).to(device)
 
-        monkeypatch.setattr(TL, "draw_rotations", draw)
+        monkeypatch.setattr(draws, "draw_rotations", draw)
         return calls
 
     return install

@@ -271,7 +271,8 @@ def test_port_imports_nothing_of_the_jax_package():
                  "utils/profiling.py", "parallel/mesh.py",
                  "parallel/sharding.py", "parallel/serving.py",
                  "parallel/training.py", "parallel/collectives.py",
-                 "parallel/seq_parallel.py", "parallel/pipeline.py"):
+                 "parallel/seq_parallel.py", "parallel/pipeline.py",
+                 "infer/export.py", "infer/draws.py", "ops/registry.py"):
         assert ROOT / "rtts_torch" / name in files, name
     for path in files + [ROOT / "chip_smoke.py"]:
         names = _imported_modules(path)

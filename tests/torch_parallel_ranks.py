@@ -17,6 +17,10 @@ WORKDIR over gloo, run every case in order, and each writes
 - ``decode``: ``decode_greedy`` of given encoder memory on tensor-parallel
   weights, with given LSH rotations for every head;
 - ``synth``: ``Synthesizer(mesh=...).text_to_mel``;
+- ``export``: ``export_synthesizer`` of a ``Synthesizer(mesh=...)``
+  (gathered to whole weights; rank 0 writes WORKDIR/export_<name>) -> the
+  manifest's artifact names, and whether ``gather_sharded=False`` was
+  refused naming that option;
 - ``serve_batch``: ``serve_batch`` on tensor-parallel weights;
 - ``seq_attn``: sequence-parallel attention on the model group, the full
   sublayer (its output and the gradients of x and the projections) or the
@@ -47,6 +51,7 @@ import torch.distributed as dist  # noqa: E402
 from rtts_torch import config as TC  # noqa: E402
 from rtts_torch.attention import lsh as TL  # noqa: E402
 from rtts_torch.convert import load_flat  # noqa: E402
+from rtts_torch.infer import draws  # noqa: E402
 from rtts_torch.infer.decode import decode_greedy  # noqa: E402
 from rtts_torch.infer.serving import serve_batch  # noqa: E402
 from rtts_torch.infer.synthesize import Synthesizer  # noqa: E402
@@ -135,7 +140,7 @@ def run_decode(case, inputs, work, rank):
         calls.append(h)
         return torch.from_numpy(rots[(len(calls) - 1) % len(rots)])
 
-    TL.draw_rotations = draw
+    draws.draw_rotations = draw
     res = decode_greedy(model, cfg,
                         torch.from_numpy(inputs[f"{case['name']}/memory"]),
                         torch.from_numpy(inputs[f"{case['name']}/mask"]),
@@ -157,6 +162,29 @@ def run_synth(case, inputs, work, rank):
                       mesh=_mesh(case))
     mel, lengths = syn.text_to_mel(case["texts"])
     return {f"{case['name']}/mel": mel, f"{case['name']}/lengths": lengths}
+
+
+def run_export(case, inputs, work, rank):
+    from rtts_torch.infer.export import export_synthesizer
+
+    cfg = TC.from_dict(TC.Config, case["config"])
+    model = load_flat(TM.init(cfg.model, device="cpu"), {
+        k[len(case["params"]) + 1:].replace("/", "."): v
+        for k, v in inputs.items() if k.startswith(case["params"] + "/")})
+    syn = Synthesizer(cfg, model, max_frames=case["max_frames"],
+                      mesh=_mesh(case))
+    n = case["name"]
+    manifest = export_synthesizer(syn, str(work / f"export_{n}"),
+                                  batch_sizes=case["batch_sizes"],
+                                  token_len=case["token_len"])
+    try:
+        export_synthesizer(syn, str(work / f"refused_{n}"),
+                           gather_sharded=False)
+        refused = False
+    except ValueError as e:
+        refused = "gather_sharded" in str(e)
+    return {f"{n}/artifacts": np.asarray(sorted(manifest["artifacts"])),
+            f"{n}/refused": np.asarray(refused)}
 
 
 def run_serve_batch(case, inputs, work, rank):
@@ -251,8 +279,8 @@ def run_stack(case, inputs, work, rank):
 
 
 CASES = {"train": run_train, "decode": run_decode, "synth": run_synth,
-         "serve_batch": run_serve_batch, "seq_attn": run_seq_attn,
-         "stack": run_stack}
+         "export": run_export, "serve_batch": run_serve_batch,
+         "seq_attn": run_seq_attn, "stack": run_stack}
 
 
 def main(work: pathlib.Path, rank: int, world: int) -> None:
