@@ -34,7 +34,8 @@ phase; every phase raises on failure:
    expected lengths, through both kernels (launch counters), and the same
    weights and noise at float32 on the card match the port on the CPU;
 5. timing at the shape of ``rtts/bench.py::bench_e2e`` (batch 8, 256 tokens,
-   512 frames, stop threshold 2.0, batched vocoder), and each kernel
+   512 frames, stop threshold 2.0, batched vocoder; one timed run after a
+   warm-up: phase 35's e2e cell takes the best of 3), and each kernel
    against its plain version: K1 at the encoder's shape, K2 at the batched
    vocoder's (8, 1024, 128) and the serving path's (1, 1024, 128), in turns
    with ``F.conv1d(groups=128)``;
@@ -161,14 +162,14 @@ phase; every phase raises on failure:
    bench_longform`` shapes it, b2 x 1024 random tokens x 8192 frames,
    mode "auto" (asserted to resolve kv_lsh_chunk), stop threshold 2.0:
    the encoder's K4 and K7 launches (6 each), decode frames/s over the
-   first 512 frames in that mode, a profile
+   first 256 frames in that mode, a profile
    of 64 steps at group 4096 (idle share), and the per-step time of
    kv_lsh_chunk against kv_full at groups 1024 and 8191 with caches
    filled from a seed, in turns;
 27. serving-fast: ``serving_fast.yaml`` as shipped (kv_full, e4m3,
    staged): the Synthesizer answers 8 sentences (K4, K7 at the encoder, K2
    at the vocoder); then b8 x 256 tokens x 256 frames with the e4m3 and
-   the compute-dtype cache, staged and not, in turns: frames/s, the
+   the compute-dtype cache, staged and not, once each: frames/s, the
    relative mel L1 of e4m3 against compute, staged against not;
 28. parity-local: K4/K5 on ``parity_local.yaml``'s local layers (b8 h4,
    8 chunks of 32, causal) against the f32 plain attend, forward and
@@ -185,17 +186,17 @@ phase; every phase raises on failure:
    steps (the stop check);
 30. serving: ``base.yaml`` at full width (prenet dropout off, stop 2.0)
    on ``rtts/bench.py``'s serving workloads: (a) ``Synthesizer.
-   serve_continuous(vocode="batched")`` on 8 requests of 128/256/512/1024
+   serve_continuous(vocode="batched")`` on 6 requests of 128/256/512
    frames in ``bench_continuous``'s arrival order, 4 slots, segments of
-   64 (8 waveforms of their lengths, at most one host synchronization a
+   64 (6 waveforms of their lengths, at most one host synchronization a
    boundary beside one lengths read and one audio copy a class, K1 and
    K2 launches); (b) ``ServingEngine`` on the same requests, more than
    its slots, so that freed slots are refilled from the queue (at least
    one refill; frames/s, p50/p95 completion latency, lengths equal and
    mel L1 against (a)); (c)
-   bucketed ``serve`` against pad-to-max ``text_to_mel`` at 1024 frames
+   bucketed ``serve`` against pad-to-max ``text_to_mel`` at 512 frames
    (frames/s, mel L1); (d) ``StreamingSynthesizer`` at batch 1 x 512
-   frames in chunks of 32, 64, 128 (time to first audio, at most one
+   frames in chunks of 32, 64 and 128 (time to first audio, at most one
    synchronization a segment and one for the tail, the decoded frames
    equal to ``decode_greedy``'s step loop bit for bit); (f)
    ``mel_to_audio(streaming_chunk=64)`` against one pass; K1 and K2 at the
@@ -234,7 +235,7 @@ phase; every phase raises on failure:
    and K6 at d_ff 1024 a rank; (d) a data-parallel 2 vocoder step at b8 x
    16384 (b4 a rank), 96 K2 launches on each; (e) base.yaml with ``pos_
    encoding: axial`` and with ``param_dtype: bfloat16`` at 2 + 2 layers:
-   one f32 train step and a b8 x 512 decode each, card against CPU; (f)
+   one f32 train step and a b8 x 256 decode each, card against CPU; (f)
    K1 and K3 with the dropout hash at batch offset 4 and head offset 4 of
    8: the keep bits equal to the one-device mask's slice, and the kernels
    against their plain versions; then each kernel at its per-rank shape
@@ -273,7 +274,18 @@ phase; every phase raises on failure:
    the ``rtts::`` operator against the launcher directly, K1 at b8 h8 L256
    and K2 at (8, 2048, 128); each artifact-launched kernel at the
    artifact's shape through its operator against its plain version, timed,
-   with its bound.
+   with its bound;
+35. bench (after 33): the port's benchmark harness (``rtts_torch.bench``):
+   ``run_bench(flagship_bench_config(), "e2e")`` at the reference's
+   defaults (b8 x 256 tokens x 512 frames, the vocoder, 3 repeats), its
+   RTF finite and above 0, its mfu in (0, 1], K1 launched 6 times and K2
+   96 times a call (one encode, one vocoder pass); ``bench_kernels`` in
+   full (K4 + K5, K6, K2, K1 + K3 at the reference's shapes), each kernel
+   within its tolerance of its plain version in f32; every other cell
+   once at a smaller depth (``BENCH_CUTS`` and ``BENCH_SIZES``; the
+   decode cell at ``base_bench_config()``), each line parsed and its
+   headline finite and above 0; every line printed as the cell prints
+   it.
 
 Prints a JSON line of per-kernel results, each entry at one shape (K1 at
 three: ``flash`` at serving, ``flash_train`` at base.yaml's decoder,
@@ -330,6 +342,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from rtts_torch import bench as RB
 from rtts_torch import cli as CLI
 from rtts_torch.attention import lsh as TL
 from rtts_torch.audio.griffin import _griffin_lim_from_angle
@@ -785,7 +798,7 @@ def _device_ms(fn, n, names=None):
     ``names``, only the kernels whose name holds one of them: each such
     kernel, launched once a call, must be recorded at most n times.  A
     profile that recorded none of a name's launches, or without ``names``
-    no kernel at all, is taken again, six times in all; after six such
+    no kernel at all, is taken again, three times in all; after three such
     profiles the time per call is the CUDA events' instead (launch gaps
     included), and a line says so."""
     from torch.autograd import DeviceType
@@ -795,7 +808,7 @@ def _device_ms(fn, n, names=None):
         fn()
     torch.cuda.synchronize()
     wanted = names or ("",)     # without names: any kernel at all
-    for attempt in range(1, 7):
+    for attempt in range(1, 4):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(n):
@@ -811,12 +824,12 @@ def _device_ms(fn, n, names=None):
                      f"in {n} calls, more than {n} of one")
         if all(any(s in e.key for e in device) for s in wanted):
             break
-        print(f"[profiler] profile {attempt} of 6 recorded {counts} "
+        print(f"[profiler] profile {attempt} of 3 recorded {counts} "
               f"launches of {names or 'any kernel'} in {n} calls")
     else:
         ms = _events_ms(fn, n)
         print(f"[profiler] device time of {names or 'any kernel'} not "
-              f"recorded in 6 profiles: {ms:.4f} ms a call by CUDA events "
+              f"recorded in 3 profiles: {ms:.4f} ms a call by CUDA events "
               f"instead")
         return ms
     if any(c < n for c in counts.values()):
@@ -913,7 +926,8 @@ def phase_timing(syn: Synthesizer):
         return wall, [ev[i].elapsed_time(ev[i + 1]) / 1e3 for i in range(3)]
 
     run()   # warm-up
-    runs = [run() for _ in range(3)]
+    # one timed run: phase 35's e2e cell times this shape, best of 3
+    runs = [run()]
     wall, (enc, dec, voc) = min(runs)
     print(f"[timing] e2e b{batch} x {n_tok} tokens x {frames} frames "
           f"(bf16, kv_full, stop 2.0): walls "
@@ -3247,7 +3261,7 @@ def _step_ms(dec, t: int, n: int = 20) -> float:
 
 # phase 26 decodes the first LONGFORM_DECODE_FRAMES of the 8192 frames (at
 # which "auto" resolves kv_lsh_chunk), to keep the script in its time
-LONGFORM_DECODE_FRAMES = 512
+LONGFORM_DECODE_FRAMES = 256
 
 
 def phase_serving_longform():
@@ -3323,9 +3337,9 @@ def phase_serving_fast():
     "auto" on at 1024 groups): the Synthesizer answers 8 sentences, with
     the encoder's K4/K7 and the vocoder's K2 launches; then b8 x 256
     tokens x 256 frames (stop 2.0; staged from 256 groups) with the e4m3
-    and the compute-dtype cache, each staged and not, in turns (A B C D D
-    C B A): decode frames/s, and the relative mel L1 of e4m3 against
-    compute."""
+    and the compute-dtype cache, each staged and not, once each (the
+    Synthesizer's call warms the decode): decode frames/s, and the
+    relative mel L1 of e4m3 against compute."""
     cfg = serving_config(SERVING_FAST_CONFIG)
     mcfg = cfg.model
     _require(TD._auto_mode(mcfg, 1024) == "kv_full"
@@ -3360,7 +3374,7 @@ def phase_serving_fast():
                 for staged in (True, False)]
     walls = {v: [] for v in variants}
     mels = {}
-    for v in variants + variants[::-1]:
+    for v in variants:
         kv_cfg = dataclasses.replace(mcfg, kv_cache_dtype=v[0])
         wall, res = _timed_decode(syn.tts, kv_cfg, memory, mask, frames,
                                   staged=v[1])
@@ -3573,14 +3587,15 @@ def phase_decode_syncs():
 # -- phase 30: the serving surfaces -------------------------------------------
 
 # rtts/bench.py's serving workloads: bench_continuous's and bench_serving's
-# true lengths (pinned by their budgets at stop threshold 2.0), 2 requests
-# each, 4 slots (fewer than the requests: the engine refills freed slots),
-# segments of 64 frames; bench_latency's streaming (batch 1, 512 frames,
-# three chunk sizes).  K1 and K2 are timed at 8 rows, the admission encode
-# and batched vocode of 8 slots, as in every PR since the phase began.
-SERVE_LENGTHS = (128, 256, 512, 1024)
+# true lengths but their longest, 1024 (pinned by their budgets at stop
+# threshold 2.0), 2 requests each, 4 slots (fewer than the requests: the
+# engine refills freed slots), segments of 64 frames; bench_latency's
+# streaming (batch 1, 512 frames, three chunk sizes).  K1 and K2 are timed
+# at 8 rows, the admission encode and the batched vocode of 8 slots of
+# 1024 frames, as in every PR since the phase began.
+SERVE_LENGTHS = (128, 256, 512)
 SERVE_PER_LENGTH, SERVE_SLOTS, SERVE_SEGMENT = 2, 4, 64
-SERVE_TIMED_ROWS = 8
+SERVE_TIMED_ROWS, SERVE_TIMED_FRAMES = 8, 1024
 FRAMES_PER_TOKEN = 8.0          # Synthesizer.predict_frames' default
 STREAM_FRAMES, STREAM_CHUNKS = 512, (32, 64, 128)
 # two bf16 serving surfaces on the same requests, mean |a - b| over mean
@@ -3708,11 +3723,11 @@ def phase_serving():
     texts = _serving_texts(workload, SEED_DATA)
     _require(syn.predict_frames(texts) == workload,
              "the texts do not predict their lengths")
-    # bench_serving's 4 buckets x 8; pad-to-max timed before (a) and after
-    # (c), so that a drift of the host's speed shows
+    # bench_serving's buckets; pad-to-max timed once, after (c) (phase
+    # 35's serving cell times bucketed against pad-to-max in turns)
     lens_c = [n for n in SERVE_LENGTHS for _ in range(SERVE_PER_LENGTH)]
     texts_c = _serving_texts(lens_c, SEED_DATA + 1)
-    pad_s = [_pad_to_max(syn, texts_c)[2]]
+    pad_s = []
     rows, counts, pool_fps = _serve_continuous(syn, texts, workload, hop)
 
     # (b) the engine on the same requests in arrival order
@@ -3780,11 +3795,12 @@ def phase_serving():
              for i, (m, n) in enumerate(zip(mels, lengths)))
     frames = sum(lens_c)
     pad_fps = frames / np.mean(pad_s)
-    print(f"[serving] (c) bucketed serve, {len(texts_c)} requests in 4 "
-          f"buckets: decode {log['s']:.3f} s = {frames / log['s']:.1f} "
+    print(f"[serving] (c) bucketed serve, {len(texts_c)} requests in "
+          f"{len(SERVE_LENGTHS)} buckets: decode {log['s']:.3f} s = "
+          f"{frames / log['s']:.1f} "
           f"useful frames/s; pad-to-max text_to_mel b{len(texts_c)} x "
-          f"{max(SERVE_LENGTHS)}: {pad_s[0]:.3f} s before (a), {pad_s[1]:.3f} "
-          f"s after (c), {pad_fps:.1f} useful frames/s on their mean; "
+          f"{max(SERVE_LENGTHS)}: {pad_s[0]:.3f} s after (c), "
+          f"{pad_fps:.1f} useful frames/s; "
           f"against it bucketed {frames / log['s'] / pad_fps:.2f}x, "
           f"serve_pool {pool_fps / pad_fps:.2f}x, the engine "
           f"{sum(workload) / eng_s / pad_fps:.2f}x; mel L1 against "
@@ -3839,8 +3855,10 @@ def phase_serving():
     _require(err <= KERNEL_TOL[torch.float32] and n_dw > 0,
              "streaming vocoding disagrees")
     del syn32
-    times = _serve_kernel_times([tokens.shape[1]] * SERVE_TIMED_ROWS,
-                                (SERVE_TIMED_ROWS, max(SERVE_LENGTHS) * hop
+    # the tokens of a 1024-frame request: one a letter, and the EOS
+    timed_tokens = len(_serving_texts([SERVE_TIMED_FRAMES], SEED_DATA)[0]) + 1
+    times = _serve_kernel_times([timed_tokens] * SERVE_TIMED_ROWS,
+                                (SERVE_TIMED_ROWS, SERVE_TIMED_FRAMES * hop
                                  // cfg.vocoder.n_group, 128))
     del syn, ss, tts, voc
     torch.cuda.empty_cache()
@@ -4936,7 +4954,7 @@ def _par_mesh(work: pathlib.Path) -> dict:
 def _par_knobs():
     """(e): base.yaml with ``pos_encoding: axial`` and with ``param_dtype:
     bfloat16`` at 2 + 2 layers, f32 compute, every dropout 0: one train step
-    and a b8 x 512 decode each, card against CPU."""
+    and a b8 x 256 decode each, card against CPU."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     lens = ((256, 131, 77, 200), (512, 300, 160, 400))
@@ -4970,7 +4988,7 @@ def _par_knobs():
                 memory = M.encode(tts, cfg.model, b["tokens"],
                                   b["token_mask"])
                 mels[device] = decode_greedy(
-                    tts, cfg.model, memory, b["token_mask"], max_frames=512,
+                    tts, cfg.model, memory, b["token_mask"], max_frames=256,
                     mode="kv_full").mel_post.cpu()
         dec_err = _scaled_err(mels["cuda"], mels["cpu"])
         print(f"[parallel] (e) base.yaml {knob} 2 + 2 layers f32 compute, "
@@ -4978,7 +4996,7 @@ def _par_knobs():
               f" worst gradient {grad_err:.3e} (tol {grad_tol:g}), "
               f"params after the update within "
               f"{'2 bf16 ulps' if bf16 else f'{TRAIN_PARAM_TOL_LR:g} lr'}: "
-              f"{param_ok}; b8 x 512 decode card vs CPU {dec_err:.3e} (tol "
+              f"{param_ok}; b8 x 256 decode card vs CPU {dec_err:.3e} (tol "
               f"{KNOB_DECODE_TOL:g})")
         _require(loss_err <= TRAIN_SLICE_TOL and grad_err <= grad_tol
                  and param_ok and dec_err <= KNOB_DECODE_TOL
@@ -5550,6 +5568,104 @@ def phase_seq_pipe(work: pathlib.Path) -> dict:
     return times
 
 
+# -- phase 35: the bench's cells (rtts_torch/bench.py) -------------------------
+
+# one encode + one batched vocoder pass at base.yaml: K1 in the encoder's
+# 6 layers (the decode steps attend by einsum), K2 in the vocoder's 12
+# flows x 8 WN layers
+BENCH_E2E_LAUNCHES = {"flash": 6, "depthwise": 96}
+# bench_e2e's calls at its defaults: one warm-up and 3 timed repeats
+BENCH_E2E_CALLS = 1 + 3
+# the dtype each bench_kernels entry's kernel reads (the tolerance's key)
+BENCH_KERNEL_DTYPES = {
+    "lsh_attend_fwd": torch.bfloat16, "lsh_attend_fwdbwd": torch.bfloat16,
+    "chunked_ffn_fwd": torch.float32, "chunked_ffn_fwdbwd": torch.float32,
+    "depthwise_conv_fwd": torch.float32, "flash_attend_fwd": torch.bfloat16,
+    "flash_attend_fwdbwd": torch.bfloat16}
+# every other cell once (a warm-up and one timed repeat) through its own
+# arguments at a smaller depth: the longform decode to 512 of its 8192
+# frames, one request a length in the serving cells, one concurrency and
+# one chunk size; the train and vocoder cells at their shapes; the decode
+# cell at base_bench_config
+BENCH_CUTS = {
+    "decode": dict(repeats=1),
+    "vocoder": dict(repeats=1),
+    "train": dict(repeats=1),
+    "vocoder_train": dict(repeats=1),
+    "longform": dict(repeats=1, max_frames=512),
+    "serving": dict(repeats=1, per_bucket=1),
+    "continuous": dict(repeats=1, per_group=1),
+    "latency": dict(repeats=1, concurrency=(1,), chunk_sweep=(64,)),
+}
+# and smaller sizes, without which the serving cells alone would take
+# minutes (6-12 ms a decode step, host-bound): each still exercises its
+# mechanism.  serving: the reference's two shortest buckets, so bucketed
+# decodes still differ from pad-to-max.  continuous: 3 requests of 32-64
+# frames in 2 slots with segments of 16, so every request spans 2-4
+# segments, the engine and the fused scheduler refill a freed slot from
+# the queue, and the synchronous strategies run two batches (the pool
+# holds one request a capacity class).  latency: streams of 128 frames, 2
+# chunks of 64
+BENCH_SIZES = {
+    "serving": dict(lengths=(128, 256), token_lens=(64, 64)),
+    "continuous": dict(slots=2, segment_frames=16, lengths=(32, 48, 64)),
+    "latency": dict(max_frames=128),
+}
+
+
+def _bench_line(cfg: Config, mode: str, **kw) -> dict:
+    """One cell's JSON line, printed on its own line; its headline value
+    finite and above 0."""
+    text = RB.run_bench(cfg, mode, **kw)
+    print(text, flush=True)
+    line = json.loads(text)
+    _require(set(line) >= {"metric", "value", "unit", "vs_baseline",
+                           "detail"}, f"bench {mode}: keys {sorted(line)}")
+    value = line["value"]
+    _require(isinstance(value, float) and np.isfinite(value) and value > 0,
+             f"bench {mode}: headline {line['metric']} = {value}")
+    detail = line["detail"]
+    _require(detail["device"] == torch.cuda.get_device_name(0),
+             f"bench {mode}: device {detail['device']}")
+    return line
+
+
+def phase_bench():
+    """35: the port's bench (``rtts_torch.bench``): ``run_bench(
+    flagship_bench_config(), "e2e")`` at the reference's defaults (b8 x 256
+    tokens x 512 frames, the vocoder, 3 repeats), its RTF finite, its mfu
+    in (0, 1], and K1 and K2 launched as one encode and one vocoder pass
+    each call; ``bench_kernels`` in full, each kernel within its
+    tolerance of its plain version; then every other cell once at a
+    smaller depth (``BENCH_CUTS``, ``BENCH_SIZES``), the decode cell at
+    ``base_bench_config()``.  Each line printed as the cell prints it."""
+    flagship = RB.flagship_bench_config()
+    _reset_decode_counts()
+    e2e = _bench_line(flagship, "e2e")
+    got = {"flash": flash_attend.launches,
+           "depthwise": depthwise_conv1d.launches}
+    want = {k: v * BENCH_E2E_CALLS for k, v in BENCH_E2E_LAUNCHES.items()}
+    print(f"[bench] e2e: rtf {e2e['value']}, mfu {e2e['detail']['mfu']}, "
+          f"wall band {e2e['detail']['wall_seconds_band']}; launches {got}")
+    _require(got == want, f"bench e2e launched {got}, want {want}")
+    mfu = e2e["detail"]["mfu"]
+    _require(mfu is not None and 0 < mfu <= 1, f"bench e2e mfu {mfu}")
+    kernels = _bench_line(flagship, "kernels")["detail"]
+    for name, dtype in BENCH_KERNEL_DTYPES.items():
+        entry = kernels[name]
+        print(f"[bench] {name}: kernel {entry['kernel_ms']:.4f} ms, plain "
+              f"{entry['plain_ms']:.4f} ms, err {entry['max_err']:.3e} "
+              f"(abs {entry['max_abs_err']:.3e}), tol {KERNEL_TOL[dtype]:g}")
+        _require(entry["max_err"] <= KERNEL_TOL[dtype],
+                 f"bench kernels: {name} disagrees with its plain version")
+    for mode, kw in BENCH_CUTS.items():
+        cfg = RB.base_bench_config() if mode == "decode" else flagship
+        t0 = time.perf_counter()
+        line = _bench_line(cfg, mode, **kw, **BENCH_SIZES.get(mode, {}))
+        print(f"[bench] {mode}: {line['metric']} {line['value']} "
+              f"{line['unit']} in {time.perf_counter() - t0:.1f} s")
+
+
 def rank_main(mode: str, work: pathlib.Path, args) -> int:
     """``chip_smoke.py --rank MODE WORKDIR ...``: one rank of phase 32 or
     33."""
@@ -5633,6 +5749,7 @@ def main() -> int:
         shutil.rmtree(work, ignore_errors=True)
         raise
     par_times.update(phase_seq_pipe(work))
+    phase_bench()
     _require(not any(m.split(".")[0] in ("jax", "rtts", "click", "yaml")
                      for m in sys.modules if sys.modules[m] is not None),
              "jax, the JAX package, click or PyYAML was imported")

@@ -10,9 +10,10 @@ one difference is ``--device`` (default ``cuda``), which takes the place of
 ``--platform``: every verb that computes runs on the card unless it says
 ``cpu``.  ``export`` writes ``torch.export`` artifacts on that device
 (``rtts_torch/infer/export.py``) and ``predict --from-export`` serves from
-them on the device they were made for; ``bench`` is not ported yet and
-raises NotImplementedError.  A config needs no PyYAML
-(``rtts_torch.config.load_yaml``), and the command line needs no click.
+them on the device they were made for; ``bench`` prints one JSON line per
+cell of ``rtts_torch.bench`` (``--which``, or all ten).  A config needs no
+PyYAML (``rtts_torch.config.load_yaml``), and the command line needs no
+click.
 
 Every verb first runs ``initialize_distributed(cfg.experiment.mesh)``, as
 the reference's group does: a no-op in one process; over several
@@ -146,12 +147,6 @@ def _write_wavs(wavs, out_dir: str, sample_rate: int) -> None:
         print(f"wrote {p} ({len(w)} samples)")
 
 
-def _not_ported(what: str, item: int, name: str):
-    raise NotImplementedError(
-        f"rtts_torch: {what} is not ported yet (ROADMAP.md Queue 1 item "
-        f"{item}, {name})")
-
-
 def _predict(cfg: Config, args) -> None:
     if args.export_dir:
         from rtts_torch.infer.export import ExportedSynthesizer
@@ -202,7 +197,10 @@ def _serve(cfg: Config, args) -> Optional[int]:
 
 
 def _bench(cfg: Config, args) -> None:
-    _not_ported("bench", 3, "the port's benchmark")
+    from rtts_torch.bench import MODES, run_bench
+
+    for mode in (MODES if args.which == "all" else [args.which]):
+        print(run_bench(cfg, mode, device=args.device), flush=True)
 
 
 def _checkpoint_options(p: argparse.ArgumentParser) -> None:
@@ -309,7 +307,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0)
 
     p = verb("bench", _bench,
-             "Run the benchmark harness (not ported yet).")
+             "Run the benchmark harness and print JSON line(s).")
     p.add_argument("--which", default="decode", choices=BENCH_MODES)
     return parser
 

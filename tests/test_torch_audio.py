@@ -32,6 +32,8 @@ from rtts_torch.convert import from_numpy_tree
 from rtts_torch.infer import denoiser as TD
 from rtts_torch.models import squeezewave as TSW
 from tests.test_full_model_parity import vocoder_cfg
+from tests.torch_twin import one_thread  # noqa: F401  (autouse)
+
 
 TOL = 1e-5
 GL_TOL = 1e-4
@@ -164,11 +166,16 @@ def test_mel_to_audio_matches_jax(monkeypatch):
 def vocoder():
     """The tiny vocoder of tests/test_full_model_parity.py, "end" live."""
     cfg = vocoder_cfg()
-    jp = JSW.init(jax.random.PRNGKey(1), cfg)
-    for i, flow in enumerate(jp["flows"]):
-        k = jax.random.fold_in(jax.random.PRNGKey(2), i)
-        flow["wn"]["end"]["w"] = 0.05 * jax.random.normal(
-            k, flow["wn"]["end"]["w"].shape)
+    @jax.jit
+    def init(key):
+        jp = JSW.init(key, cfg)
+        for i, flow in enumerate(jp["flows"]):
+            k = jax.random.fold_in(jax.random.PRNGKey(2), i)
+            flow["wn"]["end"]["w"] = 0.05 * jax.random.normal(
+                k, flow["wn"]["end"]["w"].shape)
+        return jp
+
+    jp = init(jax.random.PRNGKey(1))
     tm = from_numpy_tree(TSW.init(cfg, device="cpu"),
                          jax.tree.map(np.asarray, jp))
     return cfg, jp, tm
@@ -176,12 +183,13 @@ def vocoder():
 
 def test_bias_spectrum_and_denoise_match_jax(vocoder):
     cfg, jp, tm = vocoder
-    want_bias = JD.estimate_bias_spectrum(jp, cfg)
+    want_bias = jax.jit(lambda p: JD.estimate_bias_spectrum(p, cfg))(jp)
     got_bias = TD.estimate_bias_spectrum(tm, cfg)
     assert got_bias.shape == (513,)
     scaled_close(got_bias, want_bias, GL_TOL)
     audio = _signal(6000, seed=5)
-    want = JD.denoise(jnp.asarray(audio), want_bias, 0.3)
+    want = jax.jit(lambda a, b: JD.denoise(a, b, 0.3))(jnp.asarray(audio),
+                                                      want_bias)
     got = TD.denoise(torch.from_numpy(audio), torch.from_numpy(
         np.array(want_bias)), 0.3)
     assert got.shape == (6000,)

@@ -14,33 +14,27 @@ package's (``rtts/cli.py``) on the CPU.
 (d) Overrides, a misspelled key, a malformed override, a missing path and
     an empty ``serve`` fail as the JAX package's do; ``export`` and
     ``predict --from-export`` round-trip to live ``predict``'s wavs;
-    ``bench``, not ported, raises naming its ROADMAP item; ``download``
-    without network names ``generate_corpus``.
+    ``bench --which vocoder_train`` on the CPU prints its JSON line;
+    ``download`` without network names ``generate_corpus``.
 """
 
 import argparse
+import contextlib
+import io
 import pathlib
 import wave
 
 import jax
 import numpy as np
 import pytest
-import torch
 from click.testing import CliRunner
 
 from rtts import cli as JCLI
 from rtts_torch import cli as TCLI
+from tests.torch_twin import one_thread  # noqa: F401  (autouse)
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 TINY = str(ROOT / "configs" / "tiny.yaml")
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _click_options(params) -> dict:
@@ -232,7 +226,8 @@ def test_unported_verbs_raise_and_download_names_the_corpus(tmp_path,
                                                             monkeypatch):
     """``export`` then ``predict --from-export`` (tiny.yaml, random
     weights seeded 0, no vocoder: Griffin-Lim) write the wavs that live
-    ``predict`` writes; ``bench`` still raises naming its ROADMAP item;
+    ``predict`` writes; ``bench --which vocoder_train`` at tiny.yaml on the
+    CPU prints one JSON line (``rtts_torch.bench.run_bench``'s);
     ``download`` without network names ``generate_corpus``."""
     import json
     import urllib.error
@@ -254,8 +249,13 @@ def test_unported_verbs_raise_and_download_names_the_corpus(tmp_path,
         got = _wav_samples(tmp_path / "exported" / f"sample_{i}.wav")
         assert len(got) == len(live) > 0
         np.testing.assert_allclose(got, live, atol=1)   # int16 steps
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        TCLI.main(["--device", "cpu", "bench"])
+    said = io.StringIO()
+    with contextlib.redirect_stdout(said):
+        assert TCLI.main(top + ["bench", "--which", "vocoder_train"]) == 0
+    (line,) = said.getvalue().splitlines()
+    got = json.loads(line)
+    assert got["metric"] == "vocoder_train_rtf" and got["value"] > 0
+    assert got["detail"]["device"] == "cpu"
 
     def offline(url, timeout=None):
         raise urllib.error.URLError("no network")

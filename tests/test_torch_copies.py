@@ -45,6 +45,8 @@ from rtts_torch.audio import resample as TR
 from rtts_torch.audio import wav as TW
 from rtts_torch.train import quality as TQ
 from rtts_torch.utils.metrics import MetricLogger as PortLogger
+from tests.torch_twin import one_thread  # noqa: F401  (autouse)
+
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 CONFIGS = sorted((ROOT / "configs").glob("*.yaml"))

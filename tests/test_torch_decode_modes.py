@@ -47,6 +47,8 @@ from rtts_torch.infer import diagnostics as TDG
 from rtts_torch.infer import draws
 from rtts_torch.models import reformer_tts as TM
 from rtts_torch.train.quality import attention_diagonality
+from tests.torch_twin import one_thread  # noqa: F401  (autouse)
+
 
 TOL = 1e-4
 BLOCK_ATOL, BLOCK_RTOL = 2e-3, 1e-2

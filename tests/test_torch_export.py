@@ -62,6 +62,7 @@ from rtts_torch.text import frontend_vocab_size
 from tests.test_torch_decode_modes import jax_cfg
 from tests.test_torch_parallel import collect, spawn
 from tests.test_torch_slice import TOL, close
+from tests.torch_twin import one_thread  # noqa: F401  (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TEXTS = ["hello world", "a longer test sentence here", "ok"]
@@ -72,14 +73,6 @@ VOCODER = {"n_mels": 20, "n_flows": 2, "n_group": 16, "n_early_every": 4,
 ATT = {"full": {"kind": "full", "num_heads": 2, "head_dim": 16},
        "lsh": {"kind": "lsh", "num_heads": 2, "head_dim": 16,
                "chunk_length": 16, "num_hashes": 2}}
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def port_config(enc="full", dec="full", vocoder=True, enc_extra=None,
@@ -429,7 +422,12 @@ def test_runner_loads_without_model_code(exported):
     the decode, the live Synthesizer, the trainers and JAX cannot be
     imported, and gives what it gives here."""
     out, _, _, proc, npz = exported
-    _, err = proc.communicate(timeout=300)
+    try:
+        _, err = proc.communicate(timeout=300)
+    finally:   # a hung runner fails this test, not the run
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
     assert proc.returncode == 0, err[-4000:]
     exp = ExportedSynthesizer(out)
     mel, lengths = exp.text_to_mel(TEXTS[:2], seed=3)

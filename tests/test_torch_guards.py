@@ -21,6 +21,7 @@
 
 import ast
 import ctypes
+import os
 import pathlib
 import re
 import subprocess
@@ -33,6 +34,8 @@ import torch
 from rtts.config import load_yaml
 from rtts_torch.nn.layers import PrenetMLP, dropout
 from rtts_torch.ops._build import SIGNATURES
+from tests.torch_twin import one_thread  # noqa: F401  (autouse)
+
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
@@ -163,7 +166,8 @@ print("OK", losses, lsh_losses, voc_losses)
 
 def _run_without_jax(script):
     proc = subprocess.run([sys.executable, "-c", script], cwd=ROOT,
-                          capture_output=True, text=True, timeout=300)
+                          capture_output=True, text=True, timeout=300,
+                          env=dict(os.environ, OMP_NUM_THREADS="1"))
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.startswith("OK")
 
@@ -244,6 +248,42 @@ def test_cli_and_config_need_no_jax_click_or_yaml():
     _run_without_jax(NO_DEPS_CLI)
 
 
+NO_JAX_BENCH = r"""
+import sys
+sys.modules["jax"] = None          # any `import jax` now raises ImportError
+sys.modules["rtts"] = None         # and so does any `import rtts...`
+import contextlib
+import io
+import json
+from rtts_torch import bench
+from rtts_torch.config import load_config
+cfg = load_config("configs/tiny.yaml")
+lines = [json.loads(bench.run_bench(cfg, "e2e", device="cpu", batch=2,
+                                    token_len=16, max_frames=16, repeats=1)),
+         json.loads(bench.run_bench(cfg, "kernels", device="cpu", repeats=1,
+                                    shapes={"lsh": (1, 2, 2, 64, 16, 64),
+                                            "ffn": (1, 16, 32, 64),
+                                            "depthwise": (1, 32, 8, 3),
+                                            "flash": (1, 32, 128, 2)}))]
+assert [l["metric"] for l in lines] == ["text_to_wav_rtf_per_chip",
+                                        "cuda_vs_plain_min_speedup"]
+said = io.StringIO()
+with contextlib.redirect_stdout(said):
+    assert bench.main(["--config", "configs/tiny.yaml", "--which",
+                       "vocoder_train", "--device", "cpu"]) == 0
+assert json.loads(said.getvalue())["metric"] == "vocoder_train_rtf"
+assert not any(m.split(".")[0] in ("jax", "rtts") for m in sys.modules
+               if sys.modules[m] is not None)
+print("OK")
+"""
+
+
+def test_bench_runs_without_jax():
+    """``rtts_torch.bench`` (its cells and its entry point) on the CPU with
+    ``jax`` and ``rtts`` blocked."""
+    _run_without_jax(NO_JAX_BENCH)
+
+
 def test_port_imports_cover_the_probes_and_name_no_script():
     """The import guard reads the probes too, and no module of the port
     imports the JAX package's scripts."""
@@ -272,7 +312,8 @@ def test_port_imports_nothing_of_the_jax_package():
                  "parallel/sharding.py", "parallel/serving.py",
                  "parallel/training.py", "parallel/collectives.py",
                  "parallel/seq_parallel.py", "parallel/pipeline.py",
-                 "infer/export.py", "infer/draws.py", "ops/registry.py"):
+                 "infer/export.py", "infer/draws.py", "ops/registry.py",
+                 "bench.py"):
         assert ROOT / "rtts_torch" / name in files, name
     for path in files + [ROOT / "chip_smoke.py"]:
         names = _imported_modules(path)
@@ -353,6 +394,80 @@ def test_chip_smoke_flagship_vocoder_settings_equal_flagship_yaml():
     base = load_yaml(ROOT / "configs" / "base.yaml")["vocoder"]
     flagship = load_yaml(ROOT / "configs" / "flagship.yaml")["vocoder"]
     assert {**base, **chip_smoke.FLAGSHIP_VOCODER} == flagship
+
+
+def test_chip_smoke_bench_phase_keeps_the_reference_shapes():
+    """Phase 35 runs ``bench_e2e`` at the reference's defaults, and every
+    other cell with the reference's default arguments except the cuts it
+    names: ``BENCH_CUTS`` holds only the counts this slice cuts (repeats,
+    longform's frames, one request a length, one concurrency and chunk
+    size), ``BENCH_SIZES`` only sizes at which each serving cell's
+    mechanism still works; the port's cells default to the reference's
+    arguments, and ``bench_kernels`` to its shapes."""
+    import inspect
+
+    import chip_smoke
+    from rtts import bench as JB
+    from rtts_torch import bench as RB
+
+    def defaults(fn):
+        return {k: p.default for k, p in inspect.signature(fn).parameters
+                .items() if p.default is not inspect.Parameter.empty}
+
+    cells = {"decode": "bench_decode", "e2e": "bench_e2e",
+             "vocoder": "bench_vocoder", "train": "bench_train_step",
+             "vocoder_train": "bench_vocoder_train",
+             "longform": "bench_longform", "serving": "bench_serving",
+             "continuous": "bench_continuous", "latency": "bench_latency",
+             "kernels": "bench_kernels"}
+    for mode, name in cells.items():
+        got, want = defaults(getattr(RB, name)), defaults(getattr(JB, name))
+        got.pop("device")
+        cut = {**chip_smoke.BENCH_CUTS.get(mode, {}),
+               **chip_smoke.BENCH_SIZES.get(mode, {})}
+        kept = {k: v for k, v in want.items() if k not in cut}
+        assert {k: got[k] for k in kept} == kept, mode
+        assert set(cut) <= set(got), mode
+    e2e = defaults(JB.bench_e2e)
+    assert chip_smoke.BENCH_E2E_CALLS == 1 + e2e["repeats"]
+    assert set(chip_smoke.BENCH_CUTS) == set(RB.MODES) - {"e2e", "kernels"}
+    counts = {"longform": {"max_frames"}, "serving": {"per_bucket"},
+              "continuous": {"per_group"},
+              "latency": {"concurrency", "chunk_sweep"}}
+    for mode, kw in chip_smoke.BENCH_CUTS.items():
+        assert set(kw) == {"repeats"} | counts.get(mode, set()), mode
+    assert chip_smoke.BENCH_CUTS["longform"]["max_frames"] < \
+        defaults(JB.bench_longform)["max_frames"]
+    # the sizes: each serving cell still does what it measures
+    sizes = chip_smoke.BENCH_SIZES
+    assert set(sizes) == {"serving", "continuous", "latency"}
+    serving = {**defaults(RB.bench_serving), **sizes["serving"]}
+    assert len(set(serving["lengths"])) >= 2        # buckets differ
+    assert set(serving["lengths"]) <= set(defaults(RB.bench_serving)[
+        "lengths"])
+    cont = {**defaults(RB.bench_continuous), **chip_smoke.BENCH_CUTS[
+        "continuous"], **sizes["continuous"]}
+    assert len(cont["lengths"]) * cont["per_group"] > cont["slots"]
+    assert min(cont["lengths"]) > cont["segment_frames"]
+    assert max(cont["lengths"]) % cont["segment_frames"] == 0
+    lat = {**defaults(RB.bench_latency), **chip_smoke.BENCH_CUTS["latency"],
+           **sizes["latency"]}
+    assert all(lat["max_frames"] >= 2 * c for c in lat["chunk_sweep"])
+    assert lat["lengths"][0] <= lat["max_frames"]
+    # the reference's bench_kernels shapes, written inline in its source
+    source = inspect.getsource(JB.bench_kernels)
+    b, h, nh, l, c, d = RB.KERNEL_SHAPES["lsh"]
+    assert f"b, h, nh, l, c, d = {b}, {h}, {nh}, {l}, {c}, {d}" in source
+    b, rows, dm, dff = RB.KERNEL_SHAPES["ffn"]
+    assert f"dm, dff = {dm}, {dff}" in source
+    assert f"({b}, {rows}, dm)" in source
+    b, lsq, cch, taps = RB.KERNEL_SHAPES["depthwise"]
+    assert f"cch, lsq, ks = {cch}, {lsq}, {taps}" in source
+    assert f"({b}, lsq, cch)" in source
+    b, l, dm, heads = RB.KERNEL_SHAPES["flash"]
+    assert f"attention_init(jax.random.PRNGKey(7), {dm}, {heads}, " \
+        f"{dm // heads}" in source
+    assert f"({b}, {l}, {dm})" in source and f"num_heads={heads}" in source
 
 
 @pytest.mark.parametrize("rate", [0.1, 0.5])

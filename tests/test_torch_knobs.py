@@ -48,6 +48,8 @@ from rtts_torch.models import reformer_tts as TM
 from rtts_torch.train import optim as TO
 from rtts_torch.train.train_tts import make_train_step, step_generator
 from tests.test_torch_decode_modes import jax_cfg, port_cfg, scaled_err, tt
+from tests.torch_twin import one_thread  # noqa: F401  (autouse)
+
 
 TOL = 1e-4
 OPTIM = JC.OptimConfig(schedule="constant", learning_rate=1e-3,
@@ -107,13 +109,14 @@ def test_axial_encode_and_forward_match_jax(axial):
     cfg, tcfg, jp, tm = axial
     b = _batch()
     jb = {k: jnp.asarray(v) for k, v in b.items()}
-    want = JM.encode(jp, cfg, jb["tokens"], jb["token_mask"])
+    want = jax.jit(lambda p, t, m: JM.encode(p, cfg, t, m))(
+        jp, jb["tokens"], jb["token_mask"])
     with torch.no_grad():
         got = TM.encode(tm, tcfg, tt(b["tokens"]).long(),
                         tt(b["token_mask"]))
     assert scaled_err(got, want) < TOL
-    want = JM.forward(jp, cfg, jb["tokens"], jb["token_mask"], jb["mel"],
-                      jb["mel_mask"], deterministic=True)
+    want = jax.jit(lambda p, *a: JM.forward(p, cfg, *a, deterministic=True))(
+        jp, jb["tokens"], jb["token_mask"], jb["mel"], jb["mel_mask"])
     with torch.no_grad():
         got = TM.forward(tm, tcfg, tt(b["tokens"]).long(),
                          tt(b["token_mask"]), tt(b["mel"]), tt(b["mel_mask"]))
@@ -125,7 +128,8 @@ def test_axial_decode_greedy_matches_jax(axial):
     cfg, tcfg, jp, tm = axial
     b = _batch(seed=1)
     mask = jnp.asarray(b["token_mask"])
-    memory = JM.encode(jp, cfg, jnp.asarray(b["tokens"]), mask)
+    memory = jax.jit(lambda p, t, m: JM.encode(p, cfg, t, m))(
+        jp, jnp.asarray(b["tokens"]), mask)
     want = JD.decode_greedy(jp, cfg, memory, mask, 32,
                             rng=jax.random.PRNGKey(0), stop_threshold=2.0)
     got = decode_greedy(tm, tcfg, tt(memory), tt(mask), max_frames=32,
@@ -146,15 +150,33 @@ def test_axial_capacity_raises_like_jax(axial):
         tm.enc_pos(tt(x))
 
 
-@pytest.mark.parametrize("seed", [0, 1])
-def test_bf16_param_step_matches_jax_and_optax(seed):
+@pytest.fixture(scope="module")
+def bf16_jax():
+    """The JAX side of the bf16-parameter step, compiled once for every
+    seed: the config, optax's chain, the jitted gradient of the loss and
+    the jitted train step (the batch an argument of both)."""
     cfg = dataclasses.replace(jax_cfg("full"), param_dtype="bfloat16",
                               enc_prenet_dropout=0.0, postnet_dropout=0.0)
+    j_opt = JO.make_optimizer(OPTIM)
+
+    def loss_fn(p, jb):
+        pre, post, stop = JM.forward(p, cfg, jb["tokens"], jb["token_mask"],
+                                     jb["mel"], jb["mel_mask"])
+        return JL.tts_loss(pre, post, stop, jb["mel"],
+                           JL.make_stop_target(jb["mel_mask"]),
+                           jb["mel_mask"], cfg.stop_pos_weight)[0]
+
+    return (cfg, j_opt, jax.jit(jax.grad(loss_fn)),
+            jax.jit(jax_make_train_step(cfg, j_opt)))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_bf16_param_step_matches_jax_and_optax(seed, bf16_jax):
+    cfg, j_opt, j_grad, j_step = bf16_jax
     tcfg = port_cfg(cfg)
     jp = JM.init(jax.random.PRNGKey(3 + seed), cfg)
     tm = from_numpy_tree(TM.init(tcfg, device="cpu"), _f32_tree(jp))
     assert {p.dtype for p in tm.parameters()} == {torch.bfloat16}
-    j_opt = JO.make_optimizer(OPTIM)
     j_state = j_opt.init(jp)
     t_opt = TO.make_optimizer(port_cfg_optim())
     t_state = t_opt.init(list(tm.parameters()))
@@ -162,17 +184,9 @@ def test_bf16_param_step_matches_jax_and_optax(seed):
         torch.bfloat16}
     b = _batch(seed=seed)
     jb = {k: jnp.asarray(v) for k, v in b.items()}
-
-    def loss_fn(p):
-        pre, post, stop = JM.forward(p, cfg, jb["tokens"], jb["token_mask"],
-                                     jb["mel"], jb["mel_mask"])
-        return JL.tts_loss(pre, post, stop, jb["mel"],
-                           JL.make_stop_target(jb["mel_mask"]),
-                           jb["mel_mask"], cfg.stop_pos_weight)[0]
-
-    j_grads = jax.jit(jax.grad(loss_fn))(jp)
-    jp, j_state, j_metrics = jax.jit(jax_make_train_step(cfg, j_opt))(
-        jp, j_state, jb, jax.random.PRNGKey(0), 0)
+    j_grads = j_grad(jp, jb)
+    jp, j_state, j_metrics = j_step(jp, j_state, jb, jax.random.PRNGKey(0),
+                                    0)
     metrics, grads = make_train_step(tcfg, t_opt)(
         tm, t_state, _torch_batch(b), step_generator(0, 0, "cpu"), 0,
         return_grads=True)

@@ -46,6 +46,8 @@ from rtts_torch.ops import lsh_attention as TK
 from rtts_torch.train import optim as TO
 from rtts_torch.train.train_tts import make_train_step, step_generator
 from tests.test_model_m1 import tiny_cfg
+from tests.torch_twin import one_thread  # noqa: F401  (autouse)
+
 
 TOL = 1e-5
 GRAD_TOL = 1e-4
@@ -301,8 +303,9 @@ def test_lsh_core_matches_jax(inject_rotations, n_hashes, causal, masked):
             qk, v, cfg, jmask, causal, jax.random.PRNGKey(cfg.hash_seed))
         return jnp.sum(out * cot), (out, buckets)
 
-    (_, (want, want_buckets)), want_grads = jax.value_and_grad(
-        jax_loss, argnums=(0, 1), has_aux=True)(jnp.asarray(qk), jnp.asarray(v))
+    (_, (want, want_buckets)), want_grads = jax.jit(jax.value_and_grad(
+        jax_loss, argnums=(0, 1), has_aux=True))(jnp.asarray(qk),
+                                                 jnp.asarray(v))
     tqk, tv = (torch.tensor(x, requires_grad=True) for x in (qk, v))
     out, buckets = TL.lsh_attention_core(tqk, tv, cfg,
                                          None if mask is None else tt(mask),
@@ -321,14 +324,17 @@ def test_lsh_core_dropout_matches_jax():
     rot = jax_rotations(cfg.hash_seed, 2, 16, 2, 4)
     key = jax.random.PRNGKey(11)
     seed = int(JF.dropout_seed_from_key(key))
-    buckets = JL.hash_vectors(jnp.asarray(qk), 8, 2, None, jnp.asarray(mask),
-                              rotations=jnp.asarray(rot))
-    want, _ = JL.lsh_attention_core(jnp.asarray(qk), jnp.asarray(v), cfg,
-                                    jnp.asarray(mask), True, None,
-                                    buckets=buckets, dropout_rng=key)
-    no_drop, _ = JL.lsh_attention_core(jnp.asarray(qk), jnp.asarray(v), cfg,
-                                       jnp.asarray(mask), True, None,
-                                       buckets=buckets)
+    buckets = jax.jit(lambda qk, mask, rot: JL.hash_vectors(
+        qk, 8, 2, None, mask, rotations=rot))(
+            jnp.asarray(qk), jnp.asarray(mask), jnp.asarray(rot))
+
+    @jax.jit
+    def jax_core(rng):
+        return JL.lsh_attention_core(jnp.asarray(qk), jnp.asarray(v), cfg,
+                                     jnp.asarray(mask), True, None,
+                                     buckets=buckets, dropout_rng=rng)[0]
+
+    want, no_drop = jax_core(key), jax_core(None)
     got, _ = TL.lsh_attention_core(tt(qk), tt(v), cfg, tt(mask), True, None,
                                    buckets=tt(np.asarray(buckets)).long(),
                                    dropout_seed=seed)
@@ -366,8 +372,8 @@ def test_lsh_self_attention_matches_jax(inject_rotations, n_hashes, causal, l,
                                        key, deterministic=not dropout)
         return jnp.sum(out * cot), out
 
-    (_, want), (want_gp, want_gx) = jax.value_and_grad(
-        jax_loss, argnums=(0, 1), has_aux=True)(jp, jnp.asarray(x))
+    (_, want), (want_gp, want_gx) = jax.jit(jax.value_and_grad(
+        jax_loss, argnums=(0, 1), has_aux=True))(jp, jnp.asarray(x))
     tx = torch.tensor(x, requires_grad=True)
     out, cache = TL.lsh_self_attention(tp, tx, tt(mask), causal, cfg, None,
                                        dropout_seed=seed)
@@ -463,8 +469,9 @@ def test_onehot_core_matches_jax(inject_rotations, n_hashes, causal, masked):
                                        jax.random.PRNGKey(cfg.hash_seed))
         return jnp.sum(out * cot), out
 
-    (_, want), want_grads = jax.value_and_grad(
-        jax_loss, argnums=(0, 1), has_aux=True)(jnp.asarray(qk), jnp.asarray(v))
+    (_, want), want_grads = jax.jit(jax.value_and_grad(
+        jax_loss, argnums=(0, 1), has_aux=True))(jnp.asarray(qk),
+                                                 jnp.asarray(v))
     tqk, tv = (torch.tensor(x, requires_grad=True) for x in (qk, v))
     out, _ = TL.lsh_attention_core(tqk, tv, cfg,
                                    None if mask is None else tt(mask), causal,

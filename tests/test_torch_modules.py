@@ -36,6 +36,8 @@ from rtts_torch.nn.layers import Dense, Embedding, LayerNorm, PrenetMLP, activat
 from rtts_torch.nn.posenc import ScaledPosEnc
 from rtts_torch.reversible.ffn import _ffn_body
 from tests.test_model_m1 import tiny_cfg
+from tests.torch_twin import one_thread  # noqa: F401  (autouse)
+
 
 TOL = 1e-5
 STACK_TOL = 1e-4
@@ -119,9 +121,9 @@ def test_scaled_posenc(data):
 def test_shared_qk_self_attention(model, data, causal):
     cfg, jp, tm = model
     jattn = jp["encoder"]["layers"][0]["f"]["attn"]
-    want = jfull.shared_qk_self_attention(
-        jattn, data["x"], mask=data["mask"], causal=causal, num_heads=2,
-        impl="flash")
+    want = jax.jit(lambda p, x, m: jfull.shared_qk_self_attention(
+        p, x, mask=m, causal=causal, num_heads=2, impl="flash"))(
+            jattn, data["x"], data["mask"])
     got = tfull.shared_qk_self_attention(
         tm.encoder.layers[0].f.attn, tt(data["x"]), mask=tt(data["mask"]),
         causal=causal, num_heads=2, impl="flash")
@@ -131,9 +133,9 @@ def test_shared_qk_self_attention(model, data, causal):
 def test_cross_attention(model, data):
     cfg, jp, tm = model
     jattn = jp["decoder"]["layers"][1]["f"]["attn"]
-    want = jfull.cross_attention(jattn, data["dec"], data["x"],
-                                 memory_mask=data["mask"], num_heads=2,
-                                 impl="flash")
+    want = jax.jit(lambda p, x, mem, m: jfull.cross_attention(
+        p, x, mem, memory_mask=m, num_heads=2, impl="flash"))(
+            jattn, data["dec"], data["x"], data["mask"])
     got = tfull.cross_attention(tm.decoder.layers[1].f.attn, tt(data["dec"]),
                                 tt(data["x"]), memory_mask=tt(data["mask"]),
                                 num_heads=2, impl="flash")
@@ -147,16 +149,23 @@ def test_ffn(model, data):
     close(got.detach(), want)
 
 
+def _jit_stack(stack_cfg):
+    """JAX's stack_apply under ``stack_cfg``, compiled whole (one compile,
+    not one per operation)."""
+    return jax.jit(lambda p, x, m, memory=None, memory_mask=None:
+                   jax_stack_apply(p, stack_cfg, x, m, memory=memory,
+                                   memory_mask=memory_mask))
+
+
 def test_stack_apply_encoder_and_decoder(model, data):
     cfg, jp, tm = model
-    want = jax_stack_apply(jp["encoder"], cfg.encoder, data["x"], data["mask"])
+    want = _jit_stack(cfg.encoder)(jp["encoder"], data["x"], data["mask"])
     with torch.no_grad():
         got = stack_apply(tm.encoder, cfg.encoder, tt(data["x"]),
                           tt(data["mask"]))
     close(got, want, STACK_TOL)
-    want = jax_stack_apply(jp["decoder"], cfg.decoder, data["dec"],
-                           data["dec_mask"], memory=data["x"],
-                           memory_mask=data["mask"])
+    want = _jit_stack(cfg.decoder)(jp["decoder"], data["dec"],
+                                   data["dec_mask"], data["x"], data["mask"])
     with torch.no_grad():
         got = stack_apply(tm.decoder, cfg.decoder, tt(data["dec"]),
                           tt(data["dec_mask"]), memory=tt(data["x"]),
@@ -173,7 +182,7 @@ def test_local_encoder_stack_matches_jax(model, data):
         cfg.encoder.attention, kind="local", chunk_length=8))
     x = np.pad(data["x"], ((0, 0), (0, 3), (0, 0)))
     mask = np.pad(data["mask"], ((0, 0), (0, 3)))
-    want = jax_stack_apply(jp["encoder"], local, x, mask)
+    want = _jit_stack(local)(jp["encoder"], x, mask)
     with torch.no_grad():
         got = stack_apply(tm.encoder, local, tt(x), tt(mask))
     close(got, want, STACK_TOL)
@@ -250,8 +259,8 @@ def test_wn_apply(vocoder, data):
     rng = np.random.default_rng(4)
     a0 = rng.standard_normal((2, 26, 16)).astype(np.float32)
     mel_up = rng.standard_normal((2, 26, 20)).astype(np.float32)
-    want = JS.wn_apply(jax.tree.map(jnp.asarray, jp["flows"][0]["wn"]), a0,
-                       mel_up, 2, 16)
+    want = jax.jit(lambda p, a, m: JS.wn_apply(p, a, m, 2, 16))(
+        jp["flows"][0]["wn"], a0, mel_up)
     with torch.no_grad():
         got = TS.wn_apply(tm.flows[0].wn, tt(a0), tt(mel_up), 2, 16)
     assert float(np.abs(np.asarray(want)).max()) > 1e-2   # "end" is live
@@ -262,8 +271,8 @@ def test_infer_chunk(vocoder, data):
     jp, tm = vocoder
     rng = np.random.default_rng(5)
     z = rng.standard_normal((2, 13 * 2, 32)).astype(np.float32)
-    want = JS._infer_chunk(jax.tree.map(jnp.asarray, jp), data["mel"], z,
-                           cfg=VOC_CFG)
+    want = jax.jit(lambda p, mel, z: JS._infer_chunk(p, mel, z, cfg=VOC_CFG))(
+        jp, data["mel"], z)
     got = TS._infer_chunk(tm, tt(data["mel"]), tt(z), cfg=VOC_CFG)
     assert got.shape == want.shape == (2, 13 * 64)
     close(got, want, STACK_TOL)

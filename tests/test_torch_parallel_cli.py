@@ -30,8 +30,11 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 from rtts_torch import cli as TCLI
+from tests.torch_twin import one_thread  # noqa: F401  (autouse)
+
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 TINY = str(ROOT / "configs" / "tiny.yaml")
@@ -117,9 +120,10 @@ def test_main_destroys_the_process_group_it_started(tmp_path, verb):
     args = ["-c", TINY, "-o", f"dataset.data_dir={tmp_path / 'data'}",
             "-o", "experiment.mesh.coordinator_address="
             f"file://{tmp_path / 'store'}", "--device", "cpu", verb]
-    if verb == "bench":
-        with pytest.raises(NotImplementedError):
-            TCLI.main(args)
+    if verb == "bench":   # raises inside the verb: no such compute dtype
+        with pytest.raises(KeyError, match="float64"):
+            TCLI.main(args[:2] + ["-o", "model.compute_dtype=float64"]
+                      + args[2:] + ["--which", "decode"])
     else:
         assert TCLI.main(args + ["-n", "2"]) == 0
     assert not dist.is_initialized()

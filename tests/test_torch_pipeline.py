@@ -31,6 +31,7 @@ from rtts.data import native_loader as JN
 from rtts.data import preprocess as JP
 from rtts_torch.data import dataset as TD
 from rtts_torch.data import preprocess as TP
+from tests.torch_twin import one_thread  # noqa: F401  (autouse)
 
 MEL_TOL = 1e-4
 ENERGY_TOL = 1e-5
@@ -44,14 +45,6 @@ def assert_mel_close(got, want, log_floor=1e-5):
     np.testing.assert_allclose(got[loud], want[loud], rtol=0, atol=MEL_TOL)
     np.testing.assert_allclose(np.exp(got), np.exp(want), rtol=0,
                                atol=ENERGY_TOL * np.exp(want).max())
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -43,22 +43,12 @@ from rtts_torch.infer.synthesize import Synthesizer
 from rtts_torch.models import reformer_tts as TM
 from rtts_torch.models import squeezewave as TSW
 from tests.test_torch_decode_modes import jax_cfg, scaled_err, tt
+from tests.torch_twin import one_thread  # noqa: F401  (autouse)
 
 TOL = 1e-4
 L = 16                      # token length
 CAP, SLOTS, SEG = 64, 2, 16
 BUDGETS = [16, 32, 48, 16, 32]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread for the port: its decode steps are many tiny ops,
-    and beside the suite's other workers a thread pool's barriers cost far
-    more than its work."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def full_cfg(mcfg, **text):

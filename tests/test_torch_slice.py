@@ -29,6 +29,8 @@ from rtts_torch.models import reformer_tts as TM
 from rtts_torch.models import squeezewave as TS
 from tests.test_model_m1 import tiny_cfg
 from tests.test_torch_modules import VOC_CFG, np_tree
+from tests.torch_twin import one_thread  # noqa: F401  (autouse)
+
 
 TOL = 1e-4
 MAX_FRAMES = 48
@@ -50,7 +52,8 @@ def setup():
     b, l = 3, 23
     tokens = rng.integers(3, cfg.vocab_size, (b, l)).astype(np.int32)
     mask = np.arange(l)[None, :] < np.asarray([l, 17, 9])[:, None]
-    memory = JM.encode(jp, cfg, jnp.asarray(tokens), jnp.asarray(mask))
+    memory = jax.jit(lambda p, t, m: JM.encode(p, cfg, t, m))(
+        jp, jnp.asarray(tokens), jnp.asarray(mask))
     with torch.no_grad():   # encode is differentiable; serving runs it so
         tmem = TM.encode(tm, cfg, torch.from_numpy(tokens).long(),
                          torch.from_numpy(mask))
@@ -103,7 +106,8 @@ def test_decode_that_stops_matches_and_vocodes(setup):
     close(got.stop_logits, want.stop_logits)
     # the vocoder on that mel, with the same z and a live "end" conv
     rng = np.random.default_rng(9)
-    jv = np_tree(JS.fold_weightnorm(JS.init(jax.random.PRNGKey(10), VOC_CFG)))
+    jv = np_tree(jax.jit(lambda key: JS.fold_weightnorm(JS.init(
+        key, VOC_CFG)))(jax.random.PRNGKey(10)))
     for f in jv["flows"]:
         for k in ("w", "b"):
             f["wn"]["end"][k] = (0.1 * rng.standard_normal(
@@ -112,8 +116,8 @@ def test_decode_that_stops_matches_and_vocodes(setup):
     mel = np.array(want.mel_post)[..., :VOC_CFG.n_mels]
     l = MAX_FRAMES * VOC_CFG.hop_length // VOC_CFG.n_group
     z = rng.standard_normal((mel.shape[0], l, VOC_CFG.n_group)).astype(np.float32)
-    ja = JS._infer_chunk(jax.tree.map(jnp.asarray, jv), jnp.asarray(mel),
-                         jnp.asarray(z), cfg=VOC_CFG)
+    ja = jax.jit(lambda p, mel, z: JS._infer_chunk(p, mel, z, cfg=VOC_CFG))(
+        jv, mel, z)
     ta = TS._infer_chunk(tv, torch.from_numpy(mel), torch.from_numpy(z),
                          cfg=VOC_CFG)
     close(ta, ja)

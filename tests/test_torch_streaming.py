@@ -39,6 +39,7 @@ from rtts_torch.models import reformer_tts as TM
 from rtts_torch.models import squeezewave as TSW
 from rtts_torch.models.reformer_tts import postnet_apply
 from tests.test_torch_decode_modes import jax_cfg, scaled_err, tt
+from tests.torch_twin import one_thread  # noqa: F401  (autouse)
 
 TOL = 1e-4
 T = 32
@@ -46,17 +47,6 @@ TEXTS = ["hello world", "streams"]
 VOC = TC.SqueezeWaveConfig(n_mels=20, n_flows=4, n_group=32, n_early_every=2,
                            n_early_size=8, wn_layers=2, wn_channels=16,
                            hop_length=64, compute_dtype="float32")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread for the port: its decode steps are many tiny ops,
-    and beside the suite's other workers a thread pool's barriers cost far
-    more than its work."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def configs(mcfg):

@@ -17,11 +17,23 @@ from __future__ import annotations
 import math
 
 import numpy as np
+import pytest
 import torch
 import torch.nn.functional as F
 
 MASK_VALUE = -1e9
 SELF_MASK_VALUE = -1e5
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for a test module that imports this fixture: the
+    suite runs several workers on a few cores, and torch's default of one
+    thread a core oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _t(x) -> torch.Tensor:
