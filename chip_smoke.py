@@ -33,6 +33,9 @@ phase; every phase raises on failure:
 4. slice: the Synthesizer answers 8 sentences with finite waveforms of the
    expected lengths, through both kernels (launch counters), and the same
    weights and noise at float32 on the card match the port on the CPU;
+   then ``flagship.yaml`` at full width in bf16 (2 utterances x 64
+   frames, its f32 vocoder), card against CPU, within
+   ``BF16_CARD_RATIO`` x the card's own bf16-vs-f32 distance;
 5. timing at the shape of ``rtts/bench.py::bench_e2e`` (batch 8, 256 tokens,
    512 frames, stop threshold 2.0, batched vocoder; one timed run after a
    warm-up: phase 35's e2e cell takes the best of 3), and each kernel
@@ -54,7 +57,10 @@ phase; every phase raises on failure:
    step with attention dropout 0.1;
 9. train card-vs-CPU: one float32 train step at 2 + 2 layers on the card
    (kernels) and on the CPU (plain versions) from the same weights and
-   batch: loss, every gradient and the parameters after the update;
+   batch: loss, every gradient and the parameters after the update; then
+   one bf16 step of ``flagship.yaml``'s structure at d 512, 2 + 2 layers,
+   card against CPU within ``BF16_CARD_RATIO`` x the card's own
+   bf16-vs-f32 distance;
 10. train timing: the step at batch 8 x 1024 frames (best of 3), a
    ``torch.profiler`` view of one step, and K1 (with lse) and K3 against
    their plain versions at the decoder and encoder shapes (K3 bf16 on
@@ -213,14 +219,15 @@ phase; every phase raises on failure:
    launches a step), ``predict`` with both checkpoints (two texts, 256
    frames) inside ``rtts_torch.utils.profiling.trace``, whose Chrome trace
    must name K1's and K2's kernels, and ``serve --strategy continuous``
-   (8 texts, 256 frames); each verb's wall and launches; then ``python -m
-   rtts_torch.cli ... predict`` in a subprocess with ``jax``, ``rtts``,
-   ``click`` and ``yaml`` unimportable, which must exit 0 and write finite
-   wavs;
+   (8 texts, 256 frames); each verb's wall and launches (``python -m
+   rtts_torch.cli ... predict`` with ``jax``, ``rtts``, ``click`` and
+   ``yaml`` unimportable runs in phase 34's subprocess, on these
+   checkpoints);
 32. parallel: two ranks on this card over gloo (the backend rule: nccl
    only when every rank has a card of its own), started by ``python -m
    torch.distributed.run --standalone --nproc-per-node 2 chip_smoke.py
-   --rank MODE`` (each rank prints its rank, world, backend and device):
+   --rank par`` once (each rank prints its rank, world, backend and
+   device; (a) and then (b)-(d) run in one process group):
    (a) data parallel 2 with ZeRO-1 through ``rtts_torch.cli.main
    train-tts --max-steps 3`` at base.yaml on phase 31's corpus, 12 K1 and
    12 of each K3 kernel a step on each rank, its checkpoint (rank 0's, the
@@ -267,7 +274,11 @@ phase; every phase raises on failure:
    against ``squeezewave.infer`` on the same padded mels with z from a
    generator seeded 0; ``predict --from-export`` of the 8 sentences in a
    process that cannot import the model code, the decode, the live
-   Synthesizer, the trainers or JAX (K1 6, K2 96, wavs of length x hop);
+   Synthesizer, the trainers, JAX, the JAX package, click or PyYAML (K1
+   6, K2 96, wavs of length x hop), then in the same process, the model
+   code importable again, ``python -m rtts_torch.cli ... predict`` on
+   phase 31's checkpoints, which must exit 0, write finite wavs and import
+   none of the four;
    (b) ``serving_fast.yaml`` with ``use_pallas_ffn`` on both stacks, 8
    sentences x 64 frames: the artifact's encode launches K4, K6 and K7 as
    often as the live one's (6 each), lengths equal, mel within 1e-2; (c) the host cost of a call through
@@ -325,6 +336,7 @@ import copy
 import dataclasses
 import functools
 import json
+import math
 import os
 import pathlib
 import re
@@ -459,6 +471,16 @@ SLICE_TOL = 1e-3
 # +-lr, so a gradient of rounding-noise size may flip its step
 TRAIN_SLICE_TOL = 1e-3
 TRAIN_PARAM_TOL_LR = 3.0
+# bf16 on the card vs bf16 on the CPU (phases 4 and 9): the two round the
+# same values in some different places (K1 and K3 against their plain
+# versions, cuBLAS against the CPU's bf16 GEMMs, F.gelu's and
+# torch.sigmoid's one rounding against the CPU's op-by-op forms: PERF.md,
+# PR 19), and a single differing rounding spreads through the later bf16
+# sublayers as noise of the size bf16 itself adds.  So each distance is
+# bounded in units of the card's own bf16-vs-f32 distance on the same
+# weights and inputs, measured in the same phase (the CPU tests hold the
+# CPU's bf16 path against the JAX package's at 0.5-1.5 of JAX's own)
+BF16_CARD_RATIO = 2.0
 
 SEED_TTS, SEED_VOC, SEED_END, SEED_DATA, SEED_TRAIN = 0, 1, 2, 3, 4
 DROP_SEED = 0x9E3779B9
@@ -479,6 +501,16 @@ def _abs_err(got, want) -> float:
     return (got.float().cpu() - want.float().cpu()).abs().max().item()
 
 
+def _f32(*tensors):
+    """f32 copies of the floating tensors (masks and positions as they
+    are): a bf16 kernel's forward is held against its plain version on
+    these, the function itself, since the plain version in bf16 rounds P
+    as the JAX package's attention does, which the kernels do elsewhere
+    (PERF.md, PR 19)."""
+    return [t.float() if t is not None and t.is_floating_point() else t
+            for t in tensors]
+
+
 def _require(cond: bool, what: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke: {what}")
@@ -491,6 +523,18 @@ def base_config(compute_dtype: str = "bfloat16", **model_overrides) -> Config:
     data["model"].update(vocab_size=frontend_vocab_size("char"),
                          compute_dtype=compute_dtype, **model_overrides)
     data["vocoder"]["compute_dtype"] = compute_dtype
+    return from_dict(Config, data)
+
+
+def flagship_config(compute_dtype: str = "bfloat16",
+                    **model_overrides) -> Config:
+    """``configs/flagship.yaml`` (read by ``load_yaml``: no PyYAML) with
+    the vocabulary size set, the acoustic model's compute dtype and
+    ``model_overrides``; its vocoder as shipped (f32, log_s clamp 5.0)."""
+    data = load_yaml(pathlib.Path(__file__).resolve().parent / "configs"
+                     / "flagship.yaml")
+    data["model"].update(vocab_size=frontend_vocab_size("char"),
+                         compute_dtype=compute_dtype, **model_overrides)
     return from_dict(Config, data)
 
 
@@ -651,7 +695,8 @@ def phase_kernels():
         args, kw = _flash_case(*case)
         got, lse = flash_attend(*args, return_lse=True, **kw)
         torch.cuda.synchronize()
-        want, want_lse = flash_attend_reference(*args, return_lse=True, **kw)
+        want, want_lse = flash_attend_reference(*_f32(*args),
+                                                return_lse=True, **kw)
         err, abs_err = _scaled_err(got, want), _abs_err(got, want)
         lse_err = _scaled_err(lse, want_lse)
         tol = KERNEL_TOL[case[4]]
@@ -716,8 +761,8 @@ def phase_slice(cfg: Config):
 
 
 @torch.no_grad()
-def _run_f32(device, tokens, mask, z):
-    cfg = base_config("float32", dec_prenet_dropout=0.0)
+def _serve_once(cfg: Config, device, tokens, mask, z):
+    """encode, 64 kv_full decode steps (stop 2.0) and the vocoder on z."""
     tts, voc = build_models(cfg, device)
     tokens, mask, z = tokens.to(device), mask.to(device), z.to(device)
     memory = M.encode(tts, cfg.model, tokens, mask)
@@ -739,10 +784,11 @@ def phase_card_vs_cpu(cfg: Config):
                     generator=torch.Generator().manual_seed(SEED_DATA))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    f32_cfg = base_config("float32", dec_prenet_dropout=0.0)
     t0 = time.perf_counter()
-    cpu_res, cpu_audio = _run_f32("cpu", tokens, mask, z)
+    cpu_res, cpu_audio = _serve_once(f32_cfg, "cpu", tokens, mask, z)
     t1 = time.perf_counter()
-    gpu_res, gpu_audio = _run_f32("cuda", tokens, mask, z)
+    gpu_res, gpu_audio = _serve_once(f32_cfg, "cuda", tokens, mask, z)
     torch.cuda.synchronize()
     errs = {"mel": _scaled_err(gpu_res.mel_post, cpu_res.mel_post),
             "stop_logits": _scaled_err(gpu_res.stop_logits,
@@ -755,6 +801,54 @@ def phase_card_vs_cpu(cfg: Config):
           f"(cpu {t1 - t0:.1f} s)")
     _require(same_len and all(v <= SLICE_TOL for v in errs.values()),
              "card and CPU disagree")
+    _serve_card_vs_cpu_bf16(tokens, mask, z)
+
+
+def _serve_card_vs_cpu_bf16(tokens, mask, z):
+    """flagship.yaml at full width (bf16 acoustic model, f32 vocoder with
+    log_s clamp 5.0): the same weights, tokens and noise in bf16 on the
+    card and on the CPU, and in f32 on the card for the yardstick; mel,
+    stop logits and audio within BF16_CARD_RATIO x the card's own
+    bf16-vs-f32 distance (at least one bf16 ulp of the output), the
+    lengths equal."""
+    cfgs = {dt: flagship_config(dt, dec_prenet_dropout=0.0)
+            for dt in ("bfloat16", "float32")}
+    t0 = time.perf_counter()
+    cpu_res, cpu_audio = _serve_once(cfgs["bfloat16"], "cpu", tokens, mask,
+                                     z)
+    cpu_s = time.perf_counter() - t0
+    flash_attend.launches = 0
+    card = _serve_once(cfgs["bfloat16"], "cuda", tokens, mask, z)
+    card32 = _serve_once(cfgs["float32"], "cuda", tokens, mask, z)
+    torch.cuda.synchronize()
+    _require(flash_attend.launches > 0, "the bf16 serve launched no K1")
+    outs = {"mel": lambda r: r[0].mel_post, "stop_logits":
+            lambda r: r[0].stop_logits, "audio": lambda r: r[1]}
+    parts = []
+    ok = bool((card[0].lengths.cpu() == cpu_res.lengths).all())
+    for key, get in outs.items():
+        err = _abs_err(get(card), get((cpu_res, cpu_audio)))
+        # the yardstick: the card's bf16-vs-f32 distance, and at least
+        # one bf16 ulp of the output's largest value (the heads' outputs
+        # are bf16 roundings, which one differing bit upstream can flip
+        # where f32 lies within half an ulp of them)
+        dist32 = _abs_err(get(card), get(card32))
+        ulp = 2.0 ** (math.floor(math.log2(max(
+            get(card).float().abs().max().item(), 2.0 ** -100))) - 7)
+        unit = max(dist32, ulp)
+        ok = ok and err <= BF16_CARD_RATIO * unit
+        parts.append(f"{key} {err:.3e} (card bf16-vs-f32 {dist32:.3e}, "
+                     f"bf16 ulp {ulp:.3e}, ratio {err / unit:.3f})")
+    m = cfgs["bfloat16"].model
+    print(f"[card-vs-cpu] bf16 flagship.yaml d{m.d_model} "
+          f"{m.encoder.num_layers}+{m.decoder.num_layers} layers "
+          f"{m.decoder.attention.num_heads}x{m.decoder.attention.head_dim}, "
+          f"2 utterances x 64 frames, f32 vocoder: max abs " + ", ".join(
+              parts) + f"; lengths {card[0].lengths.tolist()} vs "
+          f"{cpu_res.lengths.tolist()}; bound {BF16_CARD_RATIO:g} x the "
+          f"larger of the card's bf16-vs-f32 distance and a bf16 ulp (cpu "
+          f"{cpu_s:.1f} s)")
+    _require(ok, "card and CPU disagree in bf16")
 
 
 def _events_ms(fn, n):
@@ -1298,7 +1392,7 @@ def phase_train():
     return model, launches
 
 
-def _f32_step(cfg: Config, batch, device):
+def _one_step(cfg: Config, batch, device):
     """-> (metrics as floats, gradients, parameters after the update), on
     the CPU."""
     model, state, step_fn = _trainer(cfg, device)
@@ -1323,10 +1417,10 @@ def phase_train_card_vs_cpu():
     lens = ((256, 131, 77, 200), (512, 300, 160, 400))
     batch = train_batch(cfg, *lens, "cpu")
     t0 = time.perf_counter()
-    cpu = _f32_step(cfg, batch, "cpu")
+    cpu = _one_step(cfg, batch, "cpu")
     t1 = time.perf_counter()
     _reset_train_counts()
-    card = _f32_step(cfg, batch, "cuda")
+    card = _one_step(cfg, batch, "cuda")
     launches = _train_counts()
     init = M.init(cfg.model, torch.Generator().manual_seed(SEED_TTS), "cpu")
     names = [n for n, _ in init.named_parameters()]
@@ -1355,6 +1449,60 @@ def phase_train_card_vs_cpu():
              and grad_errs[worst] <= TRAIN_SLICE_TOL
              and param_err <= TRAIN_PARAM_TOL_LR * lr,
              "card and CPU train steps disagree")
+    _train_card_vs_cpu_bf16()
+
+
+def _train_card_vs_cpu_bf16():
+    """One bf16 step of flagship.yaml's structure (d 512, 8 x 64 heads,
+    reduction 2, guided attention 2.0 live at step 0, plain decoder) at
+    2 + 2 layers, every dropout 0, constant lr: the card against the CPU
+    from the same weights and batch, and the card's f32 step for the
+    yardstick.  Loss, grad_norm, every gradient (relative to its leaf's
+    largest f32 entry, the worst leaf) and the parameters after the
+    update within BF16_CARD_RATIO x the card's bf16-vs-f32 distance."""
+    base = load_yaml(pathlib.Path(__file__).resolve().parent / "configs"
+                     / "flagship.yaml")
+    cfgs = {dt: train_config(dt, num_layers=2, dropout_off=True, base=base,
+                             schedule="constant")
+            for dt in ("bfloat16", "float32")}
+    lens = ((256, 131), (512, 300))
+    batch = train_batch(cfgs["bfloat16"], *lens, "cpu")
+    t0 = time.perf_counter()
+    cpu = _one_step(cfgs["bfloat16"], batch, "cpu")
+    cpu_s = time.perf_counter() - t0
+    _reset_train_counts()
+    card = _one_step(cfgs["bfloat16"], batch, "cuda")
+    launches = _train_counts()
+    card32 = _one_step(cfgs["float32"], batch, "cuda")
+    scale = [g.abs().max().clamp_min(1e-30) for g in card32[1]]
+
+    def grad_dist(a, b):
+        return max(((x.float() - y.float()).abs().max() / s).item()
+                   for x, y, s in zip(a, b, scale))
+
+    def param_dist(a, b):
+        return max((x.float() - y.float()).abs().max().item()
+                   for x, y in zip(a, b))
+
+    pairs = {key: (abs(card[0][key] - cpu[0][key]),
+                   abs(card[0][key] - card32[0][key]))
+             for key in ("loss", "grad_norm")}
+    pairs["gradients"] = (grad_dist(card[1], cpu[1]),
+                          grad_dist(card[1], card32[1]))
+    pairs["params"] = (param_dist(card[2], cpu[2]),
+                       param_dist(card[2], card32[2]))
+    m = cfgs["bfloat16"].model
+    print(f"[train-card-vs-cpu] bf16 flagship.yaml d{m.d_model} 2+2 layers "
+          f"r{m.reduction_factor} guided {m.guided_attention_weight:g}, b2 "
+          f"tokens {list(lens[0])} frames {list(lens[1])}: " + ", ".join(
+              f"{k} {e:.3e} (card bf16-vs-f32 {d:.3e}, ratio "
+              f"{e / max(d, 1e-30):.3f})" for k, (e, d) in pairs.items())
+          + f"; bound {BF16_CARD_RATIO:g} x the card's bf16-vs-f32 "
+          f"distance; card launches {launches} (cpu {cpu_s:.1f} s)")
+    _require(all(n > 0 for n in launches.values()),
+             "the card's bf16 step ran no kernel")
+    _require(all(e <= BF16_CARD_RATIO * d for e, d in pairs.values()),
+             "card and CPU bf16 train steps disagree")
 
 
 def phase_train_timing(model):
@@ -1785,11 +1933,11 @@ def _lsh_step_card_vs_cpu(cfg: Config, lens, tag: str, n_hashed: int):
         _reset_train_counts()
         for fn in _LSH_KERNELS:
             fn.launches = 0
-        card = _f32_step(cfg, batch, "cuda")
+        card = _one_step(cfg, batch, "cuda")
         launches = {**_train_counts(), **_lsh_counts()}
         TL.hash_vectors, TL.draw_rotations = cpu_hash, _rotation_draws()
         t0 = time.perf_counter()
-        cpu = _f32_step(cfg, batch, "cpu")
+        cpu = _one_step(cfg, batch, "cpu")
         t1 = time.perf_counter()
     finally:
         TL.hash_vectors, TL.draw_rotations = hash_vectors, draw_rotations
@@ -2129,12 +2277,12 @@ def phase_train_serving_fast_card_vs_cpu():
     try:
         TL.hash_vectors, TL.draw_rotations = card_hash, _rotation_draws()
         _reset_all_counts()
-        card = _f32_step(cfg, batch, "cuda")
+        card = _one_step(cfg, batch, "cuda")
         launches = _serving_fast_counts()
         TL.hash_vectors, TL.draw_rotations = cpu_hash, _rotation_draws()
         TS.use_ffn_kernel = lambda x: True
         t0 = time.perf_counter()
-        cpu = _f32_step(cfg, batch, "cpu")
+        cpu = _one_step(cfg, batch, "cpu")
         t1 = time.perf_counter()
     finally:
         TL.hash_vectors, TL.draw_rotations = hash_vectors, draw_rotations
@@ -2175,7 +2323,7 @@ def phase_train_serving_fast_card_vs_cpu():
         cfg = train_config("float32", num_layers=2, base=SERVING_FAST_CONFIG,
                            stack_overrides=dict(K6_ON, reversible=rev),
                            schedule="constant")
-        runs[rev] = _f32_step(cfg, batch, "cuda")
+        runs[rev] = _one_step(cfg, batch, "cuda")
     (rev_m, rev_g, _), (plain_m, plain_g, _) = runs[True], runs[False]
     loss_err = abs(rev_m["loss"] - plain_m["loss"]) / abs(plain_m["loss"])
     scale = max(g.abs().max().item() for g in plain_g)
@@ -3644,10 +3792,9 @@ def _serve_kernel_times(lens, dw_shape) -> dict:
     bf = torch.bfloat16
     b, lk = len(lens), max(lens)
     args, kw = _flash_case(b, 8, lk, lk, bf, lens)
-    err = _abs_err(flash_attend(*args, **kw),
-                   flash_attend_reference(*args, **kw))
-    _require(_scaled_err(flash_attend(*args, **kw),
-                         flash_attend_reference(*args, **kw))
+    want = flash_attend_reference(*_f32(*args), **kw)
+    err = _abs_err(flash_attend(*args, **kw), want)
+    _require(_scaled_err(flash_attend(*args, **kw), want)
              <= KERNEL_TOL[bf], "K1 disagrees at the admission shape")
     fn = lambda: flash_attend(*args, **kw)  # noqa: E731
     k_ms, plain_ms = _kernel_ms(fn, lambda: flash_attend_reference(*args,
@@ -3970,22 +4117,6 @@ CLI_MEL_TOL = 1e-4      # log-mel, abs, on bins of >= 100 log floors' energy
 CLI_ENERGY_TOL = 1e-5   # mel energy, abs, relative to the clip's peak
 # ``python -m rtts_torch.cli`` with the JAX package, JAX, click and PyYAML
 # unimportable; the command line's arguments follow the script's
-CLI_BLOCKED = r"""
-import runpy
-import sys
-for name in ("jax", "rtts", "click", "yaml"):
-    sys.modules[name] = None
-sys.argv = ["rtts_torch.cli"] + sys.argv[1:]
-try:
-    runpy.run_module("rtts_torch.cli", run_name="__main__")
-except SystemExit as e:
-    if e.code:
-        raise
-assert not any(m.split(".")[0] in ("jax", "rtts", "click", "yaml")
-               for m in sys.modules if sys.modules[m] is not None)
-"""
-
-
 class _StepLog(list):
     """Per train step its launches (the list's items) and its wall in
     seconds (``walls``)."""
@@ -4082,11 +4213,11 @@ def _trace_kernels(trace_file: str) -> dict:
 
 def phase_cli():
     """31: the README's quick start at base.yaml's full width through
-    ``rtts_torch.cli.main`` on the card, in a temporary directory; then the
-    command line in a subprocess that cannot import the JAX package, JAX,
-    click or PyYAML.  Returns the directory (corpus and checkpoints, which
-    phase 32 reads and then removes) and train-tts's walls a step and peak
-    device memory."""
+    ``rtts_torch.cli.main`` on the card, in a temporary directory (phase
+    34 drives the command line on its checkpoints in a subprocess that
+    cannot import the JAX package, JAX, click or PyYAML).  Returns the
+    directory (corpus and checkpoints, which phases 32-34 read and 33
+    removes) and train-tts's walls a step and peak device memory."""
     base_yaml = ROOT / "configs" / "base.yaml"
     _require(load_yaml(base_yaml) == BASE_CONFIG,
              "load_yaml(configs/base.yaml) differs from BASE_CONFIG")
@@ -4196,19 +4327,6 @@ def phase_cli():
         print(f"[cli] serve wrote wavs of "
               f"{_cli_wavs(work / 'serve', len(SENTENCES))} samples")
 
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-c", CLI_BLOCKED] + top + [
-                "predict", "--text", SENTENCES[2]] + ckpts + [
-                "--max-frames", "64", "--out", str(work / "blocked")],
-            cwd=ROOT, capture_output=True, text=True, timeout=600)
-        wall = time.perf_counter() - t0
-        print(f"[cli] python -m rtts_torch.cli ... predict with jax, rtts, "
-              f"click and yaml blocked: exit {proc.returncode} in {wall:.1f} "
-              f"s; {proc.stdout.strip().splitlines()[-1:]}")
-        _require(proc.returncode == 0,
-                 f"the blocked subprocess failed: {proc.stderr[-2000:]}")
-        _cli_wavs(work / "blocked", 1)
     except BaseException:
         shutil.rmtree(work, ignore_errors=True)
         raise
@@ -4238,19 +4356,41 @@ EXPORT_MEL_TOL = 1e-2
 # cannot import the model code, the decode, the live Synthesizer, the
 # trainers, JAX or the JAX package; argv: the output .json, then the
 # command line's.  It counts K1 and K2 over the verb
-EXPORT_BLOCKED = r"""
+# one process for two command lines, neither of which may import JAX, the
+# JAX package, click or PyYAML: first ``predict --from-export`` with the
+# model code unimportable too (the decode, the live Synthesizer, the
+# trainers), then, with the model code importable again, ``python -m
+# rtts_torch.cli ... predict`` on the checkpoints (``runpy``, as ``-m``)
+BLOCKED = r"""
 import json
+import runpy
 import sys
-for name in ("jax", "rtts", "rtts_torch.models", "rtts_torch.infer.decode",
-             "rtts_torch.infer.synthesize", "rtts_torch.train"):
+import warnings
+NEVER = ("jax", "rtts", "click", "yaml")
+MODEL_CODE = ("rtts_torch.models", "rtts_torch.infer.decode",
+              "rtts_torch.infer.synthesize", "rtts_torch.train")
+for name in NEVER + MODEL_CODE:
     sys.modules[name] = None
 from rtts_torch import cli
 from rtts_torch.ops.depthwise_conv import depthwise_conv1d
 from rtts_torch.ops.flash_attention import flash_attend
-status = cli.main(sys.argv[2:])
-with open(sys.argv[1], "w") as f:
-    json.dump({"status": status, "k1": flash_attend.launches,
-               "k2": depthwise_conv1d.launches}, f)
+counts, args = sys.argv[1], json.loads(sys.argv[2])
+out = {"status": cli.main(args["export"]), "k1": flash_attend.launches,
+       "k2": depthwise_conv1d.launches}
+for name in MODEL_CODE:
+    del sys.modules[name]
+sys.argv = ["rtts_torch.cli"] + args["predict"]
+try:
+    with warnings.catch_warnings():   # rtts_torch.cli is imported already
+        warnings.simplefilter("ignore", RuntimeWarning)
+        runpy.run_module("rtts_torch.cli", run_name="__main__")
+    out["predict"] = 0
+except SystemExit as e:
+    out["predict"] = e.code or 0
+out["imported"] = sorted({m.split(".")[0] for m in sys.modules
+                          if sys.modules[m] is not None} & set(NEVER))
+with open(counts, "w") as f:
+    json.dump(out, f)
 """
 
 
@@ -4350,25 +4490,39 @@ def _export_base(work: pathlib.Path) -> dict:
     torch.cuda.empty_cache()
 
     # predict --from-export with the model code unimportable: the 8
-    # sentences, one encode and one batched vocoder pass
+    # sentences, one encode and one batched vocoder pass; then, in the
+    # same process, phase 31's checkpoints through ``python -m
+    # rtts_torch.cli ... predict``
     counts = work / "export_counts.json"
+    args = {"export": top + [
+        "predict", "--from-export", str(out), "--out",
+        str(work / "predict_export")] + [
+            arg for text in SENTENCES for arg in ("--text", text)],
+        "predict": top + ["predict", "--text", SENTENCES[2]] + ckpts + [
+            "--max-frames", "64", "--out", str(work / "blocked")]}
     t0 = time.perf_counter()
     proc = subprocess.run(
-        [sys.executable, "-c", EXPORT_BLOCKED, str(counts)] + top + [
-            "predict", "--from-export", str(out), "--out",
-            str(work / "predict_export")] + [
-            arg for text in SENTENCES for arg in ("--text", text)],
+        [sys.executable, "-c", BLOCKED, str(counts), json.dumps(args)],
         cwd=ROOT, capture_output=True, text=True, timeout=600)
     run_s = time.perf_counter() - t0
-    _require(proc.returncode == 0, f"predict --from-export's process "
-             f"failed: {proc.stderr[-3000:]}")
+    _require(proc.returncode == 0, f"the blocked process failed: "
+             f"{proc.stderr[-3000:]}")
     with open(counts) as f:
         run = json.load(f)
     samples = _cli_wavs(work / "predict_export", len(SENTENCES))
     print(f"[export] (a) python -m rtts_torch.cli predict --from-export, "
           f"{len(SENTENCES)} texts, the model code unimportable: exit "
-          f"{run['status']} in {run_s:.1f} s with the process's start; K1 "
-          f"{run['k1']}, K2 {run['k2']}; wavs of {samples} samples")
+          f"{run['status']}; K1 {run['k1']}, K2 {run['k2']}; wavs of "
+          f"{samples} samples")
+    print(f"[cli] python -m rtts_torch.cli ... predict (phase 31's "
+          f"checkpoints) in the same process, jax, rtts, click and yaml "
+          f"unimportable: exit {run['predict']}, imported of them "
+          f"{run['imported']}; both in {run_s:.1f} s with the process's "
+          "start")
+    _require(run["predict"] == 0 and not run["imported"],
+             "python -m rtts_torch.cli predict failed or imported "
+             f"{run['imported']}")
+    _cli_wavs(work / "blocked", 1)
     _require(run["status"] == 0 and run["k1"] == n_enc
              and run["k2"] == voc.n_flows * voc.wn_layers,
              f"predict --from-export launched K1 {run['k1']} and K2 "
@@ -4456,8 +4610,9 @@ def _export_kernel_times(launches: dict) -> dict:
     args = (q, k, v, mask, False, True, 1.0, 0, 0.0, 0, 0, 0, None)
     op = lambda: torch.ops.rtts.flash_fwd(*args)  # noqa: E731
     plain = lambda: flash_attend_reference(q, k, v, mask, **kw)  # noqa: E731
-    _require(_scaled_err(op()[0], plain()) <= KERNEL_TOL[bf],
-             "K1 disagrees at the artifact's shape")
+    _require(_scaled_err(op()[0], flash_attend_reference(
+        *_f32(q, k, v, mask), **kw)) <= KERNEL_TOL[bf],
+        "K1 disagrees at the artifact's shape")
     ms, plain_ms = _kernel_ms(op, plain)
     times["flash_export"] = dict(
         ms=ms, plain_ms=plain_ms, library_ms=None,
@@ -4483,8 +4638,9 @@ def _export_kernel_times(launches: dict) -> dict:
         q, k, v, pos, valid, *opts, FA.MASK_VALUE, FA.SELF_MASK_VALUE)
     plain = lambda: lsh_attend_chunks_reference(  # noqa: E731
         q, k, v, pos, valid, *opts)
-    _require(_scaled_err(op()[0], plain()[0]) <= KERNEL_TOL[bf],
-             "K4 disagrees at the artifact's shape")
+    _require(_scaled_err(op()[0], lsh_attend_chunks_reference(
+        *_f32(q, k, v), pos, valid, *opts)[0]) <= KERNEL_TOL[bf],
+        "K4 disagrees at the artifact's shape")
     ms, plain_ms = _kernel_ms(op, plain, 100)
     times["lsh_attend_export"] = dict(
         ms=ms, plain_ms=plain_ms, library_ms=None,
@@ -4553,11 +4709,12 @@ def phase_export(work: pathlib.Path) -> dict:
 
 # -- 32: parallel -------------------------------------------------------------
 
-# phase 32 runs its multi-rank parts as ``python -m torch.distributed.run
-# --standalone --nproc-per-node 2 chip_smoke.py --rank MODE WORKDIR ...``:
-# each rank runs ``_rank_cli`` (the command line, counted) or ``_rank_mesh``
-# and writes WORKDIR/MODE_rank{RANK}.json; the kernels are built in the
-# parent before any rank starts
+# phase 32 runs its multi-rank parts as one ``python -m
+# torch.distributed.run --standalone --nproc-per-node 2 chip_smoke.py --rank
+# par WORKDIR ...``: each rank runs (a) through the command line, counted,
+# then (b), (c) and (d) in the same process group (``_rank_par``) and writes
+# WORKDIR/par_rank{RANK}.json; the kernels are built in the parent before
+# any rank starts
 PAR_WORLD = 2
 # (b) TP serving: 4 texts x 128 frames
 PAR_SERVE_FRAMES = 128
@@ -4628,19 +4785,25 @@ def _dims(key: str):
     return ast.literal_eval(key)
 
 
-def _rank_cli(work: pathlib.Path, args) -> int:
-    """One rank of (a): ``rtts_torch.cli.main(args)``, each train step's
-    K1/K3 launches and wall, and the peak device memory."""
-    kernels = {"flash": flash_attend, "flash_bwd_dkv": flash_bwd_dkv,
-               "flash_bwd_dq": flash_bwd_dq}
-    torch.cuda.reset_peak_memory_stats()
-    with _step_launches(TTS_TRAINER, kernels) as steps:
-        status = CLI.main(args)     # starts and destroys the group
-    out = {"status": status, "launches": list(steps), "walls": steps.walls,
-           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
-           "device": str(torch.cuda.current_device())}
-    (work / f"cli_rank{os.environ['RANK']}.json").write_text(json.dumps(out))
-    return status
+def _rank_par(work: pathlib.Path, args) -> int:
+    """One rank of phase 32: (a) ``rtts_torch.cli.main(args)`` in this
+    process group, each train step's K1/K3 launches and wall and the peak
+    device memory; then (b), (c) and (d) (``_rank_mesh_run``)."""
+    initialize_distributed(MeshConfig(), "cuda")
+    try:
+        kernels = {"flash": flash_attend, "flash_bwd_dkv": flash_bwd_dkv,
+                   "flash_bwd_dq": flash_bwd_dq}
+        torch.cuda.reset_peak_memory_stats()
+        with _step_launches(TTS_TRAINER, kernels) as steps:
+            status = CLI.main(args)   # the group is this function's
+        cli = {"status": status, "launches": list(steps),
+               "walls": steps.walls,
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "device": str(torch.cuda.current_device())}
+        torch.cuda.empty_cache()
+        return status or _rank_mesh_run(work, cli)
+    finally:
+        shutdown_distributed()
 
 
 def _par_serve_config() -> Config:
@@ -4651,19 +4814,12 @@ def _par_train_config() -> Config:
     return train_config(base=SERVING_FAST_CONFIG, stack_overrides=K6_ON)
 
 
-def _rank_mesh(work: pathlib.Path) -> int:
-    """One rank of (b), (c) and (d): TP = 2 serving at base.yaml, a TP = 2
-    serving_fast.yaml + K6 train step, a DP = 2 vocoder train step."""
-    initialize_distributed(MeshConfig(), "cuda")
-    try:
-        return _rank_mesh_run(work)
-    finally:
-        shutdown_distributed()
-
-
-def _rank_mesh_run(work: pathlib.Path) -> int:
+def _rank_mesh_run(work: pathlib.Path, cli: dict) -> int:
+    """(b) TP = 2 serving at base.yaml, (c) a TP = 2 serving_fast.yaml +
+    K6 train step, (d) a DP = 2 vocoder train step; writes the rank's
+    results and (a)'s ``cli`` to WORKDIR/par_rank{RANK}.json."""
     device, rank = rank_device("cuda"), dist.get_rank()
-    out = {"device": str(device)}
+    out = {"device": str(device), "cli": cli}
     tp = make_mesh(MeshConfig(model_parallel=PAR_WORLD))
     print(f"[parallel rank {rank}] {tp.describe()}", flush=True)
 
@@ -4741,7 +4897,7 @@ def _rank_mesh_run(work: pathlib.Path) -> int:
         "metrics": {k: float(v) for k, v in metrics.items()},
         "k2": depthwise_conv1d.launches, "k2_shapes": k2_shapes,
         "rows": int(local["audio"].shape[0])}
-    (work / f"mesh_rank{rank}.json").write_text(json.dumps(out))
+    (work / f"par_rank{rank}.json").write_text(json.dumps(out))
     return 0
 
 
@@ -4771,15 +4927,12 @@ def _torchrun(work: pathlib.Path, mode: str, args, timeout: int):
             for r in range(PAR_WORLD)], wall
 
 
-def _par_dp_zero(work: pathlib.Path, one_process: dict) -> dict:
+def _par_dp_zero(work: pathlib.Path, one_process: dict, ranks,
+                 wall: float) -> dict:
     """(a): base.yaml data-parallel with ZeRO-1 over two ranks of this card
-    through the command line, against phase 31's one-process run of the
-    same three steps on the same corpus and batches."""
-    base_yaml = ROOT / "configs" / "base.yaml"
-    args = ["-c", str(base_yaml), "-o", f"dataset.data_dir={work / 'data'}",
-            "-o", "experiment.mesh.zero_sharding=true", "train-tts",
-            "--workdir", str(work / "tts_dp"), "--max-steps", "3"]
-    ranks, wall = _torchrun(work, "cli", args, 600)
+    through the command line (each rank's ``cli`` results), against phase
+    31's one-process run of the same three steps on the same corpus and
+    batches."""
     cfg = from_dict(Config, BASE_CONFIG)
     per_step = cfg.model.encoder.num_layers + cfg.model.decoder.num_layers
     want = [{k: per_step for k in ("flash", "flash_bwd_dkv",
@@ -4867,10 +5020,9 @@ def _par_references(work: pathlib.Path) -> dict:
     return ref
 
 
-def _par_mesh(work: pathlib.Path) -> dict:
-    """(b), (c) and (d) on two ranks of this card, against one process."""
-    ref = _par_references(work)
-    ranks, wall = _torchrun(work, "mesh", [], 600)
+def _par_mesh(work: pathlib.Path, ref: dict, ranks, wall: float) -> dict:
+    """(b), (c) and (d) on two ranks of this card, against one process
+    (``ref``)."""
     sf = _par_train_config().model
     heads = sf.decoder.attention.num_heads // PAR_WORLD
     n_cross, n_lsh = sf.decoder.num_layers, (sf.encoder.num_layers
@@ -4965,7 +5117,7 @@ def _par_knobs():
             cfg.model, stop_threshold=2.0, **knob))
         lr = cfg.experiment.optim.learning_rate
         batch = train_batch(cfg, *lens, "cpu")
-        cpu, card = _f32_step(cfg, batch, "cpu"), _f32_step(cfg, batch,
+        cpu, card = _one_step(cfg, batch, "cpu"), _one_step(cfg, batch,
                                                             "cuda")
         loss_err = abs(card[0]["loss"] - cpu[0]["loss"]) / max(
             1.0, abs(cpu[0]["loss"]))
@@ -5036,7 +5188,7 @@ def _par_offsets():
     dk, dv = flash_bwd_dkv(q, k, v, out, dout, lse, mask, *args)
     dq = flash_bwd_dq(q, k, v, out, dout, lse, mask, *args)
     p_out, p_lse = flash_attend_reference(
-        q, k, v, mask, return_lse=True, dropout_rate=rate,
+        *_f32(q, k, v), mask, return_lse=True, dropout_rate=rate,
         dropout_seed=DROP_SEED, **kw, **OFFSETS)
     p_grads = flash_attend_bwd_reference(
         q, k, v, out, dout, lse, mask, dropout_rate=rate,
@@ -5102,7 +5254,8 @@ def _par_kernel_times(launches: dict) -> dict:
         # self mask)
         lib = (None if opts[0] or opts[1]
                else _sdpa_fwd(q, k, v, mask, opts[2], 50)["ms"])
-        p_out = flash_attend_reference(q, k, v, mask, return_lse=True, **kw)
+        p_out = flash_attend_reference(*_f32(q, k, v), mask,
+                                       return_lse=True, **kw)
         record(name, lambda: flash_fwd(q, k, v, mask, *args),
                lambda: flash_attend_reference(q, k, v, mask, return_lse=True,
                                               **kw),
@@ -5128,7 +5281,8 @@ def _par_kernel_times(launches: dict) -> dict:
     record("lsh_attend_tp", lambda: lsh_attend_fwd(q, k, v, pos, valid, *opts),
            lambda: lsh_attend_chunks_reference(q, k, v, pos, valid, *opts),
            [(lsh_attend_fwd(q, k, v, pos, valid, *opts)[0],
-             lsh_attend_chunks_reference(q, k, v, pos, valid, *opts)[0])],
+             lsh_attend_chunks_reference(*_f32(q, k, v), pos, valid,
+                                         *opts)[0])],
            bounds["fwd"], ("lsh_attend_fwd_mma",), 20)
     record("lsh_attend_bwd_tp",
            lambda: lsh_attend_bwd(q, k, v, pos, valid, dout, dlse, *opts),
@@ -5171,8 +5325,16 @@ def phase_parallel(work: pathlib.Path, one_process: dict) -> dict:
     print(f"[parallel] backend rule: {PAR_WORLD} ranks on "
           f"{torch.cuda.device_count()} card(s) -> "
           f"{backend_for('cuda', PAR_WORLD)}")
-    launches = _par_dp_zero(work, one_process)   # phase 33 removes ``work``
-    launches.update(_par_mesh(work))
+    ref = _par_references(work)
+    base_yaml = ROOT / "configs" / "base.yaml"
+    args = ["-c", str(base_yaml), "-o", f"dataset.data_dir={work / 'data'}",
+            "-o", "experiment.mesh.zero_sharding=true", "train-tts",
+            "--workdir", str(work / "tts_dp"), "--max-steps", "3"]
+    ranks, wall = _torchrun(work, "par", args, 900)
+    # phase 33 removes ``work``
+    launches = _par_dp_zero(work, one_process, [r["cli"] for r in ranks],
+                            wall)
+    launches.update(_par_mesh(work, ref, ranks, wall))
     _par_knobs()
     _par_offsets()
     times = _par_kernel_times(launches)
@@ -5503,7 +5665,8 @@ def _sp_kernel_times(launches: dict) -> dict:
     out, lse = flash_fwd(q, k, v, mask, *args)
     dk, dv = flash_bwd_dkv(q, k, v, out, dout, lse, mask, *args)
     dq = flash_bwd_dq(q, k, v, out, dout, lse, mask, *args)
-    p_out = flash_attend_reference(q, k, v, mask, return_lse=True, **kw)
+    p_out = flash_attend_reference(*_f32(q, k, v), mask, return_lse=True,
+                                   **kw)
     pq, pk, pv = flash_attend_bwd_reference(q, k, v, out, dout, lse, mask,
                                             **kw)
     b, h, lq, lk = SP_FLASH_CASE[:4]
@@ -5669,11 +5832,9 @@ def phase_bench():
 def rank_main(mode: str, work: pathlib.Path, args) -> int:
     """``chip_smoke.py --rank MODE WORKDIR ...``: one rank of phase 32 or
     33."""
-    if mode == "cli":
-        return _rank_cli(work, args)
     if mode == "seqpipe":
         return _rank_seqpipe(work, args)
-    return _rank_mesh(work)
+    return _rank_par(work, args)
 
 
 def _timed_phase(name: str, fn):

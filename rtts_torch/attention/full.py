@@ -32,7 +32,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from rtts_torch.nn.layers import Dense, dropout
+from rtts_torch.nn.layers import Dense, dropout, scalar
 from rtts_torch.ops.flash_attention import flash_attend, masked_scores
 from rtts_torch.parallel.collectives import current_batch_shard
 
@@ -80,9 +80,28 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
 
 
 def _len_norm(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """Divide the head dim by its root mean square (not its L2 norm)."""
-    var = torch.mean(x * x, dim=-1, keepdim=True)
-    return x * torch.rsqrt(var + eps)
+    """Divide the head dim by its root mean square (not its L2 norm).  On
+    the CPU a bf16 x rounds where JAX's does: the squares summed in f32
+    (XLA keeps them unrounded inside the reduction), then the mean, the sum
+    with eps (cast to x's dtype), the rsqrt and the product each rounded to
+    x's dtype; the rsqrt is 1/sqrt in f32 rounded once (torch's bf16 rsqrt
+    on the CPU is off by an ulp now and then: rsqrt(1.0546875) gives
+    0.9765625, not 0.97265625).  On the card the squares round to x's
+    dtype before the mean and rsqrt is torch's, which saves the casts'
+    launches (PERF.md, PR 19)."""
+    if x.device.type != "cpu":
+        var = torch.mean(x * x, dim=-1, keepdim=True)
+        return x * torch.rsqrt(var + scalar(eps, x.dtype))
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True).to(x.dtype)
+    r = 1.0 / torch.sqrt((var + scalar(eps, x.dtype)).float())
+    return x * r.to(x.dtype)
+
+
+def shared_keys(qk: torch.Tensor) -> torch.Tensor:
+    """The keys of shared-QK attention: the length-normalized queries
+    scaled by 1/sqrt(d), the constant in qk's dtype as JAX casts it."""
+    return _len_norm(qk) * scalar(qk.shape[-1] ** -0.5, qk.dtype)
 
 
 def _attend(q, k, v, kv_mask, *, causal, self_mask, sm_scale, impl,
@@ -164,7 +183,7 @@ def shared_qk_self_attention(p: Attention, x: torch.Tensor,
     h = local_heads(p)
     qk = _split_heads(p.w_qk(x, compute_dtype), h)
     v = _split_heads(p.w_v(x, compute_dtype), h)
-    k = _len_norm(qk) * (qk.shape[-1] ** -0.5)
+    k = shared_keys(qk)
     out = _attend(qk, k, v, mask, causal=causal, self_mask=True,
                   sm_scale=1.0, impl=impl, dropout_rate=dropout_rate,
                   dropout_seed=dropout_seed, generator=generator,

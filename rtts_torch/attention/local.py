@@ -23,9 +23,9 @@ from typing import Optional
 
 import torch
 
-from rtts_torch.attention.full import (Attention, _len_norm, _merge_heads,
+from rtts_torch.attention.full import (Attention, _merge_heads,
                                        _split_heads, head_span, local_heads,
-                                       shared_qk_self_attention)
+                                       shared_keys, shared_qk_self_attention)
 from rtts_torch.attention.lsh import _pick_attend_fn, lane_span, plain_attend
 from rtts_torch.config import AttentionConfig
 from rtts_torch.ops.flash_attention import resolve_flash_impl
@@ -60,7 +60,7 @@ def local_attention_core(qk: torch.Tensor, v: torch.Tensor,
     else:
         valid = torch.ones((b, h, l), dtype=torch.bool, device=qk.device)
     q_c = qk.reshape(b, h, nc, c, d)
-    k_c = (_len_norm(qk) * (d ** -0.5)).reshape(b, h, nc, c, d)
+    k_c = shared_keys(qk).reshape(b, h, nc, c, d)
     v_c = v.reshape(b, h, nc, c, d)
     out, _ = attend_fn(q_c, k_c, v_c, pos.reshape(b, h, nc, c),
                        valid.reshape(b, h, nc, c), causal,

@@ -46,9 +46,9 @@ from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
-from rtts_torch.attention.full import (Attention, _len_norm, _merge_heads,
+from rtts_torch.attention.full import (Attention, _merge_heads,
                                        _split_heads, head_span, local_heads,
-                                       shared_qk_self_attention)
+                                       shared_keys, shared_qk_self_attention)
 from rtts_torch.config import AttentionConfig
 from rtts_torch.infer import draws
 from rtts_torch.ops import bitonic_sort as BS
@@ -327,7 +327,7 @@ def lsh_attention_core(qk: torch.Tensor, v: torch.Tensor,
     # chunk the concatenated-rounds axis; L % c == 0 keeps rounds aligned
     nc = nh * l // c
     q_c = qk_s.reshape(b, h, nc, c, d)
-    k_c = (_len_norm(qk_s) * (d ** -0.5)).reshape(b, h, nc, c, d)
+    k_c = shared_keys(qk_s).reshape(b, h, nc, c, d)
     v_c = v_s.reshape(b, h, nc, c, d)
     pos_c = sorted_pos.reshape(b, h, nc, c)
     val_c = valid_s.reshape(b, h, nc, c)

@@ -66,7 +66,7 @@ import numpy as np
 import torch
 
 from rtts_torch.attention import lsh as TL
-from rtts_torch.attention.full import (Attention, _len_norm,
+from rtts_torch.attention.full import (Attention, shared_keys,
                                        shared_qk_self_attention)
 from rtts_torch.config import (Config, ReformerStackConfig,
                                ReformerTTSConfig, SqueezeWaveConfig,
@@ -1270,7 +1270,7 @@ def bench_kernels(repeats: int = 5, device="cuda",
     with torch.no_grad():
         qk = ap.w_qk(xa, bf16).reshape(b, l, heads, -1).transpose(1, 2)
         vh = ap.w_v(xa, bf16).reshape(b, l, heads, -1).transpose(1, 2)
-        kh = _len_norm(qk) * qk.shape[-1] ** -0.5
+        kh = shared_keys(qk)
     kw = dict(causal=True, self_mask=True, sm_scale=1.0)
     k_fwd = (lambda a, b_, c: flash_attend(a, b_, c, **kw))
     k_ref = (lambda a, b_, c: flash_attend_reference(a, b_, c, **kw))

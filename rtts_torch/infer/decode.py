@@ -62,11 +62,13 @@ from typing import List, NamedTuple, Optional, Tuple
 import torch
 
 from rtts_torch.attention import lsh as TL
-from rtts_torch.attention.full import _len_norm, head_span, local_heads
+from rtts_torch.attention.full import (_len_norm, head_span, local_heads,
+                                       shared_keys)
 from rtts_torch.config import ReformerTTSConfig, resolve_attention_kind
 from rtts_torch.infer import draws
 from rtts_torch.models.reformer_tts import _dtype, decode_train, postnet_apply
 from rtts_torch.models.stack import _layer_kinds
+from rtts_torch.nn.layers import scalar
 from rtts_torch.nn.posenc import pos_table
 from rtts_torch.ops.flash_attention import MASK_VALUE, SELF_MASK_VALUE
 from rtts_torch.parallel.collectives import (batch_all, current_batch_shard,
@@ -177,10 +179,10 @@ def _project(p, h_t, num_heads, cdt, kdt):
     unscaled, and the query takes 1/sqrt(d); else the key is pre-scaled."""
     qk_t = _proj_heads(p.w_qk, h_t, local_heads(p), cdt)
     v_t = _proj_heads(p.w_v, h_t, local_heads(p), cdt)
-    scale = qk_t.shape[-1] ** -0.5
     if kdt != qk_t.dtype:
+        scale = scalar(qk_t.shape[-1] ** -0.5, qk_t.dtype)
         return qk_t, v_t, _len_norm(qk_t), qk_t * scale
-    return qk_t, v_t, _len_norm(qk_t) * scale, qk_t
+    return qk_t, v_t, shared_keys(qk_t), qk_t
 
 
 def _self_attn_step(p, h_t, k_cache, v_cache, t, num_heads, cdt,

@@ -31,7 +31,7 @@ from torch import nn
 from rtts_torch.config import SqueezeWaveConfig
 from rtts_torch.models.reformer_tts import _dtype, cast_params
 from rtts_torch.nn.conv import conv1d
-from rtts_torch.nn.layers import normal
+from rtts_torch.nn.layers import normal, sigmoid
 from rtts_torch.ops.depthwise_conv import depthwise_conv1d
 
 
@@ -220,7 +220,7 @@ def wn_apply(wn: WN, audio_half: torch.Tensor, mel_up: torch.Tensor,
         d = wn_conv(wn.depth[i], h, compute_dtype)
         a = wn_conv(wn.point[i], d, compute_dtype)
         a = a + cond_all[..., i * 2 * c:(i + 1) * 2 * c]
-        acts = torch.tanh(a[..., :c]) * torch.sigmoid(a[..., c:])
+        acts = torch.tanh(a[..., :c]) * sigmoid(a[..., c:])
         rs = wn_conv(wn.res_skip[i], acts, compute_dtype)
         if i < n_layers - 1:
             h = h + rs

@@ -22,6 +22,7 @@ draws what one device does.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -141,10 +142,44 @@ def apply_dropout(x: torch.Tensor, rate: float,
 
 # -- activations --------------------------------------------------------------
 
+@functools.lru_cache(maxsize=None)
+def scalar(value: float, dtype: torch.dtype) -> float:
+    """``value`` rounded to ``dtype``, as JAX casts a weak-typed Python
+    constant to the dtype of the array it meets.  torch computes
+    ``bf16_tensor * 0.1767767`` with the constant in f32; JAX with
+    bf16(0.1767767) = 0.17675781.  Multiplying by the rounded value gives
+    JAX's bits, and creates no tensor on the card."""
+    return torch.tensor(value, dtype=torch.float64).to(dtype).item()
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu`` (the tanh approximation).  On the CPU it is JAX's
+    formula op by op in x's dtype, sqrt(2/pi) and 0.044715 cast to it, so
+    a bf16 x rounds after every op as XLA does (bit-equal to JAX).  On the
+    card it is ``F.gelu(approximate="tanh")``: one launch, f32 inside and
+    one rounding; in bf16 it differs from the CPU form by at most one bf16
+    ulp of max(|output|, 1) (PERF.md, PR 19)."""
+    if x.device.type != "cpu":
+        return F.gelu(x, approximate="tanh")
+    c = scalar(math.sqrt(2.0 / math.pi), x.dtype)
+    k = scalar(0.044715, x.dtype)
+    return x * (0.5 * (1.0 + torch.tanh(c * (x + k * (x * x * x)))))
+
+
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.sigmoid``.  XLA expands it to 1 / (1 + exp(-x)), each op
+    rounded to x's dtype; on the CPU the port writes that out (bit-equal
+    in bf16), on the card it is ``torch.sigmoid``'s one launch, which
+    rounds once (PERF.md, PR 19)."""
+    if x.device.type != "cpu":
+        return torch.sigmoid(x)
+    return 1.0 / (1.0 + torch.exp(-x))
+
+
 ACTIVATIONS = {
     "relu": F.relu,
     # jax.nn.gelu defaults to the tanh approximation; F.gelu to erf
-    "gelu": lambda x: F.gelu(x, approximate="tanh"),
+    "gelu": gelu,
     "tanh": torch.tanh,
     "silu": F.silu,
 }

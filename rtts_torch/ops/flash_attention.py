@@ -165,8 +165,11 @@ def flash_attend_reference(q, k, v, kv_mask=None, *, causal=False,
                            return_lse=False, b_offset=0, h_offset=0,
                            h_total=None):
     """Plain PyTorch version of K1: explicit (B, H, Lq, Lk) f32 scores, then
-    softmax, the keep mask and P.V in f32; the output is cast to q's dtype,
-    lse is (B*H, Lq) f32 of the undropped softmax."""
+    softmax and the keep mask in f32; P is rounded to v's dtype before P.V
+    (a no-op in f32), as JAX's attention casts its probabilities
+    (``rtts/attention/full.py``) and the kernels round P, and P.V sums in
+    f32; the output is cast to q's dtype, lse is (B*H, Lq) f32 of the
+    undropped softmax."""
     b, h, l_q, _ = q.shape
     s = masked_scores(q, k, kv_mask, causal=causal, self_mask=self_mask,
                       sm_scale=sm_scale, q_offset=q_offset)
@@ -177,6 +180,7 @@ def flash_attend_reference(q, k, v, kv_mask=None, *, causal=False,
                           q_offset, q.device, b_offset, h_offset, h_total)
     if rscale is not None:
         p = p * rscale
+    p = p.to(v.dtype).float()
     out = torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
     if return_lse:
         return out, torch.logsumexp(s, dim=-1).reshape(b * h, l_q)
@@ -193,7 +197,14 @@ def flash_attend_bwd_reference(q, k, v, out, dout, lse, kv_mask=None, *,
 
     P is recomputed as exp(s - lse) from the saved lse, as the kernels do
     (not autograd of the plain forward): the two agree on every row that
-    has an unmasked key or the self position."""
+    has an unmasked key or the self position.
+
+    In bf16 too P, D = rowsum(O o dO) and dS stay in f32, as the kernels
+    keep them (K3 feeds P and dS to its bf16 products as hi + lo halves).
+    JAX's bf16 backward rounds P for dV, takes D = rowsum(P o dP) and
+    rounds dS to bf16 before dQ and dK: done here, that puts the gradients
+    3-4% of their largest from f32, past the 1e-2 K3 is held to against
+    this version (PERF.md, PR 19, bounds the difference from JAX)."""
     b, h, l_q, _ = q.shape
     qf, kf, vf, of, dof = (t.float() for t in (q, k, v, out, dout))
     s = masked_scores(q, k, kv_mask, causal=causal, self_mask=self_mask,

@@ -114,8 +114,12 @@ def lsh_attend_chunks_reference(q, k, v, pos, valid, causal, before, after,
     """Plain PyTorch version of K4, and the plain attend.  q, k, v: (B, H,
     nc, c, d) sorted chunks (k already length-normalised and scaled); pos:
     (B, H, nc, c) original positions; valid: (B, H, nc, c) key validity.
-    Scores, probabilities and P.V in f32 -> (out (B, H, nc, c, d) in q's
-    dtype, lse (B, H, nc, c) f32 of the undropped scores).
+    Scores and probabilities in f32; P is rounded to v's dtype before P.V
+    (a no-op in f32), as the path JAX takes on the CPU does: its jnp attend
+    casts the normalised probabilities (``rtts/attention/lsh.py``), where
+    the TPU kernel and K4 round exp(s - m) before the divide; P.V sums in
+    f32 -> (out (B, H, nc, c, d) in q's dtype, lse (B, H, nc, c) f32 of
+    the undropped scores).
 
     The probabilities divide by the joint sum, as K4 and the TPU kernel do;
     ``probs_from_lse`` takes exp(s - lse) instead, as the JAX package's jnp
@@ -137,7 +141,7 @@ def lsh_attend_chunks_reference(q, k, v, pos, valid, causal, before, after,
         p = positional_dropout(p, pos, k_pos, lane, dropout_seed,
                                dropout_rate)
     v_adj = look_adjacent(v, before, after).float()
-    out = torch.einsum("bhnqk,bhnkd->bhnqd", p, v_adj)
+    out = torch.einsum("bhnqk,bhnkd->bhnqd", p.to(v.dtype).float(), v_adj)
     return out.to(q.dtype), lse
 
 
@@ -159,7 +163,14 @@ def lsh_attend_bwd_reference(q, k, v, pos, valid, dout, dlse, causal, before,
     ``_attend_bwd_kernel`` written out in f32: the joint softmax is
     recomputed, dS = P (dP - rowsum(dP P)) + P dlse with dP = dO V^T, zero
     on the self entries; dQ = dS K, and dK, dV per window offset, rolled
-    back and summed -> (dq, dk, dv) in the dtypes of (q, k, v)."""
+    back and summed -> (dq, dk, dv) in the dtypes of (q, k, v).
+
+    In bf16 too P, dS and the window sums stay in f32, as K5 keeps them
+    (P and dS as hi + lo bf16 operands).  JAX's bf16 backward rounds P for
+    dV, dS, and each window offset's dK and dV to bf16: done here, that
+    puts the gradients 3-5% of their largest from f32, past the 1e-2 K5 is
+    held to against this version (PERF.md, PR 19, bounds the difference
+    from JAX)."""
     s, self_m, _ = window_scores(q, k, pos, valid, causal, before, after,
                                  mask_value, self_mask_value)
     p = torch.softmax(s, dim=-1)

@@ -50,8 +50,8 @@ from typing import NamedTuple, Optional
 import torch
 
 from rtts_torch.attention import lsh
-from rtts_torch.attention.full import (Attention, _len_norm, _merge_heads,
-                                       _split_heads)
+from rtts_torch.attention.full import (Attention, _merge_heads,
+                                       _split_heads, shared_keys)
 from rtts_torch.attention.lsh import (_perm_rows_take, _sort_by_bucket,
                                       auto_num_buckets, hash_vectors,
                                       lane_span, total_buckets)
@@ -169,7 +169,7 @@ def lsh_attention_seq_parallel(
         kv = _ring_gather(packed, pos_k.reshape(b, h, wk * c), ax,
                           shard).reshape(b, h, wk, c, 2 * d)
         q_my = kv[:, :, before:before + ncl, :, :d]
-    k_my = _len_norm(kv[..., :d]) * (d ** -0.5)
+    k_my = shared_keys(kv[..., :d])
     v_my = kv[..., d:]
 
     if mask is not None:
@@ -233,7 +233,7 @@ def full_self_attention_seq_parallel(
     v = _split_heads(_mm(x_l, w_v, compute_dtype), heads)
     d = qk.shape[-1]
     # per-row ops commute with the shard: normalise locally, gather once
-    kv = gather_seq(torch.cat([_len_norm(qk) * (d ** -0.5), v], dim=-1),
+    kv = gather_seq(torch.cat([shared_keys(qk), v], dim=-1),
                     2, ax)
     k_g, v_g = kv[..., :d], kv[..., d:]
     rate = dropout_rate if dropout_seed is not None else 0.0

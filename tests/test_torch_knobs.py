@@ -217,6 +217,121 @@ def test_bf16_param_step_matches_jax_and_optax(seed, bf16_jax):
                                    err_msg=name)
 
 
+@pytest.fixture(scope="module")
+def f16_jax():
+    """The JAX side of the f16-parameter step (as ``bf16_jax``)."""
+    cfg = dataclasses.replace(jax_cfg("full"), param_dtype="float16",
+                              enc_prenet_dropout=0.0, postnet_dropout=0.0)
+    j_opt = JO.make_optimizer(OPTIM)
+
+    def loss_fn(p, jb):
+        pre, post, stop = JM.forward(p, cfg, jb["tokens"], jb["token_mask"],
+                                     jb["mel"], jb["mel_mask"])
+        return JL.tts_loss(pre, post, stop, jb["mel"],
+                           JL.make_stop_target(jb["mel_mask"]),
+                           jb["mel_mask"], cfg.stop_pos_weight)[0]
+
+    return (cfg, j_opt, jax.jit(jax.grad(loss_fn)),
+            jax.jit(jax_make_train_step(cfg, j_opt)))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_f16_param_step_matches_jax_and_optax(seed, f16_jax):
+    """One train step with every parameter in float16 (f32 compute; Adam
+    with the clip, constant lr 1e-3, moments in f16 as optax keeps them)
+    against JAX + optax.  JAX's own step is not finite: optax's eps 1e-8
+    is 0 in f16, so wherever a gradient's square underflows f16 the second
+    moment is 0 and the update 0/0 (113 of 117 leaves hold a NaN at seed
+    1).  The port is held to the same: the same leaves non-finite, and on
+    the elements finite on both sides within four f16 ulps of the leaf's
+    largest where JAX's second moment is a normal f16 (the update's six
+    f16 roundings, in another order on each side; the bias leaves start
+    at 0, so their +-lr steps carry the relative error of mu / sqrt(nu)),
+    and within lr where it is subnormal (there a last-bit difference in
+    the gradient moves nu by a whole quantum of 2^-24); the second
+    moments within two ulps plus that quantum; the loss at 1e-3 relative, every gradient (f16) within two
+    f16 ulps of its leaf's largest, the gradient norm (optax's per-leaf
+    f16 sums) within one f16 ulp, the first moments within two ulps."""
+    cfg, j_opt, j_grad, j_step = f16_jax
+    tcfg = port_cfg(cfg)
+    jp = JM.init(jax.random.PRNGKey(3 + seed), cfg)
+    tm = from_numpy_tree(TM.init(tcfg, device="cpu"), _f32_tree(jp))
+    assert {p.dtype for p in tm.parameters()} == {torch.float16}
+    j_state = j_opt.init(jp)
+    t_opt = TO.make_optimizer(port_cfg_optim())
+    t_state = t_opt.init(list(tm.parameters()))
+    assert {t.dtype for t in t_state["mu"] + t_state["nu"]} == {
+        torch.float16}
+    b = _batch(seed=seed)
+    jb = {k: jnp.asarray(v) for k, v in b.items()}
+    j_grads = j_grad(jp, jb)
+    jp, j_state, j_metrics = j_step(jp, j_state, jb, jax.random.PRNGKey(0),
+                                    0)
+    metrics, grads = make_train_step(tcfg, t_opt)(
+        tm, t_state, _torch_batch(b), step_generator(0, 0, "cpu"), 0,
+        return_grads=True)
+    ulp = 2.0 ** -10
+    np.testing.assert_allclose(float(metrics["loss"]),
+                               float(j_metrics["loss"]), rtol=1e-3)
+    want = dict(from_numpy_tree(TM.init(tcfg, device="cpu"),
+                                _f32_tree(j_grads)).named_parameters())
+    for (name, _), g in zip(tm.named_parameters(), grads):
+        assert g.dtype == torch.float16, name
+        w = want[name].detach().float()
+        np.testing.assert_allclose(g.float().numpy(), w.numpy(), rtol=0,
+                                   atol=2 * ulp * max(float(w.abs().max()),
+                                                      1e-4), err_msg=name)
+    j_norm = float(j_metrics["grad_norm"])
+    assert metrics["grad_norm"].dtype == torch.float16
+    assert abs(float(metrics["grad_norm"]) - j_norm) <= 2.0 ** (
+        np.floor(np.log2(j_norm)) - 10)
+    names = [n for n, _ in tm.named_parameters()]
+    j_mu = from_numpy_tree(TM.init(tcfg, device="cpu"), _f32_tree(
+        _adam_state(j_state).mu))
+    for name, mu, w in zip(names, t_state["mu"], j_mu.parameters()):
+        w = w.detach().float()
+        np.testing.assert_allclose(mu.float().numpy(), w.numpy(), rtol=0,
+                                   atol=2 * ulp * max(float(w.abs().max()),
+                                                      1e-6), err_msg=name)
+    j_nu = dict(from_numpy_tree(TM.init(tcfg, device="cpu"), _f32_tree(
+        _adam_state(j_state).nu)).named_parameters())
+    for name, nu in zip(names, t_state["nu"]):
+        w = j_nu[name].detach().float()
+        np.testing.assert_allclose(nu.float().numpy(), w.numpy(), rtol=0,
+                                   atol=2 * ulp * float(w.abs().max())
+                                   + 2.0 ** -24, err_msg=name)
+    want = dict(from_numpy_tree(TM.init(tcfg, device="cpu"),
+                                _f32_tree(jp)).named_parameters())
+    bad = {n for n, p in want.items() if not torch.isfinite(p).all()}
+    assert bad, "JAX's f16 step became finite: tighten this test"
+    assert {n for n, p in tm.named_parameters()
+            if not torch.isfinite(p).all()} == bad
+    lr = OPTIM.learning_rate
+    for name, p in tm.named_parameters():
+        got, w = p.detach().float(), want[name].detach().float()
+        both = torch.isfinite(got) & torch.isfinite(w)
+        normal = both & (j_nu[name].detach().float() >= 2.0 ** -14)
+        if normal.any():
+            np.testing.assert_allclose(
+                got[normal].numpy(), w[normal].numpy(), rtol=0,
+                atol=4 * ulp * max(float(w[normal].abs().max()), 1e-3),
+                err_msg=name)
+        sub = both & ~normal
+        if sub.any():
+            assert float((got[sub] - w[sub]).abs().max()) <= lr, name
+
+
+def _adam_state(state):
+    """optax's ScaleByAdamState inside the chain's state."""
+    import optax
+
+    for s in jax.tree.leaves(state, is_leaf=lambda x: isinstance(
+            x, optax.ScaleByAdamState)):
+        if isinstance(s, optax.ScaleByAdamState):
+            return s
+    raise AssertionError("no ScaleByAdamState in the optimizer state")
+
+
 def port_cfg_optim():
     from rtts_torch import config as TC
 
