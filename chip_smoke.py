@@ -201,8 +201,8 @@ phase; every phase raises on failure:
    one refill; frames/s, p50/p95 completion latency, lengths equal and
    mel L1 against (a)); (c)
    bucketed ``serve`` against pad-to-max ``text_to_mel`` at 512 frames
-   (frames/s, mel L1); (d) ``StreamingSynthesizer`` at batch 1 x 512
-   frames in chunks of 32, 64 and 128 (time to first audio, at most one
+   (frames/s, mel L1); (d) ``StreamingSynthesizer`` at batch 1 x 256
+   frames in chunks of 32 and 64 (time to first audio, at most one
    synchronization a segment and one for the tail, the decoded frames
    equal to ``decode_greedy``'s step loop bit for bit); (f)
    ``mel_to_audio(streaming_chunk=64)`` against one pass; K1 and K2 at the
@@ -215,8 +215,18 @@ phase; every phase raises on failure:
    ``preprocess`` (three clips' log-mel held against the CPU's),
    ``train-tts --max-steps 3`` (12 launches of K1 and of each K3 kernel in
    every train step), ``train-tts --max-steps 1`` with
-   ``experiment.debug_nans`` on, ``train-vocoder --max-steps 3`` (96 K2
-   launches a step), ``predict`` with both checkpoints (two texts, 256
+   ``experiment.debug_nans`` on, ``train-tts --max-steps 3`` with
+   ``dataset.num_workers`` 0, ``train-vocoder --max-steps 3`` (96 K2
+   launches a step); base.yaml's ``num_workers: 4`` must take preprocess,
+   train-tts and train-vocoder through the port's native C++ library
+   (``rtts_torch.data.native_loader``, built with g++), whose batches
+   and vocoder crops equal the Python path's bit for bit for 6 steps and
+   at a resumed step, each path's seconds a batch and the train-tts step
+   walls with 4 workers and 0 printed; ``python -m
+   rtts_torch.scripts.eval_decode_fidelity`` (in-process) on the TTS and
+   vocoder checkpoints at ``--batch 2`` in its four default modes: finite
+   scores, K1 6 in each mode's encode and 12 in each recompute pass, K2
+   96 a vocoded prediction; ``predict`` with both checkpoints (two texts, 256
    frames) inside ``rtts_torch.utils.profiling.trace``, whose Chrome trace
    must name K1's and K2's kernels, and ``serve --strategy continuous``
    (8 texts, 256 frames); each verb's wall and launches (``python -m
@@ -293,7 +303,8 @@ phase; every phase raises on failure:
    96 times a call (one encode, one vocoder pass); ``bench_kernels`` in
    full (K4 + K5, K6, K2, K1 + K3 at the reference's shapes), each kernel
    within its tolerance of its plain version in f32; every other cell
-   once at a smaller depth (``BENCH_CUTS`` and ``BENCH_SIZES``; the
+   once at a smaller depth (``BENCH_CUTS`` and ``BENCH_SIZES``: the
+   longform decode to 256 frames; the
    decode cell at ``base_bench_config()``), each line parsed and its
    headline finite and above 0; every line printed as the cell prints
    it.
@@ -361,7 +372,10 @@ from rtts_torch.audio.griffin import _griffin_lim_from_angle
 from rtts_torch.audio.stft import log_mel_spectrogram, make_mel_fn
 from rtts_torch.config import (AttentionConfig, Config, MeshConfig, from_dict,
                                load_yaml)
+from rtts_torch.data import native_loader as NL
 from rtts_torch.data import read_clip
+from rtts_torch.data.dataset import (EpochBatcher, Manifest, MelAudioDataset,
+                                     TextMelDataset, split_manifest)
 from rtts_torch.infer import decode as TD
 from rtts_torch.infer.decode import decode_greedy
 from rtts_torch.infer.denoiser import Denoiser, denoise
@@ -402,6 +416,7 @@ from rtts_torch.parallel.mesh import (backend_for, initialize_distributed,
 from rtts_torch.parallel.sharding import gather_param, whole_stacks
 from rtts_torch.parallel.training import MeshTraining
 from rtts_torch.probes import probe_vmem_sort as probe
+from rtts_torch.scripts import eval_decode_fidelity as EF
 from rtts_torch.nn.layers import activation
 from rtts_torch.reversible.ffn import FFN, chunked_ffn
 from rtts_torch.text import encode_batch, frontend_vocab_size
@@ -3738,14 +3753,16 @@ def phase_decode_syncs():
 # true lengths but their longest, 1024 (pinned by their budgets at stop
 # threshold 2.0), 2 requests each, 4 slots (fewer than the requests: the
 # engine refills freed slots), segments of 64 frames; bench_latency's
-# streaming (batch 1, 512 frames, three chunk sizes).  K1 and K2 are timed
+# streaming at batch 1, cut to 256 frames and two chunk sizes (512 frames
+# and three sizes before the decode-fidelity evaluation joined phase 31,
+# which these cuts pay for).  K1 and K2 are timed
 # at 8 rows, the admission encode and the batched vocode of 8 slots of
 # 1024 frames, as in every PR since the phase began.
 SERVE_LENGTHS = (128, 256, 512)
 SERVE_PER_LENGTH, SERVE_SLOTS, SERVE_SEGMENT = 2, 4, 64
 SERVE_TIMED_ROWS, SERVE_TIMED_FRAMES = 8, 1024
 FRAMES_PER_TOKEN = 8.0          # Synthesizer.predict_frames' default
-STREAM_FRAMES, STREAM_CHUNKS = 512, (32, 64, 128)
+STREAM_FRAMES, STREAM_CHUNKS = 256, (32, 64)
 # two bf16 serving surfaces on the same requests, mean |a - b| over mean
 # |b| of the mel: they compute the same function and differ in summation
 # order (ring capacity, admission step, batch), where one bf16 rounding
@@ -4115,15 +4132,22 @@ ROOT = pathlib.Path(__file__).resolve().parent
 CLI_UTTERANCES = 24
 CLI_MEL_TOL = 1e-4      # log-mel, abs, on bins of >= 100 log floors' energy
 CLI_ENERGY_TOL = 1e-5   # mel energy, abs, relative to the clip's peak
+# the native data path against the Python one: batch_at / sample for this
+# many steps (3 epochs of base.yaml's batch of 8 over the training split)
+CLI_NATIVE_STEPS = 6
+# the decode-fidelity evaluation's modes (its defaults), in order
+EVAL_MODES = ["recompute", "kv_full", "kv_lsh", "kv_lsh_chunk"]
 # ``python -m rtts_torch.cli`` with the JAX package, JAX, click and PyYAML
 # unimportable; the command line's arguments follow the script's
 class _StepLog(list):
-    """Per train step its launches (the list's items) and its wall in
-    seconds (``walls``)."""
+    """Per train step its launches (the list's items), its wall in seconds
+    (``walls``) and when it was called (``starts``, host clock: from one
+    call to the next the loop also fetched the next batch)."""
 
     def __init__(self):
         super().__init__()
         self.walls = []
+        self.starts = []
 
 
 @contextlib.contextmanager
@@ -4139,6 +4163,7 @@ def _step_launches(module, kernels):
 
         def counted(*a, **kw):
             before = {k: fn.launches for k, fn in kernels.items()}
+            steps.starts.append(time.perf_counter())
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = step(*a, **kw)
@@ -4211,33 +4236,135 @@ def _trace_kernels(trace_file: str) -> dict:
     return names
 
 
+def _same_batch(a: dict, b: dict) -> bool:
+    return a.keys() == b.keys() and all(
+        a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]) for k in a)
+
+
+def _cli_native_batches(manifest: pathlib.Path, cfg: Config) -> dict:
+    """The native path's batches against the Python path's on phase 31's
+    corpus, at base.yaml's batch: ``EpochBatcher.batch_at`` (``fill_batch``)
+    and ``MelAudioDataset.sample`` (``fill_crops``, the trainer's per-step
+    generators) for ``CLI_NATIVE_STEPS`` steps, bit for bit, and
+    ``batch_at`` of a fresh batcher at the last step (a resume); -> each
+    path's seconds a batch and a crop batch (host clock)."""
+    man = Manifest.load(manifest)
+    train_man, _ = split_manifest(man, cfg.dataset.val_fraction,
+                                  cfg.dataset.split_seed)
+    bsz, seed = cfg.dataset.batch_size, cfg.dataset.shuffle_seed
+    seg = cfg.vocoder.audio_segment_length
+    paths = {"native": cfg.dataset,
+             "python": dataclasses.replace(cfg.dataset, num_workers=0)}
+    got, secs = {}, {}
+    for path, dcfg in paths.items():
+        ds = TextMelDataset(train_man, dcfg)
+        crops = MelAudioDataset(train_man, dcfg, seg)
+        _require(ds.loader_path == path and crops.loader_path == path,
+                 f"the {path} datasets took the {ds.loader_path} path "
+                 f"({ds.loader_reason})")
+        batcher = EpochBatcher(ds, bsz, seed=seed, drop_last=len(ds) > bsz)
+        got[path], secs[path] = [], {"batch": [], "crops": []}
+        for step in range(CLI_NATIVE_STEPS):
+            t0 = time.perf_counter()
+            batch = batcher.batch_at(step)
+            t1 = time.perf_counter()
+            crop = crops.sample(np.random.default_rng((seed, step)), bsz)
+            secs[path]["batch"].append(t1 - t0)
+            secs[path]["crops"].append(time.perf_counter() - t1)
+            got[path].append((batch, crop))
+    for step, (nat, py) in enumerate(zip(got["native"], got["python"])):
+        _require(_same_batch(nat[0], py[0]) and _same_batch(nat[1], py[1]),
+                 f"the native batch or crops of step {step} differ from "
+                 "the Python path's")
+    fresh = EpochBatcher(TextMelDataset(train_man, cfg.dataset), bsz,
+                         seed=seed, drop_last=len(train_man.clips) > bsz)
+    _require(_same_batch(fresh.batch_at(CLI_NATIVE_STEPS - 1),
+                         got["python"][-1][0]),
+             "a fresh batcher's batch at a resumed step differs")
+    shape = {k: v.shape for k, v in got["native"][0][0].items()}
+    print(f"[cli] native vs Python data path, {CLI_NATIVE_STEPS} steps of "
+          f"b{bsz} (batch shapes at step 0 {shape}; crops b{bsz} x {seg}): "
+          "batches and crops bit-equal, a resumed batch_at equal")
+    return secs
+
+
+def _cli_eval(work: pathlib.Path, top: list, cfg: Config) -> None:
+    """``python -m rtts_torch.scripts.eval_decode_fidelity`` (in-process,
+    ``main``) on phase 31's TTS and vocoder checkpoints at ``--batch 2``
+    with its default modes: every score finite (the vocoded MR-STFT ones
+    included), the modes of the final line, and the launches the
+    evaluation makes: K1 in each mode's encode and in every decoder pass of
+    ``recompute`` (a self and a cross layer each), K2 in each vocoded
+    prediction."""
+    n_enc, n_dec = cfg.model.encoder.num_layers, cfg.model.decoder.num_layers
+    voc = cfg.vocoder
+    flash_attend.launches = depthwise_conv1d.launches = 0
+    t0 = time.perf_counter()
+    out = EF.main(top + ["--ckpt", str(work / "tts" / "checkpoints"),
+                         "--batch", "2", "--vocoder-ckpt",
+                         str(work / "voc" / "checkpoints")])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    res = out["results"]
+    groups = max(res["recompute"]["lengths"]) // cfg.model.reduction_factor
+    want = {"flash": len(EVAL_MODES) * n_enc + groups * 2 * n_dec,
+            "depthwise": voc.n_flows * voc.wn_layers * 2 * len(EVAL_MODES)}
+    got = {"flash": flash_attend.launches,
+           "depthwise": depthwise_conv1d.launches}
+    scores = [v for row in res.values() for k, v in row.items()
+              if k != "lengths"]
+    print(f"[cli] eval_decode_fidelity --batch 2 --vocoder-ckpt: {wall:.2f} "
+          f"s, max_frames {out['max_frames']}, recompute lengths "
+          f"{res['recompute']['lengths']}; launches {got}, want {want}")
+    _require(list(res) == EVAL_MODES and all(
+        len(row["lengths"]) == 2 and "mr_stft_vs_gt" in row
+        for row in res.values()), f"the evaluation's rows: {res}")
+    _require(all(np.isfinite(v) for v in scores),
+             f"the evaluation gave a score that is not finite: {res}")
+    _require(got == want, f"the evaluation launched {got}, want {want}")
+
+
 def phase_cli():
     """31: the README's quick start at base.yaml's full width through
     ``rtts_torch.cli.main`` on the card, in a temporary directory (phase
     34 drives the command line on its checkpoints in a subprocess that
-    cannot import the JAX package, JAX, click or PyYAML).  Returns the
-    directory (corpus and checkpoints, which phases 32-34 read and 33
-    removes) and train-tts's walls a step and peak device memory."""
+    cannot import the JAX package, JAX, click or PyYAML).  base.yaml sets
+    ``num_workers: 4``: preprocess, train-tts and train-vocoder must go
+    through the port's native library (``native_loader.calls``), whose
+    batches and crops are then held to the Python path's
+    (``_cli_native_batches``); train-tts runs once more with
+    ``num_workers`` 0 to compare the step walls.  Last, the decode-fidelity
+    evaluation on the checkpoints (``_cli_eval``).  Returns the directory
+    (corpus and checkpoints, which phases 32-34 read and 33 removes) and
+    train-tts's walls a step and peak device memory."""
     base_yaml = ROOT / "configs" / "base.yaml"
     _require(load_yaml(base_yaml) == BASE_CONFIG,
              "load_yaml(configs/base.yaml) differs from BASE_CONFIG")
     cfg = from_dict(Config, BASE_CONFIG)
+    t0 = time.perf_counter()
+    _require(NL.available(),
+             f"the native library did not build: {NL.build_error()}")
+    print(f"[cli] native library {NL.library_path().name} (g++ "
+          f"{' '.join(NL.GXX_FLAGS)}) built and loaded in "
+          f"{time.perf_counter() - t0:.2f} s")
     work = pathlib.Path(tempfile.mkdtemp(prefix="rtts_cli_"))
     top = ["-c", str(base_yaml), "-o", f"dataset.data_dir={work / 'data'}"]
-    walls, launches = {}, {}
+    walls, launches, native = {}, {}, {}
     kernels = {"flash": flash_attend, "flash_bwd_dkv": flash_bwd_dkv,
                "flash_bwd_dq": flash_bwd_dq, "depthwise": depthwise_conv1d}
 
     def run(name, args):
         for fn in kernels.values():
             fn.launches = 0
+        NL.calls.clear()
         t0 = time.perf_counter()
         status = CLI.main(top + args)
         torch.cuda.synchronize()
         walls[name] = time.perf_counter() - t0
         launches[name] = {k: fn.launches for k, fn in kernels.items()}
+        native[name] = dict(NL.calls)
         print(f"[cli] {name}: exit {status}, wall {walls[name]:.2f} s, "
-              f"launches {launches[name]}")
+              f"launches {launches[name]}, native calls {native[name]}")
         _require(status == 0, f"rtts_torch.cli {name} exited {status}")
 
     try:
@@ -4247,16 +4374,22 @@ def phase_cli():
         with open(manifest) as f:
             _require(len(json.load(f)["clips"]) == CLI_UTTERANCES,
                      "preprocess wrote the wrong number of clips")
+        _require(all(native["preprocess"].get(k) == CLI_UTTERANCES
+                     for k in ("wav_read", "trim_silence", "write_clip")),
+                 f"preprocess did not read, trim and write every clip "
+                 f"natively: {native['preprocess']}")
         _cli_mel_vs_cpu(manifest, cfg.dataset.audio)
 
         per_step = cfg.model.encoder.num_layers + cfg.model.decoder.num_layers
         train = {k: kernels[k] for k in ("flash", "flash_bwd_dkv",
                                          "flash_bwd_dq")}
-        one_process = {}
+        one_process, step_walls = {}, {}
         for name, workdir, steps, extra in (
                 ("train-tts", "tts", 3, []),
                 ("train-tts debug_nans", "tts_debug_nans", 1,
-                 ["-o", "experiment.debug_nans=true"])):
+                 ["-o", "experiment.debug_nans=true"]),
+                ("train-tts num_workers 0", "tts_nw0", 3,
+                 ["-o", "dataset.num_workers=0"])):
             torch.cuda.reset_peak_memory_stats()
             with _step_launches(TTS_TRAINER, train) as counts:
                 run(name, extra + ["train-tts", "--workdir",
@@ -4265,7 +4398,11 @@ def phase_cli():
             one_process.setdefault("walls", counts.walls)
             one_process.setdefault(
                 "peak_gib", torch.cuda.max_memory_allocated() / 2**30)
+            step_walls[name] = (counts.walls, np.diff(counts.starts))
             print(f"[cli] {name}: launches a train step {counts}")
+            fills = native[name].get("fill_batch", 0)
+            _require(fills == 0 if "num_workers 0" in name else fills >= steps,
+                     f"{name}: {fills} native batches for {steps} steps")
             _require(len(counts) == steps and all(
                 c == {k: per_step for k in train} for c in counts),
                 f"{name}: expected {per_step} launches of K1 and of each K3 "
@@ -4281,6 +4418,8 @@ def phase_cli():
             run("train-vocoder", ["train-vocoder", "--workdir",
                                   str(work / "voc"), "--max-steps", "3"])
         print(f"[cli] train-vocoder: launches a train step {counts}")
+        _require(native["train-vocoder"].get("fill_crops", 0) >= 3,
+                 f"train-vocoder cropped {native['train-vocoder']} natively")
         _require(counts == [{"depthwise": voc.n_flows * voc.wn_layers}] * 3,
                  f"train-vocoder: expected {voc.n_flows * voc.wn_layers} K2 "
                  f"launches a step, got {counts}")
@@ -4289,6 +4428,8 @@ def phase_cli():
                    if "val/loss_vocoder" in line]
         _require(len(val) == 1 and np.isfinite(val[0]["val/loss_vocoder"]),
                  "train-vocoder logged no finite eval")
+        data_secs = _cli_native_batches(manifest, cfg)
+        _cli_eval(work, top, cfg)
 
         ckpts = ["--tts-ckpt", str(work / "tts" / "checkpoints"),
                  "--vocoder-ckpt", str(work / "voc" / "checkpoints")]
@@ -4337,6 +4478,19 @@ def phase_cli():
     print(f"[cli] on {smi}: walls (s) " + ", ".join(
         f"{k} {v:.2f}" for k, v in walls.items()) + "; launches "
         + ", ".join(f"{k} {v}" for k, v in launches.items()))
+    def fmt(xs):
+        return "[" + ", ".join(f"{x:.6f}" for x in xs) + "]"
+
+    print(f"[cli] data path on {smi}, base.yaml's b{cfg.dataset.batch_size}:"
+          " seconds a batch_at, native (num_workers "
+          f"{cfg.dataset.num_workers}) {fmt(data_secs['native']['batch'])}, "
+          f"Python {fmt(data_secs['python']['batch'])}; a crop batch, "
+          f"native {fmt(data_secs['native']['crops'])}, Python "
+          f"{fmt(data_secs['python']['crops'])}")
+    for name in ("train-tts", "train-tts num_workers 0"):
+        print(f"[cli] {name} on {smi}: step walls (s) "
+              f"{fmt(step_walls[name][0])}, step-to-step (batch, step, "
+              f"logging) {fmt(step_walls[name][1])}")
     return work, one_process
 
 
@@ -5746,7 +5900,7 @@ BENCH_KERNEL_DTYPES = {
     "depthwise_conv_fwd": torch.float32, "flash_attend_fwd": torch.bfloat16,
     "flash_attend_fwdbwd": torch.bfloat16}
 # every other cell once (a warm-up and one timed repeat) through its own
-# arguments at a smaller depth: the longform decode to 512 of its 8192
+# arguments at a smaller depth: the longform decode to 256 of its 8192
 # frames, one request a length in the serving cells, one concurrency and
 # one chunk size; the train and vocoder cells at their shapes; the decode
 # cell at base_bench_config
@@ -5755,7 +5909,7 @@ BENCH_CUTS = {
     "vocoder": dict(repeats=1),
     "train": dict(repeats=1),
     "vocoder_train": dict(repeats=1),
-    "longform": dict(repeats=1, max_frames=512),
+    "longform": dict(repeats=1, max_frames=256),
     "serving": dict(repeats=1, per_bucket=1),
     "continuous": dict(repeats=1, per_group=1),
     "latency": dict(repeats=1, concurrency=(1,), chunk_sweep=(64,)),

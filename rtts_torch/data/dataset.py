@@ -1,23 +1,29 @@
-"""The training data pipeline of the port: a copy of the parts of
-``rtts/data/dataset.py`` that TTS and vocoder training use.
+"""The training data pipeline of the port: a port of
+``rtts/data/dataset.py``.
 
 ``Manifest`` and ``split_manifest`` (the train/val split), ``ClipStore``
 (``.rclip`` or ``.npz`` clips), the length-bucketed ``TextMelDataset``, the
 deterministic step -> batch ``EpochBatcher`` and the vocoder's
 ``MelAudioDataset`` (mel window, audio crop), with the same batches and
-crops as the JAX package's (``tests/test_torch_copies.py``).  The JAX
-package's optional C++ prefetching loader is not part of the copy: the
-clips are read and collated in Python whatever ``num_workers`` says, which
-gives the same batches.  ``to_device`` turns a numpy batch into tensors on
-the training device.  ``read_clip`` and ``write_clip`` are the ``.rclip``
-reader and writer of ``rtts/data/native_loader.py``'s Python path, byte for
-byte.
+crops as the JAX package's (``tests/test_torch_copies.py``,
+``tests/test_torch_native.py``).
+
+Where ``dataset.num_workers`` > 0 and the clips are ``.rclip`` files, the
+datasets read and collate through the port's native C++ loader
+(``rtts_torch.data.native_loader``: ``num_workers`` threads, an LRU cache,
+the next batch prefetched while the current step runs), as the JAX
+package's do; otherwise, or where the library cannot be built, in Python,
+to the same bits.  Each dataset says which path it took and why, once a
+process (on stderr), and keeps it in ``loader_path`` ("native" or
+"python") and ``loader_reason``.  ``to_device`` turns a numpy batch into
+tensors on the training device.  ``read_clip`` and ``write_clip`` are the
+``.rclip`` reader and writer (``native_loader``'s).
 """
 
 from __future__ import annotations
 
 import json
-import struct
+import sys
 from dataclasses import dataclass
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
@@ -25,42 +31,33 @@ import numpy as np
 import torch
 
 from rtts_torch.config import DatasetConfig
+from rtts_torch.data import native_loader
+from rtts_torch.data.native_loader import read_clip, write_clip  # noqa: F401
 from rtts_torch.text.symbols import PAD_ID
 
-
-def write_clip(path: str, tokens: np.ndarray, mel: np.ndarray,
-               audio: np.ndarray) -> None:
-    """One ``.rclip`` file: magic, five uint32 sizes (version 1, tokens,
-    frames, mels, samples), then int32 tokens, f32 mel frames and f32
-    samples."""
-    tokens = np.ascontiguousarray(tokens, np.int32)
-    mel = np.ascontiguousarray(mel, np.float32)
-    audio = np.ascontiguousarray(audio, np.float32)
-    with open(path, "wb") as f:
-        f.write(b"RCLP")
-        f.write(struct.pack("<5I", 1, len(tokens), mel.shape[0],
-                            mel.shape[1], len(audio)))
-        f.write(tokens.tobytes())
-        f.write(mel.tobytes())
-        f.write(audio.tobytes())
+_UNSET = object()
+_said = set()
 
 
-def read_clip(path: str) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """(tokens, mel, audio) of one ``.rclip`` file (the format
-    ``rtts/data/preprocess.py`` writes: magic, five uint32 sizes, then
-    int32 tokens, f32 mel frames and f32 samples)."""
-    with open(path, "rb") as f:
-        if f.read(4) != b"RCLP":
-            raise ValueError(f"{path}: not an rclip file")
-        ver, n_tokens, n_frames, n_mels, n_samples = struct.unpack(
-            "<5I", f.read(20))
-        if ver != 1:
-            raise ValueError(f"{path}: unsupported rclip version {ver}")
-        tokens = np.frombuffer(f.read(4 * n_tokens), np.int32)
-        mel = np.frombuffer(f.read(4 * n_frames * n_mels),
-                            np.float32).reshape(n_frames, n_mels)
-        audio = np.frombuffer(f.read(4 * n_samples), np.float32)
-    return tokens, mel, audio
+def _native_or_python(paths: Sequence[str], num_workers: int, kind: str):
+    """(NativeClipLoader or None, "native" or "python", why) for a dataset
+    over ``paths``; says the choice on stderr the first time a process
+    makes it for that reason."""
+    nl, path = None, "python"
+    if num_workers <= 0:
+        why = "dataset.num_workers is 0"
+    elif not paths or not str(paths[0]).endswith(".rclip"):
+        why = "the clips are not .rclip files"
+    elif not native_loader.available():
+        why = ("the native library did not build: "
+               f"{native_loader.build_error()}")
+    else:
+        nl = native_loader.NativeClipLoader(paths, n_workers=num_workers)
+        path, why = "native", f"{num_workers} C++ worker threads"
+    if (kind, path, why) not in _said:
+        _said.add((kind, path, why))
+        print(f"[data] {kind}: {path} loader ({why})", file=sys.stderr)
+    return nl, path, why
 
 
 def _round_up(n: int, m: int) -> int:
@@ -116,7 +113,33 @@ class ClipStore:
         return d
 
 
-class TextMelDataset:
+class _LoaderChoice:
+    """The native-or-Python choice of a dataset over ``_clip_paths()``,
+    made at its first batch (or at the first read of ``loader_path``)."""
+
+    _nl = _UNSET
+
+    def _native_loader(self):
+        """The C++ prefetching loader (made once) when ``num_workers`` > 0,
+        the clips are ``.rclip`` files and the library builds; None -> the
+        Python path."""
+        if self._nl is _UNSET:
+            self._nl, self._path, self._why = _native_or_python(
+                self._clip_paths(), self.cfg.num_workers, type(self).__name__)
+        return self._nl
+
+    @property
+    def loader_path(self) -> str:
+        self._native_loader()
+        return self._path
+
+    @property
+    def loader_reason(self) -> str:
+        self._native_loader()
+        return self._why
+
+
+class TextMelDataset(_LoaderChoice):
     """(tokens, mel) view with bucketed static-shape batching."""
 
     def __init__(self, man: Manifest, cfg: DatasetConfig,
@@ -124,6 +147,9 @@ class TextMelDataset:
         self.man = man
         self.cfg = cfg
         self.store = store or ClipStore()
+
+    def _clip_paths(self) -> List[str]:
+        return [c["clip"] for c in self.man.clips]
 
     def __len__(self) -> int:
         return len(self.man.clips)
@@ -161,11 +187,22 @@ class TextMelDataset:
         return {"tokens": tokens, "token_mask": tmask,
                 "mel": mel, "mel_mask": mmask}
 
+    def _bucket_shape_from_manifest(self, chunk: Sequence[int]):
+        tok = max(self.man.clips[i]["n_tokens"] for i in chunk)
+        mel = max(self.man.clips[i]["n_frames"] for i in chunk)
+        t_pad = _round_up(tok, self.cfg.text.pad_to_multiple)
+        m_pad = min(_round_up(mel, self.cfg.mel_pad_to_multiple),
+                    self.cfg.max_mel_len)
+        return t_pad, m_pad
+
     def batches(self, batch_size: int, seed: int = 0, shuffle: bool = True,
                 drop_last: bool = False, loop: bool = False
                 ) -> Iterator[Dict[str, np.ndarray]]:
         """Length-bucketed batch iterator: sort by mel length, slice into
-        batches, shuffle batch order — minimizes padding and shape count."""
+        batches, shuffle batch order — minimizes padding and shape count.
+
+        On the native path each batch is collated in C++ with the next
+        one's clips prefetched by the worker threads."""
         order = sorted(range(len(self)),
                        key=lambda i: self.man.clips[i]["n_frames"])
         chunks = [order[i:i + batch_size]
@@ -173,10 +210,18 @@ class TextMelDataset:
         if drop_last and chunks and len(chunks[-1]) < batch_size:
             chunks = chunks[:-1]
         rng = np.random.default_rng(seed)
+        nl = self._native_loader()
         while True:
             idx = rng.permutation(len(chunks)) if shuffle else np.arange(len(chunks))
-            for ci in idx:
-                yield self.collate([self[i] for i in chunks[ci]])
+            for pos, ci in enumerate(idx):
+                chunk = chunks[ci]
+                if nl is not None:
+                    if pos + 1 < len(idx):
+                        nl.prefetch(chunks[idx[pos + 1]])
+                    t_pad, m_pad = self._bucket_shape_from_manifest(chunk)
+                    yield nl.fill_batch(chunk, t_pad, m_pad, self.man.n_mels)
+                else:
+                    yield self.collate([self[i] for i in chunk])
             if not loop:
                 return
 
@@ -189,7 +234,7 @@ class EpochBatcher:
     that global step — the loader needs NO checkpoint state beyond the step
     counter the trainer already saves (SURVEY.md §6.4; the reference's
     Lightning resume restarts the epoch stream, this is strictly stronger).
-    """
+    On the native path each call also prefetches step + 1's clips."""
 
     def __init__(self, ds: "TextMelDataset", batch_size: int, seed: int = 0,
                  shuffle: bool = True, drop_last: bool = False):
@@ -223,15 +268,22 @@ class EpochBatcher:
         return self.chunks[self._epoch_perm(epoch)[pos]]
 
     def batch_at(self, step: int) -> Dict[str, np.ndarray]:
-        return self.ds.collate([self.ds[i] for i in self._chunk_at(step)])
+        chunk = self._chunk_at(step)
+        nl = self.ds._native_loader()
+        if nl is not None:
+            nl.prefetch(self._chunk_at(step + 1))
+            t_pad, m_pad = self.ds._bucket_shape_from_manifest(chunk)
+            return nl.fill_batch(chunk, t_pad, m_pad, self.ds.man.n_mels)
+        return self.ds.collate([self.ds[i] for i in chunk])
 
 
-class MelAudioDataset:
+class MelAudioDataset(_LoaderChoice):
     """(mel window, audio crop) pairs for vocoder training."""
 
-    def __init__(self, man: Manifest, segment_samples: int,
+    def __init__(self, man: Manifest, cfg: DatasetConfig, segment_samples: int,
                  store: Optional[ClipStore] = None):
         self.man = man
+        self.cfg = cfg
         self.hop = man.hop_length
         if segment_samples % self.hop != 0:
             raise ValueError("segment length must be a multiple of hop")
@@ -244,16 +296,24 @@ class MelAudioDataset:
         if not self.usable:
             raise ValueError("no clip long enough for the crop length")
 
+    def _clip_paths(self) -> List[str]:
+        return [c["clip"] for c in self.usable]
+
     def sample(self, rng: np.random.Generator, batch_size: int
                ) -> Dict[str, np.ndarray]:
         """``batch_size`` random crops: clip picks, then frame offsets, drawn
         from ``rng`` in the reference's order -> {mel (B, frames, n_mels),
-        audio (B, segment)} float32."""
+        audio (B, segment)} float32; on the native path cropped in C++
+        (``fill_crops``)."""
         picks = [int(rng.integers(len(self.usable))) for _ in range(batch_size)]
         offsets = []
         for p in picks:
             max_f = self.usable[p]["n_frames"] - self.frames
             offsets.append(int(rng.integers(0, max_f + 1)))
+        nl = self._native_loader()
+        if nl is not None:
+            return nl.fill_crops(picks, offsets, self.frames, self.hop,
+                                 self.man.n_mels)
         mels, audios = [], []
         for p, f0 in zip(picks, offsets):
             d = self.store.load(self.usable[p]["clip"])

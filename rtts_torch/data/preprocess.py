@@ -3,13 +3,15 @@
 
 ``preprocess_corpus`` reads ``transcripts.txt`` (``utt|text`` lines over
 ``wavs/utt.wav``, or timed lines cut out of a long recording, see
-``parse_transcript_line``), resamples to the configured rate
-(``resample_poly``), trims silence at both ends (an energy gate), computes
-the float32 log-mel on ``device`` (the port's ``make_mel_fn``, TF32 off)
-and writes one ``.rclip`` a clip plus ``manifest.json`` with the JAX
-package's keys.  The JAX package's C++ branch (its native loader) is not
-ported: this is its Python branch, with the same clips.  ``extract_audio``
-is the ffmpeg subprocess of media extraction.
+``parse_transcript_line``), resamples to the configured rate, trims
+silence at both ends (an energy gate), computes the float32 log-mel on
+``device`` (the port's ``make_mel_fn``, TF32 off) and writes one
+``.rclip`` a clip plus ``manifest.json`` with the JAX package's keys.  As
+the JAX package does, it reads, resamples, trims and writes through the
+native library (``rtts_torch.data.native_loader``) whenever that builds,
+and otherwise in Python (``read_wav``, ``resample_poly``,
+``trim_silence``); ``preprocess_corpus`` says which on stderr.
+``extract_audio`` is the ffmpeg subprocess of media extraction.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import contextlib
 import json
 import pathlib
 import subprocess
+import sys
 from typing import Iterator, Optional, Tuple
 
 import numpy as np
@@ -27,7 +30,7 @@ from rtts_torch.audio.resample import resample_poly
 from rtts_torch.audio.stft import make_mel_fn
 from rtts_torch.audio.wav import read_wav
 from rtts_torch.config import DatasetConfig
-from rtts_torch.data.dataset import write_clip
+from rtts_torch.data import native_loader
 from rtts_torch.text.tokenizer import text_to_ids
 
 
@@ -93,25 +96,33 @@ def parse_transcript_line(ln: str) -> Tuple[str, Optional[str],
     return parts[0], None, None, None, "|".join(parts[1:])
 
 
-def _load_audio(path: pathlib.Path, sample_rate: int) -> np.ndarray:
-    audio, sr = read_wav(path)
-    if sr != sample_rate:
-        audio = resample_poly(audio, sr, sample_rate)
+def _load_audio(path: pathlib.Path, sample_rate: int,
+                use_native: bool) -> np.ndarray:
+    if use_native:
+        audio, sr = native_loader.wav_read(str(path))
+        if sr != sample_rate:
+            audio = native_loader.resample(audio, sr, sample_rate)
+    else:
+        audio, sr = read_wav(path)
+        if sr != sample_rate:
+            audio = resample_poly(audio, sr, sample_rate)
     return np.asarray(audio, np.float32)
 
 
 class _SourceCache:
     """Long recordings loaded+resampled once, sliced many times."""
 
-    def __init__(self, base: pathlib.Path, acfg):
+    def __init__(self, base: pathlib.Path, acfg, use_native: bool):
         self.base = base
         self.acfg = acfg
+        self.use_native = use_native
         self._cache = {}
 
     def load(self, name: str) -> np.ndarray:
         if name not in self._cache:
             self._cache[name] = _load_audio(self.base / name,
-                                            self.acfg.sample_rate)
+                                            self.acfg.sample_rate,
+                                            self.use_native)
         return self._cache[name]
 
     def cut(self, name: str, start_s: float, end_s: float) -> np.ndarray:
@@ -164,7 +175,12 @@ def preprocess_corpus(cfg: DatasetConfig, transcripts_path: str,
     out = pathlib.Path(out_dir or (pathlib.Path(cfg.data_dir) / "clips"))
     out.mkdir(parents=True, exist_ok=True)
     mel_fn = make_mel_fn(acfg)
-    sources = _SourceCache(base, acfg)
+    use_native = native_loader.available()
+    print("[data] preprocess_corpus: " + (
+        "native wav read, resample, trim and clip writer" if use_native else
+        f"Python path (the native library did not build: "
+        f"{native_loader.build_error()})"), file=sys.stderr)
+    sources = _SourceCache(base, acfg, use_native)
     entries = []
     with open(transcripts_path) as f:
         lines = [ln.strip() for ln in f if ln.strip()]
@@ -174,8 +190,9 @@ def preprocess_corpus(cfg: DatasetConfig, transcripts_path: str,
             audio = sources.cut(source or default_source, start_s, end_s)
         else:
             audio = _load_audio(base / "wavs" / f"{utt_id}.wav",
-                                acfg.sample_rate)
-        audio = trim_silence(audio, acfg.sample_rate)
+                                acfg.sample_rate, use_native)
+        trim = native_loader.trim_silence if use_native else trim_silence
+        audio = trim(audio, acfg.sample_rate)
         # align audio length to hop so mel frames cover it exactly
         n_frames = max(1, len(audio) // acfg.hop_length)
         audio = audio[: n_frames * acfg.hop_length]
@@ -184,7 +201,8 @@ def preprocess_corpus(cfg: DatasetConfig, transcripts_path: str,
         mel = mel.cpu().numpy().astype(np.float32)[:n_frames]
         tokens = _tokens(text, cfg.text)
         clip_path = out / f"{utt_id}.rclip"
-        write_clip(str(clip_path), tokens, mel, audio.astype(np.float32))
+        native_loader.write_clip(str(clip_path), tokens, mel,
+                                 audio.astype(np.float32))
         entries.append({
             "utt_id": utt_id,
             "clip": str(clip_path),

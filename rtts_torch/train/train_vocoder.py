@@ -135,8 +135,10 @@ def train_vocoder(cfg: Config, workdir: str, max_steps: Optional[int] = None,
                             / cfg.dataset.manifest)
         train_man, val_man = split_manifest(man, cfg.dataset.val_fraction,
                                             cfg.dataset.split_seed)
-        train_ds = MelAudioDataset(train_man, voc.audio_segment_length)
-        val_ds = MelAudioDataset(val_man, voc.audio_segment_length)
+        train_ds = MelAudioDataset(train_man, cfg.dataset,
+                                   voc.audio_segment_length)
+        val_ds = MelAudioDataset(val_man, cfg.dataset,
+                                 voc.audio_segment_length)
 
         model = SW.init(voc, torch.Generator().manual_seed(exp.seed), device)
         optimizer = make_optimizer(exp.optim)

@@ -32,7 +32,7 @@ from rtts_torch.convert import from_numpy_tree
 from rtts_torch.infer import denoiser as TD
 from rtts_torch.models import squeezewave as TSW
 from tests.test_full_model_parity import vocoder_cfg
-from tests.torch_twin import one_thread  # noqa: F401  (autouse)
+from torch_twin import one_thread  # noqa: F401  (autouse)
 
 
 TOL = 1e-5

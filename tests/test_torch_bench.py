@@ -51,7 +51,7 @@ from rtts_torch.models import reformer_tts as M
 from rtts_torch.models import squeezewave as SW
 from rtts_torch.ops import depthwise_conv as DW
 from rtts_torch.text import frontend_vocab_size
-from tests.torch_twin import one_thread  # noqa: F401  (autouse)
+from torch_twin import one_thread  # noqa: F401  (autouse)
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 TINY = str(ROOT / "configs" / "tiny.yaml")

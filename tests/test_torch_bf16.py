@@ -72,7 +72,7 @@ from rtts_torch.train.train_tts import make_train_step, step_generator
 from rtts_torch.train.train_vocoder import make_train_step as voc_train_step
 from tests.test_torch_decode_modes import port_cfg
 from tests.test_torch_train import np_tree
-from tests.torch_twin import one_thread  # noqa: F401  (autouse)
+from torch_twin import one_thread  # noqa: F401  (autouse)
 
 
 BF, F32 = "bfloat16", "float32"

@@ -43,7 +43,7 @@ from tests.test_torch_bf16 import (BF, F32, FORWARD_RATIO, GRAD_RATIO, JDT,
                                    f32, leaf_distances, np_tree, port_cfg,
                                    record, same_dtype, torch_batch, tt)
 from tests.test_torch_lsh import jax_rotations
-from tests.torch_twin import one_thread  # noqa: F401  (autouse)
+from torch_twin import one_thread  # noqa: F401  (autouse)
 
 
 HASH_SEED = 5

@@ -31,7 +31,7 @@ from click.testing import CliRunner
 
 from rtts import cli as JCLI
 from rtts_torch import cli as TCLI
-from tests.torch_twin import one_thread  # noqa: F401  (autouse)
+from torch_twin import one_thread  # noqa: F401  (autouse)
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 TINY = str(ROOT / "configs" / "tiny.yaml")

@@ -45,7 +45,7 @@ from rtts_torch.audio import resample as TR
 from rtts_torch.audio import wav as TW
 from rtts_torch.train import quality as TQ
 from rtts_torch.utils.metrics import MetricLogger as PortLogger
-from tests.torch_twin import one_thread  # noqa: F401  (autouse)
+from torch_twin import one_thread  # noqa: F401  (autouse)
 
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -177,8 +177,9 @@ def test_vocoder_datasets_crop_alike(corpus):
     jman, tman = JD.Manifest.load(path), TD.Manifest.load(path)
     hop = jman.hop_length
     seg = hop * min(c["n_frames"] for c in jman.clips) // 2 * 2
+    tcfg = TC.from_dict(TC.DatasetConfig, JC.to_dict(corpus))
     jds = JD.MelAudioDataset(jman, corpus, seg)
-    tds = TD.MelAudioDataset(tman, seg)
+    tds = TD.MelAudioDataset(tman, tcfg, seg)
     assert [c["clip"] for c in tds.usable] == [c["clip"] for c in jds.usable]
     for seed in (0, (3, 7)):
         jr, tr = np.random.default_rng(seed), np.random.default_rng(seed)
@@ -192,7 +193,7 @@ def test_vocoder_datasets_crop_alike(corpus):
         with pytest.raises(ValueError) as want:
             JD.MelAudioDataset(jman, corpus, bad)
         with pytest.raises(ValueError, match=str(want.value)):
-            TD.MelAudioDataset(tman, bad)
+            TD.MelAudioDataset(tman, tcfg, bad)
 
 
 @pytest.mark.parametrize("width", [1, 2, 4])
@@ -432,6 +433,31 @@ TRANSCRIPT_LINES = [
     "utt0005|12|x|not timed", "u|src.wav|1|2|text | with | bars",
     "u|2|3|text|with|bars",
 ]
+
+
+def test_native_library_source_is_the_jax_packages():
+    """``rtts_torch/csrc/rtts_native.cc`` is ``native/rtts_native.cc`` from
+    its first ``#include`` on, byte for byte (only the header comment
+    differs), and the port's bindings keep the JAX package's names and
+    signatures."""
+    import inspect
+
+    from rtts.data import native_loader as JN
+    from rtts_torch.data import native_loader as TN
+
+    def code(path):
+        text = path.read_text()
+        return text[text.index("\n#include"):]
+
+    assert code(ROOT / "rtts_torch" / "csrc" / "rtts_native.cc") == \
+        code(ROOT / "native" / "rtts_native.cc")
+    for name in ("available", "build_error", "write_clip", "read_clip",
+                 "wav_read", "resample", "trim_silence"):
+        assert inspect.signature(getattr(TN, name)) == \
+            inspect.signature(getattr(JN, name)), name
+    for name in ("__init__", "prefetch", "fill_batch", "fill_crops"):
+        assert inspect.signature(getattr(TN.NativeClipLoader, name)) == \
+            inspect.signature(getattr(JN.NativeClipLoader, name)), name
 
 
 def test_preprocess_helpers_alike():

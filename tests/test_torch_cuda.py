@@ -32,7 +32,7 @@ from rtts_torch.ops.lsh_attention import (lsh_attend_bwd,
                                           lsh_attend_fwd)
 from rtts_torch.ops.row_gather import row_gather, row_gather_reference
 from rtts_torch.reversible.ffn import FFN, _ffn_body
-from tests.torch_twin import one_thread  # noqa: F401  (autouse)
+from torch_twin import one_thread  # noqa: F401  (autouse)
 
 
 pytestmark = pytest.mark.cuda

@@ -47,7 +47,7 @@ from rtts_torch.infer import diagnostics as TDG
 from rtts_torch.infer import draws
 from rtts_torch.models import reformer_tts as TM
 from rtts_torch.train.quality import attention_diagonality
-from tests.torch_twin import one_thread  # noqa: F401  (autouse)
+from torch_twin import one_thread  # noqa: F401  (autouse)
 
 
 TOL = 1e-4

@@ -62,7 +62,7 @@ from rtts_torch.text import frontend_vocab_size
 from tests.test_torch_decode_modes import jax_cfg
 from tests.test_torch_parallel import collect, spawn
 from tests.test_torch_slice import TOL, close
-from tests.torch_twin import one_thread  # noqa: F401  (autouse)
+from torch_twin import one_thread  # noqa: F401  (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TEXTS = ["hello world", "a longer test sentence here", "ok"]

@@ -19,7 +19,7 @@ from rtts_torch.ops.flash_attention import (_drop_rscale, dkv_query_splits,
                                             flash_attend_reference,
                                             masked_scores)
 from tests.test_torch_cuda import TOL, TRAIN_CASES, _err, train_case
-from tests.torch_twin import one_thread  # noqa: F401  (autouse)
+from torch_twin import one_thread  # noqa: F401  (autouse)
 
 
 # the TRAIN_CASES shapes that stay small on the CPU

@@ -34,7 +34,7 @@ import torch
 from rtts.config import load_yaml
 from rtts_torch.nn.layers import PrenetMLP, dropout
 from rtts_torch.ops._build import SIGNATURES
-from tests.torch_twin import one_thread  # noqa: F401  (autouse)
+from torch_twin import one_thread  # noqa: F401  (autouse)
 
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -284,6 +284,75 @@ def test_bench_runs_without_jax():
     _run_without_jax(NO_JAX_BENCH)
 
 
+NO_JAX_DATA_EVAL = r"""
+import sys
+sys.modules["jax"] = None          # any `import jax` now raises ImportError
+sys.modules["rtts"] = None         # and so does any `import rtts...`
+import contextlib
+import io
+import json
+import pathlib
+import tempfile
+import numpy as np
+import torch
+from rtts_torch.config import load_config
+from rtts_torch.data import dataset as TD, native_loader as TN
+from rtts_torch.data.corpus import generate_corpus
+from rtts_torch.data.preprocess import preprocess_corpus
+from rtts_torch.models import reformer_tts as M
+from rtts_torch.scripts import eval_decode_fidelity as EF
+from rtts_torch.text import frontend_vocab_size
+from rtts_torch.train.checkpoint import save_checkpoint
+
+root = pathlib.Path(tempfile.mkdtemp())
+generate_corpus(root, 4)
+over = [f"dataset.data_dir={root / 'data'}", "dataset.num_workers=2",
+        "dataset.max_mel_len=16"]
+cfg = load_config("configs/tiny.yaml", over)
+preprocess_corpus(cfg.dataset, str(root / "transcripts.txt"), device="cpu")
+assert TN.calls["write_clip"] == 4 and TN.calls["trim_silence"] == 4
+man = TD.Manifest.load(root / "data" / "manifest.json")
+ds = TD.TextMelDataset(man, cfg.dataset)
+assert ds.loader_path == "native", ds.loader_reason
+batch = TD.EpochBatcher(ds, 2).batch_at(1)
+crops = TD.MelAudioDataset(man, cfg.dataset, 1024).sample(
+    np.random.default_rng(0), 2)
+assert TN.calls["fill_batch"] == 1 and TN.calls["fill_crops"] == 1
+model_cfg = cfg.model.__class__(**{**cfg.model.__dict__,
+                                   "vocab_size": frontend_vocab_size()})
+save_checkpoint(root / "tts", M.init(model_cfg, torch.Generator().manual_seed(
+    0), "cpu"), None, 1)
+said = io.StringIO()
+with contextlib.redirect_stdout(said):
+    out = EF.main(["-c", "configs/tiny.yaml"] + [a for o in over
+                                                  for a in ("-o", o)] + [
+        "--ckpt", str(root / "tts"), "--modes", "recompute,kv_lsh",
+        "--device", "cpu"])
+assert json.loads(said.getvalue().strip().splitlines()[-1]) == out
+assert sorted(out["results"]) == ["kv_lsh", "recompute"]
+assert TN.SRC == pathlib.Path("rtts_torch/csrc/rtts_native.cc").resolve()
+assert not any(m.split(".")[0] in ("jax", "rtts", "scripts")
+               for m in sys.modules if sys.modules[m] is not None)
+print("OK")
+"""
+
+
+def test_native_loader_and_eval_run_without_jax():
+    """The native data path (preprocess, ``fill_batch``, ``fill_crops``)
+    and the decode-fidelity evaluation on the CPU with ``jax`` and
+    ``rtts`` blocked; the library's source is the port's own copy."""
+    _run_without_jax(NO_JAX_DATA_EVAL)
+
+
+def test_port_names_no_file_of_the_jax_package_native_dir():
+    """No module of the port names a path under ``native/`` (the port
+    builds ``rtts_torch/csrc/rtts_native.cc``)."""
+    for path in sorted((ROOT / "rtts_torch").rglob("*.py")):
+        assert not re.search(r"native/rtts_native|[\"']native/|"
+                             r"/ *[\"']native[\"']|[\"']native[\"'] */",
+                             path.read_text()), path
+
+
 def test_port_imports_cover_the_probes_and_name_no_script():
     """The import guard reads the probes too, and no module of the port
     imports the JAX package's scripts."""
@@ -313,7 +382,8 @@ def test_port_imports_nothing_of_the_jax_package():
                  "parallel/training.py", "parallel/collectives.py",
                  "parallel/seq_parallel.py", "parallel/pipeline.py",
                  "infer/export.py", "infer/draws.py", "ops/registry.py",
-                 "bench.py"):
+                 "bench.py", "data/native_loader.py",
+                 "scripts/eval_decode_fidelity.py"):
         assert ROOT / "rtts_torch" / name in files, name
     for path in files + [ROOT / "chip_smoke.py"]:
         names = _imported_modules(path)

@@ -18,7 +18,7 @@ from rtts_torch.ops.depthwise_conv import (depthwise_conv1d,
 from rtts_torch.ops.flash_attention import (flash_attend,
                                             flash_attend_reference,
                                             resolve_flash_impl)
-from tests.torch_twin import one_thread  # noqa: F401  (autouse)
+from torch_twin import one_thread  # noqa: F401  (autouse)
 
 
 # f32 on both sides at "highest" matmul precision: the only differences are

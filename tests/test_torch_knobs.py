@@ -48,7 +48,7 @@ from rtts_torch.models import reformer_tts as TM
 from rtts_torch.train import optim as TO
 from rtts_torch.train.train_tts import make_train_step, step_generator
 from tests.test_torch_decode_modes import jax_cfg, port_cfg, scaled_err, tt
-from tests.torch_twin import one_thread  # noqa: F401  (autouse)
+from torch_twin import one_thread  # noqa: F401  (autouse)
 
 
 TOL = 1e-4

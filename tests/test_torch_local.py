@@ -44,7 +44,7 @@ from rtts_torch.train.train_tts import make_train_step, step_generator
 from tests.test_model_m1 import tiny_cfg
 from tests.test_torch_lsh import (_attn_params, close, jax_rotations,
                                   scaled_close, tt)
-from tests.torch_twin import one_thread  # noqa: F401  (autouse)
+from torch_twin import one_thread  # noqa: F401  (autouse)
 
 
 TOL = 1e-5

@@ -46,7 +46,7 @@ from rtts_torch.ops import lsh_attention as TK
 from rtts_torch.train import optim as TO
 from rtts_torch.train.train_tts import make_train_step, step_generator
 from tests.test_model_m1 import tiny_cfg
-from tests.torch_twin import one_thread  # noqa: F401  (autouse)
+from torch_twin import one_thread  # noqa: F401  (autouse)
 
 
 TOL = 1e-5

@@ -36,7 +36,7 @@ from rtts_torch.nn.layers import Dense, Embedding, LayerNorm, PrenetMLP, activat
 from rtts_torch.nn.posenc import ScaledPosEnc
 from rtts_torch.reversible.ffn import _ffn_body
 from tests.test_model_m1 import tiny_cfg
-from tests.torch_twin import one_thread  # noqa: F401  (autouse)
+from torch_twin import one_thread  # noqa: F401  (autouse)
 
 
 TOL = 1e-5

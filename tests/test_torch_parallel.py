@@ -56,7 +56,7 @@ from rtts_torch.train import optim as TO
 from rtts_torch.train.checkpoint import restore_checkpoint, snapshot
 from rtts_torch.train.train_tts import make_train_step, step_generator
 from tests.test_torch_train import MODEL_TOL, _train_cfg, np_tree, tt
-from tests.torch_twin import one_thread  # noqa: F401  (autouse)
+from torch_twin import one_thread  # noqa: F401  (autouse)
 
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent

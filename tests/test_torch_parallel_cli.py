@@ -33,7 +33,7 @@ import pytest
 import torch
 
 from rtts_torch import cli as TCLI
-from tests.torch_twin import one_thread  # noqa: F401  (autouse)
+from torch_twin import one_thread  # noqa: F401  (autouse)
 
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent

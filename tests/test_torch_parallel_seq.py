@@ -35,7 +35,7 @@ from rtts_torch import config as TC
 from rtts_torch.ops.flash_attention import dropout_keep_mask
 from tests.test_torch_parallel import _paths, collect, spawn
 from tests.test_torch_train import np_tree, tt
-from tests.torch_twin import one_thread  # noqa: F401  (autouse)
+from torch_twin import one_thread  # noqa: F401  (autouse)
 
 
 SEQ_TOL = 1e-5

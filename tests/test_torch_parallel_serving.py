@@ -40,7 +40,7 @@ from rtts.text import vocab_size
 from tests.test_torch_decode_modes import jax_cfg, scaled_err
 from tests.test_torch_parallel import collect, spawn
 from tests.test_torch_serving import full_cfg
-from tests.torch_twin import one_thread  # noqa: F401  (autouse)
+from torch_twin import one_thread  # noqa: F401  (autouse)
 
 
 TOL = 1e-4

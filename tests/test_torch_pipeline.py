@@ -31,7 +31,7 @@ from rtts.data import native_loader as JN
 from rtts.data import preprocess as JP
 from rtts_torch.data import dataset as TD
 from rtts_torch.data import preprocess as TP
-from tests.torch_twin import one_thread  # noqa: F401  (autouse)
+from torch_twin import one_thread  # noqa: F401  (autouse)
 
 MEL_TOL = 1e-4
 ENERGY_TOL = 1e-5

@@ -39,7 +39,7 @@ from rtts_torch.infer.synthesize import Synthesizer
 from rtts_torch.models import reformer_tts as TM
 from rtts_torch.models import squeezewave as TS
 from rtts_torch.ops import depthwise_conv as DW
-from tests.torch_twin import one_thread  # noqa: F401  (autouse)
+from torch_twin import one_thread  # noqa: F401  (autouse)
 
 
 ROOT = __import__("pathlib").Path(__file__).resolve().parent.parent

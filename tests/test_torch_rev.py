@@ -47,7 +47,7 @@ from rtts_torch.train import optim as TO
 from rtts_torch.train.train_tts import make_train_step, step_generator
 from tests.test_model_m1 import tiny_cfg
 from tests.test_torch_lsh import inject_rotations, jax_rotations  # noqa: F401
-from tests.torch_twin import one_thread  # noqa: F401  (autouse)
+from torch_twin import one_thread  # noqa: F401  (autouse)
 
 
 MODEL_TOL = 1e-4

@@ -43,7 +43,7 @@ from rtts_torch.infer.synthesize import Synthesizer
 from rtts_torch.models import reformer_tts as TM
 from rtts_torch.models import squeezewave as TSW
 from tests.test_torch_decode_modes import jax_cfg, scaled_err, tt
-from tests.torch_twin import one_thread  # noqa: F401  (autouse)
+from torch_twin import one_thread  # noqa: F401  (autouse)
 
 TOL = 1e-4
 L = 16                      # token length

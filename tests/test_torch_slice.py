@@ -29,7 +29,7 @@ from rtts_torch.models import reformer_tts as TM
 from rtts_torch.models import squeezewave as TS
 from tests.test_model_m1 import tiny_cfg
 from tests.test_torch_modules import VOC_CFG, np_tree
-from tests.torch_twin import one_thread  # noqa: F401  (autouse)
+from torch_twin import one_thread  # noqa: F401  (autouse)
 
 
 TOL = 1e-4

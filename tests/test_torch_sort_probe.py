@@ -28,7 +28,7 @@ sys.path.insert(0, str(ROOT / "scripts"))
 
 from probe_vmem_sort import bitonic_sort_cols as jax_sort  # noqa: E402
 from probe_vmem_sort import vmem_row_gather as jax_gather  # noqa: E402
-from tests.torch_twin import one_thread  # noqa: F401  (autouse)
+from torch_twin import one_thread  # noqa: F401  (autouse)
 
 
 def _sorted_by_jax(x: np.ndarray) -> np.ndarray:

@@ -39,7 +39,7 @@ from rtts_torch.models import reformer_tts as TM
 from rtts_torch.models import squeezewave as TSW
 from rtts_torch.models.reformer_tts import postnet_apply
 from tests.test_torch_decode_modes import jax_cfg, scaled_err, tt
-from tests.torch_twin import one_thread  # noqa: F401  (autouse)
+from torch_twin import one_thread  # noqa: F401  (autouse)
 
 TOL = 1e-4
 T = 32

@@ -37,7 +37,7 @@ from rtts_torch.ops.lsh_attention import (bwd_route, fwd_route, look_adjacent,
 from tests.test_torch_cuda import (ENCODER_LENS, TOL, _err, lsh_case,
                                    train_case)
 from tests.test_torch_flash_bf16 import SMALL_CASES, _bf16, _hi_lo
-from tests.torch_twin import one_thread  # noqa: F401  (autouse)
+from torch_twin import one_thread  # noqa: F401  (autouse)
 
 
 BF16_TOL = TOL[torch.bfloat16]

@@ -45,7 +45,7 @@ from rtts_torch.train.vocoder_loss import squeezewave_loss
 from tests.test_full_model_parity import FIXTURE
 from tests.test_full_model_parity import TOL as FIXTURE_TOL
 from tests.test_full_model_parity import vocoder_cfg, vocoder_inputs
-from tests.torch_twin import one_thread  # noqa: F401  (autouse)
+from torch_twin import one_thread  # noqa: F401  (autouse)
 
 
 TOL = 1e-5

@@ -13,7 +13,7 @@ import yaml
 
 from rtts_torch import config as TC
 from rtts_torch.yaml_subset import safe_load
-from tests.torch_twin import one_thread  # noqa: F401  (autouse)
+from torch_twin import one_thread  # noqa: F401  (autouse)
 
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
