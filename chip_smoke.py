@@ -36,12 +36,12 @@ phase; every phase raises on failure:
    then ``flagship.yaml`` at full width in bf16 (2 utterances x 64
    frames, its f32 vocoder), card against CPU, within
    ``BF16_CARD_RATIO`` x the card's own bf16-vs-f32 distance;
-5. timing at the shape of ``rtts/bench.py::bench_e2e`` (batch 8, 256 tokens,
-   512 frames, stop threshold 2.0, batched vocoder; one timed run after a
-   warm-up: phase 35's e2e cell takes the best of 3), and each kernel
-   against its plain version: K1 at the encoder's shape, K2 at the batched
-   vocoder's (8, 1024, 128) and the serving path's (1, 1024, 128), in turns
-   with ``F.conv1d(groups=128)``;
+5. timing: the end-to-end path once at ``rtts/bench.py::bench_e2e``'s
+   shape (batch 8, 256 tokens, 512 frames, stop threshold 2.0, batched
+   vocoder), its audio of the expected shape and finite (phase 35's e2e
+   cell times it), and each kernel against its plain version: K1 at the
+   encoder's shape, K2 at the batched vocoder's (8, 1024, 128) and the
+   serving path's (1, 1024, 128), in turns with ``F.conv1d(groups=128)``;
 6. profile: ``torch.profiler`` over a 64-frame decode at that shape, for
    the device's busy and idle share, the kernels per decode step and the
    ops that take the device time;
@@ -71,9 +71,10 @@ phase; every phase raises on failure:
    shapes (the decoder's b2
    h8 4 hashes L8192, the encoder's L1024, a ragged one, one whose chunk
    count is not a multiple of 8), a window of one chunk on each side
-   (before 1, after 1) and serving_fast.yaml's two (b8: the decoder's
-   L1024 causal, the encoder's L256, both ragged), bf16 and f32; K4 and
-   K5 twice, bit-equal;
+   (before 1, after 1), serving_fast.yaml's two (b8: the decoder's
+   L1024 causal, the encoder's L256, both ragged) and parity_deep's two
+   (b8 h4 nh2 c32: the decoder's L256 causal, the encoder's L192), bf16
+   and f32; K4 and K5 twice, bit-equal;
 12. LSH train slice: three longform_8k.yaml steps at full width (batch 2,
    ragged up to 1024 tokens and 8192 frames, bf16): finite loss, grad norm
    and gradients; per step 12 launches of K4, K5 and K7's path entry (the
@@ -118,7 +119,8 @@ phase; every phase raises on failure:
    and bound; each with its launches a step;
 19. kernels-sort: K7's path entry (the LSH bucket sort) against its plain
    version at the LSH train steps' four bucket shapes, lengths that are
-   not a power of two and the most keys, with padded rows; K7's column
+   not a power of two, the most keys and parity_deep's (8, 4, 2, 256) and
+   (8, 4, 2, 192), with padded rows; K7's column
    entry (bitonic column sort) and K8 (row gather) against their plain
    versions and ``torch.sort`` / ``index_select``; all exactly, twice
    bit-equal; the column entry and K8 at the sort probe's shapes (its own,
@@ -192,7 +194,7 @@ phase; every phase raises on failure:
    steps (the stop check);
 30. serving: ``base.yaml`` at full width (prenet dropout off, stop 2.0)
    on ``rtts/bench.py``'s serving workloads: (a) ``Synthesizer.
-   serve_continuous(vocode="batched")`` on 6 requests of 128/256/512
+   serve_continuous(vocode="batched")`` on 6 requests of 128/256
    frames in ``bench_continuous``'s arrival order, 4 slots, segments of
    64 (6 waveforms of their lengths, at most one host synchronization a
    boundary beside one lengths read and one audio copy a class, K1 and
@@ -200,7 +202,7 @@ phase; every phase raises on failure:
    its slots, so that freed slots are refilled from the queue (at least
    one refill; frames/s, p50/p95 completion latency, lengths equal and
    mel L1 against (a)); (c)
-   bucketed ``serve`` against pad-to-max ``text_to_mel`` at 512 frames
+   bucketed ``serve`` against pad-to-max ``text_to_mel`` at 256 frames
    (frames/s, mel L1); (d) ``StreamingSynthesizer`` at batch 1 x 256
    frames in chunks of 32 and 64 (time to first audio, at most one
    synchronization a segment and one for the tail, the decoded frames
@@ -261,10 +263,13 @@ phase; every phase raises on failure:
    over gloo (``chip_smoke.py --rank seqpipe``), after one-process
    references made first: (a) ``train-tts --max-steps 3`` at base.yaml on
    phase 31's corpus with the decoder's sequence split over the 2 model
-   ranks (``seq_parallel_exchange`` allgather, then ring), 12 K1 and 12
-   of each K3 a step on each rank, the decoder's at (8, 8, L/2, 64)
-   against L keys at q_offset rank x L/2, each checkpoint against phase
-   31's one-process run; (b) the decoder pipelined, 4 microbatches,
+   ranks, then over the 2 data ranks of a data-parallel mesh
+   (``seq_parallel_axis: data``: each rank's 4 rows gathered for the
+   attention), 12 K1 and 12 of each K3 a step on each rank, the
+   decoder's at (8, 8, L/2, 64) against L keys at q_offset rank x L/2
+   (the encoder's at the data rank's 4 rows), each checkpoint against
+   phase 31's one-process run (base.yaml's decoder attends in full, which
+   takes no exchange: the ring runs in (c)); (b) the decoder pipelined, 4 microbatches,
    ``pipeline_interleave`` 1 and 3, guided attention and the decoder's
    dropout 0, each checkpoint against a one-process run with the same
    settings; (c) one longform_8k.yaml b2 x 8192 step with both stacks'
@@ -307,7 +312,24 @@ phase; every phase raises on failure:
    longform decode to 256 frames; the
    decode cell at ``base_bench_config()``), each line parsed and its
    headline finite and above 0; every line printed as the cell prints
-   it.
+   it;
+36. parity-deep (run after 28): ``configs/parity_deep.yaml`` and
+   ``parity_deep_guided.yaml`` (read by ``load_yaml``) at full width from
+   seeded weights (phases 7, 11 and 19 hold K1/K3 at their
+   cross-attention, K4/K5 at their decoder's and encoder's train shapes
+   and K7 at their buckets to the plain versions); three bf16 train
+   steps of each (b8, ragged up to 192
+   tokens and 512 frames) with finite losses and gradients and the
+   launches a step of ``DEEP_LAUNCHES`` (K1/K3 on parity_deep's
+   cross-attention, reversible recompute included; parity_deep_guided's
+   is the naive path guided attention captures); one bf16 step of each
+   at 2 + 2 layers card vs CPU within ``BF16_CARD_RATIO`` x the card's
+   bf16-vs-f32 distance, the card's buckets replayed; parity_deep_guided
+   served at b2 x 64 tokens x 128 frames in kv_full, kv_lsh and
+   kv_lsh_chunk with the compute and the e4m3 cache and by
+   ``decode_greedy_recompute``, finite, with their launches; K4, K5, K7
+   and K1/K3 (the cross-attention b8 h4 Lq256 Lk192, beside SDPA) timed
+   against their plain versions and bounds.
 
 Prints a JSON line of per-kernel results, each entry at one shape (K1 at
 three: ``flash`` at serving, ``flash_train`` at base.yaml's decoder,
@@ -325,9 +347,11 @@ rank of (a)), ``flash_train_tp``, ``flash_bwd_dkv_tp``, ``flash_bwd_dq_tp``
 ``lsh_attend_bwd_tp``, ``sort_by_bucket_tp`` (h4), ``ffn_fused_tp`` (d_ff
 1024), with the launches on one model rank of (c), and
 ``depthwise_train_dp`` (b4) with one data rank's of (d); phase 33's
-``*_sp``; and phase 34's ``flash_export``, ``depthwise_export``,
+``*_sp``; phase 34's ``flash_export``, ``depthwise_export``,
 ``lsh_attend_export``, ``ffn_fused_export``, ``sort_by_bucket_export``,
-each with its launches from an artifact):
+each with its launches from an artifact; and phase 36's ``*_deep``, K4,
+K5 and K7 at parity_deep's decoder and K1/K3 at its cross-attention, with
+the launches of that phase's six train steps):
 time by
 the events loop,
 device time from ``torch.profiler``'s kernel events, plain time, bound,
@@ -1007,45 +1031,21 @@ def _bench_inputs(cfg: Config, batch: int = 8, n_tok: int = 256):
 
 
 def phase_timing(syn: Synthesizer):
+    """The end-to-end path once at ``rtts/bench.py::bench_e2e``'s shape,
+    its audio's shape and finiteness required (phase 35's e2e cell times
+    it); K1 at the encoder's shape and K2 at the batched vocoder's and the
+    serving path's against their plain versions."""
     cfg = syn.cfg
     batch, n_tok, frames = 8, 256, 512
     tokens, mask = _bench_inputs(cfg, batch, n_tok)
-    audio_s = batch * frames * cfg.dataset.audio.hop_length / \
-        cfg.dataset.audio.sample_rate
-
-    def run():
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-        gen = torch.Generator(device="cuda").manual_seed(0)
-        t0 = time.perf_counter()
-        ev[0].record()
-        with torch.no_grad():   # serving's encode, as in Synthesizer
-            memory = M.encode(syn.tts, cfg.model, tokens, mask)
-        ev[1].record()
-        res = decode_greedy(syn.tts, cfg.model, memory, mask,
-                            max_frames=frames, generator=gen,
-                            stop_threshold=2.0)
-        ev[2].record()
-        audio = SW.infer(syn.vocoder, cfg.vocoder, res.mel_post,
-                         generator=gen)
-        ev[3].record()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        _require(audio.shape == (batch, frames * cfg.vocoder.hop_length)
-                 and bool(torch.isfinite(audio).all()), "bench output")
-        return wall, [ev[i].elapsed_time(ev[i + 1]) / 1e3 for i in range(3)]
-
-    run()   # warm-up
-    # one timed run: phase 35's e2e cell times this shape, best of 3
-    runs = [run()]
-    wall, (enc, dec, voc) = min(runs)
-    print(f"[timing] e2e b{batch} x {n_tok} tokens x {frames} frames "
-          f"(bf16, kv_full, stop 2.0): walls "
-          f"{[round(r[0], 4) for r in runs]} s; best {wall:.4f} s = "
-          f"encode {enc:.4f} + decode {dec:.4f} + vocoder {voc:.4f} s")
-    print(f"[timing] RTF {wall / audio_s:.5f} (audio {audio_s:.3f} s); "
-          f"decode {batch * frames / dec:.0f} frames/s; vocoder RTF "
-          f"{voc / audio_s:.5f}")
-
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    with torch.no_grad():   # serving's encode, as in Synthesizer
+        memory = M.encode(syn.tts, cfg.model, tokens, mask)
+    res = decode_greedy(syn.tts, cfg.model, memory, mask, max_frames=frames,
+                        generator=gen, stop_threshold=2.0)
+    audio = SW.infer(syn.vocoder, cfg.vocoder, res.mel_post, generator=gen)
+    _require(audio.shape == (batch, frames * cfg.vocoder.hop_length)
+             and bool(torch.isfinite(audio).all()), "bench output")
     bf = torch.bfloat16
     qkv, kw = _flash_case(8, 8, 256, 256, bf, ENCODER_LENS)
     flash_fn = lambda: flash_attend(*qkv, **kw)  # noqa: E731
@@ -1192,6 +1192,11 @@ TRAIN_FLASH_CASES = {
     # the longform_8k.yaml decoder's cross-attention (phases 12 and 14)
     "cross b2 h8 Lq8192 Lk1024 pad": (2, 8, 8192, 1024, (1024, 700), False,
                                       False, 0.125, 0),
+    # parity_deep's decoder cross-attention (phase 36): 256 groups against
+    # the batch's 192 tokens
+    "parity_deep cross b8 h4 Lq256 Lk192 pad": (
+        8, 4, 256, 192, (192, 150, 99, 58, 192, 9, 48, 187), False, False,
+        0.125, 0),
 }
 # the shapes at which the kernels line reports K1 and K3 (times, bounds
 # and errors): base.yaml's decoder self-attention, and K1 again at the
@@ -1342,6 +1347,12 @@ def phase_kernels_train():
                 if name == LONGFORM_CROSS:
                     main.setdefault("flash_cross",
                                     _abs_err(got["out"], ref["out"]))
+                if name == DEEP_CROSS and rate == 0.0:
+                    for kernel, keys in (("flash_cross_deep", ("out",)),
+                                         ("flash_bwd_dkv_deep", ("dk", "dv")),
+                                         ("flash_bwd_dq_deep", ("dq",))):
+                        main.setdefault(kernel, max(
+                            _abs_err(got[key], ref[key]) for key in keys))
     _check_keep_masks()
     return main
 
@@ -1722,8 +1733,15 @@ LSH_CASES = {
         8, 8, 4, 1024, 64, True, 1, 0, TRAIN_FRAME_LENS),
     "serving_fast encoder b8 h8 nh4 L256 c64 (nc 16)": (
         8, 8, 4, 256, 64, False, 1, 0, TRAIN_TOKEN_LENS),
+    # parity_deep's train step (phase 36) on parity_local's ragged batch
+    # (LOCAL_TOKEN_LENS, LOCAL_FRAME_LENS halved by the reduction)
+    "parity_deep decoder b8 h4 nh2 L256 c32 causal": (
+        8, 4, 2, 256, 32, True, 1, 0, (256, 200, 131, 77, 250, 10, 64, 256)),
+    "parity_deep encoder b8 h4 nh2 L192 c32": (
+        8, 4, 2, 192, 32, False, 1, 0, (192, 150, 99, 58, 192, 9, 48, 187)),
 }
 _LSH_DECODER, _LSH_ENCODER = list(LSH_CASES)[:2]
+_DEEP_DECODER = "parity_deep decoder b8 h4 nh2 L256 c32 causal"
 
 # share of the f32 hash buckets that must agree card vs CPU: the hash is an
 # argmax over rotated vectors, so a last-bit difference of the rotation
@@ -1762,9 +1780,9 @@ def _lsh_bounds(b, h, nh, l, c, causal, before, after, lens, dtype):
 
 def phase_kernels_lsh():
     """K4 and K5 against their plain versions run in f32 on the same inputs,
-    in bf16 and f32, at the longform and serving_fast shapes; K5 twice,
-    bit-equal.  Returns
-    the max abs error of each at the decoder shape in bf16."""
+    in bf16 and f32, at the longform, serving_fast and parity_deep shapes;
+    K5 twice, bit-equal.  Returns the max abs error of each at the
+    longform and the parity_deep decoder shapes in bf16."""
     torch.backends.cuda.matmul.allow_tf32 = False
     main = {}
     for name, case in LSH_CASES.items():
@@ -1798,6 +1816,11 @@ def phase_kernels_lsh():
             main.setdefault("lsh_attend", _abs_err(out, want))
             main.setdefault("lsh_attend_bwd", max(
                 _abs_err(got[key], ref[key]) for key in ("dq", "dk", "dv")))
+            if name == _DEEP_DECODER:
+                main.setdefault("lsh_attend_deep", _abs_err(out, want))
+                main.setdefault("lsh_attend_bwd_deep", max(
+                    _abs_err(got[key], ref[key])
+                    for key in ("dq", "dk", "dv")))
             del out, lse, out2, lse2, grads, again, want, wants, got, ref
     torch.cuda.empty_cache()
     return main
@@ -2561,8 +2584,14 @@ SORT_PATH_CASES = {
     "L 960 (2, 3, 2, 960)": ((2, 3, 2, 960), 0),
     "L 5000, one CTA a row (3, 2, 25, 5000)": ((3, 2, 25, 5000), 0),
     f"most keys (2, 1, 2, {MAX_ROWS})": ((2, 1, 2, MAX_ROWS), 0),
+    # parity_deep's decoder and encoder (phase 36)
+    "parity_deep decoder (8, 4, 2, 256), one row padded whole": (
+        (8, 4, 2, 256), 1),
+    "parity_deep encoder (8, 4, 2, 192), one row padded whole": (
+        (8, 4, 2, 192), 1),
 }
 _SORT_LONGFORM = list(SORT_PATH_CASES)[0]
+_SORT_DEEP = "parity_deep decoder (8, 4, 2, 256), one row padded whole"
 # the four shapes the LSH train steps give K7's path entry
 SORT_PATH_SHAPES = list(SORT_PATH_CASES)[:4]
 
@@ -2621,11 +2650,12 @@ def _k8_case(rows, d, m, dtype):
 
 def phase_kernels_sort():
     """K7's path entry against its plain version at the LSH train steps'
-    four shapes, a length that is not a power of two, one CTA a row and the
-    most keys; K7's column entry and K8 against their plain versions and
-    the library calls at the sort probe's shapes: equal (they move values;
-    tolerance 0), and twice bit-equal.  Returns their max abs errors at the
-    longform shapes."""
+    four shapes, a length that is not a power of two, one CTA a row, the
+    most keys and parity_deep's two; K7's column entry and K8 against
+    their plain versions and the library calls at the sort probe's shapes:
+    equal (they move values; tolerance 0), and twice bit-equal.  Returns
+    their max abs errors at the longform shapes and parity_deep's
+    decoder."""
     errs = {}
     for name, (shape, masked) in SORT_PATH_CASES.items():
         buckets = _bucket_case(shape, masked)
@@ -2645,8 +2675,9 @@ def phase_kernels_sort():
         _require(ok, f"K7 sort_by_bucket {name} disagrees with its plain "
                  "version")
         _require(same, f"K7 sort_by_bucket {name} is not deterministic")
-        if name == _SORT_LONGFORM:
-            errs["sort_by_bucket"] = err
+        if name in (_SORT_LONGFORM, _SORT_DEEP):
+            errs["sort_by_bucket" + ("_deep" if name == _SORT_DEEP
+                                     else "")] = err
         del buckets, got, again, want
     for name, case in K7_CASES.items():
         x = _k7_case(*case)
@@ -3703,6 +3734,289 @@ def phase_parity_local():
              "lsh_attend_bwd_local": max(e["dq"], e["dk"], e["dv"])})
 
 
+# -- phase 36: parity_deep and parity_deep_guided ------------------------------
+
+# configs/parity_deep.yaml and parity_deep_guided.yaml, read by load_yaml:
+# 4 + 4 LSH layers of d 256 (4 x 64 heads, 2 rounds, chunk 32), reduction
+# 2; parity_deep's decoder reversible, parity_deep_guided's plain with
+# guided attention 2.0.  Their ragged train batch is parity_local's (the
+# same max_mel_len, 512): the encoder hashes 192 tokens, the decoder 256
+# groups
+DEEP_NAMES = ("parity_deep", "parity_deep_guided")
+# the decoder's cross-attention: 256 groups against 192 tokens, pad mask
+# (phase 7 checks K1/K3 there, phases 11 and 19 K4/K5 and K7 at the
+# decoder's and encoder's shapes)
+DEEP_CROSS = "parity_deep cross b8 h4 Lq256 Lk192 pad"
+DEEP_DECODE_FRAMES, DEEP_DECODE_TOKENS = 128, 64
+# per train step: every LSH layer hashes, sorts (K7) and attends (K4) once
+# forward and once more in a reversible stack's recompute, and K5 once;
+# the decoder's cross-attention launches K1 (again in a reversible
+# recompute) and K3, unless guided attention captures its probabilities,
+# which takes the naive path
+DEEP_LAUNCHES = {
+    "parity_deep": {"lsh_attend": 16, "lsh_attend_bwd": 8,
+                    "sort_by_bucket": 16, "flash_train": 8,
+                    "flash_bwd_dkv": 4, "flash_bwd_dq": 4},
+    "parity_deep_guided": {"lsh_attend": 12, "lsh_attend_bwd": 8,
+                           "sort_by_bucket": 12, "flash_train": 0,
+                           "flash_bwd_dkv": 0, "flash_bwd_dq": 0},
+}
+
+
+def _deep_yaml(name: str) -> dict:
+    return load_yaml(ROOT / "configs" / f"{name}.yaml")
+
+
+def _deep_kernel_times() -> dict:
+    """K4, K5 (decoder shape), K7 (decoder buckets) and K1/K3 (the
+    cross-attention) in bf16 against their plain versions by CUDA events,
+    with their device time and bounds."""
+    case = LSH_CASES[_DEEP_DECODER]
+    (q, k, v, dout), pos, valid, dlse, opts = _lsh_case(*case, torch.bfloat16)
+    fwd = _kernel_ms(lambda: lsh_attend_fwd(q, k, v, pos, valid, *opts),
+                     lambda: lsh_attend_chunks_reference(q, k, v, pos, valid,
+                                                         *opts), 100)
+    bwd = _kernel_ms(
+        lambda: lsh_attend_bwd(q, k, v, pos, valid, dout, dlse, *opts),
+        lambda: lsh_attend_bwd_reference(q, k, v, pos, valid, dout, dlse,
+                                         *opts), 100)
+    dev = [_device_ms(lambda: lsh_attend_fwd(q, k, v, pos, valid, *opts),
+                      100, ("lsh_attend_fwd_mma",)),
+           _device_ms(lambda: lsh_attend_bwd(q, k, v, pos, valid, dout, dlse,
+                                             *opts),
+                      100, ("lsh_bwd_dq", "lsh_bwd_dkv"))]
+    bounds = _lsh_bounds(*case, torch.bfloat16)
+    shape = SORT_PATH_CASES[_SORT_DEEP][0]
+    buckets = _bucket_case(shape, 1)
+    l, rows = shape[-1], buckets.numel() // shape[-1]
+    keys = buckets * l + torch.arange(l, device="cuda")
+    sort_fns = (lambda: sort_by_bucket(buckets),
+                lambda: sort_by_bucket_reference(buckets),
+                lambda: torch.sort(keys, dim=-1))
+    sort_ms = _interleaved_ms(sort_fns, 100)
+    sort_dev = _device_ms(sort_fns[0], 50, ("BucketIO",))
+    sort_bound = _bound(rows * l * 4 * 8, probe.sort_bound(
+        1 << (l - 1).bit_length(), rows)["ops"], torch.float32)
+    print(f"[parity-deep] {_DEEP_DECODER} bf16: K4 {fwd[0]:.4f} ms (device "
+          f"{dev[0]:.4f}; plain {fwd[1]:.4f}, bound "
+          f"{bounds['fwd']['bound_ms']:.4f} {bounds['fwd']['bound_by']}); K5 "
+          f"{bwd[0]:.4f} ms (device {dev[1]:.4f}; plain {bwd[1]:.4f}, bound "
+          f"{bounds['bwd']['bound_ms']:.4f} {bounds['bwd']['bound_by']}); K7 "
+          f"at {shape} {sort_ms[0]:.4f} ms (device {sort_dev:.4f}; plain "
+          f"{sort_ms[1]:.4f}, torch.sort {sort_ms[2]:.4f}, bound "
+          f"{sort_bound['bound_ms']:.4f} {sort_bound['bound_by']})")
+    flash = _flash_times(DEEP_CROSS, 100, "parity-deep", sdpa=True)
+    return {"lsh_attend_deep": dict(ms=fwd[0], plain_ms=fwd[1],
+                                    device_ms=dev[0], library_ms=None,
+                                    **bounds["fwd"]),
+            "lsh_attend_bwd_deep": dict(ms=bwd[0], plain_ms=bwd[1],
+                                        device_ms=dev[1], library_ms=None,
+                                        **bounds["bwd"]),
+            "sort_by_bucket_deep": dict(ms=sort_ms[0], plain_ms=sort_ms[1],
+                                        device_ms=sort_dev,
+                                        library_ms=sort_ms[2], **sort_bound),
+            "flash_cross_deep": flash["flash_train"],
+            "flash_bwd_dkv_deep": flash["flash_bwd_dkv"],
+            "flash_bwd_dq_deep": flash["flash_bwd_dq"]}
+
+
+def _deep_train(name: str) -> dict:
+    """Three bf16 steps of ``name`` at full width from seeded weights ->
+    the launches of the three steps, counted by kernel."""
+    cfg = train_config(base=_deep_yaml(name))
+    model, state, step_fn = _trainer(cfg, "cuda")
+    names = [n for n, _ in model.named_parameters()]
+    batch = train_batch(cfg, LOCAL_TOKEN_LENS, LOCAL_FRAME_LENS, "cuda")
+    _reset_train_counts()
+    for fn in _LSH_KERNELS:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    with _shape_tally(LA, "lsh_attend_fwd") as k4_shapes, \
+            _shape_tally(BS, "sort_by_bucket") as k7_shapes:
+        steps = [step_fn(model, state, batch,
+                         step_generator(SEED_TRAIN, step, "cuda"), step,
+                         return_grads=True) for step in range(3)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {**_train_counts(), **_lsh_counts()}
+    for step, (metrics, grads) in enumerate(steps):
+        _check_step(cfg, metrics, grads, names, f"{name} step {step}")
+    losses = [round(float(m["loss"]), 5) for m, _ in steps]
+    print(f"[parity-deep] {name}: three bf16 train steps b8 tokens "
+          f"{list(LOCAL_TOKEN_LENS)} frames {list(LOCAL_FRAME_LENS)} in "
+          f"{wall:.2f} s (the first cold): losses {losses}; launches "
+          f"{launches}; K4 by (B, H, chunks, c, dh) {k4_shapes}; K7 by the "
+          f"buckets' (B, H, nh, L) {k7_shapes}")
+    want = {k: 3 * n for k, n in DEEP_LAUNCHES[name].items()}
+    _require(launches == want, f"{name}: expected launches {want} over 3 "
+             f"steps, got {launches}")
+    del model, state, steps
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _deep_card_vs_cpu_bf16(name: str) -> None:
+    """One bf16 step of ``name`` at 2 + 2 layers, every dropout 0, constant
+    lr: the card against the CPU from the same weights, batch and
+    rotations, and the card's f32 step for the yardstick; the card's bf16
+    buckets replayed in the CPU's step and the card's f32 step (a near-tie
+    flipped by another GEMM must not move the comparison).  Loss,
+    grad_norm, every gradient (relative to its leaf's largest f32 entry)
+    and the update within BF16_CARD_RATIO x the card's bf16-vs-f32
+    distance.  Adam's first step moves an entry by lr x sign(g), so the
+    largest difference of two updates is 2 lr wherever one gradient sign
+    flips, on either side: the update's distance is the mean |difference|
+    over every entry in units of lr (twice the share of entries whose
+    step went the other way)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfgs = {dt: train_config(dt, num_layers=2, dropout_off=True,
+                             base=_deep_yaml(name), schedule="constant")
+            for dt in ("bfloat16", "float32")}
+    lens = ((192, 99), (512, 262))
+    batch = train_batch(cfgs["bfloat16"], *lens, "cpu")
+    hash_vectors, draw_rotations = TL.hash_vectors, TL.draw_rotations
+    card_buckets, replayed = [], []
+
+    def record(*args, **kw):
+        buckets = hash_vectors(*args, **kw)
+        card_buckets.append(buckets.cpu())
+        return buckets
+
+    def replay(*args, **kw):
+        own = hash_vectors(*args, **kw)
+        replayed.append(((own.cpu() == card_buckets[len(replayed) % len(
+            card_buckets)]).float().mean().item()))
+        return card_buckets[(len(replayed) - 1) % len(card_buckets)].to(
+            own.device)
+
+    try:
+        TL.hash_vectors, TL.draw_rotations = record, _rotation_draws()
+        _reset_train_counts()
+        for fn in _LSH_KERNELS:
+            fn.launches = 0
+        card = _one_step(cfgs["bfloat16"], batch, "cuda")
+        launches = {**_train_counts(), **_lsh_counts()}
+        TL.hash_vectors, TL.draw_rotations = replay, _rotation_draws()
+        t0 = time.perf_counter()
+        cpu = _one_step(cfgs["bfloat16"], batch, "cpu")
+        cpu_s = time.perf_counter() - t0
+        TL.draw_rotations = _rotation_draws()
+        card32 = _one_step(cfgs["float32"], batch, "cuda")
+    finally:
+        TL.hash_vectors, TL.draw_rotations = hash_vectors, draw_rotations
+    scale = [g.abs().max().clamp_min(1e-30) for g in card32[1]]
+
+    def grad_dist(a, b):
+        return max(((x.float() - y.float()).abs().max() / s).item()
+                   for x, y, s in zip(a, b, scale))
+
+    lr = cfgs["bfloat16"].experiment.optim.learning_rate
+
+    def update_dist(a, b):
+        diff = sum((x.float() - y.float()).abs().sum().item()
+                   for x, y in zip(a, b))
+        return diff / sum(x.numel() for x in a) / lr
+
+    pairs = {key: (abs(card[0][key] - cpu[0][key]),
+                   abs(card[0][key] - card32[0][key]))
+             for key in ("loss", "grad_norm")}
+    pairs["gradients"] = (grad_dist(card[1], cpu[1]),
+                          grad_dist(card[1], card32[1]))
+    pairs["update / lr, mean"] = (update_dist(card[2], cpu[2]),
+                                  update_dist(card[2], card32[2]))
+    print(f"[parity-deep] {name} bf16 2+2 layers, b2 tokens "
+          f"{list(lens[0])} frames {list(lens[1])}, card vs CPU: " + ", ".join(
+              f"{k} {e:.3e} (card bf16-vs-f32 {d:.3e}, ratio "
+              f"{e / max(d, 1e-30):.3f})" for k, (e, d) in pairs.items())
+          + f"; bound {BF16_CARD_RATIO:g}; buckets hashed {len(card_buckets)}"
+          f" layers, own hash equal to the card's bf16 in a share "
+          f"{min(replayed):.4f} at worst; card launches {launches} (cpu "
+          f"{cpu_s:.1f} s)")
+    _require(len(card_buckets) == 4 and all(
+        launches[k] > 0 for k in _lsh_counts()),
+        f"{name}: the card's bf16 step ran {launches}, hashed "
+        f"{len(card_buckets)} layers")
+    _require(all(e <= BF16_CARD_RATIO * d for e, d in pairs.values()),
+             f"{name}: card and CPU bf16 train steps disagree")
+
+
+def _deep_decodes() -> None:
+    """parity_deep_guided as served (bf16), b2 x 64 tokens x 128 frames,
+    stop 2.0: kv_full, kv_lsh and kv_lsh_chunk with the compute cache and
+    the e4m3 cache, and ``decode_greedy_recompute``, each with its
+    launches."""
+    cfg = serving_config(_deep_yaml("parity_deep_guided"))
+    mcfg = cfg.model
+    tts, _ = build_models(cfg, "cuda")
+    tokens, mask = _bench_inputs(cfg, 2, DEEP_DECODE_TOKENS)
+    rows = []
+    for mode in ("kv_full", "kv_lsh", "kv_lsh_chunk", "recompute"):
+        for kv in (("compute", "float8_e4m3fn") if mode != "recompute"
+                   else ("compute",)):
+            m = dataclasses.replace(mcfg, kv_cache_dtype=kv)
+            _reset_decode_counts()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                memory = M.encode(tts, m, tokens, mask)
+                if mode == "recompute":
+                    res = TD.decode_greedy_recompute(
+                        tts, m, memory, mask, max_frames=DEEP_DECODE_FRAMES,
+                        stop_threshold=2.0)
+                else:
+                    res = decode_greedy(
+                        tts, m, memory, mask, max_frames=DEEP_DECODE_FRAMES,
+                        generator=torch.Generator(device="cuda").manual_seed(
+                            0), stop_threshold=2.0, mode=mode)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = _decode_counts()
+            _require(tuple(res.mel_post.shape) == (2, DEEP_DECODE_FRAMES,
+                                                   mcfg.n_mels)
+                     and bool(torch.isfinite(res.mel_post).all())
+                     and res.lengths.tolist() == [DEEP_DECODE_FRAMES] * 2,
+                     f"parity_deep_guided {mode} {kv}: mel "
+                     f"{tuple(res.mel_post.shape)}, lengths "
+                     f"{res.lengths.tolist()}")
+            _require(counts["lsh_attend"] >= mcfg.encoder.num_layers
+                     and counts["sort_by_bucket"] >= mcfg.encoder.num_layers,
+                     f"{mode} {kv}: the encode launched {counts}")
+            rows.append(f"{mode} {kv} {wall:.3f} s, launches "
+                        + ", ".join(f"{k} {v}" for k, v in counts.items()
+                                    if v))
+    print(f"[parity-deep] parity_deep_guided decodes b2 x "
+          f"{DEEP_DECODE_TOKENS} tokens x {DEEP_DECODE_FRAMES} frames (bf16, "
+          "stop 2.0; the encode's K4 and K7 included): " + "; ".join(rows))
+    del tts
+    torch.cuda.empty_cache()
+
+
+def phase_parity_deep():
+    """36: configs/parity_deep.yaml and parity_deep_guided.yaml at full
+    width from seeded weights (runs after 28): three bf16 train steps of
+    each with K1, K3, K4, K5 and K7 counted; one bf16 step of each at 2 + 2
+    layers card vs CPU; every decode mode and cache at b2 x 128 frames;
+    K4, K5, K7 and K1/K3 timed against their plain versions and bounds
+    (phases 7, 11 and 19 hold them to their plain versions at these
+    shapes).  Returns (the launches of the six train steps, times)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    launches = {}
+    for name in DEEP_NAMES:
+        for k, n in _deep_train(name).items():
+            launches[k] = launches.get(k, 0) + n
+    for name in DEEP_NAMES:
+        _deep_card_vs_cpu_bf16(name)
+    _deep_decodes()
+    times = _deep_kernel_times()
+    deep = {"lsh_attend_deep": launches["lsh_attend"],
+            "lsh_attend_bwd_deep": launches["lsh_attend_bwd"],
+            "sort_by_bucket_deep": launches["sort_by_bucket"],
+            "flash_cross_deep": launches["flash_train"],
+            "flash_bwd_dkv_deep": launches["flash_bwd_dkv"],
+            "flash_bwd_dq_deep": launches["flash_bwd_dq"]}
+    return deep, times
+
+
 def phase_decode_syncs():
     """Each new decode path at a small length, on full-width models with
     random weights: three steps under CUDA's sync debug mode "error" (any
@@ -3750,16 +4064,18 @@ def phase_decode_syncs():
 # -- phase 30: the serving surfaces -------------------------------------------
 
 # rtts/bench.py's serving workloads: bench_continuous's and bench_serving's
-# true lengths but their longest, 1024 (pinned by their budgets at stop
-# threshold 2.0), 2 requests each, 4 slots (fewer than the requests: the
-# engine refills freed slots), segments of 64 frames; bench_latency's
-# streaming at batch 1, cut to 256 frames and two chunk sizes (512 frames
-# and three sizes before the decode-fidelity evaluation joined phase 31,
-# which these cuts pay for).  K1 and K2 are timed
-# at 8 rows, the admission encode and the batched vocode of 8 slots of
-# 1024 frames, as in every PR since the phase began.
-SERVE_LENGTHS = (128, 256, 512)
-SERVE_PER_LENGTH, SERVE_SLOTS, SERVE_SEGMENT = 2, 4, 64
+# two shortest true lengths (pinned by their budgets at stop threshold
+# 2.0), 3 requests each, 4 slots (fewer than the requests: the engine
+# refills freed slots), segments of 64 frames; bench_latency's streaming at
+# batch 1, cut to 256 frames and two chunk sizes (512 frames and three
+# sizes before the decode-fidelity evaluation joined phase 31; the lengths
+# to 512 frames, 2 requests each, before parity_deep's phase 36: these cuts
+# pay for them, and phase 35's serving, continuous and latency cells time
+# the surfaces).  K1 and K2 are timed at 8 rows, the admission encode and
+# the batched vocode of 8 slots of 1024 frames, as they have been since
+# the phase began.
+SERVE_LENGTHS = (128, 256)
+SERVE_PER_LENGTH, SERVE_SLOTS, SERVE_SEGMENT = 3, 4, 64
 SERVE_TIMED_ROWS, SERVE_TIMED_FRAMES = 8, 1024
 FRAMES_PER_TOKEN = 8.0          # Synthesizer.predict_frames' default
 STREAM_FRAMES, STREAM_CHUNKS = 256, (32, 64)
@@ -5530,15 +5846,17 @@ SP_SORT_SHAPE = (2, 8, 4, 8192)
 
 
 def _sp_runs(work: pathlib.Path) -> dict:
-    """name -> the command line of each two-rank train-tts run."""
-    top = ["-c", str(ROOT / "configs" / "base.yaml"), "-o",
-           f"dataset.data_dir={work / 'data'}", "-o",
-           f"experiment.mesh.model_parallel={PAR_WORLD}"]
-    runs = {}
-    for ex in ("allgather", "ring"):
-        runs[f"sp_{ex}"] = top + [
-            "-o", "model.decoder.seq_parallel_axis=model",
-            "-o", f"model.decoder.seq_parallel_exchange={ex}"]
+    """name -> the command line of each two-rank train-tts run: the
+    decoder's sequence split over the model axis and, on a data-parallel
+    mesh, over the data axis (base.yaml's decoder attends in full, which
+    takes no exchange: (c) runs the ring), then the pipelines."""
+    data = ["-c", str(ROOT / "configs" / "base.yaml"), "-o",
+            f"dataset.data_dir={work / 'data'}"]
+    top = data + ["-o", f"experiment.mesh.model_parallel={PAR_WORLD}"]
+    runs = {"sp_allgather": top + [
+                "-o", "model.decoder.seq_parallel_axis=model"],
+            "sd_allgather": data + [
+                "-o", "model.decoder.seq_parallel_axis=data"]}
     for v in SP_INTERLEAVES:
         runs[f"pp_v{v}"] = top + [
             a for o in SP_PIPE_OVERRIDES + (
@@ -5718,7 +6036,7 @@ def _sp_check_runs(work: pathlib.Path, ranks) -> dict:
     for name in _sp_runs(work):
         for r, out in enumerate(ranks):
             run = out[name]
-            print(f"[seqpipe] ({'a' if name.startswith('sp') else 'b'}) "
+            print(f"[seqpipe] ({'b' if name.startswith('pp') else 'a'}) "
                   f"{name} rank {r}: exit {run['status']}, launches a step "
                   f"{run['launches']}, walls a step "
                   f"{[round(w, 3) for w in run['walls']]} s; K1 by (B, H, "
@@ -5726,7 +6044,25 @@ def _sp_check_runs(work: pathlib.Path, ranks) -> dict:
                   f"{run['k3']}")
             _require(run["status"] == 0 and len(run["launches"]) == 3,
                      f"{name} rank {r} failed")
-            if name.startswith("sp"):
+            if name.startswith("sd"):
+                # the data axis: 6 encoder layers on the rank's 4 rows, 6
+                # decoder self-attentions on the gathered 8 rows at the
+                # rank's half of the frames
+                # (the evaluation's batch is whole on both ranks)
+                dec = [_dims(k) for k in run["k1"] if _dims(k)[-1]]
+                dec8 = [d for d in dec if d[0] == 8]
+                enc = [_dims(k) for k in run["k1"] if not _dims(k)[-1]]
+                _require(all(s == {"flash": n_enc + n_dec,
+                                   "flash_bwd_dkv": n_enc + n_dec,
+                                   "flash_bwd_dq": n_enc + n_dec}
+                             for s in run["launches"])
+                         and dec8 and all(d[4] == 2 * d[2]
+                                          and d[5] == r * d[2] for d in dec)
+                         and sum(run["k1"][str(d)] for d in dec8)
+                         >= 3 * n_dec and any(d[0] == 4 for d in enc),
+                         f"(a) {name} rank {r}: K1/K3 did not run the "
+                         "gathered rows' queries at the rank's q_offset")
+            elif name.startswith("sp"):
                 # 6 encoder layers whole, 6 decoder self-attentions on the
                 # rank's half of the frames (cross-attention takes the
                 # naive path: guided attention captures it)
@@ -5745,7 +6081,7 @@ def _sp_check_runs(work: pathlib.Path, ranks) -> dict:
                 _require(all(s["flash"] > 0 and s["flash_bwd_dq"] > 0
                              for s in run["launches"]),
                          f"(b) {name} rank {r}: K1/K3 did not run")
-        want = work / ("tts" if name.startswith("sp") else "pp_one")
+        want = work / ("pp_one" if name.startswith("pp") else "tts")
         _require_same_checkpoint(work / name, want, f"[seqpipe] {name}")
     steps = ranks[1]["sp_allgather"]["launches"]
     return {k: sum(s[k] for s in steps)
@@ -6054,6 +6390,7 @@ def main() -> int:
     phase_serving_longform()
     phase_serving_fast()
     local_launches, local_times, local_errs = phase_parity_local()
+    deep_launches, deep_times = phase_parity_deep()
     phase_decode_syncs()
     serve_launches, serve_times = phase_serving()
     work, one_process = phase_cli()
@@ -6105,6 +6442,12 @@ def main() -> int:
     times.update(voc_times)
     times.update(local_times)
     errs.update(local_errs)
+    # parity_deep's kernels (phase 36): their launches in the six train
+    # steps (three of each config), times at the decoder's LSH shape and
+    # buckets and at its cross-attention; their errors from phases 7, 11
+    # and 19
+    launches.update(deep_launches)
+    times.update(deep_times)
     launches.update(serve_launches)
     times.update(serve_times)
     errs.update({k: v["max_abs_err"] for k, v in serve_times.items()})
@@ -6193,6 +6536,18 @@ def main() -> int:
                              "rtts/ops/chunked_ffn.py:34"),
         "sort_by_bucket_export": ("rtts_torch/csrc/bitonic_sort.cu",
                                   "scripts/probe_vmem_sort.py:45"),
+        "lsh_attend_deep": ("rtts_torch/csrc/lsh_attend_fwd.cu",
+                            "rtts/ops/lsh_attention.py:60"),
+        "lsh_attend_bwd_deep": ("rtts_torch/csrc/lsh_attend_bwd.cu",
+                                "rtts/ops/lsh_attention.py:158"),
+        "sort_by_bucket_deep": ("rtts_torch/csrc/bitonic_sort.cu",
+                                "scripts/probe_vmem_sort.py:45"),
+        "flash_cross_deep": ("rtts_torch/csrc/flash_fwd.cu",
+                             "rtts/ops/flash_attention.py:322"),
+        "flash_bwd_dkv_deep": ("rtts_torch/csrc/flash_bwd.cu",
+                               "rtts/ops/flash_attention.py:509"),
+        "flash_bwd_dq_deep": ("rtts_torch/csrc/flash_bwd.cu",
+                              "rtts/ops/flash_attention.py:553"),
     }
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": rep, "launches": launches[name],

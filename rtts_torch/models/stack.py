@@ -37,7 +37,7 @@ refuses the guided-attention capture.
 
 from __future__ import annotations
 
-from typing import Any, List, Optional, Tuple
+from typing import Any, Callable, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -51,6 +51,7 @@ from rtts_torch.config import (ReformerStackConfig, resolve_attention_kind,
 from rtts_torch.nn.layers import LayerNorm, dropout
 from rtts_torch.ops.chunked_ffn import chunked_ffn_fused
 from rtts_torch.ops.flash_attention import resolve_flash_impl
+from rtts_torch.parallel.collectives import batch_shard, batch_shard_state
 from rtts_torch.parallel.mesh import current_mesh
 from rtts_torch.parallel.pipeline import pipeline_stack_apply
 from rtts_torch.parallel.seq_parallel import (
@@ -242,6 +243,14 @@ def _resolve_residuals(cfg: ReformerStackConfig, x: torch.Tensor,
     return rev
 
 
+def _in_shard(fn: Callable, shard) -> Callable:
+    """``fn`` run inside ``batch_shard(*shard)``."""
+    def run(*args):
+        with batch_shard(*shard):
+            return fn(*args)
+    return run
+
+
 def stack_apply(stack: Stack, cfg: ReformerStackConfig, x: torch.Tensor,
                 mask: Optional[torch.Tensor],
                 memory: Optional[torch.Tensor] = None,
@@ -270,9 +279,13 @@ def stack_apply(stack: Stack, cfg: ReformerStackConfig, x: torch.Tensor,
     hash_generator = generator
     if hash_generator is None and "lsh" in kinds:
         hash_generator = torch.Generator(device=x.device).manual_seed(0)
-    # the ambient mesh at the forward: the reversible backward's recompute
-    # may run after the caller left it
+    # the ambient mesh and batch shard at the forward: the reversible
+    # backward's recompute may run after the caller left them
     mesh = current_mesh()
+    shard = batch_shard_state()
+    if shard is not None:
+        layer_fns = [tuple(_in_shard(fn, shard) for fn in pair)
+                     for pair in layer_fns]
     aux_list = [{"mask": mask, "memory_mask": memory_mask,
                  "generator": generator, "hash_generator": hash_generator,
                  "seed": seed, "gen_states": [None] * 3, "mesh": mesh,

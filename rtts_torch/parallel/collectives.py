@@ -34,6 +34,9 @@ each takes an ``Axis`` (``mesh.mesh_axis``):
   the whole tensor, so the cotangents are equal).
 - ``hop``: the reference's neighbour ``ppermute``: each rank receives the
   tensor of the rank ``shift`` before it; backward, the reverse hop.
+- ``scale_grad``: the identity forward; backward, the cotangent times a
+  constant (a weight whose gradient a split sublayer sums over a group
+  that the data group's gradient sum covers again).
 
 Backends: a gather is an all-reduce of zero-padded copies on either
 backend.  A hop under nccl is ``dist.batch_isend_irecv``, one send and one
@@ -70,6 +73,14 @@ def batch_shard(offset: int, total: int, group=None):
         yield
     finally:
         _BATCH_SHARD, _BATCH_GROUP = prev
+
+
+def batch_shard_state() -> Optional[Tuple[int, int, object]]:
+    """The ambient ``batch_shard`` as (offset, total, group), or None: a
+    reversible backward's recompute re-enters it, since it may run after
+    the caller left the block."""
+    off, total = _BATCH_SHARD
+    return None if total is None else (off, total, _BATCH_GROUP)
 
 
 def current_batch_shard(rows: int) -> Tuple[int, int]:
@@ -321,3 +332,21 @@ def hop(x: torch.Tensor, ax, shift: int = 1) -> torch.Tensor:
     if not (torch.is_grad_enabled() and x.requires_grad):
         return _hop(x, ax, shift)
     return _Hop.apply(x, ax, shift)
+
+
+class _ScaleGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale):
+        ctx.scale = scale
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.scale, None
+
+
+def scale_grad(x: torch.Tensor, scale: float) -> torch.Tensor:
+    """``x``; its gradient times ``scale``."""
+    if scale == 1.0 or not (torch.is_grad_enabled() and x.requires_grad):
+        return x
+    return _ScaleGrad.apply(x, scale)

@@ -19,9 +19,13 @@ The ambient mesh: the reference's sequence-parallel and pipelined stacks
 read the mesh the caller entered (``with mesh:``, ``current_mesh``).  A
 port ``Mesh`` is a context manager too: ``with mesh:`` makes it the one
 ``current_mesh()`` returns, which ``MeshTraining``'s step, the trainers and
-``Synthesizer(mesh=...)`` enter; ``mesh_axis`` raises the reference's
-ValueError when no mesh with the axis is active.  ``shutdown_distributed``
-destroys the process group ``initialize_distributed`` started.
+``Synthesizer(mesh=...)`` enter; ``mesh_axis`` returns any of its axes
+(its group, this rank's index, the size, the ranks, and whether the batch
+rides it) and raises the reference's ValueError when no mesh with the
+axis is active.  With ``dcn`` > 1 the inner ``data`` axis and the ``dcn``
+axis each get groups of their own; ``data_group`` spans both.
+``shutdown_distributed`` destroys the process group
+``initialize_distributed`` started.
 """
 
 from __future__ import annotations
@@ -163,6 +167,7 @@ class Mesh:
     data_group: object = None
     model_group: object = None
     backend: str = "none"
+    axis_groups: dict = dataclasses.field(default_factory=dict)
 
     @property
     def data_size(self) -> int:
@@ -179,6 +184,20 @@ class Mesh:
         if self.dcn > 1:
             out = {DCN_AXIS: self.dcn, **out}
         return out
+
+    def axis_ranks(self, axis: str) -> List[int]:
+        """The global ranks of this rank's ``axis``, in coordinate order
+        (``dcn`` outermost, then ``data``, then ``model``)."""
+        if axis == MODEL_AXIS:
+            return list(self.model_ranks)
+        outer, inner = divmod(self.data_index, self.dp)
+        if axis == DATA_AXIS:
+            rows = [outer * self.dp + j for j in range(self.dp)]
+        elif axis == DCN_AXIS:
+            rows = [k * self.dp + inner for k in range(self.dcn)]
+        else:
+            raise ValueError(f"no mesh axis {axis!r}")
+        return [i * self.mp + self.model_index for i in rows]
 
     @property
     def axis_names(self):
@@ -229,6 +248,7 @@ def make_mesh(cfg: Optional[MeshConfig] = None) -> Mesh:
     model_ranks = [data_index * mp + j for j in range(mp)]
     data_ranks = [i * mp + model_index for i in range(dcn * dp)]
     data_group = model_group = None
+    axis_groups = {}
     backend = dist.get_backend() if dist.is_initialized() else "none"
     if dist.is_initialized() and n > 1:
         # every rank creates every group, in one order
@@ -242,10 +262,26 @@ def make_mesh(cfg: Optional[MeshConfig] = None) -> Mesh:
             g = dist.new_group(ranks) if len(ranks) > 1 else None
             if i == data_index:
                 model_group = g
+        if dcn > 1 and dp > 1:
+            # the inner data axis and the dcn axis, each a part of the
+            # data group, for a stack split over one of them
+            outer, inner = divmod(data_index, dp)
+            for j in range(mp):
+                for k in range(dcn):
+                    g = dist.new_group([(k * dp + i) * mp + j
+                                        for i in range(dp)])
+                    if (j, k) == (model_index, outer):
+                        axis_groups[DATA_AXIS] = g
+                for i in range(dp):
+                    g = dist.new_group([(k * dp + i) * mp + j
+                                        for k in range(dcn)])
+                    if (j, i) == (model_index, inner):
+                        axis_groups[DCN_AXIS] = g
     return Mesh(dcn=dcn, dp=dp, mp=mp, rank=rank, data_index=data_index,
                 model_index=model_index, data_ranks=data_ranks,
                 model_ranks=model_ranks, data_group=data_group,
-                model_group=model_group, backend=backend)
+                model_group=model_group, backend=backend,
+                axis_groups=axis_groups)
 
 
 
@@ -259,29 +295,40 @@ def current_mesh() -> Optional[Mesh]:
 
 class Axis(NamedTuple):
     """One mesh axis as a rank sees it: its process group (None for one
-    rank), this rank's index, the size, the global ranks in index order
-    and the backend."""
+    rank), this rank's index, the size, the global ranks in index order,
+    the backend, and whether the batch rides it (``data`` and ``dcn``:
+    inside ``batch_shard`` its ranks hold different rows of a split
+    batch)."""
 
     group: object
     index: int
     size: int
     ranks: List[int]
     backend: str
+    batch: bool = False
 
 
 def mesh_axis(mesh: Optional[Mesh], axis: str, what: str) -> Axis:
     """``axis`` of ``mesh`` (the ambient one when None) for ``what``; the
-    reference's ValueError when no mesh with the axis is active.  A stack
-    splits its sequence or its layers over the model group only: the data
-    axes hold different batch rows on each rank."""
+    reference's ValueError when no mesh with the axis is active."""
     mesh = mesh if mesh is not None else current_mesh()
     if mesh is None or axis not in mesh.shape:
         raise ValueError(
             f"{what} needs a Mesh with axis {axis!r}; enter one (`with "
             "mesh:`) or pass mesh= explicitly")
-    if axis != MODEL_AXIS:
-        raise NotImplementedError(
-            f"rtts_torch: {what} over the {axis!r} axis; the port splits a "
-            f"stack over the {MODEL_AXIS!r} axis only")
-    return Axis(mesh.model_group, mesh.model_index, mesh.model_size,
-                list(mesh.model_ranks), mesh.backend)
+    if axis == MODEL_AXIS:
+        return Axis(mesh.model_group, mesh.model_index, mesh.model_size,
+                    list(mesh.model_ranks), mesh.backend)
+    ranks = mesh.axis_ranks(axis)
+    group = (mesh.data_group if len(ranks) == mesh.data_size
+             else mesh.axis_groups.get(axis))
+    return Axis(group if len(ranks) > 1 else None, ranks.index(mesh.rank),
+                len(ranks), ranks, mesh.backend, batch=True)
+
+
+def batch_axis(mesh: Optional[Mesh]) -> Axis:
+    """Every axis the batch rides as one (the data group: ``dcn`` x
+    ``data``), of ``mesh`` or the ambient one."""
+    mesh = mesh if mesh is not None else current_mesh()
+    return Axis(mesh.data_group, mesh.data_index, mesh.data_size,
+                list(mesh.data_ranks), mesh.backend, batch=True)

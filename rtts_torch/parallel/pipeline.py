@@ -39,6 +39,12 @@ rotations are drawn once per layer, in layer order, before the first tick,
 and every microbatch hashes with its layer's: at dropout 0 the draws are
 the sequential path's (which then draws nothing else from the generator).
 
+A pipeline over an axis the batch rides (``data``, ``dcn``) raises
+NotImplementedError: the reference's puts its stages and its batch on one
+axis, and its output there is not the one-device output
+(``tests/test_torch_parallel_seq.py::
+test_pipeline_over_the_data_axis_is_refused``).
+
 Refusals, the reference's, with its exception types and conditions:
 ``seq_parallel_axis`` together with ``pipeline_axis``; ``reversible:
 true``; non-uniform attention kinds; ``num_layers`` not dividing over the
@@ -58,7 +64,7 @@ from rtts_torch.parallel import collectives as C
 from rtts_torch.parallel.collectives import (_reduce, all_reduce_flat,
                                              batch_shard, current_batch_shard,
                                              hop)
-from rtts_torch.parallel.mesh import current_mesh, mesh_axis
+from rtts_torch.parallel.mesh import MODEL_AXIS, current_mesh, mesh_axis
 
 _WHAT = "pipeline parallelism"
 
@@ -70,6 +76,12 @@ def check_pipeline(cfg: ReformerStackConfig, kinds: List[str], batch: int,
     axis = cfg.pipeline_axis
     mesh = mesh if mesh is not None else current_mesh()
     ax = mesh_axis(mesh, axis, _WHAT)
+    if ax.batch:
+        raise NotImplementedError(
+            f"rtts_torch: {_WHAT} over the {axis!r} axis, which the batch "
+            "rides too (the reference's _batch_axes); the reference's own "
+            "pipeline there does not give the one-device result, so the "
+            f"port pipelines over the {MODEL_AXIS!r} axis only")
     if cfg.seq_parallel_axis:
         raise ValueError(
             "pipeline_axis and seq_parallel_axis are mutually exclusive "

@@ -1,10 +1,10 @@
-"""Sequence-parallel self-attention over the model group: port of
+"""Sequence-parallel self-attention over a mesh axis: port of
 ``rtts/parallel/seq_parallel.py``.
 
 The reference shard_maps a stack's self-attention over a mesh axis; here
-each rank of the model group holds the stack's stream whole (every rank
-computes the same residuals, layer norms and FFNs) and its attention
-sublayers work on the rank's L/n rows:
+each rank of the axis holds the stack's stream whole (every rank of the
+model axis computes the same residuals, layer norms and FFNs) and its
+attention sublayers work on the rank's L/n rows:
 
 - ``seq_enter`` takes the rank's rows of the normalised input, with the
   projection weights; backward it gathers the rows' cotangents (the stream
@@ -39,6 +39,20 @@ Both stack kinds:
   output is the one-device sublayer's; its cache holds the rotations, so
   the reversible backward's recompute draws nothing.
 
+Over an axis the batch rides (``data``, ``dcn``: ``mesh.mesh_axis``'s
+``batch``), a rank holds its own rows of a split batch, where the
+reference's shard_map (``in_specs`` leaving the batch unsharded) has XLA
+gather them.  The sublayers do the same (``_whole_batch``): the
+normalised input's rows (and the mask's) are gathered over the data group
+(``gather_rows``), the split path above runs on the whole batch at
+``q_offset = rank * L / n``, and the rank keeps its rows of the output
+(``seq_enter``, whose backward gathers the rows' cotangents, so the split
+path's backward sees the replicated cotangent it expects).  The
+projections' gradients, summed over the axis by the split path, are
+scaled by 1 / the data group's size (``scale_grad``): the trainer sums
+every gradient over the data group again.  A batch that is whole on
+every rank (``current_batch_shard``) takes the split path as it is.
+
 Every rank must make the same calls in the same order: all collectives are
 issued by every rank of the group, forward and backward.
 """
@@ -61,8 +75,9 @@ from rtts_torch.ops.flash_attention import (_drop_rscale, flash_attend,
 from rtts_torch.ops.lsh_attention import dropout_lane, positional_dropout
 from rtts_torch.parallel.collectives import (current_batch_shard,
                                              gather_dim, gather_rows,
-                                             gather_seq, hop, seq_enter)
-from rtts_torch.parallel.mesh import mesh_axis
+                                             gather_seq, hop, scale_grad,
+                                             seq_enter)
+from rtts_torch.parallel.mesh import batch_axis, mesh_axis
 
 _WHAT = "seq-parallel attention"
 
@@ -113,6 +128,33 @@ def _ring_gather(x_l: torch.Tensor, pos: torch.Tensor, ax,
         if i < n - 1:
             buf = hop(buf, ax)
     return acc
+
+
+def _whole_batch(mesh, ax, x: torch.Tensor, mask: Optional[torch.Tensor],
+                 weights):
+    """-> (x, mask, weights, the data group's Axis or None).  On an axis
+    the batch rides, with the batch split over the data group: the group's
+    rows of x and mask gathered (x's gradient: this rank's rows), and the
+    weights with their gradients scaled by 1 / the group's size.
+    Otherwise the arguments as they are, and None."""
+    rows = x.shape[0]
+    _, total = current_batch_shard(rows)
+    if not ax.batch or total == rows:
+        return x, mask, weights, None
+    bax = batch_axis(mesh)
+    if rows * bax.size != total:
+        raise ValueError(f"a batch of {total} rows in shards of {rows} "
+                         f"does not split over the {bax.size} data ranks")
+    if mask is not None:
+        mask = gather_dim(mask, 0, bax.group, bax.index, bax.size)
+    return (gather_rows(x, 0, bax), mask,
+            tuple(scale_grad(w, 1.0 / bax.size) for w in weights), bax)
+
+
+def _own_rows(y: torch.Tensor, bax) -> torch.Tensor:
+    """This rank's batch rows of the whole batch's ``y`` (backward: the
+    ranks' cotangents gathered); ``y`` when ``bax`` is None."""
+    return y if bax is None else seq_enter(y, (), 0, bax)[0]
 
 
 def lsh_attention_seq_parallel(
@@ -220,15 +262,18 @@ def full_self_attention_seq_parallel(
     group -> (B, L, D) whole.  The rank's L/n queries attend the gathered
     keys at ``q_offset = rank * L / n`` (K1 forward, K3 backward on the
     card); ``dropout_seed`` turns on the attention dropout, keyed on the
-    global row."""
+    global row.  Over an axis the batch rides, x holds this rank's batch
+    rows, and so does the output (``_whole_batch``)."""
     ax = mesh_axis(mesh, axis, _WHAT)
     n = ax.size
+    _check_len(x.shape[1], n, axis)
+    x, mask, weights, bax = _whole_batch(
+        mesh, ax, x, mask, (p.w_qk.w, p.w_v.w, p.w_o.w))
     b, l, _ = x.shape
-    _check_len(l, n, axis)
     shard = l // n
     q_off = ax.index * shard
     heads = p.num_heads
-    x_l, w_qk, w_v, w_o = seq_enter(x, (p.w_qk.w, p.w_v.w, p.w_o.w), 1, ax)
+    x_l, w_qk, w_v, w_o = seq_enter(x, weights, 1, ax)
     qk = _split_heads(_mm(x_l, w_qk, compute_dtype), heads)
     v = _split_heads(_mm(x_l, w_v, compute_dtype), heads)
     d = qk.shape[-1]
@@ -252,7 +297,8 @@ def full_self_attention_seq_parallel(
         if rs is not None:
             probs = probs * rs
         out = torch.einsum("bhqk,bhkd->bhqd", probs.to(v_g.dtype), v_g)
-    return gather_rows(_mm(_merge_heads(out), w_o, compute_dtype), 1, ax)
+    return _own_rows(gather_rows(_mm(_merge_heads(out), w_o, compute_dtype),
+                                 1, ax), bax)
 
 
 def lsh_self_attention_seq_parallel(
@@ -265,9 +311,11 @@ def lsh_self_attention_seq_parallel(
     """Sequence-parallel drop-in for ``lsh_self_attention``: x (B, L, D)
     whole -> (out (B, L, D) whole, ``SeqLshCache``).  The rotations are the
     one-device sublayer's draw (``generator``, or a fresh generator seeded
-    ``cfg.hash_seed``), or the cache's."""
+    ``cfg.hash_seed``), or the cache's.  Over an axis the batch rides, x
+    holds this rank's batch rows, and so does the output
+    (``_whole_batch``)."""
     ax = mesh_axis(mesh, axis, _WHAT)
-    b, l, _ = x.shape
+    l = x.shape[1]
     _check_len(l, ax.size, axis)
     if exchange not in ("allgather", "ring"):
         raise ValueError(f"unknown exchange {exchange!r}")
@@ -284,7 +332,9 @@ def lsh_self_attention_seq_parallel(
                                    cfg.num_hashes, sum(factors) // 2,
                                    generator, x.device)
     heads = p.num_heads
-    x_l, w_qk, w_v, w_o = seq_enter(x, (p.w_qk.w, p.w_v.w, p.w_o.w), 1, ax)
+    x, mask, weights, bax = _whole_batch(
+        mesh, ax, x, mask, (p.w_qk.w, p.w_v.w, p.w_o.w))
+    x_l, w_qk, w_v, w_o = seq_enter(x, weights, 1, ax)
     qk = _split_heads(_mm(x_l, w_qk, compute_dtype), heads)
     v = _split_heads(_mm(x_l, w_v, compute_dtype), heads)
     out = lsh_attention_seq_parallel(
@@ -292,7 +342,7 @@ def lsh_self_attention_seq_parallel(
         exchange=exchange, dropout_rate=cfg.attention_dropout,
         dropout_seed=dropout_seed)
     out = gather_rows(_mm(_merge_heads(out), w_o, compute_dtype), 1, ax)
-    return out, SeqLshCache(rotations=rotations)
+    return _own_rows(out, bax), SeqLshCache(rotations=rotations)
 
 
 def _attend_window(q_my, k_pad, v_pad, pos_q, pos_k_pad, val_pad, causal,

@@ -40,7 +40,7 @@ import torch
 from torch import nn
 
 from rtts_torch.parallel.collectives import broadcast_, gather_dim
-from rtts_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, Mesh
+from rtts_torch.parallel.mesh import DATA_AXIS, DCN_AXIS, MODEL_AXIS, Mesh
 
 Spec = Optional[Tuple[Optional[str], ...]]
 
@@ -105,6 +105,14 @@ def whole_stacks(model_cfg) -> Tuple[str, ...]:
     return tuple(f"{name}." for name in ("encoder", "decoder")
                  if getattr(model_cfg, name).seq_parallel_axis
                  or getattr(model_cfg, name).pipeline_axis)
+
+
+def splits_over_batch(model_cfg) -> bool:
+    """Whether a stack splits its sequence over an axis the batch rides
+    (``data``, ``dcn``): each of its forwards then needs every data rank,
+    an evaluation's included."""
+    return any(getattr(model_cfg, name).seq_parallel_axis
+               in (DATA_AXIS, DCN_AXIS) for name in ("encoder", "decoder"))
 
 
 def _slice(t: torch.Tensor, dim: Optional[int], index: int,

@@ -58,7 +58,7 @@ from rtts_torch.models import reformer_tts as M
 from rtts_torch.parallel.collectives import batch_shard
 from rtts_torch.parallel.mesh import (initialize_distributed, make_mesh,
                                       rank_device)
-from rtts_torch.parallel.sharding import whole_stacks
+from rtts_torch.parallel.sharding import splits_over_batch, whole_stacks
 from rtts_torch.parallel.training import MeshTraining
 from rtts_torch.text import frontend_vocab_size
 from rtts_torch.train.checkpoint import (AsyncCheckpointer, latest_checkpoint,
@@ -311,7 +311,8 @@ def train_tts(cfg: Config, workdir: str, max_steps: Optional[int] = None,
             if ((step + 1) % exp.logging.eval_every_steps == 0
                     or step + 1 == max_steps):
                 val_metrics = {}
-                if mesh.data_index == 0:
+                # a stack split over a batch axis needs every data rank
+                if mesh.data_index == 0 or splits_over_batch(model_cfg):
                     val_metrics = _run_eval(cfg, model_cfg, eval_step, model,
                                             val_ds, device, work, step + 1,
                                             logger, artifacts=is_main)

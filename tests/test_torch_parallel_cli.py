@@ -7,7 +7,8 @@ train-tts --max-steps 2`` (gloo; ``--standalone`` picks a free port) trains
 the tiny config over the mesh that ``experiment.mesh`` gives: data parallel
 2 with ZeRO-1, tensor parallel 2, the vocoder data parallel 2, and the
 decoder split over the model group of 2, its sequence
-(``seq_parallel_axis``) or its layers (``pipeline_axis``).  Each run's
+(``seq_parallel_axis``) or its layers (``pipeline_axis``), and its
+sequence split over the data group of 2 (``seq_parallel_axis: data``).  Each run's
 checkpoint (written by rank 0, the whole tree) equals the one of the same
 two steps in one process, dropout on (0.1 in the stacks and the prenets):
 a rank draws the whole batch's masks and keeps its rows.  The split
@@ -49,6 +50,10 @@ CASES = {
     "tts_seq": ("tts", SPLIT + ["model.decoder.seq_parallel_axis=model",
                                 "experiment.mesh.model_parallel=2"],
                 "one_split"),
+    # the decoder's sequence over the data axis of data parallel 2: each
+    # rank's batch rows gathered for its attention, every rank in the eval
+    "tts_seq_data": ("tts", SPLIT + ["model.decoder.seq_parallel_axis=data"],
+                     "one_split"),
     # one microbatch: the eval batch holds the one validation utterance
     "tts_pipe": ("tts", SPLIT + ["model.decoder.pipeline_axis=model",
                                  "model.decoder.pipeline_microbatches=1",

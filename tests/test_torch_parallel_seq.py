@@ -44,9 +44,10 @@ SEQ_HASH_SEED = 3
 SEQ_DROP_KEY = 9
 
 
-def _jmesh(dp, mp):
-    return jax_make_mesh(JMeshConfig(data_parallel=dp, model_parallel=mp),
-                         jax.devices()[:dp * mp])
+def _jmesh(dp, mp, dcn=1):
+    return jax_make_mesh(JMeshConfig(data_parallel=dp, model_parallel=mp,
+                                     dcn_parallel=dcn),
+                         jax.devices()[:dcn * dp * mp])
 
 
 def _seq_attention_cfg(kind, **kw):
@@ -147,9 +148,9 @@ def _seq_specs():
                            f"{name}/rot": rot})
 
     def stack_case(name, ref, group, jcfg, pcfg, cross, mesh, n_rows=2,
-                   l=128):
+                   l=128, dcn=1):
         """A ``stack`` rank case of ``pcfg`` (port) and its JAX run of
-        ``jcfg`` on ``mesh`` (None: one device)."""
+        ``jcfg`` on the (dcn, data, model) mesh ``(dcn, *mesh)``."""
         key = jax.random.PRNGKey(4)
         params = np_tree(stack_init(key, jcfg, cross_attend=cross))
         r = np.random.default_rng(sum(map(ord, ref)))
@@ -166,7 +167,8 @@ def _seq_specs():
                 jax.random.PRNGKey(SEQ_HASH_SEED), (2, 16, 2, 4),
                 jnp.float32))
         group.append({"kind": "stack", "name": name, "ref": ref,
-                      "stack": to_dict(pcfg), "dp": mesh[0], "mp": mesh[1]})
+                      "stack": to_dict(pcfg), "dp": mesh[0], "mp": mesh[1],
+                      "dcn": dcn})
         inputs.update({f"{name}/{k}": a for k, a in data.items()})
         inputs.update(_paths(params, f"{name}/p/"))
         if ref in jax_side:
@@ -181,7 +183,7 @@ def _seq_specs():
                            rng=jax.random.PRNGKey(5), deterministic=True)
                 return (y * data["wt"]).sum(), y
 
-            with _jmesh(*mesh):
+            with _jmesh(*mesh, dcn=dcn):
                 (_, y), (gp, gx, gm) = jax.jit(jax.value_and_grad(
                     loss, argnums=(0, 1, 2), has_aux=True))(
                         params, data["x"], data.get("memory"))
@@ -205,6 +207,28 @@ def _seq_specs():
             cfg = dataclasses.replace(sp, seq_parallel_exchange=exchange)
             stack_case(f"sps_{kind}_{exchange}", f"sps_{kind}", two, sp,
                        cfg, False, (1, 2))
+
+    # the same stacks split over the data axis of a (data 2, model 1)
+    # mesh, each rank holding 2 of the 4 batch rows, against JAX's stack
+    # on its (data 2, model 1) mesh (full attention has no exchange: both
+    # sides ignore it)
+    for kind in ("full", "lsh"):
+        acfg = _seq_attention_cfg(kind, **({"hash_seed": SEQ_HASH_SEED}
+                                           if kind == "lsh" else {}))
+        sd = JS(num_layers=2, d_model=32, d_ff=64, dropout=0.0,
+                reversible=True, causal=True, attention=acfg,
+                seq_parallel_axis="data")
+        for exchange in ("allgather", "ring"):
+            stack_case(f"sds_{kind}_{exchange}", f"sds_{kind}", two, sd,
+                       dataclasses.replace(sd, seq_parallel_exchange=exchange),
+                       False, (2, 1), n_rows=4)
+        # on the 4 ranks of a (dcn 2, data 2, model 1) mesh, one row each,
+        # over the dcn axis and over the inner data axis
+        for axis in ("dcn", "data"):
+            sa = dataclasses.replace(sd, seq_parallel_axis=axis,
+                                     seq_parallel_exchange="ring")
+            stack_case(f"sd4_{kind}_{axis}", f"sd4_{kind}_{axis}", four, sa,
+                       sa, False, (2, 1), n_rows=4, dcn=2)
 
     # pipelines (tests/test_pipeline_parallel.py's): full and LSH x cross
     # or not x interleave 1 and 2, remat on; remat off for the decoder at
@@ -264,6 +288,10 @@ SPA_NAMES = ([f"spa_full_{c}_{r}_{f}" for c, r in ((1, 0.0), (0, 0.0),
              + [f"spa_lsh_{c}_{e}" for c in (1, 0)
                 for e in ("allgather", "ring")])
 SPS_NAMES = ["sps_full_allgather", "sps_lsh_allgather", "sps_lsh_ring"]
+SDS_NAMES = ([f"sds_{k}_{e}" for k in ("full", "lsh")
+              for e in ("allgather", "ring")]
+             + [f"sd4_{k}_{a}" for k in ("full", "lsh")
+                for a in ("dcn", "data")])
 PP_NAMES = ([f"pp_{k}_{x}_{v}_1" for k in ("full", "lsh") for x in (0, 1)
              for v in (1, 2)]
             + ["pp_full_1_1_0", "pp_full_1_2_0", "pp_dp2"])
@@ -344,6 +372,69 @@ def test_seq_parallel_stack_matches_jax_and_one_process(runs, name,
                 _close(out[f"{name}/{k}"], v, SEQ_GRAD_TOL, f"rank {r} {k}")
                 _close(out[f"{name}/{k}"], g1[k], SEQ_GRAD_TOL,
                        f"rank {r} {k}, one process")
+
+
+@pytest.mark.parametrize("name", SDS_NAMES)
+def test_data_axis_seq_parallel_stack_matches_jax_and_one_process(
+        runs, name, monkeypatch):
+    """A reversible stack with ``seq_parallel_axis: data`` (full; LSH on
+    both exchanges) on a (data 2, model 1) mesh, each rank holding 2 of the
+    4 rows, and with it split over the dcn axis and over the inner data
+    axis of a (dcn 2, data 2, model 1) mesh, a row a rank: the output and
+    the gradient of x (each rank's rows) and of every parameter (summed
+    over the data group, as the trainer sums them) against JAX's stack on
+    its mesh of the same layout and against the port's one-process stack
+    on the whole batch."""
+    outs, case, want = _seq_outputs(runs, name)
+    y1, g1 = _port_stack(runs, name, monkeypatch,
+                         {"seq_parallel_axis": None})
+    dp = case["dcn"] * case["dp"]
+    for k, v in want.items():
+        tol = SEQ_TOL if k == "y" else SEQ_GRAD_TOL
+        one = y1 if k == "y" else g1[k]
+        if k.startswith("g/p/"):
+            got = [outs[r][f"{name}/{k}"] for r in range(dp)]
+        else:
+            got = [np.concatenate([outs[r][f"{name}/{k}"]
+                                   for r in range(dp)])]
+        for r, g in enumerate(got):
+            _close(g, v, tol, f"rank {r} {k}")
+            _close(g, one, tol, f"rank {r} {k}, one process")
+
+
+def test_pipeline_over_the_data_axis_is_refused():
+    """The reference's pipeline over the data axis, which its batch rides
+    too (``rtts/parallel/pipeline.py::_batch_axes``), does not give the
+    one-device output on a (data 2, model 1) mesh (pinned here); the port
+    refuses that layout, saying why."""
+    from rtts.models.stack import stack_apply as jstack
+    from rtts.models.stack import stack_init
+    from rtts_torch.models.stack import Stack, stack_apply
+    from rtts_torch.parallel.mesh import Mesh
+
+    jcfg = dataclasses.replace(_refusal_cfgs("batch")[1], num_layers=4,
+                               causal=False, pipeline_axis=None)
+    params = stack_init(jax.random.PRNGKey(0), jcfg, cross_attend=False)
+    rng = np.random.default_rng(0)
+    x = jnp.asarray(rng.standard_normal((4, 32, 32)).astype(np.float32))
+    mask = jnp.arange(32)[None, :] < jnp.asarray([32, 23, 32, 29])[:, None]
+    one = jstack(params, jcfg, x, mask, rng=jax.random.PRNGKey(5),
+                 deterministic=True)
+    pp = dataclasses.replace(jcfg, pipeline_axis="data",
+                             pipeline_microbatches=2)
+    with _jmesh(2, 1):
+        got = jax.jit(lambda p, xx: jstack(
+            p, pp, xx, mask, rng=jax.random.PRNGKey(5),
+            deterministic=True))(params, x)
+    assert float(jnp.max(jnp.abs(got - one))) > 1e-2
+    tcfg = TC.from_dict(TC.ReformerStackConfig, to_dict(pp))
+    stack = Stack(tcfg, False, generator=torch.Generator().manual_seed(0),
+                  device="cpu")
+    view = Mesh(dcn=1, dp=2, mp=1, rank=0, data_index=0, model_index=0,
+                data_ranks=[0, 1], model_ranks=[0])
+    with pytest.raises(NotImplementedError, match="one-device"), view, \
+            torch.no_grad():
+        stack_apply(stack, tcfg, tt(np.asarray(x)), tt(np.asarray(mask)))
 
 
 @pytest.mark.parametrize("name", PP_NAMES)
@@ -497,6 +588,9 @@ def _refusal_cfgs(case):
         kw.update(seq_parallel_axis="model", seq_parallel_exchange="tree",
                   attention=_seq_attention_cfg("lsh"))
         l = 64
+    elif case == "guided_reversible":
+        kw.update(reversible=True)
+        cross = sink = True
     jcfg = JS(**kw)
     return (TC.from_dict(TC.ReformerStackConfig, to_dict(jcfg)), jcfg, l, b,
             cross, sink, enter)
@@ -504,7 +598,7 @@ def _refusal_cfgs(case):
 
 REFUSALS = ["seq_and_pipe", "reversible", "kinds", "stages", "interleave",
             "micro", "batch", "guided", "pipe_no_mesh", "seq_no_mesh",
-            "seq_len", "lsh_chunks", "exchange"]
+            "seq_len", "lsh_chunks", "exchange", "guided_reversible"]
 
 
 @pytest.mark.parametrize("case", REFUSALS)

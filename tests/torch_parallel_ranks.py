@@ -83,7 +83,8 @@ def _model(case, inputs):
 
 def _mesh(case):
     return make_mesh(TC.MeshConfig(data_parallel=case.get("dp", 1),
-                                   model_parallel=case.get("mp", 1)))
+                                   model_parallel=case.get("mp", 1),
+                                   dcn_parallel=case.get("dcn", 1)))
 
 
 def run_train(case, inputs, work, rank):
